@@ -1,0 +1,175 @@
+"""Batched 3-axis sequential linear fit over all blocks at once.
+
+The reference's per-block fit (src/limg_factorization.h:796-1247) as
+float32 passes over the ``(ch, P, NB)`` tensor of every block. Ragged edge
+blocks are handled with a validity mask.
+
+Every float sum has one fixed order, which the CUDA kernel
+(csrc/encode_fixed.cu) follows too, so the two agree bit for bit:
+
+- over the P = 64 pixels of a block, a halving tree ``x[:n/2] + x[n/2:]``
+  (``tree_sum``; in the kernel, the in-thread pair sum then butterfly
+  shuffles);
+- over channels, a left fold ``c0 + c1 + c2 (+ c3)``;
+- every product and sum rounds on its own: no fused multiply-add, and
+  ``1 / sqrt(x)`` in place of an approximate rsqrt.
+
+The JAX package sums in XLA's order, so rounded endpoints can differ from
+it by 1 on a few blocks.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class Decomposition(NamedTuple):
+    """Per-block fit result. All fields (ch, NB); endpoints int32."""
+
+    avg: torch.Tensor        # float32
+    dirA_min: torch.Tensor
+    dirA_max: torch.Tensor
+    dirB_offset: torch.Tensor
+    dirB_mag: torch.Tensor
+    dirC_offset: torch.Tensor
+    dirC_mag: torch.Tensor
+
+
+ENDPOINT_FIELDS = Decomposition._fields[1:]
+
+_TINY = 1e-38
+_BIG = 3.4e38
+
+
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` (a power-of-two length) by repeated halving."""
+    n = x.shape[dim]
+    while n > 1:
+        if n % 2:
+            raise ValueError(f"tree_sum needs a power-of-two length, got {n}")
+        n //= 2
+        x = x.narrow(dim, 0, n) + x.narrow(dim, n, n)
+    return x.squeeze(dim)
+
+
+def channel_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Left fold sum_c u[c] * v[c] over the leading channel axis."""
+    acc = u[0] * v[0]
+    for c in range(1, u.shape[0]):
+        acc = acc + u[c] * v[c]
+    return acc
+
+
+def inv_or_zero(x: torch.Tensor) -> torch.Tensor:
+    """1 / x where x > 0, else 0."""
+    return torch.where(x > 0, 1.0 / torch.clamp(x, min=_TINY), 0.0)
+
+
+def _fast_round(x: torch.Tensor) -> torch.Tensor:
+    """limg_fast_round_int16: floor(x + 0.5) (src/limg_internal.h:689-692)."""
+    return torch.floor(x + 0.5).to(torch.int32)
+
+
+def drop_decomposition_axes(d: Decomposition, num_factors: int) -> Decomposition:
+    """Zero the endpoints of statically dropped axes (reduced-factor modes).
+
+    Dropping axis k is the shift=8 encoding. Zeroing the endpoints before
+    the crush search makes every candidate evaluation include the
+    drop-induced error."""
+    if num_factors >= 3:
+        return d
+    zero = torch.zeros_like(d.dirC_offset)
+    d = d._replace(dirC_offset=zero, dirC_mag=zero)
+    if num_factors < 2:
+        d = d._replace(dirB_offset=zero, dirB_mag=zero)
+    return d
+
+
+def _signed_unit_mean(v: torch.Tensor, mask: torch.Tensor,
+                      inv_count: torch.Tensor) -> torch.Tensor:
+    """Mean over pixels of sign-corrected unit vectors.
+
+    ``v``: (ch, P, NB); the sign comes from the first largest-|component|
+    channel (src/limg_factorization.h:816-851). Zero vectors and masked-out
+    pixels contribute nothing. Returns (ch, NB).
+    """
+    len_sq = channel_dot(v, v)
+    best_abs = v[0].abs()
+    lead = v[0]
+    for j in range(1, v.shape[0]):
+        a = v[j].abs()
+        take = a > best_abs
+        best_abs = torch.where(take, a, best_abs)
+        lead = torch.where(take, v[j], lead)
+    inv_len = torch.where(
+        len_sq > 0, 1.0 / torch.sqrt(torch.clamp(len_sq, min=_TINY)), 0.0)
+    inv_len = torch.where(lead < 0, -inv_len, inv_len) * mask
+    return tree_sum(v * inv_len, 1) * inv_count
+
+
+def _project(v: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Per-pixel projection factor of v (ch, P, NB) onto direction (ch, NB):
+    dot / |d|^2, and 0 for a zero direction. Returns (P, NB)."""
+    dot = channel_dot(v, direction[:, None, :])
+    return dot * inv_or_zero(channel_dot(direction, direction))
+
+
+def _masked_minmax(fac: torch.Tensor, mask: torch.Tensor):
+    mn = torch.where(mask > 0, fac, _BIG).amin(dim=0)
+    mx = torch.where(mask > 0, fac, -_BIG).amax(dim=0)
+    return mn, mx
+
+
+def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomposition:
+    """Fit every block. ``px_u8``: (>=ch, 64, NB) uint8; ``mask``: (64, NB) bool."""
+    px = px_u8[:channels].to(torch.float32)
+    m = mask.to(torch.float32)
+    count = mask.to(torch.int32).sum(dim=0)
+    inv_count = 1.0 / torch.clamp(count.to(torch.float32), min=1.0)
+
+    avg = tree_sum(px * m, 1) * inv_count                  # (ch, NB)
+    corrected = (px - avg[:, None, :]) * m
+    dir_a = _signed_unit_mean(corrected, m, inv_count)
+
+    fac_a = _project(corrected, dir_a) * m
+    est = avg[:, None, :] + fac_a[None] * dir_a[:, None, :]
+    resid_a = (px - est) * m
+    dir_b = _signed_unit_mean(resid_a, m, inv_count)
+
+    fac_b = _project(resid_a, dir_b) * m
+    est_b = est + fac_b[None] * dir_b[:, None, :]
+    resid_ab = (px - est_b) * m
+    if channels == 3:
+        # dirC = cross(dirA, dirB) (src/limg_factorization.h:946)
+        dir_c = torch.stack([
+            dir_a[1] * dir_b[2] - dir_a[2] * dir_b[1],
+            dir_a[2] * dir_b[0] - dir_a[0] * dir_b[2],
+            dir_a[0] * dir_b[1] - dir_a[1] * dir_b[0],
+        ])
+    else:
+        # R^4: a third residual sweep (src/limg_factorization.h:1002-1247)
+        dir_c = _signed_unit_mean(resid_ab, m, inv_count)
+    fac_c = _project(resid_ab, dir_c) * m
+
+    mn_a, mx_a = _masked_minmax(fac_a, m)
+    mn_b, mx_b = _masked_minmax(fac_b, m)
+    mn_c, mx_c = _masked_minmax(fac_c, m)
+
+    # Flat blocks (dirA == 0): endpoints collapse to avg and B/C vanish
+    # (src/limg_factorization.h:874-882).
+    flat = channel_dot(dir_a, dir_a) <= 0.0
+
+    def z(x):
+        return torch.where(flat, 0.0, x)
+
+    return Decomposition(
+        avg=avg,
+        dirA_min=_fast_round(avg + mn_a * dir_a),
+        dirA_max=_fast_round(avg + mx_a * dir_a),
+        dirB_offset=_fast_round(z(mn_b * dir_b)),
+        dirB_mag=_fast_round(z(mx_b * dir_b)),
+        dirC_offset=_fast_round(z(mn_c * dir_c)),
+        dirC_mag=_fast_round(z(mx_c * dir_c)),
+    )

@@ -26,8 +26,10 @@ import numpy as np
 
 # mode -> (what it is, the ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "merged": ("the merged (blocked) encoder, the default without --fixed-grid",
-               "Queue 1 item 9"),
+    # the JAX CLI's merged encode always coalesces runs; the port's merged
+    # encode runs without coalescing so far
+    "merged": ("the merged (blocked) encoder with run coalescing, the default "
+               "without --fixed-grid", "Queue 1 item 9, run coalescing"),
     "--rd-merge": ("the RD merge policy", "Queue 1 item 12"),
     "--write-ltp1": ("LTP1 serialization", "Queue 1 item 10"),
     "--decode-ltp1": ("LTP1 decoding", "Queue 1 item 10"),

@@ -2,8 +2,10 @@
 
 Each library is compiled by ``nvcc`` with a plain C interface and loaded
 with ctypes. It lands in ``build/kernels/`` at the root of the checkout,
-named by a hash of its source and flags, so a changed source is rebuilt and
-an unchanged one is reused. Nothing here runs at import time.
+named by a hash of its source, every header it includes from ``csrc/``
+(``#include "..."``, followed recursively) and the flags, so a changed
+source or header is rebuilt and an unchanged one is reused. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,6 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # sum separately) and no --use_fast_math (exact division and sqrt).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}     # library name -> nvcc output of its build
@@ -40,13 +45,34 @@ def find_nvcc() -> str:
         "of limg_tpu_torch are built from source at first use")
 
 
+def source_files(src: Path) -> list[Path]:
+    """``src`` and every file it includes from ``csrc/``, recursively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).exists():
+                todo.append(CSRC / inc)
+    return sorted(seen)
+
+
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, its included headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed, load it, and return the handle."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
     if not out.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

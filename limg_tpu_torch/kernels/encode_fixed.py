@@ -23,7 +23,7 @@ import functools
 import torch
 
 from ..config import BLOCK_AREA, EncodeConfig
-from ..ops.crush import find_shifts
+from ..ops.crush import find_shifts, force_dropped_axes
 from ..ops.decode import decode_blocks
 from ..ops.dither import dither_crush, dither_key
 from ..ops.error import weighted_error
@@ -67,11 +67,7 @@ def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
     f8_u8 = quantize_factors(*extract_factors(px, d, ch))
     f8 = torch.stack([p.to(torch.int32) for p in f8_u8])
     d = drop_decomposition_axes(d, cfg.num_factors)
-    shifts, _ = find_shifts(px, mask, f8, d, cfg)
-    if cfg.num_factors < 3:
-        forced = torch.tensor([0] * cfg.num_factors + [8] * (3 - cfg.num_factors),
-                              dtype=torch.int32, device=packed.device)
-        shifts = torch.maximum(shifts, forced[:, None])
+    shifts = force_dropped_axes(find_shifts(px, mask, f8, d, cfg)[0], cfg.num_factors)
     q = dither_crush(f8, shifts, seed, cfg.dither_seed,
                      enabled=cfg.dithering and cfg.crush_bits)
     dec = decode_blocks(q, shifts, d, ch)

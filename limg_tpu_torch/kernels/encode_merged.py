@@ -1,0 +1,310 @@
+"""Fused quadtree encode: the two CUDA kernels' wrappers and plain versions.
+
+``fit_levels_kernel`` takes the role of the JAX package's
+``fit_levels_pallas(emit_match=True)``
+(limg_tpu/pallas_kernels/encode_merged.py:813): it fits every quadtree
+level, runs the 27-probe merge test of each child against its group's
+first child, the alive chain, the owner level and the owner select, and
+the stats rows. ``owner_crush_kernel`` takes the role of
+``owner_crush_pallas`` (:902): the crush search, dither and decode once per
+pixel at each block's owner level.
+
+Both read the row-major (H, W) int32 word image (RGBA bytes, R lowest) and
+compute the validity mask from (h, w). Their per-block outputs are in
+row-major block order; pixel planes are ``(64, NB)``:
+
+    fit:   FitLevels(cnt0 (NB,) i32, f8_sel (64, NB) i32 packed factors,
+           eps_sel (6, ch, NB) i32, avg_sel (ch, NB) f32, owner (NB,) i32,
+           stats_bits (NB,) i32, reasons (levels-1, NB) i32)
+    crush: OwnerCrush(shifts (3, NB) i32, q (64, NB) i32 or None,
+           dec (64, NB) i32, dist (NB,) f32 per region, dist_blk (NB,) f32
+           per block, bpp (NB,) i32)
+
+``stats_bits`` bit l marks a nonempty level-l region's top-left block whose
+owner level is >= l; ``reasons[l-1]`` holds the level-l merge decision's
+MATCH_REASON_BITS at nonempty level-l top-left blocks, 0 elsewhere.
+
+On a CUDA tensor each wrapper launches ``csrc/encode_merged.cu`` (built at
+first use) or raises; on a CPU tensor it runs the plain version, which
+works in Morton block order (ops/morton.py) with the reducers of
+ops/reduce.py, so that it adds floats in the kernel's order. The two agree
+bit for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..config import BLOCK_AREA, EncodeConfig, static_block_bits
+from ..ops import layout
+from ..ops.crush import find_shifts, force_dropped_axes
+from ..ops.decode import decode_blocks
+from ..ops.dither import dither_crush, dither_key
+from ..ops.error import weighted_error
+from ..ops.factors import extract_factors, quantize_factors
+from ..ops.fit import Decomposition, drop_decomposition_axes, fit_regions, tree_sum
+from ..ops.match import match_decomps, reason_bits
+from ..ops.morton import MortonOrder, morton_mask
+from ..ops.reduce import GroupReducer, OwnerReducer, pairwise_tree
+from .encode_fixed import _CRUSH_MODES, _pack_decoded
+
+# kernel launches since the last reset (read and reset by callers)
+launches = {"fit_levels": 0, "owner_crush": 0}
+
+MIN_LEVELS, MAX_LEVELS = 2, 4
+
+
+class FitLevels(NamedTuple):
+    cnt0: torch.Tensor
+    f8_sel: torch.Tensor
+    eps_sel: torch.Tensor
+    avg_sel: torch.Tensor
+    owner: torch.Tensor
+    stats_bits: torch.Tensor
+    reasons: torch.Tensor
+
+
+class OwnerCrush(NamedTuple):
+    shifts: torch.Tensor
+    q: torch.Tensor | None
+    dec: torch.Tensor
+    dist: torch.Tensor
+    dist_blk: torch.Tensor
+    bpp: torch.Tensor
+
+
+def _check_words(words: torch.Tensor, levels: int) -> None:
+    if words.ndim != 2 or words.dtype != torch.int32:
+        raise ValueError(f"words must be (H, W) int32, got {tuple(words.shape)} {words.dtype}")
+    if not MIN_LEVELS <= levels <= MAX_LEVELS:
+        raise ValueError(f"levels must be {MIN_LEVELS}-{MAX_LEVELS}, got {levels}")
+
+
+def _morton_blocks(words: torch.Tensor, levels: int):
+    """Row-major word image -> (order, (64, NBP) Morton words, mask)."""
+    h, w = words.shape
+    packed, _, grid = layout.blockify_words(words)
+    order = MortonOrder(grid.blocks_y, grid.blocks_x, levels, words.device)
+    return order, order.embed(packed), morton_mask(h, w, levels, words.device)
+
+
+def _unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.stack([layout.unpack_plane(packed, c) for c in range(n)])
+
+
+def _pack_factors(f8: torch.Tensor) -> torch.Tensor:
+    return f8[0] | (f8[1] << 8) | (f8[2] << 16)
+
+
+def _first_of_group(row: torch.Tensor, group: int) -> torch.Tensor:
+    """Broadcast the first entry of each aligned group of the last axis."""
+    n = row.shape[-1]
+    x = row.reshape(*row.shape[:-1], n // group, group)[..., :1]
+    return x.expand(*row.shape[:-1], n // group, group).reshape(row.shape)
+
+
+def fit_levels_reference(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
+    """Plain PyTorch version of the fit kernel, on any device."""
+    _check_words(words, levels)
+    ch = cfg.channels
+    order, packed, mask = _morton_blocks(words, levels)
+    px = _unpack(packed, ch)
+    lane = torch.arange(order.num_padded, device=words.device)
+    owner = torch.zeros(order.num_padded, dtype=torch.int32, device=words.device)
+    alive = torch.ones(order.num_padded, dtype=torch.bool, device=words.device)
+    counts, reasons, sel, prev = [], [], None, None
+    for lvl in range(levels):
+        d, count = fit_regions(px, mask, ch, GroupReducer(4 ** lvl))
+        f8 = _pack_factors(torch.stack(
+            [q.to(torch.int32) for q in quantize_factors(*extract_factors(px, d, ch))]))
+        d = drop_decomposition_axes(d, cfg.num_factors)
+        if lvl == 0:
+            sel = (f8, d)
+        else:
+            # each child region against its group's first child; empty
+            # children (grid padding) match
+            child, group = 4 ** (lvl - 1), 4 ** lvl
+            p_d, p_count = prev
+            c0 = Decomposition(*(_first_of_group(f, group) for f in p_d))
+            m, stats = match_decomps(p_d, c0, ch)
+            is_child0 = (lane & (group - child)) == 0
+            ok = is_child0 | m | (p_count <= 0) | (_first_of_group(p_count, group) <= 0)
+            alive = pairwise_tree(alive & ok, group, torch.logical_and)
+            owner = torch.where(alive, lvl, owner)
+            reasons.append(pairwise_tree(torch.where(is_child0, 0, reason_bits(stats)),
+                                         group, torch.bitwise_or))
+            # alive only ever shrinks, so the last level alive is the owner
+            sel = (torch.where(alive, f8, sel[0]),
+                   Decomposition(*(torch.where(alive, a, b) for a, b in zip(d, sel[1]))))
+        counts.append(count)
+        prev = (d, count)
+
+    stats_bits = torch.zeros_like(owner)
+    for lvl in range(levels):
+        is_lead = (lane & (4 ** lvl - 1)) == 0
+        hit = is_lead & (owner >= lvl) & (counts[lvl] > 0)
+        stats_bits = stats_bits | (hit.to(torch.int32) << lvl)
+    reason_rows = [torch.where(((lane & (4 ** lvl - 1)) == 0) & (counts[lvl] > 0), r, 0)
+                   for lvl, r in enumerate(reasons, start=1)]
+    f8_sel, d_sel = sel
+    return FitLevels(
+        cnt0=order.restore(counts[0]),
+        f8_sel=order.restore(f8_sel),
+        eps_sel=order.restore(torch.stack(list(d_sel[1:]))),
+        avg_sel=order.restore(d_sel.avg),
+        owner=order.restore(owner),
+        stats_bits=order.restore(stats_bits),
+        reasons=order.restore(torch.stack(reason_rows)),
+    )
+
+
+def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.Tensor,
+                          eps_sel: torch.Tensor, cfg: EncodeConfig, levels: int,
+                          seed: int, emit_q: bool = True) -> OwnerCrush:
+    """Plain PyTorch version of the crush kernel, on any device."""
+    _check_words(words, levels)
+    ch = cfg.channels
+    order, packed, mask = _morton_blocks(words, levels)
+    px = _unpack(packed, ch)
+    mask_i = mask.to(torch.int32)
+    red = OwnerReducer(order.embed(owner), levels)
+    eps = order.embed(eps_sel)
+    d = Decomposition(torch.zeros(eps.shape[1:], dtype=torch.float32, device=eps.device),
+                      *eps.unbind(0))
+    f8 = _unpack(order.embed(f8_sel), 3)
+    shifts = force_dropped_axes(find_shifts(px, mask, f8, d, cfg, red)[0], cfg.num_factors)
+    q = dither_crush(f8, shifts, seed, cfg.dither_seed,
+                     enabled=cfg.dithering and cfg.crush_bits,
+                     blocks=order.perm.clamp(min=0))
+    dec = decode_blocks(q, shifts, d, ch)
+    err = (weighted_error(dec, px) * mask_i).to(torch.float32)
+    dist_blk = tree_sum(err, 0)
+    count = red.sum(mask_i)
+    s_eff = torch.clamp(shifts, max=8)
+    fac_bits = (8 - s_eff[0]) * count + (8 - s_eff[1]) * count + (8 - s_eff[2]) * count
+    bpp = torch.clamp((static_block_bits(ch) + fac_bits + count // 2)
+                      // torch.clamp(count, min=1), max=0xFF)
+    bpp = bpp * (mask_i.sum(dim=0) > 0)
+    return OwnerCrush(
+        shifts=order.restore(shifts),
+        q=order.restore(_pack_factors(q)) if emit_q else None,
+        dec=order.restore(_pack_decoded(dec, ch)),
+        dist=order.restore(red.combine_sum(dist_blk)),
+        dist_blk=order.restore(dist_blk),
+        bpp=order.restore(bpp.to(torch.int32)),
+    )
+
+
+@functools.cache
+def _library():
+    """The built kernel library, with its C signatures declared."""
+    from .build import load_library
+
+    lib = load_library("encode_merged")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.limg_fit_levels.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
+    lib.limg_fit_levels.restype = i32
+    lib.limg_owner_crush.argtypes = ([ptr] + [i32] * 10 + [ctypes.c_uint32]
+                                     + [ptr] * 10)
+    lib.limg_owner_crush.restype = i32
+    lib.limg_cuda_error_string.argtypes = [i32]
+    lib.limg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cuda_route(words: torch.Tensor, levels: int) -> bool:
+    """True for a CUDA tensor the kernels take, False for a CPU one."""
+    if words.device.type == "cpu":
+        return False
+    if words.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {words.device}")
+    if not words.is_contiguous():
+        raise ValueError("words must be contiguous")
+    return True
+
+
+def _raise_on(rc: int, name: str, lib) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
+
+
+def fit_levels_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
+    """All-levels fit, merge test and owner select; see the module docstring.
+
+    A CPU tensor goes to the plain version; a CUDA tensor launches the
+    kernel on the current stream or raises.
+    """
+    _check_words(words, levels)
+    if not _cuda_route(words, levels):
+        return fit_levels_reference(words, cfg, levels)
+    lib = _library()
+    dev = words.device
+    h, w = words.shape
+    ch, nb = cfg.channels, layout.grid_for(h, w).num_blocks
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = FitLevels(cnt0=empty(nb), f8_sel=empty(nb, BLOCK_AREA), eps_sel=empty(6, ch, nb),
+                    avg_sel=empty(ch, nb, dtype=torch.float32), owner=empty(nb),
+                    stats_bits=empty(nb), reasons=empty(levels - 1, nb))
+    with torch.cuda.device(dev):
+        rc = lib.limg_fit_levels(
+            words.data_ptr(), h, w, ch, levels, cfg.num_factors,
+            *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "fit_levels", lib)
+    launches["fit_levels"] += 1
+    return out._replace(f8_sel=out.f8_sel.t())
+
+
+def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.Tensor,
+                       eps_sel: torch.Tensor, cfg: EncodeConfig, levels: int, seed: int,
+                       emit_q: bool = True) -> OwnerCrush:
+    """Crush, dither and decode at each block's owner level; see the module
+    docstring. A CPU tensor goes to the plain version; a CUDA tensor
+    launches the kernel on the current stream or raises.
+    """
+    _check_words(words, levels)
+    ch = cfg.channels
+    nb = layout.grid_for(*words.shape).num_blocks
+    for name, t, shape, dtype in (("owner", owner, (nb,), torch.int32),
+                                  ("f8_sel", f8_sel, (BLOCK_AREA, nb), torch.int32),
+                                  ("eps_sel", eps_sel, (6, ch, nb), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != words.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {words.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not _cuda_route(words, levels):
+        return owner_crush_reference(words, owner, f8_sel, eps_sel, cfg, levels, seed, emit_q)
+    lib = _library()
+    dev = words.device
+    h, w = words.shape
+    # block-major: one warp reads one block's 64 contiguous words (free when
+    # f8_sel is fit_levels_kernel's transposed view)
+    f8_bm = f8_sel.t().contiguous()
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    shifts, dec, bpp = empty(3, nb), empty(nb, BLOCK_AREA), empty(nb)
+    q = empty(nb, BLOCK_AREA) if emit_q else None
+    dist, dist_blk = empty(nb, dtype=torch.float32), empty(nb, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        rc = lib.limg_owner_crush(
+            words.data_ptr(), h, w, ch, levels,
+            _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
+            int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
+            cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
+            dither_key(seed, cfg.dither_seed),
+            owner.contiguous().data_ptr(), f8_bm.data_ptr(), eps_sel.contiguous().data_ptr(),
+            shifts.data_ptr(), None if q is None else q.data_ptr(), dec.data_ptr(),
+            dist.data_ptr(), dist_blk.data_ptr(), bpp.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "owner_crush", lib)
+    launches["owner_crush"] += 1
+    return OwnerCrush(shifts=shifts, q=None if q is None else q.t(), dec=dec.t(),
+                      dist=dist, dist_blk=dist_blk, bpp=bpp)

@@ -18,11 +18,15 @@ Search modes (config.crush_mode):
                 4^3 lattice, exact verification of the top K;
 - "exhaustive": all 729 triples exactly.
 
+Regions: ``find_shifts`` takes a reducer (ops/reduce.py). Each candidate's
+pixel max and block error are reduced per block, then across the region's
+blocks, and admissibility is tested on the region values. Regions of 2048
+pixels or more pre-scale the block error (``err_scale_shift``).
+
 Everything here is integer arithmetic with int32 wrap-around, except the
-reduced-factor floors, which compare in float32. The CUDA kernel
-(csrc/encode_fixed.cu) makes the same choices bit for bit. Blocks have
-64 pixels, so the block error needs no pre-scaling (the JAX package's
-``_err_scale_shift`` is 0 at this size).
+reduced-factor floors and the pre-scaled comparison, which compare in
+float32. The CUDA kernels (csrc/limg_common.cuh) make the same choices bit
+for bit.
 """
 
 from __future__ import annotations
@@ -33,10 +37,23 @@ from ..config import EncodeConfig
 from .decode import decode_blocks
 from .error import weighted_error
 from .fit import Decomposition
+from .reduce import BlockReducer
 
 GUESS_TRIPLES = ((4, 5, 6), (5, 8, 8), (4, 6, 8), (2, 4, 5))
 _BIG_I32 = 2**31 - 1
 _EVAL_CHUNK = 9     # candidates evaluated per batched pass (bounds memory)
+
+
+def err_scale_shift(pixels: int) -> int:
+    """Block-error pre-scale for regions of ``pixels`` pixels (the JAX
+    package's ``_err_scale_shift``, limg_tpu/ops/crush.py:44).
+
+    Per-pixel weighted errors reach 780300, so at 2048 pixels or more the
+    int32 sum could overflow: errors are shifted right by 4 before the sum
+    and the admissibility test compares in float32. The fused kernels pass
+    the most pixels a region can hold, 64 * 4^(levels-1): at 4 levels every
+    region is pre-scaled, level-0 owners included; at 2 and 3 none is."""
+    return 4 if pixels >= 2048 else 0
 
 
 def _all_triples() -> list[tuple[int, int, int]]:
@@ -49,12 +66,13 @@ def _const_cands(triples, n: int, device) -> torch.Tensor:
     return t[:, :, None].expand(len(triples), 3, n)
 
 
-def evaluate_batch(px, mask_i, f8, d: Decomposition, cands, channels: int):
-    """Exact errors of K per-block shift triples.
+def evaluate_batch(px, mask_i, f8, d: Decomposition, cands, channels: int,
+                   err_scale: int = 0):
+    """Exact per-block errors of K per-block shift triples.
 
     px: (ch, P, N) i32; mask_i: (P, N) i32 (0/1); f8: (3, P, N) i32
     uncrushed factors; cands: (K, 3, N) i32. Returns (pix_max, block_err),
-    each (K, N) int32.
+    each (K, N) int32; block_err sums ``err >> err_scale``.
     """
     pm_out, be_out = [], []
     for start in range(0, cands.shape[0], _EVAL_CHUNK):
@@ -63,7 +81,7 @@ def evaluate_batch(px, mask_i, f8, d: Decomposition, cands, channels: int):
         dec = decode_blocks(q, c, d, channels)                # (k, ch, P, N)
         err = weighted_error(dec.transpose(0, 1), px[:, None]) * mask_i  # (k, P, N)
         pm_out.append(err.amax(dim=1))
-        be_out.append(err.sum(dim=1, dtype=torch.int32))
+        be_out.append((err >> err_scale).sum(dim=1, dtype=torch.int32))
     return torch.cat(pm_out), torch.cat(be_out)
 
 
@@ -73,26 +91,32 @@ def evaluate_shifts(px, mask_i, f8, d: Decomposition, shifts, channels: int):
     return pm[0], be[0]
 
 
-def _admissible(pix_max, block_err, count, cfg: EncodeConfig, floors=None):
+def _admissible(pix_max, block_err, count, cfg: EncodeConfig, floors=None,
+                err_scale: int = 0):
     """Shift-triple admissibility.
 
     ``floors``: (pix_floor, blk_floor), the errors at zero shifts, in the
     reduced-factor modes (num_factors < 3): the dropped axes leave an
     irreducible error, so the thresholds bound the increment above it,
-    compared in float32. Without floors the test is the reference's exact
-    integer one (int32 wrap-around, like the kernel).
+    compared in float32. Without floors and pre-scale the test is the
+    reference's exact integer one (int32 wrap-around, like the kernel).
     """
     max_pix = cfg.max_pixel_bit_crush_error
     max_blk = cfg.max_block_bit_crush_error
+    scale = float(0x10 << err_scale)
     if floors is None:
-        return (pix_max <= max_pix) & (block_err * 0x10 < max_blk * count)
+        if err_scale == 0:
+            return (pix_max <= max_pix) & (block_err * 0x10 < max_blk * count)
+        lhs = block_err.to(torch.float32) * scale
+        return (pix_max <= max_pix) & (lhs < count.to(torch.float32) * float(max_blk))
     pix_floor, blk_floor = floors
-    lhs = block_err.to(torch.float32) * 16.0
-    rhs = count.to(torch.float32) * float(max_blk) + blk_floor.to(torch.float32) * 16.0
+    lhs = block_err.to(torch.float32) * scale
+    rhs = count.to(torch.float32) * float(max_blk) + blk_floor.to(torch.float32) * scale
     return (pix_max <= max_pix + pix_floor) & (lhs < rhs)
 
 
-def _select(cands, pm, be, count, cfg, floors, best, ties_to_later: bool):
+def _select(cands, pm, be, count, cfg, floors, best, ties_to_later: bool,
+            err_scale: int = 0):
     """Fold K evaluated candidates into the running best, in order.
 
     best = (shifts (3, N), total (N,), err (N,)). A candidate replaces the
@@ -100,7 +124,8 @@ def _select(cands, pm, be, count, cfg, floors, best, ties_to_later: bool):
     smaller error (or an equal one, with ``ties_to_later``)."""
     best_s, best_tot, best_err = best
     ok = _admissible(pm, be, count[None], cfg,
-                     None if floors is None else (floors[0][None], floors[1][None]))
+                     None if floors is None else (floors[0][None], floors[1][None]),
+                     err_scale)
     totals = torch.clamp(cands, max=8).sum(dim=1, dtype=torch.int32)           # (K, N)
     for i in range(cands.shape[0]):
         better = be[i] <= best_err if ties_to_later else be[i] < best_err
@@ -117,7 +142,8 @@ def _init_best(n: int, device):
             torch.full((n,), _BIG_I32, dtype=torch.int32, device=device))
 
 
-def exhaustive_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
+def exhaustive_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None,
+                    err_scale: int = 0):
     """All 729 triples in ascending lex order; on equal (total, error) the
     later (lexicographically larger) triple wins."""
     device = count.device
@@ -126,11 +152,13 @@ def exhaustive_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
     for start in range(0, len(triples), 81):
         cands = _const_cands(triples[start:start + 81], n, device)
         pm, be = eval_batch(cands)
-        best = _select(cands, pm, be, count, cfg, floors, best, ties_to_later=True)
+        best = _select(cands, pm, be, count, cfg, floors, best, ties_to_later=True,
+                       err_scale=err_scale)
     return best[0], best[2]
 
 
-def guess_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
+def guess_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None,
+               err_scale: int = 0):
     """The reference's canned-guess acceptance logic, batched.
 
     if ok(4,5,6): pick (5,8,8) if ok else (4,6,8) if ok else (4,5,6)
@@ -140,7 +168,8 @@ def guess_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
     cands = _const_cands(GUESS_TRIPLES, n, device)
     pm, be = eval_batch(cands)
     ok = _admissible(pm, be, count[None], cfg,
-                     None if floors is None else (floors[0][None], floors[1][None]))
+                     None if floors is None else (floors[0][None], floors[1][None]),
+                     err_scale)
     t = cands[:, :, :1]                                       # (4, 3, 1)
     zero = torch.zeros_like(t[0])
     hi = torch.where(ok[1][None], t[1], torch.where(ok[2][None], t[2], t[0]))
@@ -165,7 +194,8 @@ def _lattice(vals) -> torch.Tensor:
     return (a[:, None, None] + b[None, :, None] + c[None, None, :]).reshape(64, n)
 
 
-def ladder_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
+def ladder_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None,
+                err_scale: int = 0):
     """Additive-model ranking over a boxed lattice + exact top-K verify.
 
     Stage 1: 27 exact evaluations, each axis alone at shifts 0..8. Stage 2:
@@ -190,7 +220,7 @@ def ladder_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
     offs = torch.arange(4, dtype=torch.int32, device=device)[:, None]
     base, s_cand, d_blk_at, d_pix_at = [], [], [], []
     for a in range(3):
-        adm = _admissible(pix_ax[a], blk_ax[a], count[None], cfg, fl9)
+        adm = _admissible(pix_ax[a], blk_ax[a], count[None], cfg, fl9, err_scale)
         b = torch.where(adm, s_iota, 0).amax(dim=0)           # (N,)
         s = torch.clamp(b[None] - offs, min=0)                # (4, N)
         base.append(b)
@@ -201,7 +231,8 @@ def ladder_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
     approx_blk = err0[None] + _lattice(d_blk_at)
     approx_pix = pix0[None] + _lattice(d_pix_at)
     totals = _lattice(s_cand)
-    adm = _admissible(approx_pix, approx_blk, count[None], cfg, fl9).to(torch.int32)
+    adm = _admissible(approx_pix, approx_blk, count[None], cfg, fl9,
+                      err_scale).to(torch.int32)
     err_pack = (2**25 - 1) - torch.clamp(approx_blk >> 6, max=2**25 - 1)
     key = (adm << 30) + (totals << 25) + err_pack             # (64, N)
 
@@ -220,29 +251,42 @@ def ladder_core(eval_batch, count, cfg: EncodeConfig, n: int, floors=None):
     ).to(torch.int32)                                         # (K, 3, N)
     pm, be = eval_batch(cands)
     best = _select(cands, pm, be, count, cfg, floors, _init_best(n, device),
-                   ties_to_later=False)
+                   ties_to_later=False, err_scale=err_scale)
     return best[0], best[2]
 
 
-def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig):
+def force_dropped_axes(shifts: torch.Tensor, num_factors: int) -> torch.Tensor:
+    """Statically dropped axes (k >= num_factors) always store shift 8."""
+    if num_factors >= 3:
+        return shifts
+    forced = torch.tensor([0] * num_factors + [8] * (3 - num_factors),
+                          dtype=torch.int32, device=shifts.device)
+    return torch.maximum(shifts, forced[:, None])
+
+
+def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=None):
     """Dispatch by cfg.crush_mode. Returns (shifts (3, NB) i32, block_err).
 
     ``f8_u8``: the three (P, NB) uint8 factor planes (or a (3, P, NB)
     tensor); ``d``: the decomposition the search decodes with (already
-    axis-dropped when cfg.num_factors < 3).
+    axis-dropped when cfg.num_factors < 3), region values broadcast to
+    member blocks; ``red``: the region reducer (default: each block alone).
     """
+    red = BlockReducer() if red is None else red
     channels = cfg.channels
     px = px_u8[:channels].to(torch.int32)
     mask_i = mask.to(torch.int32)
-    count = mask_i.sum(dim=0, dtype=torch.int32)
+    count = red.sum(mask_i)
     f8 = torch.stack([p.to(torch.int32) for p in f8_u8])
     n = px.shape[-1]
     if not cfg.crush_bits:
         return (torch.zeros((3, n), dtype=torch.int32, device=px.device),
                 torch.zeros((n,), dtype=torch.int32, device=px.device))
+    es = err_scale_shift(px.shape[1] * red.chunks)
 
     def eval_batch(cands):
-        return evaluate_batch(px, mask_i, f8, d, cands, channels)
+        pm, be = evaluate_batch(px, mask_i, f8, d, cands, channels, es)
+        return red.combine_max(pm), red.combine_sum(be)
 
     floors = None
     if cfg.num_factors < 3:
@@ -250,4 +294,4 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig):
         floors = (pm0[0], be0[0])
     core = {"exhaustive": exhaustive_core, "guess": guess_core}.get(
         cfg.crush_mode, ladder_core)
-    return core(eval_batch, count, cfg, n, floors)
+    return core(eval_batch, count, cfg, n, floors, es)

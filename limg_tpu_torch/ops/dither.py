@@ -42,13 +42,15 @@ def dither_key(seed: int, dither_seed: int) -> int:
     return fmix32((int(seed) & _M32) ^ fmix32(int(dither_seed) & _M32))
 
 
-def dither_bits(key: int, nb: int, device) -> torch.Tensor:
+def dither_bits(key: int, nb: int, device, blocks: torch.Tensor | None = None) -> torch.Tensor:
     """(3, 64, nb) int64 in [0, 2^32): the hash of each (axis, pixel, block).
 
-    counter = block * 192 + axis * 64 + pixel (block: index in the image);
+    counter = block * 192 + axis * 64 + pixel (block: the row-major index
+    of the 8x8 block in the image, ``blocks[i]`` for column i, default i);
     bits = fmix32((fmix32(counter ^ key) + key) mod 2^32).
     """
-    blk = torch.arange(nb, dtype=torch.int64, device=device)
+    blk = (torch.arange(nb, dtype=torch.int64, device=device) if blocks is None
+           else blocks.to(device=device, dtype=torch.int64))
     ax = torch.arange(_AXES, dtype=torch.int64, device=device)[:, None, None]
     pix = torch.arange(_P, dtype=torch.int64, device=device)[None, :, None]
     ctr = (blk[None, None, :] * (_AXES * _P) + ax * _P + pix) & _M32
@@ -56,16 +58,18 @@ def dither_bits(key: int, nb: int, device) -> torch.Tensor:
 
 
 def dither_crush(f8: torch.Tensor, shifts: torch.Tensor, seed: int,
-                 dither_seed: int, enabled: bool = True) -> torch.Tensor:
+                 dither_seed: int, enabled: bool = True,
+                 blocks: torch.Tensor | None = None) -> torch.Tensor:
     """Quantize factor planes with optional dithering.
 
-    ``f8``: (3, 64, NB) int32 factor planes; ``shifts``: (3, NB) int32.
+    ``f8``: (3, 64, NB) int32 factor planes; ``shifts``: (3, NB) int32;
+    ``blocks``: (NB,) image block index of each column (default 0..NB-1).
     Returns (3, 64, NB) int32 crushed factors (already >> s).
     """
     s_eff = torch.clamp(shifts, max=8)[:, None, :]            # (3, 1, NB)
     if not enabled:
         return f8 >> s_eff
-    bits = dither_bits(dither_key(seed, dither_seed), f8.shape[-1], f8.device)
+    bits = dither_bits(dither_key(seed, dither_seed), f8.shape[-1], f8.device, blocks)
     live = (s_eff > 0) & (s_eff < 8)
     mask = (1 << s_eff) - 1
     offset = 1 << torch.clamp(s_eff - 1, min=0)

@@ -5,7 +5,9 @@ Reference: limg_color_error_state_3d_get_factors
 endpoints: normalA = dirA_max - dirA_min etc., with zero-length normals
 giving factor 0. Quantization to u8 rounds half to even like the
 reference's SSE path (_mm_cvtps_epi32, src/limg_factorization.h:126).
-Channel dot products are left folds, as in the CUDA kernel.
+Channel dot products are left folds, as in the CUDA kernels. The endpoints
+are per block; for a quadtree region they are the region's, broadcast to
+each member block (ops/fit.py fit_regions).
 """
 
 from __future__ import annotations

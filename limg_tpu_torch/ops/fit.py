@@ -14,6 +14,10 @@ Every float sum has one fixed order, which the CUDA kernel
 - every product and sum rounds on its own: no fused multiply-add, and
   ``1 / sqrt(x)`` in place of an approximate rsqrt.
 
+The quadtree levels fit regions of 4^l blocks (``fit_regions``): each sum
+is the block's halving tree, then a tree across the region's blocks
+(ops/reduce.py). ``fit_blocks`` is the one-block-region case.
+
 The JAX package sums in XLA's order, so rounded endpoints can differ from
 it by 1 on a few blocks.
 """
@@ -88,12 +92,12 @@ def drop_decomposition_axes(d: Decomposition, num_factors: int) -> Decomposition
 
 
 def _signed_unit_mean(v: torch.Tensor, mask: torch.Tensor,
-                      inv_count: torch.Tensor) -> torch.Tensor:
+                      inv_count: torch.Tensor, red) -> torch.Tensor:
     """Mean over pixels of sign-corrected unit vectors.
 
     ``v``: (ch, P, NB); the sign comes from the first largest-|component|
     channel (src/limg_factorization.h:816-851). Zero vectors and masked-out
-    pixels contribute nothing. Returns (ch, NB).
+    pixels contribute nothing. Returns (ch, NB) region means.
     """
     len_sq = channel_dot(v, v)
     best_abs = v[0].abs()
@@ -106,7 +110,7 @@ def _signed_unit_mean(v: torch.Tensor, mask: torch.Tensor,
     inv_len = torch.where(
         len_sq > 0, 1.0 / torch.sqrt(torch.clamp(len_sq, min=_TINY)), 0.0)
     inv_len = torch.where(lead < 0, -inv_len, inv_len) * mask
-    return tree_sum(v * inv_len, 1) * inv_count
+    return red.sum(v * inv_len) * inv_count
 
 
 def _project(v: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
@@ -116,27 +120,26 @@ def _project(v: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     return dot * inv_or_zero(channel_dot(direction, direction))
 
 
-def _masked_minmax(fac: torch.Tensor, mask: torch.Tensor):
-    mn = torch.where(mask > 0, fac, _BIG).amin(dim=0)
-    mx = torch.where(mask > 0, fac, -_BIG).amax(dim=0)
-    return mn, mx
+def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
+    """Fit every region of the reducer ``red`` (ops/reduce.py).
 
-
-def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomposition:
-    """Fit every block. ``px_u8``: (>=ch, 64, NB) uint8; ``mask``: (64, NB) bool."""
+    ``px_u8``: (>=ch, 64, NB) uint8 or int; ``mask``: (64, NB) bool. Returns
+    (Decomposition with each region's values broadcast to its blocks,
+    region pixel counts (NB,) int32).
+    """
     px = px_u8[:channels].to(torch.float32)
     m = mask.to(torch.float32)
-    count = mask.to(torch.int32).sum(dim=0)
+    count = red.sum(mask.to(torch.int32))
     inv_count = 1.0 / torch.clamp(count.to(torch.float32), min=1.0)
 
-    avg = tree_sum(px * m, 1) * inv_count                  # (ch, NB)
+    avg = red.sum(px * m) * inv_count                      # (ch, NB)
     corrected = (px - avg[:, None, :]) * m
-    dir_a = _signed_unit_mean(corrected, m, inv_count)
+    dir_a = _signed_unit_mean(corrected, m, inv_count, red)
 
     fac_a = _project(corrected, dir_a) * m
     est = avg[:, None, :] + fac_a[None] * dir_a[:, None, :]
     resid_a = (px - est) * m
-    dir_b = _signed_unit_mean(resid_a, m, inv_count)
+    dir_b = _signed_unit_mean(resid_a, m, inv_count, red)
 
     fac_b = _project(resid_a, dir_b) * m
     est_b = est + fac_b[None] * dir_b[:, None, :]
@@ -150,14 +153,18 @@ def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomp
         ])
     else:
         # R^4: a third residual sweep (src/limg_factorization.h:1002-1247)
-        dir_c = _signed_unit_mean(resid_ab, m, inv_count)
+        dir_c = _signed_unit_mean(resid_ab, m, inv_count, red)
     fac_c = _project(resid_ab, dir_c) * m
 
-    mn_a, mx_a = _masked_minmax(fac_a, m)
-    mn_b, mx_b = _masked_minmax(fac_b, m)
-    mn_c, mx_c = _masked_minmax(fac_c, m)
+    def minmax(fac):
+        return (red.min(torch.where(mask, fac, _BIG)),
+                red.max(torch.where(mask, fac, -_BIG)))
 
-    # Flat blocks (dirA == 0): endpoints collapse to avg and B/C vanish
+    mn_a, mx_a = minmax(fac_a)
+    mn_b, mx_b = minmax(fac_b)
+    mn_c, mx_c = minmax(fac_c)
+
+    # Flat regions (dirA == 0): endpoints collapse to avg and B/C vanish
     # (src/limg_factorization.h:874-882).
     flat = channel_dot(dir_a, dir_a) <= 0.0
 
@@ -172,4 +179,11 @@ def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomp
         dirB_mag=_fast_round(z(mx_b * dir_b)),
         dirC_offset=_fast_round(z(mn_c * dir_c)),
         dirC_mag=_fast_round(z(mx_c * dir_c)),
-    )
+    ), count
+
+
+def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomposition:
+    """Fit every block. ``px_u8``: (>=ch, 64, NB) uint8; ``mask``: (64, NB) bool."""
+    from .reduce import BlockReducer
+
+    return fit_regions(px_u8, mask, channels, BlockReducer())[0]

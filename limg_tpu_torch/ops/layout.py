@@ -73,17 +73,22 @@ def packed_words(image: torch.Tensor) -> torch.Tensor:
     return image.contiguous().view(torch.int32)[..., 0]
 
 
+def blockify_words(words: torch.Tensor, block: int = BLOCK_SIZE):
+    """(H, W) int32 packed words -> ((block*block, NB) int32 words, mask,
+    grid), edge blocks zero-padded."""
+    h, w = words.shape
+    g = grid_for(h, w, block)
+    tiles = _pad_to_grid(words, g, block).reshape(g.blocks_y, block, g.blocks_x, block)
+    px = tiles.permute(1, 3, 0, 2).reshape(block * block, g.num_blocks)
+    return px, _block_mask(h, w, g, block, words.device), g
+
+
 def blockify_packed(image: torch.Tensor, block: int = BLOCK_SIZE):
     """(H, W, 4) uint8 RGBA -> ((block*block, NB) int32 packed words, mask,
     grid). Bit-identical to ``pack_channels(blockify(image)[0])``."""
-    h, w, c = image.shape
-    if c != 4:
+    if image.shape[2] != 4:
         raise ValueError("blockify_packed requires an RGBA image")
-    g = grid_for(h, w, block)
-    tiles = _pad_to_grid(packed_words(image), g, block).reshape(
-        g.blocks_y, block, g.blocks_x, block)
-    px = tiles.permute(1, 3, 0, 2).reshape(block * block, g.num_blocks)
-    return px, _block_mask(h, w, g, block, image.device), g
+    return blockify_words(packed_words(image), block)
 
 
 def unblockify(px: torch.Tensor, grid: BlockGrid, block: int = BLOCK_SIZE) -> torch.Tensor:

@@ -70,3 +70,59 @@ def test_kernel_rejects_bad_inputs(device):
         kmod.encode_blocks_kernel(packed, mask.cpu(), EncodeConfig(), 0)
     with pytest.raises(ValueError):
         kmod.encode_blocks_kernel(packed[:32].contiguous(), mask[:32], EncodeConfig(), 0)
+
+
+# ---------------------------------------------------------------------------
+# The fused quadtree kernels (kernels/encode_merged.py)
+# ---------------------------------------------------------------------------
+
+def _words(h, w, ch, seed, device):
+    from limg_tpu_torch.regions import _words as words_of
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([40 + 150 * x / w, 30 + 180 * y / h,
+                    128 + 90 * np.sin(x / 7.0) * np.cos(y / 5.0),
+                    255 - 60 * y / h], axis=-1) + 8 * rng.standard_normal((h, w, 4))
+    img = np.clip(img, 0, 255).astype(np.uint8)[..., :ch]
+    img[: h // 3, : w // 2, :3] = [40, 90, 200]          # a flat patch that merges
+    return words_of(torch.from_numpy(np.ascontiguousarray(img)).to(device))
+
+
+def _assert_same(got, want):
+    for name in want._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, name
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4])
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_merged_kernels_match_plain_versions(device, channels, mode, num_factors,
+                                             dithering, levels):
+    from limg_tpu_torch.kernels import encode_merged as km
+
+    words = _words(75, 101, channels, 13, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = dict(km.launches)
+    fit = km.fit_levels_kernel(words, cfg, levels)
+    torch.cuda.synchronize(device)
+    want = km.fit_levels_reference(words, cfg, levels)
+    _assert_same(fit, want)
+    got = km.owner_crush_kernel(words, want.owner, want.f8_sel, want.eps_sel, cfg, levels, 5)
+    torch.cuda.synchronize(device)
+    _assert_same(got, km.owner_crush_reference(words, want.owner, want.f8_sel, want.eps_sel,
+                                               cfg, levels, 5))
+    assert km.launches == {k: v + 1 for k, v in before.items()}
+

@@ -1,8 +1,9 @@
 """On-card smoke run of limg_tpu_torch: build, check and time the CUDA
-kernels, and drive the fixed-grid encode (``limg_tpu_torch.encode_image``)
-and the quadtree-merged encode without coalescing
-(``limg_tpu_torch.encode_image_merged(..., coalesce=False)``) on 4K images
-through them.
+kernels, and drive the fixed-grid encode (``limg_tpu_torch.encode_image``),
+the quadtree-merged encode without coalescing
+(``encode_image_merged(..., coalesce=False)``) and the default merged
+encode with run coalescing (``encode_image_merged()``, and the CLI's merged
+mode) on 4K images through them.
 
     python3 chip_smoke.py
 
@@ -16,15 +17,23 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    images, channel counts, crush modes, num_factors and dithering;
 2b. the same for ``fit_levels`` and ``owner_crush`` over levels 2 to 4,
    RGB and RGBA, aligned and edge-padded images, and the same settings;
+2c. the same for the four run-coalescing kernels (``match_pairs``,
+   ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
+   fitted rows, random and real segment maps, RGB and RGBA, every crush
+   mode, num_factors 1-3, dithering off and on;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
-3b. the merged path: ``encode_image_merged(coalesce=False)`` on the same
-   images, both kernels' launches counted from 0, held against the JAX
-   fused path's recorded encode (tests/fixtures/
+3b. the merged path without coalescing: ``encode_image_merged(coalesce=
+   False)`` on the same images, both kernels' launches counted from 0, held
+   against the JAX fused path's recorded encode (tests/fixtures/
    torch_port_merged_reference.npz);
-4. / 4b. kernel and plain times at the 4K shapes of each path, and each
-   path's device-resident step, CUDA events, median of 10 runs after
+3c. the default merged path: ``encode_image_merged()`` on the same images,
+   the launches of all six merged-path kernels counted from 0, held against
+   the JAX default encode (tests/fixtures/torch_port_coalesce_reference.npz),
+   then the CLI's merged mode once;
+4. / 4b. / 4c. kernel and plain times at the 4K shapes of each path, and
+   each path's device-resident step, CUDA events, median of 10 runs after
    warm-up, with a torch.profiler breakdown.
 
 Prints one JSON line of kernel results, the card's name and power limit,
@@ -45,18 +54,27 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_reference.json")
 MERGED_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_merged_reference.npz")
-LIBRARIES = ("encode_fixed", "encode_merged")
+COALESCE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coalesce_reference.npz")
+LIBRARIES = ("encode_fixed", "encode_merged", "coalesce")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
 MERGED_REPLACES = {"fit_levels": "limg_tpu/pallas_kernels/encode_merged.py:813",
                    "owner_crush": "limg_tpu/pallas_kernels/encode_merged.py:902"}
+COALESCE_SOURCE = "limg_tpu_torch/csrc/coalesce.cu"
+COALESCE_REPLACES = {
+    "match_neighbors": "limg_tpu/pallas_kernels/encode_merged.py:587",
+    "match_pairs": "limg_tpu/pallas_kernels/encode_merged.py:516",
+    "seg_mixed_all": "limg_tpu/pallas_kernels/seg_scan.py:140",
+    "segment_encode": "limg_tpu/pallas_kernels/encode_segments.py:188",
+}
 MERGED_LEVELS = 3
 DIST_RTOL = 1e-6
 # main-path tolerances against the JAX fixture
 NODITHER_PSNR_DB, NODITHER_BPP, HIST_L1_FRAC = 0.02, 0.01, 0.005
 DITHER_PSNR_DB, DITHER_BPP = 0.3, 0.1   # MULTICHIP_EXPECTED.json
 ALIVE_FRAC, OWNER_AGREE = 0.005, 0.995  # merged: per-level counts, per-block owners
+RUNS_FRAC = 0.02                        # coalesced: n_runs
 TIMED_RUNS = 10
 
 
@@ -135,6 +153,10 @@ def compare_outputs(got, want) -> float:
 
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None:
+            if g is not w:
+                raise AssertionError(f"output {i}: {g} vs {w}")
+            continue
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"output {i}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
         diff = (g.double() - w.double()).abs()
@@ -230,6 +252,156 @@ def phase_compare_merged(device, images=None) -> float:
                     n_cases += 1
         log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (fit and crush)")
     log(f"phase 2b ok: {n_cases} cases, max abs diff {worst}")
+    return worst
+
+
+def seg_map(rng, n: int, max_span: int = 256) -> np.ndarray:
+    """Contiguous segments, ids = first positions, spans 1..max_span."""
+    seg = np.empty(n, np.int32)
+    i = 0
+    while i < n:
+        span = int(rng.integers(1, min(max_span, n - i) + 1))
+        seg[i:i + span] = i
+        i += span
+    return seg
+
+
+def seeded_rows(rng, n: int, ch: int) -> np.ndarray:
+    """(7ch, n) float32 Decomposition rows in the fit's ranges, some flat."""
+    avg = rng.uniform(0, 255, (ch, n))
+    lo = rng.integers(-30, 200, (ch, n))
+    rows = [avg, lo, lo + rng.integers(0, 120, (ch, n))]
+    for span, width in ((40, 60), (20, 30)):
+        off = rng.integers(-span, span, (ch, n))
+        rows += [off, off + rng.integers(0, width, (ch, n))]
+    flat = rng.random(n) < 0.3
+    for r in rows[1:]:
+        r[:, flat] = r[:, flat] // 8 * 8
+    return np.concatenate(rows, axis=0).astype(np.float32)
+
+
+def seeded_run_buffer(rng, n: int, ch: int, device):
+    """A run buffer of random pixels: half smooth, some empty and some
+    half-empty blocks, segments of 1-256 blocks, shuffled block indices."""
+    import torch
+
+    px = rng.integers(0, 256, (4, 64, n), np.int64)
+    px[:, :, : n // 2] = (px[:, :, : n // 2] // 32) * 32
+    if ch == 3:
+        px[3] = 0
+    mask = np.ones((64, n), bool)
+    mask[:, rng.integers(0, n, n // 10)] = False
+    mask[32:, rng.integers(0, n, n // 10)] = False
+    words = px[0] | (px[1] << 8) | (px[2] << 16) | (px[3] << 24)
+    words = np.where(words >= 2**31, words - 2**32, words).astype(np.int32)
+    blocks = rng.permutation(4 * n)[:n].astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (words, mask, seg_map(rng, n), blocks))
+
+
+def image_run_buffer(img, cfg, device, levels: int = MERGED_LEVELS):
+    """The run buffer of one image as the default encode builds it, and the
+    owner-selected (7ch, by, bx) rows its run building matched on."""
+    import torch
+    import limg_tpu_torch
+    from limg_tpu_torch.regions import compact_runs
+
+    state = limg_tpu_torch.fused_merged_pre(img, cfg, num_levels=levels, need_q=False,
+                                            device=device)
+    nb = state["seg0"].numel()
+    order, seg_c = compact_runs(state["seg0"], state["is_run0"], nb)
+    mask = state["mask"][:, order] & state["is_run0"][order][None]
+    buf = (state["px"][:, order].contiguous(), mask.contiguous(), seg_c, order.to(torch.int32))
+    fit, grid = state["fit"], state["grid"]
+    rows = torch.cat([fit.avg_sel, fit.eps_sel.reshape(-1, nb).to(torch.float32)])
+    return buf, rows.reshape(-1, grid.blocks_y, grid.blocks_x)
+
+
+COALESCE_SETTINGS_SEEDED = [("ladder", 3, False), ("ladder", 3, True), ("exhaustive", 1, False),
+                            ("guess", 2, True), ("none", 3, False), ("ladder", 2, True)]
+
+
+def phase_compare_coalesce(device, images=None) -> float:
+    """The four run-coalescing kernels vs their plain versions; max abs diff."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.kernels import coalesce as kc
+    from tools.make_test_image import make_4k
+
+    log("== phase 2c: run-coalescing kernels vs plain versions on the card")
+    if images is None:
+        images = {"256x384": make_4k(256, 384), "301x437": make_4k(301, 437)}
+    rng = np.random.default_rng(2024)
+    worst, n_cases = 0.0, 0
+
+    def check(case, got, want):
+        nonlocal worst, n_cases
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        try:
+            worst = max(worst, compare_outputs(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"{case}: {e}")
+        n_cases += 1
+
+    # match kernels on seeded rows (below and above one CTA's pairs)
+    for ch in (3, 4):
+        for n in (5, 3000):
+            a = torch.from_numpy(seeded_rows(rng, n, ch)).to(device)
+            b = a + (torch.rand(a.shape, device=device) < 0.3) * torch.randint(
+                0, 6, a.shape, device=device)
+            check(f"match_pairs seeded ch={ch} n={n}", [kc.match_pairs_kernel(a, b, ch)],
+                  [kc.match_pairs_reference(a, b, ch)])
+        for by, bx in ((37, 150), (1, 70), (40, 1), (130, 130)):
+            plane = torch.from_numpy(seeded_rows(rng, by * bx, ch)).to(device).reshape(-1, by, bx)
+            check(f"match_neighbors seeded ch={ch} {by}x{bx}",
+                  kc.match_neighbors_kernel(plane, ch), kc.match_neighbors_reference(plane, ch))
+    # the scan on random segment maps, int and float rows, every row mix
+    for n in (1, 1000, 5000, 129600):
+        seg = torch.from_numpy(seg_map(rng, n)).to(device)
+        xi = torch.from_numpy(rng.integers(-2**20, 2**20, (3, n)).astype(np.int32)).to(device)
+        xf = torch.from_numpy((rng.standard_normal((3, n)) * 100).astype(np.float32)).to(device)
+        for x in (xi, xf):
+            for n_sum in (0, 1, 3):
+                check(f"seg_mixed_all n={n} {x.dtype} n_sum={n_sum}",
+                      [kc.seg_mixed_all_kernel(x, seg, n_sum)],
+                      [kc.seg_mixed_all_reference(x, seg, n_sum)])
+    # segment encode on seeded buffers (below and above one CTA's lanes)
+    for ch in (3, 4):
+        for n in (100, 1500):
+            buf = seeded_run_buffer(rng, n, ch, device)
+            for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
+                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                   dithering=dith, num_factors=nf)
+                check(f"segment_encode seeded ch={ch} n={n} {mode} nf={nf} dither={dith}",
+                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
+    log(f"  seeded: {n_cases} cases bit-equal")
+    # real run buffers and fitted rows of edge-padded and aligned images
+    for name, rgb in images.items():
+        for ch in (3, 4):
+            img = rgb if ch == 3 else with_alpha(rgb)
+            buf, plane = image_run_buffer(img, EncodeConfig(error_factor=100, has_alpha=ch == 4,
+                                                            dithering=False), device)
+            for lvl in range(MERGED_LEVELS):
+                p = plane[:, ::1 << lvl, ::1 << lvl].contiguous()
+                check(f"{name} ch={ch} match_neighbors level {lvl}",
+                      kc.match_neighbors_kernel(p, ch), kc.match_neighbors_reference(p, ch))
+                a, b = p[:, :, 1:].reshape(7 * ch, -1), p[:, :, :-1].reshape(7 * ch, -1)
+                check(f"{name} ch={ch} match_pairs level {lvl}", [kc.match_pairs_kernel(a, b, ch)],
+                      [kc.match_pairs_reference(a, b, ch)])
+            rows = torch.stack([buf[1].sum(dim=0, dtype=torch.int32), buf[3]])
+            check(f"{name} ch={ch} seg_mixed_all on the run buffer",
+                  [kc.seg_mixed_all_kernel(rows, buf[2], 2)],
+                  [kc.seg_mixed_all_reference(rows, buf[2], 2)])
+            for mode, nf, dith in SETTINGS:
+                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                   dithering=dith, num_factors=nf)
+                check(f"{name} ch={ch} segment_encode {mode} nf={nf} dither={dith}",
+                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
+        log(f"  {name}: real run buffers and fitted rows bit-equal")
+    log(f"phase 2c ok: {n_cases} cases, max abs diff {worst}")
     return worst
 
 
@@ -363,6 +535,113 @@ def phase_main_path_merged(device):
     return launched
 
 
+def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, dithering: bool):
+    """Stats of one 4K default merged encode against the JAX default
+    encode's recorded ones. No JAX path runs the fused coalesced encode
+    with dithering on the CPU, so a dithered encode is held against the
+    recorded PSNR less JAX's own dither penalty on the same image (its
+    dense dithered encode against its fused undithered one, coalescing off,
+    tests/fixtures/torch_port_merged_reference.npz), and against the
+    recorded bpp, which dithering does not change."""
+    ref_psnr, ref_bpp = float(fx[f"{name}.psnr"]), float(fx[f"{name}.mean_bpp"])
+    if dithering:
+        mfx = np.load(MERGED_FIXTURE)
+        ref_psnr += float(mfx[f"{name}_dither_dense.psnr"]) - float(mfx[f"{name}.psnr"])
+    d_psnr, d_bpp = out["psnr"] - ref_psnr, out["mean_bpp"] - ref_bpp
+    st = [out["coalesce_stats"][k] for k in ("dropped_runs_at_capacity", "overflow_run_blocks",
+                                             "rejected_runs")]
+    ref_runs = int(fx[f"{name}.n_runs"])
+    msg = (f"  {name} dither={dithering}: psnr {out['psnr']!r} (JAX {ref_psnr!r}, diff "
+           f"{d_psnr:+.5f} dB) bpp {out['mean_bpp']!r} (JAX {ref_bpp!r}, diff {d_bpp:+.5f}) "
+           f"runs {out['n_runs']} (JAX {ref_runs}) stats {st} "
+           f"(JAX {fx[f'{name}.coalesce_stats'].tolist()})")
+    if st[:2] != [0, 0]:
+        raise AssertionError(f"{name}: auto capacity dropped runs: {st}")
+    if dithering:
+        log(msg)
+        if abs(d_psnr) > DITHER_PSNR_DB or abs(d_bpp) > DITHER_BPP:
+            raise AssertionError(f"{name} dither: outside the tolerance of the JAX reference")
+        return
+    hist_l1 = int(np.abs(out["bits_histogram"] - fx[f"{name}.bits_histogram"]).sum())
+    ref_alive = fx[f"{name}.alive_counts"]
+    alive_rel = np.abs(out["alive_counts"] - ref_alive) / np.maximum(ref_alive, 1)
+    owner = out["owner_px"][::8, ::8].reshape(-1)
+    agree = float((owner == fx[f"{name}.owner"]).mean())
+    log(msg + f" alive {out['alive_counts'].tolist()} (JAX {ref_alive.tolist()}), hist L1 "
+        f"{hist_l1} px ({hist_l1 / n_px:.5%}), owner agreement {agree!r}")
+    if not (abs(d_psnr) <= NODITHER_PSNR_DB and abs(d_bpp) <= NODITHER_BPP
+            and hist_l1 <= HIST_L1_FRAC * n_px and (alive_rel <= ALIVE_FRAC).all()
+            and agree >= OWNER_AGREE and abs(out["n_runs"] - ref_runs) <= RUNS_FRAC * ref_runs):
+        raise AssertionError(f"{name}: outside the tolerance of the JAX default encode")
+
+
+def reset_launches():
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_merged as km
+
+    for counts in (km.launches, kc.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_merged as km
+
+    return {**km.launches, **kc.launches}
+
+
+def phase_main_path_coalesce(device):
+    """encode_image_merged() with its defaults at 4K through all six
+    merged-path kernels, then the CLI's merged mode."""
+    import contextlib
+    import io
+    import tempfile
+
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig, cli
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3c: default merged path (limg_tpu_torch.encode_image_merged(), coalescing on)")
+    fx = np.load(COALESCE_FIXTURE)
+    h, w = 2160, 3840
+    images = case_images(h, w)
+    reset_launches()
+    n_encodes = 0
+    for lane, img in images.items():
+        for dith in (False, True):
+            cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
+            t0 = time.perf_counter()
+            out = limg_tpu_torch.encode_image_merged(img, cfg, device=device)
+            secs = time.perf_counter() - t0
+            n_encodes += 1
+            dec = out["decoded"]
+            if dec.shape != (h, w, 4) or not np.isfinite(out["psnr"]) or out["n_runs"] <= 0:
+                raise AssertionError(f"{lane}: decoded {dec.shape}, psnr {out['psnr']}, "
+                                     f"runs {out['n_runs']}")
+            log(f"  4k_{lane} dither={dith}: encode_image_merged {secs * 1e3:.1f} ms wall "
+                f"(host copies included)")
+            check_coalesced_against_fixture(f"4k_{lane}_l{MERGED_LEVELS}", out, fx, h * w, dith)
+    launched = read_launches()
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the default merged path skipped a kernel: launches {launched}")
+    log(f"  {n_encodes} encodes, launches {launched}")
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = os.path.join(tmp, "img4k.npy")
+        np.save(npy, images["rgb"])
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main([npy, "--no-output"])
+    lines = [ln for ln in text.getvalue().splitlines()
+             if ln.startswith(("limg_tpu_torch", "Elapsed", "Compression", "Image Perceptual"))]
+    if len(lines) != 4:
+        raise AssertionError(f"the CLI's merged mode printed {text.getvalue()!r}")
+    for ln in lines:
+        log(f"  cli: {ln}")
+    log("phase 3c ok")
+    return launched
+
+
 def time_fn(fn, device, runs: int = TIMED_RUNS) -> float:
     """Median ms of ``runs`` calls after one warm-up, by CUDA events."""
     import torch
@@ -461,6 +740,96 @@ def phase_timing_merged(device, smi: str):
     return rows, worst
 
 
+def capture_coalesce_calls(fn) -> dict:
+    """Run ``fn`` with the four run-coalescing wrappers recording their
+    arguments: {wrapper name: [args, ...]}."""
+    from limg_tpu_torch import regions
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    names = ("match_neighbors_kernel", "match_pairs_kernel", "seg_mixed_all_kernel",
+             "segment_encode_kernel")
+    calls, saved = {n: [] for n in names}, {n: getattr(kc, n) for n in names}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in names:
+            setattr(kc, n, spy(n))
+            setattr(regions, n, getattr(kc, n))
+        fn()
+    finally:
+        for n in names:
+            setattr(kc, n, saved[n])
+            setattr(regions, n, saved[n])
+    return calls
+
+
+def phase_timing_coalesce(device, smi: str):
+    """The four run-coalescing kernels vs plain at the 4K main-path shapes
+    (also compared), and the default merged step."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import coalesce as kc
+    from tools.record_torch_reference import case_images
+
+    log("== phase 4c: run-coalescing kernels at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
+    images = case_images(2160, 3840)
+    rows, worst, lv = {}, 0.0, MERGED_LEVELS
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        img_d = _as_image_tensor(img, device)
+        calls = capture_coalesce_calls(
+            lambda: limg_tpu_torch.encode_image_merged(img_d, cfg, fetch_planes=False,
+                                                       device=device))
+        # the main path's first calls: level 0's neighbour plane, the one
+        # pair launch (level 2 at 4K), level 0's run-length scan (129,600
+        # lanes), the full-capacity segment encode
+        shapes = {
+            "match_neighbors": calls["match_neighbors_kernel"][0],
+            "match_pairs": calls["match_pairs_kernel"][0],
+            "seg_mixed_all": calls["seg_mixed_all_kernel"][0],
+            "segment_encode": calls["segment_encode_kernel"][0],
+        }
+        log(f"  4K {lane} main-path calls: " + ", ".join(
+            f"{k} {len(v)}" for k, v in calls.items()) + "; timed shapes: "
+            + ", ".join(f"{k} {tuple(c[0][0].shape)}" for k, c in shapes.items()))
+        mpx = img.shape[0] * img.shape[1] * 1e-6
+        for name, (args, kwargs) in shapes.items():
+            kern = getattr(kc, f"{name}_kernel")
+            plain = getattr(kc, f"{name}_reference")
+            got, want = kern(*args, **kwargs), plain(*args, **kwargs)
+            worst = max(worst, compare_outputs(got if isinstance(got, tuple) else [got],
+                                               want if isinstance(want, tuple) else [want]))
+            # plain, kernel, kernel, plain: both see the same card state
+            p1, k1, k2, p2 = (time_fn(lambda f=f: f(*args, **kwargs), device)
+                              for f in (plain, kern, kern, plain))
+            rows[(name, lane)] = (min(k1, k2), min(p1, p2))
+            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms [{smi}]")
+
+        nb = 270 * 480
+
+        def step():
+            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, need_q=False,
+                                                    device=device)
+            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, lv, False, cap)
+            return out["total_err"], out["mean_bpp"]
+
+        step_ms = time_fn(step, device)
+        log(f"  4K {lane} default merged step (fused_merged_pre, host capacity read, "
+            f"fused_merged_finish; emit_planes=False): {step_ms!r} ms = "
+            f"{mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
+        profile_step(step, device, f"{lane} default merged")
+    log(f"phase 4c ok: 4K run-coalescing kernel outputs equal the plain versions' "
+        f"(max abs diff {worst})")
+    return rows, worst
+
+
 def profile_step(fn, device, lane: str, iters: int = 5):
     """Device time by operation over ``iters`` perf steps (torch.profiler),
     and the device-busy share of the profiled window."""
@@ -497,10 +866,13 @@ def main():
     phase_build()
     worst = phase_compare(device)
     worst_m = phase_compare_merged(device)
+    worst_c = phase_compare_coalesce(device)
     launched = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
+    launched_c = phase_main_path_coalesce(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
+    rows_c, worst4k_c = phase_timing_coalesce(device, smi)
     k_ms, p_ms = rows["rgb"]     # the 4K RGB lane; RGBA is printed above
     kernels = [{
         "name": "encode_fixed_p64", "route": "cuda", "source": KERNEL_SOURCE,
@@ -512,6 +884,13 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": MERGED_SOURCE, "replaces": replaces,
             "launches": launched_m[name], "max_abs_err": max(worst_m, worst4k_m),
+            "ms": k_ms, "plain_ms": p_ms,
+        })
+    for name, replaces in COALESCE_REPLACES.items():
+        k_ms, p_ms = rows_c[(name, "rgb")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": COALESCE_SOURCE, "replaces": replaces,
+            "launches": launched_c[name], "max_abs_err": max(worst_c, worst4k_c),
             "ms": k_ms, "plain_ms": p_ms,
         })
     log(json.dumps({"kernels": kernels}))

@@ -1,18 +1,21 @@
 """CLI of the port, with the flags of ``limg_tpu.cli``.
 
 Usage:
-    python -m limg_tpu_torch.cli <image> --fixed-grid [--no-output]
-                                 [--error-factor N] [--accurate-bit-crushing]
-                                 [--factors N] [--device cuda|cpu]
+    python -m limg_tpu_torch.cli <image> [--no-output] [--error-factor N]
+                                 [--accurate-bit-crushing] [--fast-coalesce]
+                                 [--fixed-grid] [--factors N] [--device cuda|cpu]
     python -m limg_tpu_torch.cli -- [--count N] [--error-factor N]
                                  [--device cuda|cpu] -- <files...>
 
-Ported modes: the fixed-grid single-image encode (``--fixed-grid``), which
-prints the reference's stats and writes the debug TGA planes unless
-``--no-output``, and list mode (``--``), the throughput harness over files
-(``--count N`` with one file gives the statistical perf report). Images
-load through PIL, or from ``.npy`` arrays of (H, W, 3|4) uint8 where PIL
-is missing. ``--device`` defaults to cuda and never falls back to the CPU.
+Ported modes: the single-image encode, which runs the merged (blocked)
+encoder with run coalescing (the JAX CLI's default; ``--fast-coalesce``
+pins the run buffer at NB/8, which may truncate runs, instead of the auto
+capacity) or with ``--fixed-grid`` the fixed-grid encoder, prints the
+reference's stats and writes the debug TGA planes unless ``--no-output``;
+and list mode (``--``), the throughput harness over files (``--count N``
+with one file gives the statistical perf report). Images load through
+PIL, or from ``.npy`` arrays of (H, W, 3|4) uint8 where PIL is missing.
+``--device`` defaults to cuda and never falls back to the CPU.
 
 Every other mode exits non-zero naming the ROADMAP.md item that ports it.
 """
@@ -26,10 +29,6 @@ import numpy as np
 
 # mode -> (what it is, the ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    # the JAX CLI's merged encode always coalesces runs; the port's merged
-    # encode runs without coalescing so far
-    "merged": ("the merged (blocked) encoder with run coalescing, the default "
-               "without --fixed-grid", "Queue 1 item 9, run coalescing"),
     "--rd-merge": ("the RD merge policy", "Queue 1 item 12"),
     "--write-ltp1": ("LTP1 serialization", "Queue 1 item 10"),
     "--decode-ltp1": ("LTP1 decoding", "Queue 1 item 10"),
@@ -46,7 +45,7 @@ def _not_ported(mode: str):
 def _parse_args(argv):
     opts = dict(write_output=True, error_factor=100, accurate=False, fixed_grid=False,
                 count=1, files=[], source=None, list_mode=False, num_factors=3,
-                device="cuda")
+                device="cuda", cap_frac=0)
     if not argv:
         print(__doc__)
         sys.exit(0)
@@ -63,8 +62,12 @@ def _parse_args(argv):
             opts["write_output"] = False
         elif a == "--accurate-bit-crushing":
             opts["accurate"] = True
-        elif a in ("--single-thread", "--fast-coalesce"):
-            pass  # parity no-ops for the fixed grid
+        elif a == "--single-thread":
+            pass  # parity no-op
+        elif a == "--fast-coalesce":
+            # the latency-bounded run buffer (NB/8; may truncate) instead of
+            # auto capacity
+            opts["cap_frac"] = 8
         elif a == "--fixed-grid":
             opts["fixed_grid"] = True
         elif a in ("--use-pallas", "--no-pallas"):
@@ -127,31 +130,77 @@ def _print_stats(out):
     print("Compression Average: ~%7.4f bits per pixel\n" % out["mean_bpp"])
 
 
-def _write_planes(out, h, w):
+def _hash_color(v: int) -> int:
+    """Block-index visualization hash (limg_tpu/cli.py:46; reference:
+    src/main.cpp:47-55)."""
+    state = (v * 6364136223846793005 + (v | 1)) & 0xFFFFFFFFFFFFFFFF
+    xorshifted = (((state >> 18) ^ state) >> 27) & 0xFFFFFFFF
+    rot = state >> 59
+    return ((xorshifted >> rot) | (xorshifted << ((-rot) & 31))) & 0xFFFFFFFF
+
+
+def _endpoint_planes(rows, ch: int, h: int, w: int) -> dict:
+    """Merged encode's (6ch, NB) endpoint rows -> the six endpoint-colour
+    RGBA planes, +0x80 on B/C (limg_tpu/cli.py:271-287)."""
+    by, bx = -(-h // 8), -(-w // 8)
+    names = ["col_a_min", "col_a_max", "col_b_min", "col_b_max", "col_c_min", "col_c_max"]
+    planes = {}
+    for j, name in enumerate(names):
+        bias = 0 if j < 2 else 0x80
+        v = np.clip(rows[j * ch:(j + 1) * ch] + bias, 0, 255).astype(np.uint8).reshape(ch, by, bx)
+        px_plane = np.repeat(np.repeat(v, 8, axis=1), 8, axis=2)
+        rgba = np.full((h, w, 4), 0xFF, np.uint8)
+        rgba[..., :ch] = px_plane[:, :h, :w].transpose(1, 2, 0)
+        planes[name] = rgba
+    return planes
+
+
+def _region_plane(region_id: np.ndarray) -> np.ndarray:
+    """(H, W) region ids -> RGBA plane of hashed colours."""
+    ids = region_id.astype(np.int64)
+    uniq, inv = np.unique(ids, return_inverse=True)
+    cols = np.array([_hash_color(int(u)) | 0xFF000000 for u in uniq], np.uint64)
+    rgba = cols[inv].reshape(ids.shape)
+    hashed = np.zeros((*ids.shape, 4), np.uint8)
+    for k in range(3):
+        hashed[..., k] = (rgba >> (8 * k)) & 0xFF
+    hashed[..., 3] = 0xFF
+    return hashed
+
+
+def _write_planes(out, h, w, channels: int):
+    """The debug TGA planes: 12 for the fixed grid, 13 (with the hashed
+    region plane) for the merged encode."""
     from .io import write_tga
 
     write_tga("limg_out.tga", out["decoded"])
     print("Wrote decoded file.")
-    write_tga("limg_fac_a.tga", out["factors_a"])
-    write_tga("limg_fac_b.tga", out["factors_b"])
-    write_tga("limg_fac_c.tga", out["factors_c"])
+    merged = "factors" in out
+    for k, axis in enumerate("abc"):
+        write_tga(f"limg_fac_{axis}.tga",
+                  out["factors"][..., k] if merged else out[f"factors_{axis}"])
     write_tga("limg_bpp.tga", out["bpp"].astype(np.uint8))
-    for name, plane in out["endpoint_planes"].items():
+    planes = (_endpoint_planes(out["endpoint_rows"], channels, h, w) if merged
+              else out["endpoint_planes"])
+    for name, plane in planes.items():
         write_tga(f"limg_{name}.tga", plane)
     # shift plane as bit patterns (reference: src/limg.cpp:1596-1598)
     patt = np.array([0, 0x22, 0x44, 0x66, 0x88, 0xAA, 0xCC, 0xEE, 0xFF], np.uint8)
-    sh = out["shift"]
+    sh = out["shift"].transpose(1, 2, 0) if merged else out["shift"]
     bits_rgba = np.zeros((h, w, 4), np.uint8)
     for k in range(3):
         bits_rgba[..., k] = patt[np.minimum(sh[..., k], 8)]
     bits_rgba[..., 3] = 0xFF
     write_tga("limg_bits.tga", bits_rgba)
+    if merged:
+        write_tga("limg_block_idx.tga", _region_plane(out["region_id"]))
 
 
 def main(argv=None):
     from .config import EncodeConfig
     from .encoder import encode_image, resolve_device
     from .ops.error import max_possible_error
+    from .regions import encode_image_merged
 
     opts = _parse_args(argv if argv is not None else sys.argv[1:])
     crush_mode = "exhaustive" if opts["accurate"] else "ladder"
@@ -159,8 +208,6 @@ def main(argv=None):
     if opts["list_mode"]:
         _run_list_mode(opts, crush_mode, device)
         return
-    if not opts["fixed_grid"]:
-        _not_ported("merged")
 
     image, has_alpha = load_any(opts["source"])
     h, w = image.shape[:2]
@@ -171,7 +218,10 @@ def main(argv=None):
         num_factors=opts["num_factors"],
     )
     before = time.perf_counter()
-    out = encode_image(image, cfg, device=device)
+    if opts["fixed_grid"]:
+        out = encode_image(image, cfg, device=device)
+    else:
+        out = encode_image_merged(image, cfg, cap_frac=opts["cap_frac"], device=device)
     elapsed = time.perf_counter() - before
 
     print(f"limg_tpu_torch encode completed on {device}.")
@@ -183,7 +233,7 @@ def main(argv=None):
     print("\nImage Perceptual RGB(A) PSNR: %4.2f dB (mean: %5.3f => %7.5f%% | sqrt: %5.3f%%)\n"
           % (out["psnr"], mean, mean / mx * 100.0, np.sqrt(mean) / np.sqrt(mx) * 100.0))
     if opts["write_output"]:
-        _write_planes(out, h, w)
+        _write_planes(out, h, w, cfg.channels)
 
 
 def _run_list_mode(opts, crush_mode, device):

@@ -29,22 +29,14 @@
 //
 // Bit-exactness with the plain PyTorch versions (kernels/encode_merged.py)
 // rests on the orders listed in limg_common.cuh, on the Morton warp order
-// of the cross-block trees, and on the match's fixed order: left folds,
-// and the 27-probe mean as a left fold over probes 0..26 (lane p computes
-// probe p; the fold walks the lanes by shuffle), then / 27.0f.
+// of the cross-block trees, and on the match predicate's fixed order
+// (limg_common.cuh match_rows, shared with coalesce.cu).
 
 #include "limg_common.cuh"
 
 namespace {
 
 using namespace limg;
-
-constexpr float kMaxRatio = 1.375f;
-constexpr float kMinRatio = (float)(1.0 / 1.375);
-constexpr float kMaxFactorSum = 3.0f;
-
-// perceptual channel weights of the match (ops/match.py _COLOR_DIFF_FACTORS)
-__device__ __forceinline__ float color_w(int c) { return c == 0 ? 2.0f : (c == 1 ? 4.0f : 3.0f); }
 
 __device__ __forceinline__ int header_bits(int ch) { return ch * 9 * 2 + ch * 8 + 2 * 16; }
 
@@ -70,120 +62,6 @@ __device__ __forceinline__ void load_block(const int32_t* __restrict__ words, in
     const bool valid = r < h && c < w;
     p.set(j, valid ? (uint32_t)words[(size_t)r * w + c] : 0u, valid);
   }
-}
-
-template <int CH>
-struct Normals {
-  float n[3][CH];
-  float lsq[3];  // 3 + weighted squared length
-
-  __device__ void set(const int (&ep)[6][CH]) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float s = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        n[k][c] = (float)(ep[2 * k + 1][c] - ep[2 * k][c]);
-        const float t = n[k][c] * n[k][c] * color_w(c);
-        s = c == 0 ? t : s + t;
-      }
-      lsq[k] = 3.0f + s;
-    }
-  }
-};
-
-template <int CH>
-__device__ __forceinline__ float fold_sq(const float (&v)[CH]) {
-  float s = v[0] * v[0];
-#pragma unroll
-  for (int c = 1; c < CH; ++c) s = s + v[c] * v[c];
-  return s;
-}
-
-// Probe colours projected onto a frame's three axes (ops/match.py
-// _probe_factors).
-template <int CH>
-__device__ __forceinline__ void probe_factors(const float (&col)[CH], const int (&ep)[6][CH],
-                                              const Normals<CH>& nr, float& fa, float& fb,
-                                              float& fc) {
-  const float ila = inv_or_zero(fold_sq<CH>(nr.n[0]));
-  const float ilb = inv_or_zero(fold_sq<CH>(nr.n[1]));
-  const float ilc = inv_or_zero(fold_sq<CH>(nr.n[2]));
-  float est[CH];
-  float dot = (col[0] - (float)ep[0][0]) * nr.n[0][0];
-#pragma unroll
-  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - (float)ep[0][c]) * nr.n[0][c];
-  fa = dot * ila;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) est[c] = (float)ep[0][c] + fa * nr.n[0][c];
-  dot = (col[0] - est[0] - (float)ep[2][0]) * nr.n[1][0];
-#pragma unroll
-  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - est[c] - (float)ep[2][c]) * nr.n[1][c];
-  fb = dot * ilb;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) est[c] = est[c] + fb * nr.n[1][c];
-  dot = (col[0] - est[0] - (float)ep[4][0]) * nr.n[2][0];
-#pragma unroll
-  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - est[c] - (float)ep[4][c]) * nr.n[2][c];
-  fc = dot * ilc;
-}
-
-// Merge test of region a (candidate) against region b (reference):
-// ops/match.py match_decomps. Returns the MATCH_REASON_BITS mask; sets match.
-template <int CH>
-__device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
-                          const float (&avg_b)[CH], const int (&ep_b)[6][CH], int lane,
-                          bool& match) {
-  Normals<CH> na, nb;
-  na.set(ep_a);
-  nb.set(ep_b);
-  float avg_diff = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const float d = avg_a[c] - avg_b[c];
-    const float t = d * d * color_w(c);
-    avg_diff = c == 0 ? t : avg_diff + t;
-  }
-  const float sum_a = na.lsq[0] + na.lsq[1] + na.lsq[2];
-  const float sum_b = nb.lsq[0] + nb.lsq[1] + nb.lsq[2];
-  const float max_avg = 16.0f * 3.0f * CH;
-  const float max_range = 200.0f * 3.0f * CH;
-  const bool range_ok = sum_a < max_range && sum_b < max_range;
-  const bool fast = avg_diff < max_avg && range_ok;
-  const float ratio = (sum_a + 1.0f) / (sum_b + 1.0f);
-  const bool ratio_ok = ratio <= kMaxRatio && ratio >= kMinRatio;
-
-  // lane p < 27 evaluates probe p = a + 3b + 9c (half steps along A, B, C)
-  float dev = 0.0f;
-  if (lane < 27) {
-    const float pw[3] = {(float)(lane % 3) * 0.5f, (float)((lane / 3) % 3) * 0.5f,
-                         (float)((lane / 9) % 3) * 0.5f};
-    float col_b[CH], col_a[CH];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      col_b[c] = pw[0] * nb.n[0][c] + pw[1] * nb.n[1][c] + pw[2] * nb.n[2][c];
-      col_a[c] = pw[0] * na.n[0][c] + pw[1] * na.n[1][c] + pw[2] * na.n[2][c];
-    }
-    float fa, fb, fc, ga, gb, gc;
-    probe_factors<CH>(col_b, ep_a, na, fa, fb, fc);
-    probe_factors<CH>(col_a, ep_b, nb, ga, gb, gc);
-    dev = fabsf(fa) * (1.0f / na.lsq[0]);
-    dev = dev + fabsf(0.5f - fb) * 2.0f * (1.0f / na.lsq[1]);
-    dev = dev + fabsf(0.5f - fc) * 2.0f * (1.0f / na.lsq[2]);
-    dev = dev + fabsf(ga) * (1.0f / nb.lsq[0]);
-    dev = dev + fabsf(0.5f - gb) * 2.0f * (1.0f / nb.lsq[1]);
-    dev = dev + fabsf(0.5f - gc) * 2.0f * (1.0f / nb.lsq[2]);
-  }
-  float mean = __shfl_sync(kFull, dev, 0);
-#pragma unroll
-  for (int p = 1; p < 27; ++p) mean = mean + __shfl_sync(kFull, dev, p);
-  mean = mean / 27.0f;
-  const bool probe_ok = mean < kMaxFactorSum;
-
-  match = fast || (ratio_ok && probe_ok);
-  if (fast) return 1;
-  return (avg_diff >= max_avg ? 2 : 0) | (!range_ok ? 4 : 0) | (!ratio_ok ? 8 : 0) |
-         (ratio_ok && !probe_ok ? 16 : 0);
 }
 
 // Per-warp state of the level loop.

@@ -1,9 +1,12 @@
-// Device code shared by the encode kernels (encode_fixed.cu, encode_merged.cu).
+// Device code shared by the encode kernels (encode_fixed.cu, encode_merged.cu,
+// coalesce.cu).
 //
 // One warp holds one 8x8 block: lane l holds pixels l and l + 32. What a
 // kernel reduces over is a *region*: one block (the fixed grid), or an
 // aligned square of 4^l blocks whose warps sit in one CTA in Morton order
-// (the quadtree levels). The region reduction is a policy class:
+// (the quadtree levels), or a contiguous segment of the run-coalescing
+// buffer (coalesce.cu, which calls the per-block pieces below between its
+// own segment scans). The region reduction is a policy class:
 //
 // - BlockReducer: the region is the block; the warp's own sums are final;
 // - GroupReducer<Ex, GROUP>: aligned groups of GROUP warps of a square;
@@ -337,6 +340,23 @@ struct Pixels {
   }
 };
 
+// Shift-triple admissibility of a region (ops/crush.py _admissible): the
+// region's pixel max and block-error sum against the thresholds; err_scale is
+// the total pre-scale of the error sum, and floors (num_factors < 3) bound
+// the increment above the zero-shift errors, in float32.
+__device__ __forceinline__ bool admissible(int pm, int be, int count, int max_pix, int max_blk,
+                                           int err_scale, bool floors, int floor_pix,
+                                           int floor_blk) {
+  const float scale = (float)(0x10 << err_scale);
+  if (!floors) {
+    if (err_scale == 0) return pm <= max_pix && mul_wrap(be, 0x10) < mul_wrap(max_blk, count);
+    return pm <= max_pix && (float)be * scale < (float)count * (float)max_blk;
+  }
+  float lhs = (float)be * scale;
+  float rhs = (float)count * (float)max_blk + (float)floor_blk * scale;
+  return pm <= max_pix + floor_pix && lhs < rhs;
+}
+
 template <int CH>
 struct Block {
   int px[CH][2];
@@ -347,6 +367,8 @@ struct Block {
   int count;         // region pixel count
   int max_pix, max_blk;
   int es;            // block-error pre-scale (ops/crush.py err_scale_shift)
+  int seg_shift = 0; // segments: each block's error sum is >> this before the
+                     // region sum, and admissibility scales by it too
   bool floors;
   int floor_pix, floor_blk;
 
@@ -404,25 +426,20 @@ struct Block {
   }
 
   __device__ __forceinline__ bool admissible(int pm, int be) const {
-    const float scale = (float)(0x10 << es);
-    if (!floors) {
-      if (es == 0) return pm <= max_pix && mul_wrap(be, 0x10) < mul_wrap(max_blk, count);
-      return pm <= max_pix && (float)be * scale < (float)count * (float)max_blk;
-    }
-    float lhs = (float)be * scale;
-    float rhs = (float)count * (float)max_blk + (float)floor_blk * scale;
-    return pm <= max_pix + floor_pix && lhs < rhs;
+    return limg::admissible(pm, be, count, max_pix, max_blk, es + seg_shift, floors, floor_pix,
+                            floor_blk);
   }
+  __device__ __forceinline__ bool operator()(int pm, int be) const { return admissible(pm, be); }
 };
 
 // ---------------------------------------------------------------------------
 // Fit + factor extraction (ops/fit.py fit_regions, ops/factors.py)
 // ---------------------------------------------------------------------------
 
-// Sign-corrected unit-vector mean (ops/fit.py _signed_unit_mean).
-template <int CH, class Red>
-__device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const float mf[2],
-                                                 float inv_count, const Red& red,
+// This block's sums of sign-corrected unit vectors: the per-block part of
+// ops/fit.py _signed_unit_mean.
+template <int CH>
+__device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const float mf[2],
                                                  float (&dir)[CH]) {
   float inv_len[2];
 #pragma unroll
@@ -445,6 +462,14 @@ __device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const 
   }
 #pragma unroll
   for (int c = 0; c < CH; ++c) dir[c] = tree_sum(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
+}
+
+// Sign-corrected unit-vector mean of the region (ops/fit.py _signed_unit_mean).
+template <int CH, class Red>
+__device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const float mf[2],
+                                                 float inv_count, const Red& red,
+                                                 float (&dir)[CH]) {
+  unit_vector_sums<CH>(v, mf, dir);
   red.sum(dir);
 #pragma unroll
   for (int c = 0; c < CH; ++c) dir[c] = dir[c] * inv_count;
@@ -468,86 +493,110 @@ __device__ __forceinline__ float dot_self(const float (&d)[CH]) {
   return s;
 }
 
-// Masked 3-axis fit of the reducer's region, then the u8 factors of this
-// warp's pixels against the region's rounded endpoints. Outputs the region
-// pixel count, avg, the six endpoint rows (dirA_min, dirA_max, dirB_offset,
-// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j].
-template <int CH, class Red>
-__device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
-                                float (&avg)[CH], int (&ep)[6][CH], int (&f8)[3][2]) {
-  count = red.sum_int(__reduce_add_sync(kFull, p.mask[0] + p.mask[1]));
-  const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
+// One warp's pixels through the steps of the masked 3-axis fit
+// (ops/fit.py fit_regions), given the region values each step needs. The
+// fit of a region alternates these steps with region reductions; a kernel
+// that cannot keep them in registers between reductions (coalesce.cu)
+// repeats the earlier steps, which gives the same values.
+template <int CH>
+struct FitSteps {
+  float corrected[CH][2];  // (px - avg) * mask
+  float fac_a[2];
+  float est[CH][2];        // avg + fac_a * dir_a
+  float resid_a[CH][2];
+  float fac_b[2];
+  float resid_ab[CH][2];
 
-  float corrected[CH][2];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) avg[c] = tree_sum(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
-  red.sum(avg);
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    avg[c] = avg[c] * inv_count;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) corrected[c][j] = (p.pxf[c][j] - avg[c]) * p.mf[j];
-  }
-  float dir_a[CH];
-  signed_unit_mean<CH>(corrected, p.mf, inv_count, red, dir_a);
-  const float inv_a = inv_or_zero(dot_self<CH>(dir_a));
-
-  float fac_a[2], est[CH][2], resid_a[CH][2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    fac_a[j] = project<CH>(corrected, j, dir_a, inv_a) * p.mf[j];
+  __device__ __forceinline__ void center(const Pixels<CH>& p, const float (&avg)[CH]) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      est[c][j] = avg[c] + fac_a[j] * dir_a[c];
-      resid_a[c][j] = (p.pxf[c][j] - est[c][j]) * p.mf[j];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) corrected[c][j] = (p.pxf[c][j] - avg[c]) * p.mf[j];
     }
   }
-  float dir_b[CH];
-  signed_unit_mean<CH>(resid_a, p.mf, inv_count, red, dir_b);
-  const float inv_b = inv_or_zero(dot_self<CH>(dir_b));
-
-  float fac_b[2], resid_ab[CH][2];
+  __device__ __forceinline__ void axis_a(const Pixels<CH>& p, const float (&avg)[CH],
+                                         const float (&dir_a)[CH]) {
+    const float inv_a = inv_or_zero(dot_self<CH>(dir_a));
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    fac_b[j] = project<CH>(resid_a, j, dir_b, inv_b) * p.mf[j];
+    for (int j = 0; j < 2; ++j) {
+      fac_a[j] = project<CH>(corrected, j, dir_a, inv_a) * p.mf[j];
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      float est_b = est[c][j] + fac_b[j] * dir_b[c];
-      resid_ab[c][j] = (p.pxf[c][j] - est_b) * p.mf[j];
+      for (int c = 0; c < CH; ++c) {
+        est[c][j] = avg[c] + fac_a[j] * dir_a[c];
+        resid_a[c][j] = (p.pxf[c][j] - est[c][j]) * p.mf[j];
+      }
     }
   }
-  float dir_c[CH];
-  if (CH == 3) {
+  __device__ __forceinline__ void axis_b(const Pixels<CH>& p, const float (&dir_b)[CH]) {
+    const float inv_b = inv_or_zero(dot_self<CH>(dir_b));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      fac_b[j] = project<CH>(resid_a, j, dir_b, inv_b) * p.mf[j];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float est_b = est[c][j] + fac_b[j] * dir_b[c];
+        resid_ab[c][j] = (p.pxf[c][j] - est_b) * p.mf[j];
+      }
+    }
+  }
+  // dirC: the cross product for RGB (src/limg_factorization.h:946); RGBA
+  // takes it from a third residual sweep instead.
+  static __device__ __forceinline__ void cross(const float (&dir_a)[CH], const float (&dir_b)[CH],
+                                               float (&dir_c)[CH]) {
     dir_c[0] = dir_a[1] * dir_b[2] - dir_a[2] * dir_b[1];
     dir_c[1] = dir_a[2] * dir_b[0] - dir_a[0] * dir_b[2];
     dir_c[2] = dir_a[0] * dir_b[1] - dir_a[1] * dir_b[0];
-  } else {
-    signed_unit_mean<CH>(resid_ab, p.mf, inv_count, red, dir_c);
   }
-  const float inv_c = inv_or_zero(dot_self<CH>(dir_c));
-
-  float mn[3] = {kBig, kBig, kBig}, mx[3] = {-kBig, -kBig, -kBig};
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    float f[3];
-    f[0] = fac_a[j];
-    f[1] = fac_b[j];
-    f[2] = project<CH>(resid_ab, j, dir_c, inv_c) * p.mf[j];
+  // This block's min and max of the three factors over its valid pixels.
+  __device__ __forceinline__ void extremes(const Pixels<CH>& p, const float (&dir_c)[CH],
+                                           float (&mn)[3], float (&mx)[3]) const {
+    const float inv_c = inv_or_zero(dot_self<CH>(dir_c));
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      mn[k] = fminf(mn[k], p.mask[j] ? f[k] : kBig);
-      mx[k] = fmaxf(mx[k], p.mask[j] ? f[k] : -kBig);
+      mn[k] = kBig;
+      mx[k] = -kBig;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float f[3];
+      f[0] = fac_a[j];
+      f[1] = fac_b[j];
+      f[2] = project<CH>(resid_ab, j, dir_c, inv_c) * p.mf[j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        mn[k] = fminf(mn[k], p.mask[j] ? f[k] : kBig);
+        mx[k] = fmaxf(mx[k], p.mask[j] ? f[k] : -kBig);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      mn[k] = warp_min(mn[k]);
+      mx[k] = warp_max(mx[k]);
     }
   }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    mn[k] = warp_min(mn[k]);
-    mx[k] = warp_max(mx[k]);
-  }
-  red.min(mn);
-  red.max(mx);
-  const bool flat = dot_self<CH>(dir_a) <= 0.0f;
+};
 
+// This block's pixel sums of each channel (the per-block part of the avg).
+template <int CH>
+__device__ __forceinline__ void channel_sums(const Pixels<CH>& p, float (&sums)[CH]) {
+#pragma unroll
+  for (int c = 0; c < CH; ++c) sums[c] = tree_sum(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
+}
+
+// The six rounded endpoint rows of a fitted region. Empty regions (count 0;
+// padding lanes and segments) take 0 for the factor extremes, as the JAX
+// package's segment fit does (limg_tpu/ops/segments.py:345-349); such a
+// region is flat, so its endpoints are 0 either way.
+template <int CH>
+__device__ __forceinline__ void round_endpoints(int count, const float (&avg)[CH],
+                                                const float (&dir_a)[CH], const float (&dir_b)[CH],
+                                                const float (&dir_c)[CH], float (&mn)[3],
+                                                float (&mx)[3], int (&ep)[6][CH]) {
+  if (count <= 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mn[k] = mx[k] = 0.0f;
+  }
+  const bool flat = dot_self<CH>(dir_a) <= 0.0f;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     ep[0][c] = round_half_up(avg[c] + mn[0] * dir_a[c]);
@@ -557,8 +606,13 @@ __device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
     ep[4][c] = round_half_up(flat ? 0.0f : mn[2] * dir_c[c]);
     ep[5][c] = round_half_up(flat ? 0.0f : mx[2] * dir_c[c]);
   }
+}
 
-  // factor extraction on the rounded endpoints
+// u8 factors f8[axis][j] of this warp's pixels against the rounded
+// endpoints (ops/factors.py extract_factors + quantize_factors).
+template <int CH>
+__device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (&ep)[6][CH],
+                                                int (&f8)[3][2]) {
   float na[CH], nbv[CH], nc[CH], min_a[CH], off_b[CH], off_c[CH];
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
@@ -598,6 +652,39 @@ __device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
   }
 }
 
+// Masked 3-axis fit of the reducer's region, then the u8 factors of this
+// warp's pixels against the region's rounded endpoints. Outputs the region
+// pixel count, avg, the six endpoint rows (dirA_min, dirA_max, dirB_offset,
+// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j].
+template <int CH, class Red>
+__device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
+                                float (&avg)[CH], int (&ep)[6][CH], int (&f8)[3][2]) {
+  count = red.sum_int(__reduce_add_sync(kFull, p.mask[0] + p.mask[1]));
+  const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
+  channel_sums<CH>(p, avg);
+  red.sum(avg);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) avg[c] = avg[c] * inv_count;
+  FitSteps<CH> st;
+  st.center(p, avg);
+  float dir_a[CH], dir_b[CH], dir_c[CH];
+  signed_unit_mean<CH>(st.corrected, p.mf, inv_count, red, dir_a);
+  st.axis_a(p, avg, dir_a);
+  signed_unit_mean<CH>(st.resid_a, p.mf, inv_count, red, dir_b);
+  st.axis_b(p, dir_b);
+  if (CH == 3) {
+    FitSteps<CH>::cross(dir_a, dir_b, dir_c);
+  } else {
+    signed_unit_mean<CH>(st.resid_ab, p.mf, inv_count, red, dir_c);
+  }
+  float mn[3], mx[3];
+  st.extremes(p, dir_c, mn, mx);
+  red.min(mn);
+  red.max(mx);
+  round_endpoints<CH>(count, avg, dir_a, dir_b, dir_c, mn, mx, ep);
+  extract_factors<CH>(p, ep, f8);
+}
+
 // Reduced-factor modes: dropped axes' endpoints are zeroed before the search
 // (ops/fit.py drop_decomposition_axes).
 template <int CH>
@@ -613,20 +700,96 @@ __device__ __forceinline__ void drop_axes(int (&ep)[6][CH], int num_factors) {
 // Crush search (ops/crush.py) on region values
 // ---------------------------------------------------------------------------
 
-// Folds one evaluated candidate into the running best (ops/crush.py _select).
-template <int CH>
-__device__ __forceinline__ void take_if_better(const Block<CH>& blk, const int s[3], int pm,
-                                               int be, bool ties_to_later, int (&best)[3],
-                                               int& b_tot, int& b_err) {
+// Folds one evaluated candidate into the running best (ops/crush.py _select);
+// adm(pm, be) is the region's admissibility test.
+template <class Adm>
+__device__ __forceinline__ void take_if_better(const Adm& adm, const int s[3], int pm, int be,
+                                               bool ties_to_later, int (&best)[3], int& b_tot,
+                                               int& b_err) {
   const int tot = s[0] + s[1] + s[2];
   const bool better = ties_to_later ? be <= b_err : be < b_err;
-  if (blk.admissible(pm, be) && (tot > b_tot || (tot == b_tot && better))) {
+  if (adm(pm, be) && (tot > b_tot || (tot == b_tot && better))) {
     best[0] = s[0];
     best[1] = s[1];
     best[2] = s[2];
     b_tot = tot;
     b_err = be;
   }
+}
+
+// The reference's canned triples of the guess mode (ops/crush.py guess_core)
+// and its nested acceptance: the index of the pick, or -1 for (0, 0, 0).
+__device__ __forceinline__ void guess_triple(int t, int (&s)[3]) {
+  const int g[4][3] = {{4, 5, 6}, {5, 8, 8}, {4, 6, 8}, {2, 4, 5}};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s[k] = g[t][k];
+}
+
+__device__ __forceinline__ int guess_pick(const bool (&ok)[4]) {
+  return ok[0] ? (ok[1] ? 1 : (ok[2] ? 2 : 0)) : (ok[3] ? 3 : -1);
+}
+
+// Ladder stage 2 of one region (ops/crush.py ladder_core): per axis the
+// largest shift admissible with the other axes unquantized (base) and the
+// error / pixel-max deltas of the box of 4 shifts below it.
+struct LadderBox {
+  int base[3];
+  int d_blk[3][4];
+  int d_pix[3][4];
+  int err0, pix0;  // the region errors at shifts (0, 0, 0)
+};
+
+// Axis a of the box, from the region values of that axis's 9 sweeps.
+template <class Adm>
+__device__ __forceinline__ void ladder_axis(LadderBox& box, int a, const int (&pm_ax)[9],
+                                            const int (&be_ax)[9], const Adm& adm) {
+  box.base[a] = 0;
+#pragma unroll
+  for (int s = 0; s < 9; ++s)
+    if (adm(pm_ax[s], be_ax[s])) box.base[a] = s;
+#pragma unroll
+  for (int o = 0; o < 4; ++o) {
+    const int s = max(box.base[a] - o, 0);
+    box.d_blk[a][o] = sel9(be_ax, s) - be_ax[0];
+    box.d_pix[a][o] = sel9(pm_ax, s) - pm_ax[0];
+  }
+  if (a == 0) {
+    box.err0 = be_ax[0];
+    box.pix0 = pm_ax[0];
+  }
+}
+
+// The 64 lattice keys (approx-admissible, total shift, -approx error) of
+// the box, index oa * 16 + ob * 4 + oc; this lane holds lane and lane + 32.
+template <class Adm>
+__device__ __forceinline__ void ladder_keys(const LadderBox& box, const Adm& adm, int lane,
+                                            int (&key)[2]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int idx = lane + 32 * j;
+    const int oa = idx / 16, ob = (idx / 4) % 4, oc = idx % 4;
+    const int ablk = box.err0 + (sel4(box.d_blk[0], oa) + sel4(box.d_blk[1], ob) +
+                                 sel4(box.d_blk[2], oc));
+    const int apix = box.pix0 + (sel4(box.d_pix[0], oa) + sel4(box.d_pix[1], ob) +
+                                 sel4(box.d_pix[2], oc));
+    const int tot = max(box.base[0] - oa, 0) + max(box.base[1] - ob, 0) + max(box.base[2] - oc, 0);
+    const int ok = adm(apix, ablk) ? 1 : 0;
+    const int err_pack = (33554431) - min(ablk >> 6, 33554431);
+    key[j] = (int)(((uint32_t)ok << 30) + ((uint32_t)tot << 25) + (uint32_t)err_pack);
+  }
+}
+
+// Peels the best remaining key (argmax, min index on ties); s = its triple.
+__device__ __forceinline__ void ladder_peel(int (&key)[2], const LadderBox& box, int lane,
+                                            int (&s)[3]) {
+  const int m = __reduce_max_sync(kFull, max(key[0], key[1]));
+  const int mine = key[0] == m ? lane : (key[1] == m ? lane + 32 : kP);
+  const int idx = (int)__reduce_min_sync(kFull, (unsigned)mine);
+  if (idx == lane) key[0] = kSentinel;
+  if (idx == lane + 32) key[1] = kSentinel;
+  s[0] = max(box.base[0] - idx / 16, 0);
+  s[1] = max(box.base[1] - (idx / 4) % 4, 0);
+  s[2] = max(box.base[2] - idx % 4, 0);
 }
 
 // The shift triple of this warp's region; statically dropped axes get 8.
@@ -664,19 +827,19 @@ __device__ void crush_search(Block<CH>& blk, const Red& red, int crush_mode, int
       }
     }
   } else if (crush_mode == kGuess) {
-    const int g[4][3] = {{4, 5, 6}, {5, 8, 8}, {4, 6, 8}, {2, 4, 5}};
     int pm[4], be[4];
 #pragma unroll
-    for (int t = 0; t < 4; ++t) blk.eval(g[t], pm[t], be[t]);
+    for (int t = 0; t < 4; ++t) {
+      int g[3];
+      guess_triple(t, g);
+      blk.eval(g, pm[t], be[t]);
+    }
     red.crush(pm, be);
     bool ok[4];
 #pragma unroll
     for (int t = 0; t < 4; ++t) ok[t] = blk.admissible(pm[t], be[t]);
-    const int pick = ok[0] ? (ok[1] ? 1 : (ok[2] ? 2 : 0)) : (ok[3] ? 3 : -1);
-    if (pick >= 0) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) best[k] = g[pick][k];
-    }
+    const int pick = guess_pick(ok);
+    if (pick >= 0) guess_triple(pick, best);
   } else if (crush_mode == kLadder) {
     // 27 per-axis sweeps: axis a at shift s, the other axes unquantized
     int pm27[27], be27[27];
@@ -690,8 +853,7 @@ __device__ void crush_search(Block<CH>& blk, const Red& red, int crush_mode, int
       }
     }
     red.crush(pm27, be27);
-    // per-axis base = largest axis-alone-admissible shift; 4^3 box below it
-    int base[3], s_cand[3][4], d_blk[3][4], d_pix[3][4];
+    LadderBox box;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       int pm_ax[9], be_ax[9];
@@ -700,42 +862,15 @@ __device__ void crush_search(Block<CH>& blk, const Red& red, int crush_mode, int
         pm_ax[s] = pm27[9 * a + s];
         be_ax[s] = be27[9 * a + s];
       }
-      base[a] = 0;
-#pragma unroll
-      for (int s = 0; s < 9; ++s)
-        if (blk.admissible(pm_ax[s], be_ax[s])) base[a] = s;
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        const int s = max(base[a] - o, 0);
-        s_cand[a][o] = s;
-        d_blk[a][o] = sel9(be_ax, s) - be_ax[0];
-        d_pix[a][o] = sel9(pm_ax, s) - pm_ax[0];
-      }
+      ladder_axis(box, a, pm_ax, be_ax, blk);
     }
-    const int err0 = be27[0], pix0 = pm27[0];
-    // lattice keys, index oa * 16 + ob * 4 + oc; this lane holds lane, lane + 32
     int key[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int idx = lane + 32 * j;
-      const int oa = idx / 16, ob = (idx / 4) % 4, oc = idx % 4;
-      const int ablk = err0 + (sel4(d_blk[0], oa) + sel4(d_blk[1], ob) + sel4(d_blk[2], oc));
-      const int apix = pix0 + (sel4(d_pix[0], oa) + sel4(d_pix[1], ob) + sel4(d_pix[2], oc));
-      const int tot = sel4(s_cand[0], oa) + sel4(s_cand[1], ob) + sel4(s_cand[2], oc);
-      const int adm = blk.admissible(apix, ablk) ? 1 : 0;
-      const int err_pack = (33554431) - min(ablk >> 6, 33554431);
-      key[j] = (int)(((uint32_t)adm << 30) + ((uint32_t)tot << 25) + (uint32_t)err_pack);
-    }
-    // peel the K best by argmax (min index on ties); verify best-ranked first
+    ladder_keys(box, blk, lane, key);
+    // verify the K best-ranked candidates, best first
     int b_tot = -1, b_err = 2147483647;
     for (int r = 0; r < ladder_k; ++r) {
-      const int m = __reduce_max_sync(kFull, max(key[0], key[1]));
-      const int mine = key[0] == m ? lane : (key[1] == m ? lane + 32 : kP);
-      const int idx = (int)__reduce_min_sync(kFull, (unsigned)mine);
-      if (idx == lane) key[0] = kSentinel;
-      if (idx == lane + 32) key[1] = kSentinel;
-      const int s[3] = {max(base[0] - idx / 16, 0), max(base[1] - (idx / 4) % 4, 0),
-                        max(base[2] - idx % 4, 0)};
+      int s[3];
+      ladder_peel(key, box, lane, s);
       int pm[1], be[1];
       blk.eval(s, pm[0], be[0]);
       red.crush(pm, be);
@@ -801,6 +936,150 @@ __device__ __forceinline__ int32_t pack_decoded(const int (&dec)[CH][2], int j) 
   uint32_t w = (uint32_t)dec[0][j] | ((uint32_t)dec[1][j] << 8) | ((uint32_t)dec[2][j] << 16);
   w |= (CH == 4) ? ((uint32_t)dec[CH - 1][j] << 24) : 0xFF000000u;
   return (int32_t)w;
+}
+
+// ---------------------------------------------------------------------------
+// The merge predicate (ops/match.py match_decomps): fit_levels in
+// encode_merged.cu and the run-building match kernels in coalesce.cu share
+// it. Fixed order: left folds over channels and terms, and the 27-probe
+// mean as a left fold over probes 0..26 (lane p computes probe p; the fold
+// walks the lanes by shuffle), then / 27.0f.
+// ---------------------------------------------------------------------------
+
+constexpr float kMaxRatio = 1.375f;
+constexpr float kMinRatio = (float)(1.0 / 1.375);
+constexpr float kMaxFactorSum = 3.0f;
+
+// perceptual channel weights of the match (ops/match.py _COLOR_DIFF_FACTORS)
+__device__ __forceinline__ float color_w(int c) { return c == 0 ? 2.0f : (c == 1 ? 4.0f : 3.0f); }
+
+template <int CH>
+struct Normals {
+  float n[3][CH];
+  float lsq[3];  // 3 + weighted squared length
+
+  __device__ void set(const int (&ep)[6][CH]) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        n[k][c] = (float)(ep[2 * k + 1][c] - ep[2 * k][c]);
+        const float t = n[k][c] * n[k][c] * color_w(c);
+        s = c == 0 ? t : s + t;
+      }
+      lsq[k] = 3.0f + s;
+    }
+  }
+};
+
+template <int CH>
+__device__ __forceinline__ float fold_sq(const float (&v)[CH]) {
+  float s = v[0] * v[0];
+#pragma unroll
+  for (int c = 1; c < CH; ++c) s = s + v[c] * v[c];
+  return s;
+}
+
+// Probe colours projected onto a frame's three axes (ops/match.py
+// _probe_factors).
+template <int CH>
+__device__ __forceinline__ void probe_factors(const float (&col)[CH], const int (&ep)[6][CH],
+                                              const Normals<CH>& nr, float& fa, float& fb,
+                                              float& fc) {
+  const float ila = inv_or_zero(fold_sq<CH>(nr.n[0]));
+  const float ilb = inv_or_zero(fold_sq<CH>(nr.n[1]));
+  const float ilc = inv_or_zero(fold_sq<CH>(nr.n[2]));
+  float est[CH];
+  float dot = (col[0] - (float)ep[0][0]) * nr.n[0][0];
+#pragma unroll
+  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - (float)ep[0][c]) * nr.n[0][c];
+  fa = dot * ila;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) est[c] = (float)ep[0][c] + fa * nr.n[0][c];
+  dot = (col[0] - est[0] - (float)ep[2][0]) * nr.n[1][0];
+#pragma unroll
+  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - est[c] - (float)ep[2][c]) * nr.n[1][c];
+  fb = dot * ilb;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) est[c] = est[c] + fb * nr.n[1][c];
+  dot = (col[0] - est[0] - (float)ep[4][0]) * nr.n[2][0];
+#pragma unroll
+  for (int c = 1; c < CH; ++c) dot = dot + (col[c] - est[c] - (float)ep[4][c]) * nr.n[2][c];
+  fc = dot * ilc;
+}
+
+// Merge test of region a (candidate) against region b (reference):
+// ops/match.py match_decomps. Returns the MATCH_REASON_BITS mask; sets match.
+template <int CH>
+__device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
+                          const float (&avg_b)[CH], const int (&ep_b)[6][CH], int lane,
+                          bool& match) {
+  Normals<CH> na, nb;
+  na.set(ep_a);
+  nb.set(ep_b);
+  float avg_diff = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const float d = avg_a[c] - avg_b[c];
+    const float t = d * d * color_w(c);
+    avg_diff = c == 0 ? t : avg_diff + t;
+  }
+  const float sum_a = na.lsq[0] + na.lsq[1] + na.lsq[2];
+  const float sum_b = nb.lsq[0] + nb.lsq[1] + nb.lsq[2];
+  const float max_avg = 16.0f * 3.0f * CH;
+  const float max_range = 200.0f * 3.0f * CH;
+  const bool range_ok = sum_a < max_range && sum_b < max_range;
+  const bool fast = avg_diff < max_avg && range_ok;
+  const float ratio = (sum_a + 1.0f) / (sum_b + 1.0f);
+  const bool ratio_ok = ratio <= kMaxRatio && ratio >= kMinRatio;
+
+  // lane p < 27 evaluates probe p = a + 3b + 9c (half steps along A, B, C)
+  float dev = 0.0f;
+  if (lane < 27) {
+    const float pw[3] = {(float)(lane % 3) * 0.5f, (float)((lane / 3) % 3) * 0.5f,
+                         (float)((lane / 9) % 3) * 0.5f};
+    float col_b[CH], col_a[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      col_b[c] = pw[0] * nb.n[0][c] + pw[1] * nb.n[1][c] + pw[2] * nb.n[2][c];
+      col_a[c] = pw[0] * na.n[0][c] + pw[1] * na.n[1][c] + pw[2] * na.n[2][c];
+    }
+    float fa, fb, fc, ga, gb, gc;
+    probe_factors<CH>(col_b, ep_a, na, fa, fb, fc);
+    probe_factors<CH>(col_a, ep_b, nb, ga, gb, gc);
+    dev = fabsf(fa) * (1.0f / na.lsq[0]);
+    dev = dev + fabsf(0.5f - fb) * 2.0f * (1.0f / na.lsq[1]);
+    dev = dev + fabsf(0.5f - fc) * 2.0f * (1.0f / na.lsq[2]);
+    dev = dev + fabsf(ga) * (1.0f / nb.lsq[0]);
+    dev = dev + fabsf(0.5f - gb) * 2.0f * (1.0f / nb.lsq[1]);
+    dev = dev + fabsf(0.5f - gc) * 2.0f * (1.0f / nb.lsq[2]);
+  }
+  float mean = __shfl_sync(kFull, dev, 0);
+#pragma unroll
+  for (int p = 1; p < 27; ++p) mean = mean + __shfl_sync(kFull, dev, p);
+  mean = mean / 27.0f;
+  const bool probe_ok = mean < kMaxFactorSum;
+
+  match = fast || (ratio_ok && probe_ok);
+  if (fast) return 1;
+  return (avg_diff >= max_avg ? 2 : 0) | (!range_ok ? 4 : 0) | (!ratio_ok ? 8 : 0) |
+         (ratio_ok && !probe_ok ? 16 : 0);
+}
+
+// One warp's view of a (7ch, stride) float32 row stack in Decomposition
+// field order at column col: avg and the six endpoint rows (integers of
+// int16 range, exact in float32).
+template <int CH>
+__device__ __forceinline__ void load_decomp(const float* rows, size_t stride, size_t col,
+                                            float (&avg)[CH], int (&ep)[6][CH]) {
+#pragma unroll
+  for (int c = 0; c < CH; ++c) avg[c] = rows[(size_t)c * stride + col];
+#pragma unroll
+  for (int e = 0; e < 6; ++e) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) ep[e][c] = (int)rows[(size_t)((1 + e) * CH + c) * stride + col];
+  }
 }
 
 }  // namespace limg

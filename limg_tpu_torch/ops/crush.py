@@ -21,7 +21,11 @@ Search modes (config.crush_mode):
 Regions: ``find_shifts`` takes a reducer (ops/reduce.py). Each candidate's
 pixel max and block error are reduced per block, then across the region's
 blocks, and admissibility is tested on the region values. Regions of 2048
-pixels or more pre-scale the block error (``err_scale_shift``).
+pixels or more pre-scale the block error (``err_scale_shift``); segments
+of the run-coalescing buffer shift each block's error sum right by
+SEG_ERR_SHIFT instead (``SegmentReducer.seg_err_shift``), and both compare
+in float32 (the JAX package's ``find_shifts_segments``,
+limg_tpu/ops/segments.py:368).
 
 Everything here is integer arithmetic with int32 wrap-around, except the
 reduced-factor floors and the pre-scaled comparison, which compare in
@@ -283,10 +287,11 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
         return (torch.zeros((3, n), dtype=torch.int32, device=px.device),
                 torch.zeros((n,), dtype=torch.int32, device=px.device))
     es = err_scale_shift(px.shape[1] * red.chunks)
+    ss = red.seg_err_shift
 
     def eval_batch(cands):
         pm, be = evaluate_batch(px, mask_i, f8, d, cands, channels, es)
-        return red.combine_max(pm), red.combine_sum(be)
+        return red.combine_max(pm), red.combine_sum(be >> ss)
 
     floors = None
     if cfg.num_factors < 3:
@@ -294,4 +299,4 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
         floors = (pm0[0], be0[0])
     core = {"exhaustive": exhaustive_core, "guess": guess_core}.get(
         cfg.crush_mode, ladder_core)
-    return core(eval_batch, count, cfg, n, floors, es)
+    return core(eval_batch, count, cfg, n, floors, es + ss)

@@ -42,6 +42,16 @@ def dither_key(seed: int, dither_seed: int) -> int:
     return fmix32((int(seed) & _M32) ^ fmix32(int(dither_seed) & _M32))
 
 
+# folded into the encode's key for the run-coalescing pass, as the JAX
+# package folds it into its PRNG key (limg_tpu/regions.py:1433)
+COALESCE_SALT = 0x0C0A1E5C
+
+
+def coalesce_key(seed: int, dither_seed: int) -> int:
+    """The 32-bit dither key of the run-coalescing re-encode."""
+    return fmix32(dither_key(seed, dither_seed) ^ COALESCE_SALT)
+
+
 def dither_bits(key: int, nb: int, device, blocks: torch.Tensor | None = None) -> torch.Tensor:
     """(3, 64, nb) int64 in [0, 2^32): the hash of each (axis, pixel, block).
 
@@ -66,10 +76,17 @@ def dither_crush(f8: torch.Tensor, shifts: torch.Tensor, seed: int,
     ``blocks``: (NB,) image block index of each column (default 0..NB-1).
     Returns (3, 64, NB) int32 crushed factors (already >> s).
     """
+    return dither_crush_key(f8, shifts, dither_key(seed, dither_seed), enabled, blocks)
+
+
+def dither_crush_key(f8: torch.Tensor, shifts: torch.Tensor, key: int,
+                     enabled: bool = True,
+                     blocks: torch.Tensor | None = None) -> torch.Tensor:
+    """``dither_crush`` with the 32-bit key given directly."""
     s_eff = torch.clamp(shifts, max=8)[:, None, :]            # (3, 1, NB)
     if not enabled:
         return f8 >> s_eff
-    bits = dither_bits(dither_key(seed, dither_seed), f8.shape[-1], f8.device, blocks)
+    bits = dither_bits(key, f8.shape[-1], f8.device, blocks)
     live = (s_eff > 0) & (s_eff < 8)
     mask = (1 << s_eff) - 1
     offset = 1 << torch.clamp(s_eff - 1, min=0)

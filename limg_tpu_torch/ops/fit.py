@@ -156,9 +156,14 @@ def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
         dir_c = _signed_unit_mean(resid_ab, m, inv_count, red)
     fac_c = _project(resid_ab, dir_c) * m
 
+    # empty regions (segments of padding lanes): the +-BIG sentinels become
+    # 0 (limg_tpu/ops/segments.py:345-349); such a region is flat, so its
+    # endpoints are 0 either way
+    empty = count <= 0
+
     def minmax(fac):
-        return (red.min(torch.where(mask, fac, _BIG)),
-                red.max(torch.where(mask, fac, -_BIG)))
+        return (torch.where(empty, 0.0, red.min(torch.where(mask, fac, _BIG))),
+                torch.where(empty, 0.0, red.max(torch.where(mask, fac, -_BIG))))
 
     mn_a, mx_a = minmax(fac_a)
     mn_b, mx_b = minmax(fac_b)

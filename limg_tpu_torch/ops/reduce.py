@@ -10,7 +10,9 @@ A reducer maps per-pixel arrays ``(..., 64, N)`` or per-block rows
   and a pairwise-adjacent tree ``x[..., 0::2] + x[..., 1::2]``, which is
   what the JAX package's lane butterfly (limg_tpu/pallas_kernels/
   encode_merged.py:282 ``_butterfly``) computes; in a kernel, a
-  shared-memory tree over the warps of the region.
+  shared-memory tree over the warps of the region;
+- across the blocks of a contiguous segment of the run-coalescing buffer
+  (``SegmentReducer``), the doubling scan of ops/segments.py.
 
 Integer sums wrap in int32 and, like min and max, do not depend on order.
 ``chunks`` is the most blocks a region can hold: the crush search's
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .fit import tree_sum
+from .segments import SEG_ERR_SHIFT, seg_mixed_all
 
 
 def pairwise_tree(row: torch.Tensor, group: int, op) -> torch.Tensor:
@@ -38,6 +41,8 @@ def pairwise_tree(row: torch.Tensor, group: int, op) -> torch.Tensor:
 
 class _Reducer:
     chunks = 1
+    # block-error sums are shifted right by this before the cross-block sum
+    seg_err_shift = 0
 
     def combine(self, row: torch.Tensor, op) -> torch.Tensor:
         raise NotImplementedError
@@ -94,3 +99,27 @@ class OwnerReducer(_Reducer):
         for lvl in range(1, self.levels):
             out = torch.where(self.owner == lvl, pairwise_tree(row, 4 ** lvl, op), out)
         return out
+
+
+class SegmentReducer(_Reducer):
+    """Regions are contiguous segments of the last axis, ``seg_c`` (N,) the
+    segment id of each block (limg_tpu/pallas_kernels/encode_segments.py:63
+    ``_SegReducer``). Per-block error sums carry no pre-scale and are
+    shifted right by SEG_ERR_SHIFT before the cross-block sum."""
+
+    seg_err_shift = SEG_ERR_SHIFT
+
+    def __init__(self, seg_c: torch.Tensor):
+        self.seg_c = seg_c
+
+    def combine(self, row, op):
+        rows = row.reshape(-1, row.shape[-1])
+        if op is torch.add:
+            out = seg_mixed_all(rows, self.seg_c, rows.shape[0])
+        elif op is torch.maximum:
+            out = seg_mixed_all(rows, self.seg_c, 0)
+        elif op is torch.minimum:
+            out = -seg_mixed_all(-rows, self.seg_c, 0)
+        else:
+            raise ValueError(f"no segment scan for {op}")
+        return out.reshape(row.shape)

@@ -66,8 +66,30 @@ def test_list_mode_runs(image_files, capsys):
     assert "Processed" in capsys.readouterr().out
 
 
+def test_merged_mode_prints_stats_and_writes_planes(image_files, capsys, monkeypatch):
+    """Without --fixed-grid the CLI runs the default merged encode: the
+    stats print and the 13 TGA planes of limg_tpu.cli's merged branch."""
+    from limg_tpu_torch import EncodeConfig, encode_image_merged
+
+    monkeypatch.chdir(image_files)
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "limg_tpu_torch encode completed on cpu" in text and "Wrote decoded file." in text
+    names = ["out", "fac_a", "fac_b", "fac_c", "bpp", "bits", "col_a_min", "col_a_max",
+             "col_b_min", "col_b_max", "col_c_min", "col_c_max", "block_idx"]
+    for n in names:
+        assert (image_files / f"limg_{n}.tga").stat().st_size > 18, n
+    assert len(list(image_files.glob("*.tga"))) == 13
+    out = encode_image_merged(np.load(npy), EncodeConfig(), device="cpu")
+    bits, psnr = _stats(text)
+    assert f"{out['mean_bpp']:7.4f}" in bits[1] and abs(psnr - out["psnr"]) < 0.005
+    assert jcli._hash_color(12345) == tcli._hash_color(12345)
+    tcli.main([npy, "--device", "cpu", "--fast-coalesce", "--no-output"])
+    assert "Compression Average" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("args,item", [
-    ([], "Queue 1 item 9"),
     (["--fixed-grid", "--rd-merge"], "Queue 1 item 12"),
     (["--write-ltp1", "out.ltp1"], "Queue 1 item 10"),
     (["--diagnose"], "Queue 1 item 11"),

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import seeded_rows, seeded_run_buffer, seg_map
 from limg_tpu_torch import EncodeConfig
 from limg_tpu_torch.kernels import encode_fixed as kmod
 from limg_tpu_torch.ops import layout
@@ -126,3 +127,66 @@ def test_merged_kernels_match_plain_versions(device, channels, mode, num_factors
                                                cfg, levels, 5))
     assert km.launches == {k: v + 1 for k, v in before.items()}
 
+
+
+# ---------------------------------------------------------------------------
+# Run building and run coalescing (kernels/coalesce.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_match_kernels_match_plain_versions(device, channels):
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(channels)
+    a = torch.from_numpy(seeded_rows(rng, 5000, channels)).to(device)
+    b = a + (torch.rand(a.shape, device=device) < 0.3) * torch.randint(0, 6, a.shape, device=device)
+    before = dict(kc.launches)
+    got = kc.match_pairs_kernel(a, b, channels)
+    torch.cuda.synchronize(device)
+    assert got.is_cuda and torch.equal(got, kc.match_pairs_reference(a, b, channels))
+    for by, bx in ((37, 150), (1, 70), (40, 1), (130, 130)):
+        plane = torch.from_numpy(seeded_rows(rng, by * bx, channels)).to(device)
+        plane = plane.reshape(7 * channels, by, bx)
+        got = kc.match_neighbors_kernel(plane, channels)
+        torch.cuda.synchronize(device)
+        for g, w in zip(got, kc.match_neighbors_reference(plane, channels)):
+            assert torch.equal(g, w), (by, bx)
+    assert kc.launches["match_pairs"] == before["match_pairs"] + 1
+    assert kc.launches["match_neighbors"] == before["match_neighbors"] + 4
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("n_sum", [0, 1, 3])
+def test_seg_scan_kernel_matches_plain_version(device, n, dtype, n_sum):
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(n + n_sum)
+    seg = torch.from_numpy(seg_map(rng, n)).to(device)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-2**20, 2**20, (3, n)).astype(np.int32)).to(device)
+    else:
+        x = torch.from_numpy((rng.standard_normal((3, n)) * 100).astype(np.float32)).to(device)
+    got = kc.seg_mixed_all_kernel(x, seg, n_sum)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, kc.seg_mixed_all_reference(x, seg, n_sum))
+
+
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num_factors,
+                                                     dithering):
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(channels * 10 + num_factors)
+    buf = seeded_run_buffer(rng, 700, channels, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = kc.launches["segment_encode"]
+    got = kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD)
+    torch.cuda.synchronize(device)
+    assert kc.launches["segment_encode"] == before + 1
+    _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x1234ABCD))

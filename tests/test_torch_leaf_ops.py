@@ -178,7 +178,8 @@ def test_import_pulls_in_no_jax():
             "limg_tpu_torch.kernels.encode_fixed, limg_tpu_torch.kernels.build, "
             "limg_tpu_torch.utils.timing, limg_tpu_torch.regions, "
             "limg_tpu_torch.kernels.encode_merged, limg_tpu_torch.ops.match, "
-            "limg_tpu_torch.ops.morton, limg_tpu_torch.ops.reduce; "
+            "limg_tpu_torch.ops.morton, limg_tpu_torch.ops.reduce, "
+            "limg_tpu_torch.kernels.coalesce, limg_tpu_torch.ops.segments; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'limg_tpu.')) "
             "or m in ('limg_tpu', 'PIL', 'triton')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)

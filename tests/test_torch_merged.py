@@ -283,11 +283,11 @@ def test_4k_fixture_is_complete(fixture):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(), "Queue 1 item 9"),                       # coalesce=True, the default
     (dict(coalesce=False, merge_policy="rd"), "Queue 1 item 12"),
     (dict(coalesce=False, return_state=True), "Queue 1 item 10"),
     (dict(coalesce=False, num_levels=1), "Queue 1 item 13"),
     (dict(coalesce=False, num_levels=5), "Queue 1 item 13"),
+    (dict(fused_layout="natural"), "Queue 2 row 9"),
 ])
 def test_unported_arguments_raise(kwargs, item):
     img = np.zeros((16, 16, 3), np.uint8)
@@ -295,6 +295,21 @@ def test_unported_arguments_raise(kwargs, item):
                limg_tpu_torch.encode_image_merged_fused_device):
         with pytest.raises(NotImplementedError, match=item):
             fn(img, EncodeConfig(), device="cpu", **kwargs)
+
+
+def test_default_encode_coalesces_runs():
+    """coalesce=True, the JAX default, runs: JAX's keys, and runs kept on the
+    smoke image of tests/test_merged_smoke.py."""
+    img = rec.smoke_image()
+    out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(dithering=False), num_levels=2,
+                                             device="cpu")
+    assert set(out) == JAX_KEYS | PLANE_KEYS
+    assert out["n_runs"] > 0
+    assert set(out["coalesce_stats"]) == {"dropped_runs_at_capacity", "overflow_run_blocks",
+                                          "rejected_runs"}
+    dev = limg_tpu_torch.encode_image_merged_fused_device(img, EncodeConfig(dithering=False),
+                                                          num_levels=2, device="cpu")
+    assert int(dev["n_runs"]) == out["n_runs"]
 
 
 def test_cuda_without_a_card_raises():

@@ -1,9 +1,10 @@
 """On-card smoke run of limg_tpu_torch: build, check and time the CUDA
 kernels, and drive the fixed-grid encode (``limg_tpu_torch.encode_image``),
 the quadtree-merged encode without coalescing
-(``encode_image_merged(..., coalesce=False)``) and the default merged
-encode with run coalescing (``encode_image_merged()``, and the CLI's merged
-mode) on 4K images through them.
+(``encode_image_merged(..., coalesce=False)``), the default merged encode
+with run coalescing (``encode_image_merged()``, and the CLI's merged mode)
+and the RD merge policy (``encode_image_merged(merge_policy="rd")``, and
+the CLI's ``--rd-merge``) on 4K images through them.
 
     python3 chip_smoke.py
 
@@ -21,6 +22,9 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
    fitted rows, random and real segment maps, RGB and RGBA, every crush
    mode, num_factors 1-3, dithering off and on;
+2d. the same for ``encode_region`` at P = 256, 1024 and 4096 (16x16, 32x32
+   and 64x64 pixel regions), RGB and RGBA, aligned and edge-padded images,
+   the settings of phase 2;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -32,12 +36,20 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    the launches of all six merged-path kernels counted from 0, held against
    the JAX default encode (tests/fixtures/torch_port_coalesce_reference.npz),
    then the CLI's merged mode once;
-4. / 4b. / 4c. kernel and plain times at the 4K shapes of each path, and
-   each path's device-resident step, CUDA events, median of 10 runs after
-   warm-up, with a torch.profiler breakdown.
+3d. the RD path: ``encode_image_merged(merge_policy="rd")`` on the same
+   images at 3 levels, the launches of its eight kernels counted from 0
+   (one 4-level encode runs P = 4096), held against the JAX RD encode
+   (tests/fixtures/torch_port_rd_reference.npz), then ``--rd-merge`` once;
+4. / 4b. / 4c. / 4d. kernel and plain times at the 4K shapes of each path
+   (each compared once more), and each path's device-resident step, CUDA
+   events, median of 10 runs after warm-up, with a torch.profiler
+   breakdown.
 
-Prints one JSON line of kernel results, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+Prints one JSON line of kernel results (each with its launches on its
+path's main run, its time, its plain version's, and its bound: the least
+time the card could take for the call's bytes and operations), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_reference.json")
 MERGED_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_merged_reference.npz")
 COALESCE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coalesce_reference.npz")
-LIBRARIES = ("encode_fixed", "encode_merged", "coalesce")
+RD_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_rd_reference.npz")
+LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "encode_region")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
@@ -68,6 +81,15 @@ COALESCE_REPLACES = {
     "seg_mixed_all": "limg_tpu/pallas_kernels/seg_scan.py:140",
     "segment_encode": "limg_tpu/pallas_kernels/encode_segments.py:188",
 }
+REGION_SOURCE = "limg_tpu_torch/csrc/encode_region.cu"
+# P = 256 / 1024 run encode_blocks_pallas's mono kernel (:739), P = 4096
+# its fit and crush kernels (:764, :781)
+REGION_SIZES = (256, 1024, 4096)
+RD_LAMBDA = 0.01
+# the RD path's kernels
+RD_KERNELS = ("encode_fixed_p64", "encode_region_p256", "encode_region_p1024",
+              "encode_region_p4096", "match_neighbors", "match_pairs", "seg_mixed_all",
+              "segment_encode")
 MERGED_LEVELS = 3
 DIST_RTOL = 1e-6
 # main-path tolerances against the JAX fixture
@@ -75,7 +97,16 @@ NODITHER_PSNR_DB, NODITHER_BPP, HIST_L1_FRAC = 0.02, 0.01, 0.005
 DITHER_PSNR_DB, DITHER_BPP = 0.3, 0.1   # MULTICHIP_EXPECTED.json
 ALIVE_FRAC, OWNER_AGREE = 0.005, 0.995  # merged: per-level counts, per-block owners
 RUNS_FRAC = 0.02                        # coalesced: n_runs
+LEVELS4_PSNR_DB, LEVELS4_BPP = 0.3, 0.1   # RD: 4 levels against 3 on the same image
 TIMED_RUNS = 10
+# the bound of a call (the least time the card could take for it): the
+# larger of its bytes over the HBM rate and its operations over their
+# rate, from NVIDIA's H100 SXM data sheet (3.35 TB/s; 67 TFLOP/s float32
+# outside the tensor cores). Every kernel here does 32-bit integer and
+# float scalar work outside the tensor cores, all of it counted at the
+# float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def log(*args):
@@ -255,6 +286,44 @@ def phase_compare_merged(device, images=None) -> float:
     return worst
 
 
+def phase_compare_region(device, images=None) -> float:
+    """encode_region vs its plain version at P = 256, 1024 and 4096; max
+    abs diff."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.regions import _words
+    from tools.make_test_image import make_4k
+
+    log("== phase 2d: region encode kernel vs plain version on the card")
+    if images is None:
+        images = {"256x384": make_4k(256, 384), "301x437": make_4k(301, 437)}
+    worst, n_cases = 0.0, 0
+    for name, rgb in images.items():
+        for ch in (3, 4):
+            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
+            for p in REGION_SIZES:
+                packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
+                for mode, nf, dith in SETTINGS:
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    got = kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
+                    want = kmod.encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    try:
+                        worst = max(worst, compare_outputs(got, want))
+                    except AssertionError as e:
+                        raise AssertionError(f"{name} ch={ch} P={p} {mode} nf={nf} "
+                                             f"dither={dith}: {e}")
+                    n_cases += 1
+        log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal")
+    log(f"phase 2d ok: {n_cases} cases, max abs diff {worst}")
+    return worst
+
+
 def seg_map(rng, n: int, max_span: int = 256) -> np.ndarray:
     """Contiguous segments, ids = first positions, spans 1..max_span."""
     seg = np.empty(n, np.int32)
@@ -312,8 +381,8 @@ def image_run_buffer(img, cfg, device, levels: int = MERGED_LEVELS):
     order, seg_c = compact_runs(state["seg0"], state["is_run0"], nb)
     mask = state["mask"][:, order] & state["is_run0"][order][None]
     buf = (state["px"][:, order].contiguous(), mask.contiguous(), seg_c, order.to(torch.int32))
-    fit, grid = state["fit"], state["grid"]
-    rows = torch.cat([fit.avg_sel, fit.eps_sel.reshape(-1, nb).to(torch.float32)])
+    lv0, grid = state["lv0"], state["grid"]
+    rows = torch.cat([lv0["avg"], lv0["eps"].reshape(-1, nb).to(torch.float32)])
     return buf, rows.reshape(-1, grid.blocks_y, grid.blocks_x)
 
 
@@ -535,18 +604,32 @@ def phase_main_path_merged(device):
     return launched
 
 
-def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, dithering: bool):
-    """Stats of one 4K default merged encode against the JAX default
-    encode's recorded ones. No JAX path runs the fused coalesced encode
-    with dithering on the CPU, so a dithered encode is held against the
-    recorded PSNR less JAX's own dither penalty on the same image (its
-    dense dithered encode against its fused undithered one, coalescing off,
-    tests/fixtures/torch_port_merged_reference.npz), and against the
-    recorded bpp, which dithering does not change."""
+def dither_effect(name: str, rd: bool) -> tuple:
+    """JAX's own (PSNR, bpp) change from dithering on the 4K lane ``name``.
+    No JAX path dithers the fused coalesced encode on the CPU. Match
+    policy: its dense dithered encode against its fused undithered one,
+    coalescing off (tests/fixtures/torch_port_merged_reference.npz); bpp
+    does not change. RD policy, whose cut weighs the dithered distortion:
+    its dense RD encode with dithering on against off
+    (tests/fixtures/torch_port_rd_reference.npz)."""
+    if rd:
+        fx = np.load(RD_FIXTURE)
+        on, off = f"{name}_dither_dense", f"{name}_dense"
+        return (float(fx[f"{on}.psnr"]) - float(fx[f"{off}.psnr"]),
+                float(fx[f"{on}.mean_bpp"]) - float(fx[f"{off}.mean_bpp"]))
+    mfx = np.load(MERGED_FIXTURE)
+    return float(mfx[f"{name}_dither_dense.psnr"]) - float(mfx[f"{name}.psnr"]), 0.0
+
+
+def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, dithering: bool,
+                                    rd: bool = False):
+    """Stats of one 4K coalesced merged encode (match or ``rd`` policy)
+    against the JAX encode's recorded ones; a dithered encode against the
+    recorded ones plus JAX's own dither effect (``dither_effect``)."""
     ref_psnr, ref_bpp = float(fx[f"{name}.psnr"]), float(fx[f"{name}.mean_bpp"])
     if dithering:
-        mfx = np.load(MERGED_FIXTURE)
-        ref_psnr += float(mfx[f"{name}_dither_dense.psnr"]) - float(mfx[f"{name}.psnr"])
+        e_psnr, e_bpp = dither_effect(name, rd)
+        ref_psnr, ref_bpp = ref_psnr + e_psnr, ref_bpp + e_bpp
     d_psnr, d_bpp = out["psnr"] - ref_psnr, out["mean_bpp"] - ref_bpp
     st = [out["coalesce_stats"][k] for k in ("dropped_runs_at_capacity", "overflow_run_blocks",
                                              "rejected_runs")]
@@ -576,30 +659,34 @@ def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, ditheri
 
 
 def reset_launches():
+    """Every kernel's launch count to 0."""
     from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
 
-    for counts in (km.launches, kc.launches):
+    for counts in (km.launches, kc.launches, kmod.launches_region):
         for k in counts:
             counts[k] = 0
+    kmod.launches = 0
 
 
 def read_launches() -> dict:
+    """Every kernel's launch count, by kernel name."""
     from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
 
-    return {**km.launches, **kc.launches}
+    return {**km.launches, **kc.launches, "encode_fixed_p64": kmod.launches,
+            **{f"encode_region_p{p}": n for p, n in kmod.launches_region.items()}}
 
 
 def phase_main_path_coalesce(device):
     """encode_image_merged() with its defaults at 4K through all six
     merged-path kernels, then the CLI's merged mode."""
-    import contextlib
-    import io
     import tempfile
 
     import limg_tpu_torch
-    from limg_tpu_torch import EncodeConfig, cli
+    from limg_tpu_torch import EncodeConfig
     from tools.record_torch_reference import case_images
 
     log("== phase 3c: default merged path (limg_tpu_torch.encode_image_merged(), coalescing on)")
@@ -622,24 +709,206 @@ def phase_main_path_coalesce(device):
             log(f"  4k_{lane} dither={dith}: encode_image_merged {secs * 1e3:.1f} ms wall "
                 f"(host copies included)")
             check_coalesced_against_fixture(f"4k_{lane}_l{MERGED_LEVELS}", out, fx, h * w, dith)
-    launched = read_launches()
+    launched = {k: v for k, v in read_launches().items()
+                if k in (*MERGED_REPLACES, *COALESCE_REPLACES)}
     if min(launched.values()) == 0:
         raise AssertionError(f"the default merged path skipped a kernel: launches {launched}")
     log(f"  {n_encodes} encodes, launches {launched}")
     with tempfile.TemporaryDirectory() as tmp:
         npy = os.path.join(tmp, "img4k.npy")
         np.save(npy, images["rgb"])
-        text = io.StringIO()
-        with contextlib.redirect_stdout(text):
-            cli.main([npy, "--no-output"])
+        for ln in run_cli([npy, "--no-output"]):
+            log(f"  cli: {ln}")
+    log("phase 3c ok")
+    return launched
+
+
+def run_cli(args) -> list:
+    """The CLI's stats lines for ``args``, its stdout captured."""
+    import contextlib
+    import io
+
+    from limg_tpu_torch import cli
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli.main(args)
     lines = [ln for ln in text.getvalue().splitlines()
              if ln.startswith(("limg_tpu_torch", "Elapsed", "Compression", "Image Perceptual"))]
     if len(lines) != 4:
-        raise AssertionError(f"the CLI's merged mode printed {text.getvalue()!r}")
-    for ln in lines:
-        log(f"  cli: {ln}")
-    log("phase 3c ok")
+        raise AssertionError(f"the CLI ({args[1:]}) printed {text.getvalue()!r}")
+    return lines
+
+
+def phase_main_path_rd(device):
+    """encode_image_merged(merge_policy="rd") at 4K through its eight
+    kernels: 3 levels against the JAX RD fixture, one 4-level encode
+    (P = 4096), then the CLI's --rd-merge."""
+    import tempfile
+
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3d: RD path (limg_tpu_torch.encode_image_merged(merge_policy='rd'))")
+    fx = np.load(RD_FIXTURE)
+    images = case_images(2160, 3840)
+    h, w = images["rgb"].shape[:2]
+    reset_launches()
+    n_encodes, l3 = 0, {}
+    for lane, img in images.items():
+        for dith in (False, True):
+            cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
+            t0 = time.perf_counter()
+            out = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=MERGED_LEVELS,
+                                                     merge_policy="rd", rd_lambda=RD_LAMBDA,
+                                                     device=device)
+            secs = time.perf_counter() - t0
+            n_encodes += 1
+            dec = out["decoded"]
+            if dec.shape != (h, w, 4) or not np.isfinite(out["psnr"]) or out["n_runs"] <= 0:
+                raise AssertionError(f"{lane}: decoded {dec.shape}, psnr {out['psnr']}, "
+                                     f"runs {out['n_runs']}")
+            name = f"4k_{lane}_l{MERGED_LEVELS}"
+            log(f"  4k_{lane} dither={dith}: RD encode_image_merged {secs * 1e3:.1f} ms wall "
+                f"(host copies included)")
+            check_coalesced_against_fixture(name, out, fx, h * w, dith, rd=True)
+            if not dith:
+                l3[lane] = out
+                kept = np.asarray([s["kept"] for s in out["merge_stats"]])
+                ref_kept = fx[f"{name}.merge_stats"][:, 0]
+                log(f"    kept per level {kept.tolist()} (JAX {ref_kept.tolist()})")
+                if (np.abs(kept - ref_kept) > ALIVE_FRAC * np.maximum(ref_kept, 1)).any():
+                    raise AssertionError(f"{name}: kept regions outside {ALIVE_FRAC}")
+    # one 4-level encode: level 3's 64x64 px regions (P = 4096)
+    cfg = EncodeConfig(error_factor=100, dithering=False)
+    out = limg_tpu_torch.encode_image_merged(images["rgb"], cfg, num_levels=4, merge_policy="rd",
+                                             rd_lambda=RD_LAMBDA, device=device)
+    n_encodes += 1
+    ref = l3["rgb"]
+    log(f"  4k_rgb levels=4: psnr {out['psnr']!r} bpp {out['mean_bpp']!r} alive "
+        f"{out['alive_counts'].tolist()} runs {out['n_runs']} (3 levels: psnr {ref['psnr']!r} "
+        f"bpp {ref['mean_bpp']!r})")
+    # a fourth level adds 64x64 regions where they cost less: the encode
+    # stays within a few hundredths of the 3-level one
+    if (len(out["alive_counts"]) != 4 or out["coalesce_stats"]["dropped_runs_at_capacity"]
+            or abs(out["psnr"] - ref["psnr"]) > LEVELS4_PSNR_DB
+            or abs(out["mean_bpp"] - ref["mean_bpp"]) > LEVELS4_BPP):
+        raise AssertionError("the 4-level RD encode is off the 3-level one")
+    launched = {k: v for k, v in read_launches().items() if k in RD_KERNELS}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the RD path skipped a kernel: launches {launched}")
+    log(f"  {n_encodes} encodes, launches {launched}")
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = os.path.join(tmp, "img4k.npy")
+        np.save(npy, images["rgb"])
+        for ln in run_cli([npy, "--rd-merge", "--no-output"]):
+            log(f"  cli --rd-merge: {ln}")
+    log("phase 3d ok")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# Bounds: bytes and operations of a call, counted from its inputs and outputs
+# (each tensor read or written once) and from the kernels' code
+# ---------------------------------------------------------------------------
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor in ``objs`` (nested tuples, lists, dicts)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+        elif isinstance(o, dict):
+            total += tensor_bytes(*o.values())
+    return total
+
+
+def eval_ops(ch: int) -> int:
+    """Operations of one crush candidate on one pixel (limg_common.cuh
+    decode_est + pixel_err): per axis a shift and a multiply, per axis and
+    channel a multiply, two adds and a shift; per channel a clamp (2), a
+    subtract and a square, the weighted sum (2 per channel); the pixel max
+    and the error sum."""
+    return 3 * 2 + 3 * ch * 4 + ch * 4 + ch * 2 + 2
+
+
+def fit_ops(ch: int) -> int:
+    """Operations of the 3-axis fit and the u8 factors per pixel: the mean
+    (2 per channel), three direction sweeps (centre, length, sign, scaled
+    sum: ~6 per channel + 4), three projections (dot, scale: 3 per channel
+    + 2), the factor extremes (6) and the factor extraction (3 per channel +
+    4 per axis)."""
+    return 2 * ch + 3 * (6 * ch + 4) + 3 * (3 * ch + 2) + 6 + 3 * (3 * ch + 4)
+
+
+def finish_ops(ch: int) -> int:
+    """Dither, crush, decode and weighted error of one pixel at the chosen
+    shifts: 6 per axis (hash bits skipped), decode and error as above."""
+    return 3 * 6 + eval_ops(ch)
+
+
+def crush_candidates(cfg) -> int:
+    """Candidates the crush search evaluates per region for ``cfg``."""
+    if not cfg.crush_bits or cfg.crush_mode == "none":
+        return 0
+    n = {"ladder": 27 + cfg.ladder_k, "exhaustive": 729, "guess": 4}[cfg.crush_mode]
+    return n + (1 if cfg.num_factors < 3 else 0)
+
+
+def encode_ops(pixels: int, searched: int, cfg) -> int:
+    """A full encode of ``pixels`` pixels, ``searched`` of them members of
+    the regions the crush search evaluates."""
+    ch = cfg.channels
+    return pixels * (fit_ops(ch) + finish_ops(ch)) + searched * crush_candidates(cfg) * eval_ops(ch)
+
+
+def match_ops(pairs: int, ch: int) -> int:
+    """The 27-probe merge test of ``pairs`` pairs: per probe a decode of
+    three factors per channel (4 each) and a deviation sum (ch + 2)."""
+    return pairs * 27 * (3 * ch * 4 + ch + 2)
+
+
+def call_bound(ops: int, nbytes: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of a call."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bound(name: str, args, out) -> tuple:
+    """The bound of the call ``name(*args)`` that returned ``out``."""
+    if name in ("encode_fixed_p64", "encode_region"):
+        packed, mask, cfg = args[:3]
+        ops = encode_ops(packed.numel(), packed.numel(), cfg)
+    elif name == "fit_levels":
+        words, cfg, levels = args
+        ops = levels * words.numel() * fit_ops(cfg.channels)
+    elif name == "owner_crush":
+        words, cfg = args[0], args[4]
+        ops = encode_ops(words.numel(), words.numel(), cfg) - words.numel() * fit_ops(cfg.channels)
+    elif name == "segment_encode":
+        packed_c, mask_c, cfg = args[0], args[1], args[4]
+        # the search runs on the run members only; every lane is decoded
+        members = int(mask_c.any(dim=0).sum()) * packed_c.shape[0]
+        ops = encode_ops(packed_c.numel(), members, cfg)
+    elif name == "match_pairs":
+        ops = match_ops(args[0].shape[1], args[2])
+    elif name == "match_neighbors":
+        ops = match_ops(2 * args[0].shape[1] * args[0].shape[2], args[1])
+    elif name == "seg_mixed_all":
+        from limg_tpu_torch.ops.segments import scan_steps
+
+        x = args[0]
+        # forward and backward: per step a compare, a select and an add
+        ops = x.numel() * (2 * 3 * len(scan_steps(x.shape[1])) + 2)
+    else:
+        raise ValueError(name)
+    return call_bound(ops, tensor_bytes(args, out))
 
 
 def time_fn(fn, device, runs: int = TIMED_RUNS) -> float:
@@ -678,6 +947,8 @@ def phase_timing(device, smi: str):
         worst = max(worst, compare_outputs(
             encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True),
             encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)))
+        bound = kernel_bound("encode_fixed_p64", (packed, mask, cfg),
+                             encode_blocks_kernel(packed, mask, cfg, 0))
         # plain, kernel, kernel, plain: both see the same card state
         p1 = time_fn(lambda: encode_blocks_reference(packed, mask, cfg, 0), device)
         k1 = time_fn(lambda: encode_blocks_kernel(packed, mask, cfg, 0), device)
@@ -686,9 +957,10 @@ def phase_timing(device, smi: str):
         step = time_fn(lambda: encode_perf_step(img_d, cfg, 0, device), device)
         mpx = img.shape[0] * img.shape[1] * 1e-6
         k_ms, p_ms = min(k1, k2), min(p1, p2)
-        rows[lane] = (k_ms, p_ms)
+        rows[lane] = (k_ms, p_ms, *bound)
         log(f"  4K {lane}: kernel {k1!r} / {k2!r} ms ({mpx / k_ms * 1e3!r} Mpx/s), "
-            f"plain {p1!r} / {p2!r} ms ({mpx / p_ms * 1e3!r} Mpx/s); "
+            f"plain {p1!r} / {p2!r} ms ({mpx / p_ms * 1e3!r} Mpx/s), bound {bound[0]!r} ms "
+            f"({bound[1]}); "
             f"encode_perf_step {step!r} ms = {mpx / step * 1e3!r} Mpx/s [{smi}]")
         profile_step(lambda: encode_perf_step(img_d, cfg, 0, device), device, lane)
     log(f"phase 4 ok: 4K kernel outputs equal the plain version's (max abs diff {worst})")
@@ -717,15 +989,17 @@ def phase_timing_merged(device, smi: str):
         worst = max(worst, compare_outputs(km.owner_crush_kernel(*args),
                                            km.owner_crush_reference(*args)))
         fns = {"fit_levels": (lambda: km.fit_levels_kernel(words, cfg, lv),
-                              lambda: km.fit_levels_reference(words, cfg, lv)),
+                              lambda: km.fit_levels_reference(words, cfg, lv), (words, cfg, lv)),
                "owner_crush": (lambda: km.owner_crush_kernel(*args),
-                               lambda: km.owner_crush_reference(*args))}
+                               lambda: km.owner_crush_reference(*args), args)}
         mpx = img.shape[0] * img.shape[1] * 1e-6
-        for name, (kern, plain) in fns.items():
+        for name, (kern, plain, call) in fns.items():
+            bound = kernel_bound(name, call, kern())
             # plain, kernel, kernel, plain: both see the same card state
             p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-            rows[(name, lane)] = (min(k1, k2), min(p1, p2))
-            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms [{smi}]")
+            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
+            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
+                f"bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
 
         def step():
             out = encode_image_merged_fused_device(img_d, cfg, 0, lv, emit_planes=False,
@@ -805,11 +1079,13 @@ def phase_timing_coalesce(device, smi: str):
             got, want = kern(*args, **kwargs), plain(*args, **kwargs)
             worst = max(worst, compare_outputs(got if isinstance(got, tuple) else [got],
                                                want if isinstance(want, tuple) else [want]))
+            bound = kernel_bound(name, args, got)
             # plain, kernel, kernel, plain: both see the same card state
             p1, k1, k2, p2 = (time_fn(lambda f=f: f(*args, **kwargs), device)
                               for f in (plain, kern, kern, plain))
-            rows[(name, lane)] = (min(k1, k2), min(p1, p2))
-            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms [{smi}]")
+            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
+            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
+                f"bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
 
         nb = 270 * 480
 
@@ -827,6 +1103,57 @@ def phase_timing_coalesce(device, smi: str):
         profile_step(step, device, f"{lane} default merged")
     log(f"phase 4c ok: 4K run-coalescing kernel outputs equal the plain versions' "
         f"(max abs diff {worst})")
+    return rows, worst
+
+
+def phase_timing_rd(device, smi: str):
+    """encode_region vs plain at each P at the 4K shapes of the RD levels
+    (also compared), and the RD step."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.regions import _words
+    from tools.record_torch_reference import case_images
+
+    log("== phase 4d: region encode kernel and RD step at 4K (CUDA events, median of",
+        TIMED_RUNS, "runs)")
+    images = case_images(2160, 3840)
+    rows, worst = {}, 0.0
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        img_d = _as_image_tensor(img, device)
+        words = _words(img_d)
+        for p in REGION_SIZES:
+            packed, mask, grid = layout.blockify_words(words, int(p ** 0.5))
+            got = kmod.encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True)
+            worst = max(worst, compare_outputs(
+                got, kmod.encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)))
+            bound = kernel_bound("encode_region", (packed, mask, cfg), got)
+            kern = lambda: kmod.encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True)
+            plain = lambda: kmod.encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)
+            # plain, kernel, kernel, plain: both see the same card state
+            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+            rows[(p, lane)] = (min(k1, k2), min(p1, p2), *bound)
+            log(f"  4K {lane} encode_region P={p} ({grid.num_blocks} regions): kernel {k1!r} / "
+                f"{k2!r} ms, plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
+        mpx = img.shape[0] * img.shape[1] * 1e-6
+        nb = 270 * 480
+
+        def step():
+            state = limg_tpu_torch.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, MERGED_LEVELS,
+                                                need_q=False, device=device)
+            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = limg_tpu_torch.fused_rd_finish(state, cfg, 0, RD_LAMBDA, MERGED_LEVELS, False,
+                                                 cap)
+            return out["total_err"], out["mean_bpp"]
+
+        step_ms = time_fn(step, device)
+        log(f"  4K {lane} RD step (fused_rd_pre, host capacity read, fused_rd_finish; "
+            f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
+        profile_step(step, device, f"{lane} RD")
+    log(f"phase 4d ok: 4K region kernel outputs equal the plain version's (max abs diff {worst})")
     return rows, worst
 
 
@@ -857,6 +1184,14 @@ def profile_step(fn, device, lane: str, iters: int = 5):
         log(f"    {us!r:>22} us  {key[:90]}")
 
 
+def kernel_row(name, source, replaces, launches, max_abs_err, timing) -> dict:
+    k_ms, p_ms, bound_ms, bound_by = timing
+    # no single PyTorch call computes any of these functions: no library time
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -867,32 +1202,28 @@ def main():
     worst = phase_compare(device)
     worst_m = phase_compare_merged(device)
     worst_c = phase_compare_coalesce(device)
+    worst_r = phase_compare_region(device)
     launched = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
     launched_c = phase_main_path_coalesce(device)
+    launched_r = phase_main_path_rd(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
     rows_c, worst4k_c = phase_timing_coalesce(device, smi)
-    k_ms, p_ms = rows["rgb"]     # the 4K RGB lane; RGBA is printed above
-    kernels = [{
-        "name": "encode_fixed_p64", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launched, "max_abs_err": max(worst, worst4k),
-        "ms": k_ms, "plain_ms": p_ms,
-    }]
+    rows_r, worst4k_r = phase_timing_rd(device, smi)
+    # the 4K RGB lane; RGBA is printed above
+    kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
+                          max(worst, worst4k), rows["rgb"])]
     for name, replaces in MERGED_REPLACES.items():
-        k_ms, p_ms = rows_m[(name, "rgb")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": MERGED_SOURCE, "replaces": replaces,
-            "launches": launched_m[name], "max_abs_err": max(worst_m, worst4k_m),
-            "ms": k_ms, "plain_ms": p_ms,
-        })
+        kernels.append(kernel_row(name, MERGED_SOURCE, replaces, launched_m[name],
+                                  max(worst_m, worst4k_m), rows_m[(name, "rgb")]))
     for name, replaces in COALESCE_REPLACES.items():
-        k_ms, p_ms = rows_c[(name, "rgb")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": COALESCE_SOURCE, "replaces": replaces,
-            "launches": launched_c[name], "max_abs_err": max(worst_c, worst4k_c),
-            "ms": k_ms, "plain_ms": p_ms,
-        })
+        kernels.append(kernel_row(name, COALESCE_SOURCE, replaces, launched_c[name],
+                                  max(worst_c, worst4k_c), rows_c[(name, "rgb")]))
+    for p in REGION_SIZES:
+        name = f"encode_region_p{p}"
+        kernels.append(kernel_row(name, REGION_SOURCE, REPLACES, launched_r[name],
+                                  max(worst_r, worst4k_r), rows_r[(p, "rgb")]))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,17 +9,19 @@ the kernels, "cpu" their plain PyTorch versions.
 
 Ported so far: the fixed-grid encode (``encode_image``) and the
 quadtree-merged encode with run coalescing, the codec's default
-(``encode_image_merged``, match policy, 2-4 levels; its stages
-``fused_merged_pre`` / ``fused_merged_finish``). See ROADMAP.md for the
-rest.
+(``encode_image_merged``, 2-4 levels), under the match policy (its stages
+``fused_merged_pre`` / ``fused_merged_finish``) and the RD policy
+(``merge_policy="rd"``; ``fused_rd_pre`` / ``fused_rd_finish``,
+``rd_merge_keep``). See ROADMAP.md for the rest.
 """
 
 from .config import BLOCK_SIZE, EncodeConfig
 from .encoder import encode_image, encode_image_device, encode_perf_step
 from .ops.error import psnr as compare_psnr
 from .regions import (auto_run_capacity, encode_image_merged,
-                      encode_image_merged_fused_device, fused_merged_finish,
-                      fused_merged_pre)
+                      encode_image_merged_fused_device, encode_image_merged_rd_device,
+                      fused_merged_finish, fused_merged_pre, fused_rd_finish, fused_rd_pre,
+                      rd_merge_keep)
 
 __all__ = [
     "EncodeConfig",
@@ -31,6 +33,10 @@ __all__ = [
     "encode_image_merged_fused_device",
     "fused_merged_pre",
     "fused_merged_finish",
+    "encode_image_merged_rd_device",
+    "fused_rd_pre",
+    "fused_rd_finish",
+    "rd_merge_keep",
     "auto_run_capacity",
     "compare_psnr",
 ]

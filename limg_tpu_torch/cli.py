@@ -3,13 +3,15 @@
 Usage:
     python -m limg_tpu_torch.cli <image> [--no-output] [--error-factor N]
                                  [--accurate-bit-crushing] [--fast-coalesce]
-                                 [--fixed-grid] [--factors N] [--device cuda|cpu]
+                                 [--rd-merge] [--fixed-grid] [--factors N]
+                                 [--device cuda|cpu]
     python -m limg_tpu_torch.cli -- [--count N] [--error-factor N]
                                  [--device cuda|cpu] -- <files...>
 
 Ported modes: the single-image encode, which runs the merged (blocked)
-encoder with run coalescing (the JAX CLI's default; ``--fast-coalesce``
-pins the run buffer at NB/8, which may truncate runs, instead of the auto
+encoder with run coalescing (the JAX CLI's default; ``--rd-merge`` takes
+the RD merge policy instead of the match policy; ``--fast-coalesce`` pins
+the run buffer at NB/8, which may truncate runs, instead of the auto
 capacity) or with ``--fixed-grid`` the fixed-grid encoder, prints the
 reference's stats and writes the debug TGA planes unless ``--no-output``;
 and list mode (``--``), the throughput harness over files (``--count N``
@@ -29,7 +31,6 @@ import numpy as np
 
 # mode -> (what it is, the ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "--rd-merge": ("the RD merge policy", "Queue 1 item 12"),
     "--write-ltp1": ("LTP1 serialization", "Queue 1 item 10"),
     "--decode-ltp1": ("LTP1 decoding", "Queue 1 item 10"),
     "--diagnose": ("crush diagnostics", "Queue 1 item 11"),
@@ -45,7 +46,7 @@ def _not_ported(mode: str):
 def _parse_args(argv):
     opts = dict(write_output=True, error_factor=100, accurate=False, fixed_grid=False,
                 count=1, files=[], source=None, list_mode=False, num_factors=3,
-                device="cuda", cap_frac=0)
+                device="cuda", cap_frac=0, merge_policy="match")
     if not argv:
         print(__doc__)
         sys.exit(0)
@@ -70,6 +71,8 @@ def _parse_args(argv):
             opts["cap_frac"] = 8
         elif a == "--fixed-grid":
             opts["fixed_grid"] = True
+        elif a == "--rd-merge":
+            opts["merge_policy"] = "rd"
         elif a in ("--use-pallas", "--no-pallas"):
             print(f"{a}: the port selects its kernels with --device cuda|cpu. Aborting.")
             sys.exit(1)
@@ -221,7 +224,8 @@ def main(argv=None):
     if opts["fixed_grid"]:
         out = encode_image(image, cfg, device=device)
     else:
-        out = encode_image_merged(image, cfg, cap_frac=opts["cap_frac"], device=device)
+        out = encode_image_merged(image, cfg, merge_policy=opts["merge_policy"],
+                                  cap_frac=opts["cap_frac"], device=device)
     elapsed = time.perf_counter() - before
 
     print(f"limg_tpu_torch encode completed on {device}.")

@@ -96,12 +96,23 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// ops/dither.py dither_bits: counter = block * 192 + axis * 64 + pixel, with
-// block the row-major index of the 8x8 block in the image.
+// ops/dither.py dither_bits: counter = region * 3P + axis * P + pixel, with
+// region the row-major index of the P-pixel region in its level's grid.
+__device__ __forceinline__ uint32_t dither_bits_p(uint32_t key, uint32_t region, int axis,
+                                                  int pixel, int p) {
+  uint32_t ctr = region * (3u * (uint32_t)p) + (uint32_t)(axis * p + pixel);
+  return fmix32(fmix32(ctr ^ key) + key);
+}
+
+// The 8x8 blocks' counter: block * 192 + axis * 64 + pixel.
 __device__ __forceinline__ uint32_t dither_bits(uint32_t key, uint32_t block,
                                                 int axis, int pixel) {
-  uint32_t ctr = block * 192u + (uint32_t)(axis * kP + pixel);
-  return fmix32(fmix32(ctr ^ key) + key);
+  return dither_bits_p(key, block, axis, pixel, kP);
+}
+
+// Dither noise in [-2^(s-1), 2^(s-1)) from 32 hash bits, for 0 < s < 8.
+__device__ __forceinline__ int dither_noise(uint32_t bits, int s) {
+  return (int)(bits & ((1u << s) - 1u)) - (1 << max(s - 1, 0));
 }
 
 // int32 products with wrap-around, as in the reference's int32 tensors.
@@ -125,6 +136,43 @@ __device__ __forceinline__ int sel4(const int (&v)[4], int o) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) out = (o == i) ? v[i] : out;
   return out;
+}
+
+// One pixel's unclamped integer decode (ops/decode.py decode_blocks): q the
+// crushed factors, s the shifts (> 7 drops the axis: normal 0, and the B/C
+// offsets 0), n_int / m_int the axis normals and offsets.
+template <int CH>
+__device__ __forceinline__ void decode_est(const int (&q)[3], const int (&s)[3],
+                                           const int (&n_int)[3][CH], const int (&m_int)[3][CH],
+                                           int (&est)[CH]) {
+#pragma unroll
+  for (int c = 0; c < CH; ++c) est[c] = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int fdec = q[k] * mult_for(min(s[k], 8));
+    const bool dropped = s[k] > 7;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int n = dropped ? 0 : n_int[k][c];
+      const int m = (k == 0 || !dropped) ? m_int[k][c] : 0;
+      est[c] += m + ((fdec * n + 128) >> 8);
+    }
+  }
+}
+
+// Weighted error of clamped estimates against one pixel (limg_color_error).
+template <int CH>
+__device__ __forceinline__ int pixel_err(const int (&est)[CH], const int (&px)[CH]) {
+  int d2[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    int d = min(max(est[c], 0), 255) - px[c];
+    d2[c] = d * d;
+  }
+  bool lo = d2[0] < 0x4000;
+  int e = d2[0] * (lo ? 2 : 3) + d2[1] * 4 + d2[2] * (lo ? 3 : 2);
+  if (CH == 4) e += d2[CH - 1] * 3;
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -387,24 +435,14 @@ struct Block {
   // Exact per-block (pixel max, block error) of one shift triple;
   // warp-uniform. The block error sums err >> es.
   __device__ __forceinline__ void eval(const int s[3], int& pm, int& be) const {
+    const int sv[3] = {s[0], s[1], s[2]};
     int err[2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      int est[CH];
+      int q[3], est[CH];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) est[c] = 0;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        int se = min(s[k], 8);
-        int fdec = (f8[k][j] >> se) * mult_for(se);
-        bool dropped = s[k] > 7;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          int n = dropped ? 0 : n_int[k][c];
-          int m = (k == 0 || !dropped) ? m_int[k][c] : 0;
-          est[c] += m + ((fdec * n + 128) >> 8);
-        }
-      }
+      for (int k = 0; k < 3; ++k) q[k] = f8[k][j] >> min(s[k], 8);
+      decode_est<CH>(q, sv, n_int, m_int, est);
       err[j] = weighted_err(est, j) * mask[j];
     }
     pm = __reduce_max_sync(kFull, max(err[0], err[1]));
@@ -412,17 +450,11 @@ struct Block {
   }
 
   // Weighted error of clamped estimates against pixel j (limg_color_error).
-  __device__ __forceinline__ int weighted_err(const int est[CH], int j) const {
-    int d2[CH];
+  __device__ __forceinline__ int weighted_err(const int (&est)[CH], int j) const {
+    int p[CH];
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      int d = min(max(est[c], 0), 255) - px[c][j];
-      d2[c] = d * d;
-    }
-    bool lo = d2[0] < 0x4000;
-    int e = d2[0] * (lo ? 2 : 3) + d2[1] * 4 + d2[2] * (lo ? 3 : 2);
-    if (CH == 4) e += d2[CH - 1] * 3;
-    return e;
+    for (int c = 0; c < CH; ++c) p[c] = px[c][j];
+    return pixel_err<CH>(est, p);
   }
 
   __device__ __forceinline__ bool admissible(int pm, int be) const {
@@ -438,27 +470,37 @@ struct Block {
 
 // This block's sums of sign-corrected unit vectors: the per-block part of
 // ops/fit.py _signed_unit_mean.
+// One pixel's signed inverse length: 1 / |v|, negated when the first
+// largest-|component| channel is negative, times the mask.
+template <int CH>
+__device__ __forceinline__ float signed_inv_len(const float (&v)[CH], float mf) {
+  float len_sq = v[0] * v[0];
+  float best = fabsf(v[0]);
+  float lead = v[0];
+#pragma unroll
+  for (int c = 1; c < CH; ++c) {
+    len_sq = len_sq + v[c] * v[c];
+    float a = fabsf(v[c]);
+    if (a > best) {
+      best = a;
+      lead = v[c];
+    }
+  }
+  float il = len_sq > 0.0f ? 1.0f / sqrtf(fmaxf(len_sq, kTiny)) : 0.0f;
+  il = lead < 0.0f ? -il : il;
+  return il * mf;
+}
+
 template <int CH>
 __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const float mf[2],
                                                  float (&dir)[CH]) {
   float inv_len[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    float len_sq = v[0][j] * v[0][j];
-    float best = fabsf(v[0][j]);
-    float lead = v[0][j];
+    float vj[CH];
 #pragma unroll
-    for (int c = 1; c < CH; ++c) {
-      len_sq = len_sq + v[c][j] * v[c][j];
-      float a = fabsf(v[c][j]);
-      if (a > best) {
-        best = a;
-        lead = v[c][j];
-      }
-    }
-    float il = len_sq > 0.0f ? 1.0f / sqrtf(fmaxf(len_sq, kTiny)) : 0.0f;
-    il = lead < 0.0f ? -il : il;
-    inv_len[j] = il * mf[j];
+    for (int c = 0; c < CH; ++c) vj[c] = v[c][j];
+    inv_len[j] = signed_inv_len<CH>(vj, mf[j]);
   }
 #pragma unroll
   for (int c = 0; c < CH; ++c) dir[c] = tree_sum(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
@@ -611,44 +653,65 @@ __device__ __forceinline__ void round_endpoints(int count, const float (&avg)[CH
 // u8 factors f8[axis][j] of this warp's pixels against the rounded
 // endpoints (ops/factors.py extract_factors + quantize_factors).
 template <int CH>
-__device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (&ep)[6][CH],
-                                                int (&f8)[3][2]) {
+struct FactorFrame {
   float na[CH], nbv[CH], nc[CH], min_a[CH], off_b[CH], off_c[CH];
+  float ila, ilb, ilc;
+
+  __device__ __forceinline__ void set(const int (&ep)[6][CH]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    na[c] = (float)(ep[1][c] - ep[0][c]);
-    nbv[c] = (float)(ep[3][c] - ep[2][c]);
-    nc[c] = (float)(ep[5][c] - ep[4][c]);
-    min_a[c] = (float)ep[0][c];
-    off_b[c] = (float)ep[2][c];
-    off_c[c] = (float)ep[4][c];
+    for (int c = 0; c < CH; ++c) {
+      na[c] = (float)(ep[1][c] - ep[0][c]);
+      nbv[c] = (float)(ep[3][c] - ep[2][c]);
+      nc[c] = (float)(ep[5][c] - ep[4][c]);
+      min_a[c] = (float)ep[0][c];
+      off_b[c] = (float)ep[2][c];
+      off_c[c] = (float)ep[4][c];
+    }
+    ila = inv_or_zero(dot_self<CH>(na));
+    ilb = inv_or_zero(dot_self<CH>(nbv));
+    ilc = inv_or_zero(dot_self<CH>(nc));
   }
-  const float ila = inv_or_zero(dot_self<CH>(na));
-  const float ilb = inv_or_zero(dot_self<CH>(nbv));
-  const float ilc = inv_or_zero(dot_self<CH>(nc));
+
+  // The u8 factors of one pixel.
+  __device__ __forceinline__ void f8_of(const float (&px)[CH], int (&f8)[3]) const {
+    float dot = (px[0] - min_a[0]) * na[0];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    float dot = (p.pxf[0][j] - min_a[0]) * na[0];
-#pragma unroll
-    for (int c = 1; c < CH; ++c) dot = dot + (p.pxf[c][j] - min_a[c]) * na[c];
+    for (int c = 1; c < CH; ++c) dot = dot + (px[c] - min_a[c]) * na[c];
     const float fa = dot * ila;
     float ea[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) ea[c] = min_a[c] + fa * na[c];
-    dot = (p.pxf[0][j] - ea[0] - off_b[0]) * nbv[0];
+    dot = (px[0] - ea[0] - off_b[0]) * nbv[0];
 #pragma unroll
-    for (int c = 1; c < CH; ++c) dot = dot + (p.pxf[c][j] - ea[c] - off_b[c]) * nbv[c];
+    for (int c = 1; c < CH; ++c) dot = dot + (px[c] - ea[c] - off_b[c]) * nbv[c];
     const float fb = dot * ilb;
     float eb[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) eb[c] = ea[c] + fb * nbv[c];
-    dot = (p.pxf[0][j] - eb[0] - off_c[0]) * nc[0];
+    dot = (px[0] - eb[0] - off_c[0]) * nc[0];
 #pragma unroll
-    for (int c = 1; c < CH; ++c) dot = dot + (p.pxf[c][j] - eb[c] - off_c[c]) * nc[c];
+    for (int c = 1; c < CH; ++c) dot = dot + (px[c] - eb[c] - off_c[c]) * nc[c];
     const float fc = dot * ilc;
     const float f[3] = {fa, fb, fc};
 #pragma unroll
-    for (int k = 0; k < 3; ++k) f8[k][j] = (int)fminf(fmaxf(rintf(f[k] * 255.0f), 0.0f), 255.0f);
+    for (int k = 0; k < 3; ++k) f8[k] = (int)fminf(fmaxf(rintf(f[k] * 255.0f), 0.0f), 255.0f);
+  }
+};
+
+template <int CH>
+__device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (&ep)[6][CH],
+                                                int (&f8)[3][2]) {
+  FactorFrame<CH> fr;
+  fr.set(ep);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float px[CH];
+    int f[3];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) px[c] = p.pxf[c][j];
+    fr.f8_of(px, f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f8[k][j] = f[k];
   }
 }
 
@@ -793,8 +856,10 @@ __device__ __forceinline__ void ladder_peel(int (&key)[2], const LadderBox& box,
 }
 
 // The shift triple of this warp's region; statically dropped axes get 8.
-template <int CH, class Red>
-__device__ void crush_search(Block<CH>& blk, const Red& red, int crush_mode, int ladder_k,
+// Blk is Block<CH> or any type with its eval / admissible / floors members
+// (encode_region.cu's regions of many warps).
+template <int CH, class Blk, class Red>
+__device__ void crush_search(Blk& blk, const Red& red, int crush_mode, int ladder_k,
                              int num_factors, int lane, int (&best)[3]) {
   best[0] = best[1] = best[2] = 0;
   blk.floors = false;
@@ -899,31 +964,16 @@ __device__ void dither_decode(const Block<CH>& blk, const int (&best)[3], bool d
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       int v = blk.f8[k][j];
-      if (live) {
-        const uint32_t bits = dither_bits(key, block_id, k, lane + 32 * j);
-        const int noise = (int)(bits & ((1u << s) - 1u)) - (1 << max(s - 1, 0));
-        v = min(max(v + noise, 0), 255);
-      }
+      if (live) v = min(max(v + dither_noise(dither_bits(key, block_id, k, lane + 32 * j), s), 0),
+                        255);
       q[k][j] = v >> se;
     }
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     int e[CH];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) e[c] = 0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const int s = best[k];
-      const int fdec = q[k][j] * mult_for(min(s, 8));
-      const bool dropped = s > 7;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int n = dropped ? 0 : blk.n_int[k][c];
-        const int m = (k == 0 || !dropped) ? blk.m_int[k][c] : 0;
-        e[c] += m + ((fdec * n + 128) >> 8);
-      }
-    }
+    const int qj[3] = {q[0][j], q[1][j], q[2][j]};
+    decode_est<CH>(qj, best, blk.n_int, blk.m_int, e);
 #pragma unroll
     for (int c = 0; c < CH; ++c) dec[c][j] = min(max(e[c], 0), 255);
     err_f[j] = (float)(blk.weighted_err(e, j) * blk.mask[j]);

@@ -1,18 +1,26 @@
-"""Fixed-grid block encode: the CUDA kernel's wrapper and its plain version.
+"""Region encode: the CUDA kernels' wrapper and their plain version.
 
 ``encode_blocks_kernel`` takes the arguments of the JAX package's
 ``encode_blocks_pallas`` (limg_tpu/pallas_kernels/encode_fixed.py:808) at
-P = 64 and returns its outputs in its layouts:
+P = 64 (8x8 blocks: the fixed grid, the RD policy's level 0) and at P =
+256, 1024 and 4096 (16x16, 32x32 and 64x64 pixel regions: the RD policy's
+levels 1-3), and returns its outputs in its layouts:
 
-    shifts (3, NB) i32, q_packed (64, NB) i32, dec_packed (64, NB) i32,
+    shifts (3, NB) i32, q_packed (P, NB) i32, dec_packed (P, NB) i32,
     dist (1, NB) f32 [, dirA_min, dirA_max, dirB_offset, dirB_mag,
     dirC_offset, dirC_mag (ch, NB) i32, avg (ch, NB) f32]
 
-On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (built at first use)
-and raises if the launch fails; on a CPU tensor it runs
+On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (P = 64, one warp
+per block) or ``csrc/encode_region.cu`` (P > 64, one CTA per region), each
+built at first use, and raises if the launch fails; on a CPU tensor it runs
 ``encode_blocks_reference``, which composes the plain ops of
-``limg_tpu_torch.ops`` in the kernel's arithmetic order. The two agree bit
-for bit on the card.
+``limg_tpu_torch.ops`` in the kernels' arithmetic order: every float sum
+over a region's P pixels is one halving tree. The two agree bit for bit on
+the card. The JAX kernel sums 256-pixel chunks and then folds the chunks,
+so a rounded endpoint can differ from it by 1 at P >= 1024.
+
+The dither key of a region of P = 64 * 4^l pixels is ``level_key(seed,
+cfg.dither_seed, l)``: at P = 64 the fixed grid's own key.
 """
 
 from __future__ import annotations
@@ -25,24 +33,34 @@ import torch
 from ..config import BLOCK_AREA, EncodeConfig
 from ..ops.crush import find_shifts, force_dropped_axes
 from ..ops.decode import decode_blocks
-from ..ops.dither import dither_crush, dither_key
+from ..ops.dither import dither_crush_key, level_key
 from ..ops.error import weighted_error
 from ..ops.factors import extract_factors, quantize_factors
 from ..ops.fit import (ENDPOINT_FIELDS, drop_decomposition_axes, fit_blocks,
                        tree_sum)
 from ..ops.layout import to_int32_bits, unpack_plane
 
-# kernel launches since the last reset (read and reset by callers)
+# kernel launches since the last reset (read and reset by callers): the
+# 8x8-block kernel, and the region kernel per region size
 launches = 0
+launches_region = {256: 0, 1024: 0, 4096: 0}
+
+# region pixel counts the encode takes: 8x8 blocks and 2^l-block squares
+REGION_SIZES = (BLOCK_AREA, *launches_region)
 
 _CRUSH_MODES = {"none": 0, "ladder": 1, "exhaustive": 2, "guess": 3}
+
+
+def region_level(pixels: int) -> int:
+    """The quadtree level l of a region of pixels = 64 * 4^l."""
+    return REGION_SIZES.index(pixels)
 
 
 def _check_inputs(packed: torch.Tensor, mask: torch.Tensor) -> None:
     if packed.ndim != 2 or packed.dtype != torch.int32:
         raise ValueError(f"packed must be (P, NB) int32, got {tuple(packed.shape)} {packed.dtype}")
-    if packed.shape[0] != BLOCK_AREA:
-        raise ValueError(f"only P = {BLOCK_AREA} (8x8 blocks) is ported, got P = {packed.shape[0]}")
+    if packed.shape[0] not in REGION_SIZES:
+        raise ValueError(f"P must be one of {REGION_SIZES}, got P = {packed.shape[0]}")
     if mask.shape != packed.shape or mask.dtype != torch.bool:
         raise ValueError(f"mask must be {tuple(packed.shape)} bool, got {tuple(mask.shape)} {mask.dtype}")
     if mask.device != packed.device:
@@ -59,7 +77,7 @@ def _pack_decoded(dec: torch.Tensor, channels: int) -> torch.Tensor:
 def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
                             cfg: EncodeConfig, seed: int,
                             emit_endpoints: bool = False):
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the kernels, on any device."""
     _check_inputs(packed, mask)
     ch = cfg.channels
     px = torch.stack([unpack_plane(packed, c) for c in range(ch)])   # (ch, P, NB) i32
@@ -68,8 +86,8 @@ def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
     f8 = torch.stack([p.to(torch.int32) for p in f8_u8])
     d = drop_decomposition_axes(d, cfg.num_factors)
     shifts = force_dropped_axes(find_shifts(px, mask, f8, d, cfg)[0], cfg.num_factors)
-    q = dither_crush(f8, shifts, seed, cfg.dither_seed,
-                     enabled=cfg.dithering and cfg.crush_bits)
+    q = dither_crush_key(f8, shifts, level_key(seed, cfg.dither_seed, region_level(packed.shape[0])),
+                         enabled=cfg.dithering and cfg.crush_bits)
     dec = decode_blocks(q, shifts, d, ch)
     err = (weighted_error(dec, px) * mask.to(torch.int32)).to(torch.float32)
     dist = tree_sum(err, 0)[None]
@@ -81,15 +99,20 @@ def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
 
 
 @functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
+def _library(name: str):
+    """The built kernel library ``name``, with its C signatures declared."""
     from .build import load_library
 
-    lib = load_library("encode_fixed")
+    lib = load_library(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_encode_fixed_p64.argtypes = (
-        [ptr, ptr] + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 7)
-    lib.limg_encode_fixed_p64.restype = i32
+    if name == "encode_fixed":
+        lib.limg_encode_fixed_p64.argtypes = (
+            [ptr, ptr] + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 7)
+        lib.limg_encode_fixed_p64.restype = i32
+    else:
+        lib.limg_encode_region.argtypes = (
+            [ptr, ptr] + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 7)
+        lib.limg_encode_region.restype = i32
     lib.limg_cuda_error_string.argtypes = [i32]
     lib.limg_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,10 +121,10 @@ def _library():
 def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
                          cfg: EncodeConfig, seed: int,
                          emit_endpoints: bool = False):
-    """Fixed-grid encode of (64, NB) packed blocks; see the module docstring.
+    """Encode of (P, NB) packed regions; see the module docstring.
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernel on the current stream or raises.
+    kernel of its P on the current stream or raises.
     """
     global launches
     _check_inputs(packed, mask)
@@ -109,35 +132,44 @@ def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
         return encode_blocks_reference(packed, mask, cfg, seed, emit_endpoints)
     if packed.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {packed.device}")
-    lib = _library()
     dev = packed.device
-    ch, nb = cfg.channels, packed.shape[1]
-    # block-major copies: one warp reads one block's 64 contiguous words
+    ch, (p, nb) = cfg.channels, packed.shape
+    # block-major copies: a warp (P = 64) or a CTA reads one region's
+    # contiguous words
     packed_bm = packed.t().contiguous()
     mask_bm = mask.t().contiguous()
     shifts = torch.empty((3, nb), dtype=torch.int32, device=dev)
-    q_bm = torch.empty((nb, BLOCK_AREA), dtype=torch.int32, device=dev)
-    dec_bm = torch.empty((nb, BLOCK_AREA), dtype=torch.int32, device=dev)
+    q_bm = torch.empty((nb, p), dtype=torch.int32, device=dev)
+    dec_bm = torch.empty((nb, p), dtype=torch.int32, device=dev)
     dist = torch.empty((1, nb), dtype=torch.float32, device=dev)
     eps = avg = None
     if emit_endpoints:
         eps = torch.empty((6, ch, nb), dtype=torch.int32, device=dev)
         avg = torch.empty((ch, nb), dtype=torch.float32, device=dev)
+    settings = (ch, _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
+                int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
+                cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
+                level_key(seed, cfg.dither_seed, region_level(p)))
+    outs_ptr = (shifts.data_ptr(), q_bm.data_ptr(), dec_bm.data_ptr(), dist.data_ptr(),
+                None if eps is None else eps.data_ptr(),
+                None if avg is None else avg.data_ptr())
+    name = "encode_fixed" if p == BLOCK_AREA else "encode_region"
+    lib = _library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.limg_encode_fixed_p64(
-            packed_bm.data_ptr(), mask_bm.data_ptr(), nb, ch,
-            _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
-            int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
-            cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
-            dither_key(seed, cfg.dither_seed),
-            shifts.data_ptr(), q_bm.data_ptr(), dec_bm.data_ptr(), dist.data_ptr(),
-            None if eps is None else eps.data_ptr(),
-            None if avg is None else avg.data_ptr(), stream)
+        if p == BLOCK_AREA:
+            rc = lib.limg_encode_fixed_p64(packed_bm.data_ptr(), mask_bm.data_ptr(), nb,
+                                           *settings, *outs_ptr, stream)
+        else:
+            rc = lib.limg_encode_region(packed_bm.data_ptr(), mask_bm.data_ptr(), nb, p,
+                                        *settings, *outs_ptr, stream)
     if rc != 0:
-        raise RuntimeError(f"encode_fixed kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed (P = {p}): "
                            f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-    launches += 1
+    if p == BLOCK_AREA:
+        launches += 1
+    else:
+        launches_region[p] += 1
     outs = (shifts, q_bm.t(), dec_bm.t(), dist)
     if emit_endpoints:
         outs += tuple(eps.unbind(0)) + (avg,)

@@ -56,7 +56,9 @@ def err_scale_shift(pixels: int) -> int:
     int32 sum could overflow: errors are shifted right by 4 before the sum
     and the admissibility test compares in float32. The fused kernels pass
     the most pixels a region can hold, 64 * 4^(levels-1): at 4 levels every
-    region is pre-scaled, level-0 owners included; at 2 and 3 none is."""
+    region is pre-scaled, level-0 owners included; at 2 and 3 none is. The
+    RD policy's level encodes pass their region's P: only its 64x64 regions
+    (P = 4096) are pre-scaled."""
     return 4 if pixels >= 2048 else 0
 
 

@@ -7,9 +7,10 @@ blocks are handled with a validity mask.
 Every float sum has one fixed order, which the CUDA kernel
 (csrc/encode_fixed.cu) follows too, so the two agree bit for bit:
 
-- over the P = 64 pixels of a block, a halving tree ``x[:n/2] + x[n/2:]``
-  (``tree_sum``; in the kernel, the in-thread pair sum then butterfly
-  shuffles);
+- over the P pixels of a block or region (64 for an 8x8 block; 256, 1024
+  or 4096 for the RD policy's 16x16, 32x32 and 64x64 regions), a halving
+  tree ``x[:n/2] + x[n/2:]`` (``tree_sum``; in a kernel, the in-thread top
+  levels, then shared memory and butterfly shuffles);
 - over channels, a left fold ``c0 + c1 + c2 (+ c3)``;
 - every product and sum rounds on its own: no fused multiply-add, and
   ``1 / sqrt(x)`` in place of an approximate rsqrt.
@@ -123,7 +124,7 @@ def _project(v: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
 def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
     """Fit every region of the reducer ``red`` (ops/reduce.py).
 
-    ``px_u8``: (>=ch, 64, NB) uint8 or int; ``mask``: (64, NB) bool. Returns
+    ``px_u8``: (>=ch, P, NB) uint8 or int; ``mask``: (P, NB) bool. Returns
     (Decomposition with each region's values broadcast to its blocks,
     region pixel counts (NB,) int32).
     """
@@ -188,7 +189,8 @@ def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
 
 
 def fit_blocks(px_u8: torch.Tensor, mask: torch.Tensor, channels: int) -> Decomposition:
-    """Fit every block. ``px_u8``: (>=ch, 64, NB) uint8; ``mask``: (64, NB) bool."""
+    """Fit every block or region of P pixels. ``px_u8``: (>=ch, P, NB) uint8;
+    ``mask``: (P, NB) bool."""
     from .reduce import BlockReducer
 
     return fit_regions(px_u8, mask, channels, BlockReducer())[0]

@@ -1,11 +1,12 @@
 """Region reducers of the plain versions: one fixed order for every sum.
 
-A reducer maps per-pixel arrays ``(..., 64, N)`` or per-block rows
+A reducer maps per-pixel arrays ``(..., P, N)`` or per-block rows
 ``(..., N)`` to per-region values broadcast back to every member block,
 ``(..., N)``. Floats are summed in one order that the CUDA kernels follow:
 
-- inside a block, the halving tree ``x[:n/2] + x[n/2:]`` over the 64
-  pixels (``ops.fit.tree_sum``; in a kernel, one warp's shuffles);
+- inside a block, the halving tree ``x[:n/2] + x[n/2:]`` over its P pixels
+  (``ops.fit.tree_sum``; in a kernel, one warp's shuffles at P = 64, a
+  CTA's shared-memory tree at P = 256, 1024 and 4096);
 - across the blocks of a region, blocks in Morton order (ops/morton.py)
   and a pairwise-adjacent tree ``x[..., 0::2] + x[..., 1::2]``, which is
   what the JAX package's lane butterfly (limg_tpu/pallas_kernels/
@@ -57,7 +58,7 @@ class _Reducer:
         return self.combine(row, torch.minimum)
 
     def sum(self, x):
-        """(..., 64, N) -> region sums (..., N)."""
+        """(..., P, N) -> region sums (..., N)."""
         return self.combine_sum(tree_sum(x, -2))
 
     def max(self, x):
@@ -68,7 +69,8 @@ class _Reducer:
 
 
 class BlockReducer(_Reducer):
-    """Each block is its own region (the fixed grid)."""
+    """Each block is its own region (the fixed grid, and each level of the
+    RD policy, whose blocks are regions of P pixels)."""
 
     def combine(self, row, op):
         return row

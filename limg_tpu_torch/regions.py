@@ -1,26 +1,40 @@
-"""Quadtree-merged encoder, fused path, match policy, with run coalescing.
+"""Quadtree-merged encoder, fused path, match and RD policies, with run
+coalescing.
 
 The counterpart of the JAX package's fused merged encode
 (limg_tpu/regions.py: ``_fused_pre_body`` :1182, ``_fused_finish_body``
 :1393, ``encode_image_merged_fused_device`` :1544, ``fused_merged_pre`` /
-``fused_merged_finish`` :1589-1616, ``encode_image_merged`` :1828). Every
-quadtree level is fitted, each parent merges when all four children are
-alive and match its first child, every block is crushed once at its owner
-level (two kernels, kernels/encode_merged.py). Then run coalescing, the
-JAX default: matching neighbour regions of each level link into horizontal
-runs, vertical runs and rectangles (``build_runs``, on the match kernels),
-the run blocks are compacted into a buffer sorted by segment, each segment
-is refitted and re-encoded as one region (the segment kernel), and a run
-is kept when it does not cost more bits than its blocks did
-(``coalesce_segments``, kernels/coalesce.py). On a CUDA device these are
-hand-written kernels; on the CPU their plain versions.
+``fused_merged_finish`` :1589-1616, ``encode_image_merged`` :1828) and of
+its fused RD path (``_rd_pre_body`` :1619, ``encode_image_merged_rd_device``
+:1763, ``fused_rd_pre`` / ``fused_rd_finish`` :1791-1815).
+
+Match policy (the default): every quadtree level is fitted, each parent
+merges when all four children are alive and match its first child, every
+block is crushed once at its owner level (two kernels,
+kernels/encode_merged.py).
+
+RD policy (``merge_policy="rd"``): every level is encoded on its own, 8x8
+blocks and 16x16, 32x32, 64x64 pixel regions, by the region encode kernel
+(kernels/encode_fixed.py), and a parent is kept when its bits + lambda *
+distortion do not exceed its children's best (``rd_merge_keep``); each
+level-0 block then takes the rows and planes of its owner level.
+
+Both pre stages give one state, which one finish reads: run coalescing,
+the JAX default. Matching neighbour regions of each level link into
+horizontal runs, vertical runs and rectangles (``build_runs``, on the match
+kernels), the run blocks are compacted into a buffer sorted by segment,
+each segment is refitted and re-encoded as one region (the segment kernel),
+and a run is kept when it does not cost more bits (match) or more bits +
+lambda * distortion (RD) than its blocks did (``coalesce_segments``,
+kernels/coalesce.py). On a CUDA device these are hand-written kernels; on
+the CPU their plain versions.
 
 The port keeps every per-block plane in row-major block order, so the JAX
 package's Morton lane relayouts (``mpos``, ``embed_rows``) and
 ``_stride_take`` have no counterpart here.
 
-Not ported here, and raising NotImplementedError: the RD policy, the LTP1
-serializer state, the dense path (``num_levels`` outside 2-4) and
+Not ported here, and raising NotImplementedError: the LTP1 serializer
+state, the dense path (``num_levels`` outside 2-4) and
 ``fused_layout="natural"``.
 """
 
@@ -36,6 +50,7 @@ from .encoder import _as_image_tensor, resolve_device
 from .kernels.coalesce import (match_neighbors_kernel, match_pairs_kernel,
                                seg_min_all, seg_mixed_all_kernel, seg_sum_all,
                                segment_encode_kernel)
+from .kernels.encode_fixed import encode_blocks_kernel
 from .kernels.encode_merged import MAX_LEVELS, MIN_LEVELS, fit_levels_kernel, owner_crush_kernel
 from .ops import layout
 from .ops.dither import coalesce_key
@@ -45,11 +60,12 @@ from .ops.segments import SEG_CAP
 
 # argument -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "merge_policy": "Queue 1 item 12",
     "return_state": "Queue 1 item 10",
     "num_levels": "Queue 1 item 13",
     "fused_layout": "Queue 2 row 9",
 }
+
+MERGE_POLICIES = ("match", "rd")
 
 # level grids of this many blocks or more take the neighbour-match kernel;
 # smaller ones are paired into one match_pairs launch (limg_tpu/regions.py:298)
@@ -62,8 +78,8 @@ def _check_supported(num_levels: int, merge_policy: str, return_state: bool,
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md {_NOT_PORTED[arg]})")
 
-    if merge_policy != "match":
-        refuse("merge_policy", f"merge_policy={merge_policy!r}")
+    if merge_policy not in MERGE_POLICIES:
+        raise ValueError(f"merge_policy must be one of {MERGE_POLICIES}, got {merge_policy!r}")
     if return_state:
         refuse("return_state", "return_state=True (LTP1 serializer state)")
     if not MIN_LEVELS <= num_levels <= MAX_LEVELS:
@@ -92,6 +108,104 @@ def _leaders(owner0: torch.Tensor, grid: layout.BlockGrid, num_levels: int):
         lp = (((yy >> lvl) << lvl) * grid.blocks_x + ((xx >> lvl) << lvl)).reshape(-1)
         lead0 = torch.where(owner0 == lvl, lp, lead0)
     return lead0.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The RD policy's levels and cut (limg_tpu/regions.py:40-250)
+# ---------------------------------------------------------------------------
+
+def _child_indices(by: int, bx: int, device):
+    """Flat child indices and validity for each parent of a (by, bx) grid:
+    (idx (4, NP) int64 clipped in range, valid (4, NP) bool), NP =
+    ceil(by/2) * ceil(bx/2), children (0,0), (0,1), (1,0), (1,1)."""
+    iy = torch.arange(-(-by // 2), device=device)[:, None] * 2
+    ix = torch.arange(-(-bx // 2), device=device)[None, :] * 2
+    idx, valid = [], []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        cy, cx = iy + dy, ix + dx
+        valid.append(((cy < by) & (cx < bx)).reshape(-1))
+        idx.append((cy.clamp(max=by - 1) * bx + cx.clamp(max=bx - 1)).reshape(-1))
+    return torch.stack(idx), torch.stack(valid)
+
+
+def _owner_level(keep, grids, num_levels: int) -> torch.Tensor:
+    """Per level-0 block: the highest level whose ancestor square is kept."""
+    by0, bx0 = grids[0].blocks_y, grids[0].blocks_x
+    dev = keep[0].device
+    yy = torch.arange(by0, device=dev)[:, None]
+    xx = torch.arange(bx0, device=dev)[None, :]
+    owner = torch.zeros(by0 * bx0, dtype=torch.int32, device=dev)
+    for lvl in range(1, num_levels):
+        anc = ((yy >> lvl) * grids[lvl].blocks_x + (xx >> lvl)).reshape(-1)
+        owner = torch.where(keep[lvl][anc], lvl, owner)
+    return owner
+
+
+def _q_level_to_block0(q: torch.Tensor, grid_l: layout.BlockGrid, grid0: layout.BlockGrid,
+                       lvl: int) -> torch.Tensor:
+    """(P_L, NB_L) pixel plane of level L -> (64, NB0) in level-0 blocks: a
+    reshape and permute (pixel p of a level-L region splits as (yb, iy, xb,
+    ix), the 8x8 sub-block (yb, xb) becoming a level-0 block), cropped to
+    the level-0 grid."""
+    s = 1 << lvl
+    by_l, bx_l = grid_l.blocks_y, grid_l.blocks_x
+    t = q.reshape(s, BLOCK_SIZE, s, BLOCK_SIZE, by_l, bx_l).permute(1, 3, 4, 0, 5, 2)
+    t = t.reshape(BLOCK_SIZE * BLOCK_SIZE, by_l * s, bx_l * s)[:, :grid0.blocks_y, :grid0.blocks_x]
+    return t.reshape(BLOCK_SIZE * BLOCK_SIZE, grid0.num_blocks)
+
+
+def _encode_level(words: torch.Tensor, lvl: int, cfg: EncodeConfig, seed: int) -> dict:
+    """One level's regions (8x8 px at level 0, 16x16 px at 1, ...) through
+    the region encode, with each region's pixel count and bits (the
+    reference's estimate: static header + factor bits,
+    src/limg.cpp:1629-1636)."""
+    packed, mask, grid = layout.blockify_words(words, BLOCK_SIZE << lvl)
+    shifts, q, dec, dist, *eps_avg = encode_blocks_kernel(packed, mask, cfg, seed,
+                                                          emit_endpoints=True)
+    count = mask.sum(dim=0, dtype=torch.int32)
+    s_eff = torch.clamp(shifts, max=8)
+    bits = static_block_bits(cfg.channels) + ((8 - s_eff) * count[None]).sum(
+        dim=0, dtype=torch.int32)
+    return dict(grid=grid, shifts=shifts, q=q, dec=dec, dist=dist[0], bits=bits, count=count,
+                eps=torch.stack(eps_avg[:6]), avg=eps_avg[6])
+
+
+def rd_merge_keep(levels, grids, num_levels: int, lam, extra_header_bits: float = 0.0):
+    """The rate-distortion quadtree cut, bottom up: a region costs its bits
+    + ``extra_header_bits`` + lam * its distortion, and a parent is kept
+    when all four children exist and its cost does not exceed the sum of
+    the children's best costs (out-of-range children count 0), summed as a
+    left fold over the children (0,0), (0,1), (1,0), (1,1).
+
+    ``levels``: per level a dict with ``bits`` (NB_L,) int and ``dist``
+    (NB_L,) float32; ``lam``: a float or float32 0-d tensor. Returns (keep
+    per level (NB_L,) bool, level 0 all True; per level 1.. a dict of
+    ``kept``, ``rd_cost_saved`` (float32 sum of child cost - own cost over
+    kept parents) and ``cost_reject`` (parents with four children left
+    split)).
+    """
+    dev = levels[0]["dist"].device
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+
+    def cost_of(lv):
+        return lv["bits"].to(torch.float32) + extra_header_bits + lam * lv["dist"]
+
+    best = [cost_of(levels[0])]
+    keep = [torch.ones_like(best[0], dtype=torch.bool)]
+    stats = []
+    for lvl in range(1, num_levels):
+        idx, valid = _child_indices(grids[lvl - 1].blocks_y, grids[lvl - 1].blocks_x, dev)
+        kids = torch.where(valid, best[lvl - 1][idx], 0.0)
+        child_best = ((kids[0] + kids[1]) + kids[2]) + kids[3]
+        own = cost_of(levels[lvl])
+        complete = valid.all(dim=0)
+        merged = complete & (own <= child_best)
+        keep.append(merged)
+        best.append(torch.where(merged, own, child_best))
+        stats.append(dict(kept=merged.sum(),
+                          rd_cost_saved=torch.where(merged, child_best - own, 0.0).sum(),
+                          cost_reject=(~merged & complete).sum()))
+    return keep, stats
 
 
 # ---------------------------------------------------------------------------
@@ -317,18 +431,24 @@ def compact_runs(seg_id: torch.Tensor, is_run: torch.Tensor, cap: int):
 
 
 def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: EncodeConfig,
-                      key: int, cap: int, need_planes: bool):
+                      key: int, cap: int, need_planes: bool, merge_policy: str = "match",
+                      rd_lambda=0.0, header_bits: int | None = None):
     """Re-encode the run blocks grouped by ``seg_id`` and write back the
-    runs that do not cost more bits (match policy).
+    runs that do not cost more: more bits (match policy), or more bits +
+    ``rd_lambda`` * distortion (RD policy).
 
     ``px_plane`` / ``mask_plane``: (64, NB) int32 words / bool of every
     block; ``lv``: the per-block rows of the owner-level encode (``shifts``
-    (3, NB), ``bits`` with the region header on leaders, ``bpp``, ``dist``,
-    ``eps`` (6, ch, NB), ``avg`` (ch, NB), ``dec`` and ``q`` (64, NB) planes),
-    updated in place. The run blocks are sorted by (is_run, seg_id), so each
-    segment is contiguous, and the first ``cap`` go into the buffer; the one
-    segment the capacity cut splits is reverted and counted. Returns
-    (applied (NB,) bool, n_runs, coalesce_stats).
+    (3, NB), ``bits`` with the region header on leaders only, ``bpp``,
+    ``dist`` (a region's on its leader under the RD policy), ``eps`` (6, ch,
+    NB), ``avg`` (ch, NB), ``dec`` and ``q`` (64, NB) planes), updated in
+    place. ``header_bits`` is a refitted run's header (None: the static
+    estimate); ``lv["bits"]`` already carries the pre stage's header, as
+    with the JAX package's ``old_header_included=True``. The run blocks are
+    sorted by (is_run, seg_id), so each segment is contiguous, and the first
+    ``cap`` go into the buffer; the one segment the capacity cut splits is
+    reverted and counted. Returns (applied (NB,) bool, n_runs,
+    coalesce_stats).
     """
     ch = cfg.channels
     nb, dev = seg_id.shape[0], seg_id.device
@@ -355,14 +475,22 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
                                 emit_q=need_planes)
     s_eff = torch.clamp(enc.shifts, max=8)
     fac_bits_blk = ((8 - s_eff) * enc.count_blk[None]).sum(dim=0, dtype=torch.int32)
-    header = static_block_bits(ch)
+    header = static_block_bits(ch) if header_bits is None else header_bits
     bits_blk = fac_bits_blk + header * is_start.to(torch.int32)
     old_bits_masked = torch.where(sel_is_run, old_bits_sel, 0)
     sums = seg_mixed_all_kernel(torch.stack([fac_bits_blk, old_bits_masked]), seg_c, 2)
     bits_mem = sums[0] + header
     bpp_mem = torch.clamp((bits_mem + enc.count_mem // 2) // torch.clamp(enc.count_mem, min=1),
                           max=0xFF)
-    accept = ok_c & (bits_mem <= sums[1])
+    if merge_policy == "rd":
+        # segment sums of the new distortion and of the old RD cost
+        lam = torch.as_tensor(rd_lambda, dtype=torch.float32, device=dev)
+        old_cost = old_bits_sel.to(torch.float32) + lam * lv["dist"][sel]
+        sums_f = seg_mixed_all_kernel(
+            torch.stack([enc.dist_blk, torch.where(sel_is_run, old_cost, 0.0)]), seg_c, 2)
+        accept = ok_c & (bits_mem.to(torch.float32) + lam * sums_f[0] <= sums_f[1])
+    else:
+        accept = ok_c & (bits_mem <= sums[1])
 
     # write back: every buffer lane to its block, the accepted ones changed
     def put(dst, src):
@@ -391,11 +519,39 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
 # The two stages
 # ---------------------------------------------------------------------------
 
+def _bits_with_header(shifts: torch.Tensor, cnt0: torch.Tensor, lead0: torch.Tensor,
+                      header: int) -> torch.Tensor:
+    """Per-block factor bits, plus the region header on each region's leader:
+    what run coalescing weighs a refit against."""
+    fac_bits0 = ((8 - torch.clamp(shifts, max=8)) * cnt0[None]).sum(dim=0, dtype=torch.int32)
+    is_leader0 = lead0 == torch.arange(lead0.shape[0], device=lead0.device)
+    return fac_bits0 + header * is_leader0.to(torch.int32)
+
+
+def _pre_state(words: torch.Tensor, grid: layout.BlockGrid, lv0: dict, owner0, lead0, cnt0,
+               stats_row, merge_stats, num_levels: int, channels: int, coalesce: bool) -> dict:
+    """The state both pre stages hand to ``_fused_finish``: the owner-level
+    rows and planes ``lv0`` (shifts, bits, bpp, dist, eps, avg, dec, q), the
+    owner level, region leader and pixel count of each block, the stats row
+    (bit l: a level-l-aligned block whose owner level is >= l), the merge
+    stats, and with ``coalesce`` the runs and the level-0 pixel planes."""
+    state = dict(grid=grid, lv0=lv0, owner0=owner0, lead0=lead0, cnt0=cnt0,
+                 stats_row=stats_row, merge_stats=merge_stats, seg0=None, is_run0=None,
+                 n_run_blocks=torch.zeros((), dtype=torch.int64, device=lead0.device))
+    if coalesce:
+        seg0, is_run0 = build_runs_multilevel(owner0, lv0["avg"], lv0["eps"], lead0, grid,
+                                              num_levels, channels)
+        px_plane, mask_plane, _ = layout.blockify_words(words)
+        state.update(seg0=seg0, is_run0=is_run0, n_run_blocks=is_run0.sum(),
+                     px=px_plane, mask=mask_plane)
+    return state
+
+
 def _fused_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int,
                need_q: bool, coalesce: bool):
-    """Stages A-E: fit every level, merge test and owner select (one kernel),
-    crush at the owner level (one kernel), leaders and bits, and with
-    ``coalesce`` run building."""
+    """Match policy, stages A-E: fit every level, merge test and owner select
+    (one kernel), crush at the owner level (one kernel), leaders and bits,
+    and with ``coalesce`` run building."""
     ch = cfg.channels
     words = _words(img)
     grid = layout.grid_for(*words.shape)
@@ -405,24 +561,79 @@ def _fused_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int,
     merge_stats = [{name: (r & bit).ne(0).sum() for name, bit in MATCH_REASON_BITS}
                    for r in fit.reasons]
     lead0 = _leaders(fit.owner, grid, num_levels)
-    s_eff0 = torch.clamp(crush.shifts, max=8)
-    fac_bits0 = ((8 - s_eff0) * fit.cnt0[None]).sum(dim=0, dtype=torch.int32)
-    is_leader0 = lead0 == torch.arange(grid.num_blocks, device=lead0.device)
-    state = dict(
-        grid=grid, fit=fit, crush=crush, merge_stats=merge_stats, lead0=lead0,
-        # per-block bits with the region header on its leader: what run
-        # coalescing weighs a refit against
-        bits0=fac_bits0 + static_block_bits(ch) * is_leader0.to(torch.int32),
-        seg0=None, is_run0=None,
-        n_run_blocks=torch.zeros((), dtype=torch.int64, device=lead0.device),
-    )
-    if coalesce:
-        seg0, is_run0 = build_runs_multilevel(fit.owner, fit.avg_sel, fit.eps_sel, lead0,
-                                              grid, num_levels, ch)
-        px_plane, mask_plane, _ = layout.blockify_words(words)
-        state.update(seg0=seg0, is_run0=is_run0, n_run_blocks=is_run0.sum(),
-                     px=px_plane, mask=mask_plane)
-    return state
+    lv0 = dict(shifts=crush.shifts,
+               bits=_bits_with_header(crush.shifts, fit.cnt0, lead0, static_block_bits(ch)),
+               bpp=crush.bpp, dist=crush.dist_blk, eps=fit.eps_sel, avg=fit.avg_sel,
+               dec=crush.dec, q=crush.q)
+    return _pre_state(words, grid, lv0, fit.owner, lead0, fit.cnt0, fit.stats_bits,
+                      merge_stats, num_levels, ch, coalesce)
+
+
+def _rd_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int, need_q: bool,
+            rd_lambda, header_bits: int | None, coalesce: bool):
+    """RD policy, stages A-E (limg_tpu/regions.py:1619 ``_rd_pre_body``):
+    every level through the region encode kernel, the RD cut, the owner
+    level's rows and planes selected per level-0 block, leaders and bits,
+    and with ``coalesce`` run building.
+
+    A region's distortion is parked on its leader block (0 on the others),
+    so that segment sums over whole regions give region sums; its bits
+    carry ``header_bits`` (None: the static estimate) on the leader, while
+    bpp keeps the static estimate over the region's pixels, as the JAX
+    package reports it.
+    """
+    ch = cfg.channels
+    words = _words(img)
+    grid0 = layout.grid_for(*words.shape)
+    dev = words.device
+    grids, levels = [], []
+    for lvl in range(num_levels):
+        lv = _encode_level(words, lvl, cfg, seed)
+        grids.append(lv.pop("grid"))
+        levels.append(lv)
+    hdr = static_block_bits(ch) if header_bits is None else header_bits
+    keep, merge_stats = rd_merge_keep(levels, grids, num_levels, rd_lambda,
+                                      float(hdr - static_block_bits(ch)))
+    owner0 = _owner_level(keep, grids, num_levels)
+
+    yy0 = torch.arange(grid0.blocks_y, device=dev)[:, None]
+    xx0 = torch.arange(grid0.blocks_x, device=dev)[None, :]
+
+    def aligned(lvl):
+        """Level-0 blocks at the top-left of a level-``lvl`` square."""
+        s = 1 << lvl
+        return ((yy0 % s == 0) & (xx0 % s == 0)).reshape(-1)
+
+    lv0 = levels[0]
+    sel = {k: lv0[k] for k in ("shifts", "eps", "avg", "dec", "dist", "bits", "count")}
+    sel["q"] = lv0["q"] if need_q else None
+    for lvl in range(1, num_levels):
+        lv, g = levels[lvl], grids[lvl]
+        take = owner0 == lvl
+
+        def b0(v, lvl=lvl, g=g):
+            return _bcast0(v, g, grid0, lvl)
+
+        for k in ("shifts", "eps", "avg", "bits", "count"):
+            sel[k] = torch.where(take, b0(lv[k]), sel[k])
+        sel["dec"] = torch.where(take, _q_level_to_block0(lv["dec"], g, grid0, lvl), sel["dec"])
+        if need_q:
+            sel["q"] = torch.where(take, _q_level_to_block0(lv["q"], g, grid0, lvl), sel["q"])
+        sel["dist"] = torch.where(take, torch.where(aligned(lvl), b0(lv["dist"]), 0.0),
+                                  sel["dist"])
+
+    lead0 = _leaders(owner0, grid0, num_levels)
+    cnt0 = lv0["count"]
+    rbits, rcnt = sel["bits"], sel["count"]
+    stats_row = torch.zeros(grid0.num_blocks, dtype=torch.int32, device=dev)
+    for lvl in range(num_levels):
+        stats_row |= torch.where(aligned(lvl) & (owner0 >= lvl), 1 << lvl, 0).to(torch.int32)
+    state_lv0 = dict(
+        shifts=sel["shifts"], bits=_bits_with_header(sel["shifts"], cnt0, lead0, hdr),
+        bpp=torch.clamp((rbits + rcnt // 2) // torch.clamp(rcnt, min=1), max=0xFF),
+        dist=sel["dist"], eps=sel["eps"], avg=sel["avg"], dec=sel["dec"], q=sel["q"])
+    return _pre_state(words, grid0, state_lv0, owner0, lead0, cnt0, stats_row, merge_stats,
+                      num_levels, ch, coalesce)
 
 
 def _decoded_image(dec_packed: torch.Tensor, grid: layout.BlockGrid) -> torch.Tensor:
@@ -432,14 +643,14 @@ def _decoded_image(dec_packed: torch.Tensor, grid: layout.BlockGrid) -> torch.Te
 
 
 def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
-                  emit_planes: bool, cap: int | None):
-    """Stages F-G: with a run capacity ``cap`` (None: no coalescing) the
-    coalesce pass, then the stats as flat level-0 sums, the decoded image,
-    and with ``emit_planes`` the per-block planes."""
-    grid, fit, crush = state["grid"], state["fit"], state["crush"]
-    nb, dev = grid.num_blocks, fit.cnt0.device
-    lv = dict(shifts=crush.shifts, bits=state["bits0"], bpp=crush.bpp, dist=crush.dist_blk,
-              eps=fit.eps_sel, avg=fit.avg_sel, dec=crush.dec, q=crush.q)
+                  emit_planes: bool, cap: int | None, merge_policy: str = "match",
+                  rd_lambda=0.0, header_bits: int | None = None):
+    """Stages F-G of either policy: with a run capacity ``cap`` (None: no
+    coalescing) the coalesce pass, then the stats as flat level-0 sums, the
+    decoded image, and with ``emit_planes`` the per-block planes."""
+    grid, lv = state["grid"], state["lv0"]
+    nb, owner0, cnt0 = grid.num_blocks, state["owner0"], state["cnt0"]
+    dev = cnt0.device
     n_runs = torch.zeros((), dtype=torch.int64, device=dev)
     coalesce_stats, rid_blk = {}, state["lead0"]
     if cap is not None:
@@ -447,16 +658,17 @@ def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
         lv = {k: None if v is None else v.clone() for k, v in lv.items()}
         applied, n_runs, coalesce_stats = coalesce_segments(
             state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
-            coalesce_key(seed, cfg.dither_seed), cap, need_planes=emit_planes)
+            coalesce_key(seed, cfg.dither_seed), cap, need_planes=emit_planes,
+            merge_policy=merge_policy, rd_lambda=rd_lambda, header_bits=header_bits)
         rid_blk = torch.where(applied, state["seg0"], rid_blk)
-    cnt0 = fit.cnt0.to(torch.int64)
+    cnt0 = cnt0.to(torch.int64)
     s_eff0 = torch.clamp(lv["shifts"], max=8).to(torch.int64)
     one_hot = s_eff0[:, None, :] == torch.arange(9, device=dev)[None, :, None]
     out = dict(
         decoded=_decoded_image(lv["dec"], grid),
         accum_bits=((8 - s_eff0) * cnt0[None]).sum(dim=1),
         bits_histogram=(one_hot * cnt0[None, None, :]).sum(dim=2),
-        alive_counts=torch.stack([((fit.stats_bits >> lvl) & 1).sum()
+        alive_counts=torch.stack([((state["stats_row"] >> lvl) & 1).sum()
                                   for lvl in range(num_levels)]),
         mean_bpp=(lv["bpp"].to(torch.float64) * cnt0).sum() / (grid.height * grid.width),
         total_err=lv["dist"].to(torch.float64).sum(),
@@ -468,11 +680,16 @@ def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
         out["endpoint_rows"] = lv["eps"].reshape(-1, nb)
         out["block_rows8"] = torch.cat(
             [s_eff0, lv["bpp"][None].to(torch.int64),
-             fit.owner[None].to(torch.int64)]).to(torch.uint8)               # (5, NB)
-        out["region_rows"] = fit.owner * nb + rid_blk
+             owner0[None].to(torch.int64)]).to(torch.uint8)                  # (5, NB)
+        out["region_rows"] = owner0 * nb + rid_blk
         q = torch.stack([(lv["q"] >> (8 * k)) & 0xFF for k in range(3)])
         out["factors_pnb"] = ((q << s_eff0[:, None, :]) & 0xFF).to(torch.uint8)
     return out
+
+
+def _check_planes(state: dict, emit_planes: bool) -> None:
+    if emit_planes and state["lv0"]["q"] is None:
+        raise ValueError("emit_planes needs a state made with need_q=True")
 
 
 def fused_merged_pre(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
@@ -492,17 +709,37 @@ def fused_merged_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: i
     member capacity ``cap``, then the outputs of
     ``encode_image_merged_fused_device``. ``seed`` must be the pre
     stage's."""
-    if emit_planes and state["crush"].q is None:
-        raise ValueError("emit_planes needs a state made with need_q=True")
+    _check_planes(state, emit_planes)
     return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap)
+
+
+def fused_rd_pre(image, cfg: EncodeConfig, seed: int = 0, rd_lambda: float = 0.01,
+                 num_levels: int = 3, need_q: bool = True, header_bits: int | None = None,
+                 device="cuda"):
+    """RD policy, stages A-E with run building, on ``device``
+    (limg_tpu/regions.py:1791); pair with ``fused_rd_finish``."""
+    _check_supported(num_levels, "rd", False, "morton")
+    img = _as_image_tensor(image, resolve_device(device))
+    return _rd_pre(img, cfg, seed, num_levels, need_q, rd_lambda, header_bits, coalesce=True)
+
+
+def fused_rd_finish(state: dict, cfg: EncodeConfig, seed: int, rd_lambda: float,
+                    num_levels: int, emit_planes: bool, cap: int,
+                    header_bits: int | None = None):
+    """RD policy, stages F-G on a ``fused_rd_pre`` state, with the RD
+    acceptance of runs; ``seed``, ``rd_lambda`` and ``header_bits`` must be
+    the pre stage's."""
+    _check_planes(state, emit_planes)
+    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap, "rd", rd_lambda,
+                         header_bits)
 
 
 def encode_image_merged_fused_device(image, cfg: EncodeConfig, seed: int = 0,
                                      num_levels: int = 3, emit_planes: bool = True,
                                      coalesce: bool = True, return_state: bool = False,
-                                     merge_policy: str = "match", cap_frac: int = 8,
-                                     fused_layout: str = "morton", device="cuda"):
-    """Fused merged encode with every output left on ``device``.
+                                     cap_frac: int = 8, fused_layout: str = "morton",
+                                     device="cuda"):
+    """Fused merged encode, match policy, with every output left on ``device``.
 
     ``cap_frac`` sets the coalesce buffer's capacity directly: 0 and 1 mean
     full capacity, > 1 nb // cap_frac (at least 4096), < 0 pins
@@ -516,16 +753,36 @@ def encode_image_merged_fused_device(image, cfg: EncodeConfig, seed: int = 0,
     uint8 [3 shifts, bpp, owner], ``region_rows`` (NB,) and ``factors_pnb``
     (3, 64, NB) uint8.
     """
-    _check_supported(num_levels, merge_policy, return_state, fused_layout)
+    _check_supported(num_levels, "match", return_state, fused_layout)
     img = _as_image_tensor(image, resolve_device(device))
     state = _fused_pre(img, cfg, seed, num_levels, need_q=emit_planes, coalesce=coalesce)
     cap = _coalesce_cap(cap_frac, state["grid"].num_blocks) if coalesce else None
     return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap)
 
 
+def encode_image_merged_rd_device(image, cfg: EncodeConfig, seed: int = 0,
+                                  rd_lambda: float = 0.01, num_levels: int = 3,
+                                  emit_planes: bool = True, coalesce: bool = True,
+                                  return_state: bool = False, cap_frac: int = 8,
+                                  header_bits: int | None = None, device="cuda"):
+    """Fused merged encode, RD policy (limg_tpu/regions.py:1763), with every
+    output left on ``device``: the outputs of
+    ``encode_image_merged_fused_device``, ``merge_stats`` holding kept /
+    rd_cost_saved / cost_reject per level. ``header_bits`` is the region
+    header the cut and the run acceptance charge (None: the static
+    estimate)."""
+    _check_supported(num_levels, "rd", return_state, "morton")
+    img = _as_image_tensor(image, resolve_device(device))
+    state = _rd_pre(img, cfg, seed, num_levels, emit_planes, rd_lambda, header_bits, coalesce)
+    cap = _coalesce_cap(cap_frac, state["grid"].num_blocks) if coalesce else None
+    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap, "rd", rd_lambda,
+                         header_bits)
+
+
 def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
                         fetch_planes: bool = True, merge_policy: str = "match",
-                        coalesce: bool = True, return_state: bool = False,
+                        rd_lambda: float = 0.01, coalesce: bool = True,
+                        return_state: bool = False, rd_header_bits: int | None = None,
                         fetch_decoded: bool = True, cap_frac: int = 0,
                         fused_layout: str = "morton", device="cuda"):
     """Host-facing merged encode, with the output dict of
@@ -534,20 +791,34 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
     n_runs, coalesce_stats, and with ``fetch_planes`` factors, shift, bpp,
     region_id, owner_px and endpoint_rows (NumPy arrays).
 
+    ``merge_policy`` is "match" (the default) or "rd", whose cut and run
+    acceptance weigh bits + ``rd_lambda`` * distortion, charging
+    ``rd_header_bits`` per region (None: the static estimate).
     ``cap_frac=0`` (the default) is auto run capacity: the pre stage runs,
     the host reads the run-block count (one sync), and the coalesce stage
     runs once at ``auto_run_capacity``, so no run is dropped. Another value
-    goes to ``encode_image_merged_fused_device`` as it is.
+    goes to the device entry point as it is.
     """
     _check_supported(num_levels, merge_policy, return_state, fused_layout)
+    rd = merge_policy == "rd"
     if coalesce and cap_frac == 0:
-        state = fused_merged_pre(image, cfg, seed, num_levels, need_q=fetch_planes,
-                                 device=device)
+        if rd:
+            state = fused_rd_pre(image, cfg, seed, rd_lambda, num_levels, need_q=fetch_planes,
+                                 header_bits=rd_header_bits, device=device)
+        else:
+            state = fused_merged_pre(image, cfg, seed, num_levels, need_q=fetch_planes,
+                                     device=device)
         cap = auto_run_capacity(int(state["n_run_blocks"]), state["grid"].num_blocks)
-        out = _fused_finish(state, cfg, seed, num_levels, fetch_planes, cap)
+        out = _fused_finish(state, cfg, seed, num_levels, fetch_planes, cap, merge_policy,
+                            rd_lambda, rd_header_bits)
+    elif rd:
+        out = encode_image_merged_rd_device(image, cfg, seed, rd_lambda, num_levels,
+                                            fetch_planes, coalesce, return_state,
+                                            cap_frac if cap_frac != 0 else 1, rd_header_bits,
+                                            device)
     else:
         out = encode_image_merged_fused_device(image, cfg, seed, num_levels, fetch_planes,
-                                               coalesce, return_state, merge_policy,
+                                               coalesce, return_state,
                                                cap_frac if cap_frac != 0 else 1,
                                                fused_layout, device)
     h, w = out["decoded"].shape[:2]

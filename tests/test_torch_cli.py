@@ -89,8 +89,26 @@ def test_merged_mode_prints_stats_and_writes_planes(image_files, capsys, monkeyp
     assert "Compression Average" in capsys.readouterr().out
 
 
+def test_rd_merge_mode_runs(image_files, capsys, monkeypatch):
+    """``--rd-merge`` (ROADMAP.md Queue 1 item 12, once refused) runs the
+    merged encode under the RD policy and prints its stats; with
+    ``--fixed-grid`` the fixed grid wins, as in limg_tpu.cli."""
+    from limg_tpu_torch import EncodeConfig, encode_image, encode_image_merged
+
+    monkeypatch.chdir(image_files)
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--rd-merge", "--device", "cpu", "--no-output"])
+    bits, psnr = _stats(capsys.readouterr().out)
+    img = np.load(npy)
+    out = encode_image_merged(img, EncodeConfig(), merge_policy="rd", device="cpu")
+    assert f"{out['mean_bpp']:7.4f}" in bits[1] and abs(psnr - out["psnr"]) < 0.005
+    tcli.main([npy, "--fixed-grid", "--rd-merge", "--device", "cpu", "--no-output"])
+    bits, psnr = _stats(capsys.readouterr().out)
+    assert abs(psnr - encode_image(img, EncodeConfig(), device="cpu")["psnr"]) < 0.005
+    assert not list(image_files.glob("*.tga"))
+
+
 @pytest.mark.parametrize("args,item", [
-    (["--fixed-grid", "--rd-merge"], "Queue 1 item 12"),
     (["--write-ltp1", "out.ltp1"], "Queue 1 item 10"),
     (["--diagnose"], "Queue 1 item 11"),
 ])

@@ -65,6 +65,31 @@ def test_kernel_matches_plain_version(device, channels, mode, num_factors, dithe
             assert torch.equal(g, w), i
 
 
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("p", [256, 1024, 4096])
+def test_region_kernel_matches_plain_version(device, p, channels, mode, num_factors, dithering):
+    """csrc/encode_region.cu at each region size, on an edge-padded image."""
+    words = _words(150, 203, channels, 17, device)
+    packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = dict(kmod.launches_region)
+    got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
+    torch.cuda.synchronize(device)
+    assert kmod.launches_region == {k: v + (k == p) for k, v in before.items()}
+    want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, i
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), i
+
+
 def test_kernel_rejects_bad_inputs(device):
     packed, mask = _blocks(16, 16, 3, 1, device)
     with pytest.raises(ValueError):

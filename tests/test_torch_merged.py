@@ -283,7 +283,6 @@ def test_4k_fixture_is_complete(fixture):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(coalesce=False, merge_policy="rd"), "Queue 1 item 12"),
     (dict(coalesce=False, return_state=True), "Queue 1 item 10"),
     (dict(coalesce=False, num_levels=1), "Queue 1 item 13"),
     (dict(coalesce=False, num_levels=5), "Queue 1 item 13"),
@@ -295,6 +294,19 @@ def test_unported_arguments_raise(kwargs, item):
                limg_tpu_torch.encode_image_merged_fused_device):
         with pytest.raises(NotImplementedError, match=item):
             fn(img, EncodeConfig(), device="cpu", **kwargs)
+
+
+def test_rd_policy_runs_where_it_was_refused():
+    """``merge_policy="rd"`` (ROADMAP.md Queue 1 item 12) now encodes the
+    input it was refused on, through both entry points."""
+    img = np.zeros((16, 16, 3), np.uint8)
+    out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(), device="cpu", coalesce=False,
+                                             merge_policy="rd")
+    np.testing.assert_array_equal(out["decoded"][..., :3], img)
+    np.testing.assert_array_equal(out["alive_counts"], [4, 1, 0])
+    dev = limg_tpu_torch.encode_image_merged_rd_device(img, EncodeConfig(), coalesce=False,
+                                                       device="cpu")
+    assert dev["decoded"].shape == (16, 16, 4) and int(dev["n_runs"]) == 0
 
 
 def test_default_encode_coalesces_runs():

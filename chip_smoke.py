@@ -2,9 +2,12 @@
 kernels, and drive the fixed-grid encode (``limg_tpu_torch.encode_image``),
 the quadtree-merged encode without coalescing
 (``encode_image_merged(..., coalesce=False)``), the default merged encode
-with run coalescing (``encode_image_merged()``, and the CLI's merged mode)
-and the RD merge policy (``encode_image_merged(merge_policy="rd")``, and
-the CLI's ``--rd-merge``) on 4K images through them.
+with run coalescing (``encode_image_merged()``, and the CLI's merged mode),
+the RD merge policy (``encode_image_merged(merge_policy="rd")``, and the
+CLI's ``--rd-merge``), the natural-layout default encode
+(``encode_image_merged(fused_layout="natural", return_state=True)``) and
+the composed coalesce pass (``coalesce_segments(use_kernel=False)``) on 4K
+images through them.
 
     python3 chip_smoke.py
 
@@ -25,6 +28,11 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
 2d. the same for ``encode_region`` at P = 256, 1024 and 4096 (16x16, 32x32
    and 64x64 pixel regions), RGB and RGBA, aligned and edge-padded images,
    the settings of phase 2;
+2e. the same for ``fit_levels_natural`` and ``owner_crush_natural`` (levels
+   2 to 4, RGB and RGBA, edge-padded images, the settings of phase 2, q
+   emitted and not), for ``crush_eval_rows`` (K = 1, 8, 27 and 729, ragged
+   N, RGB and RGBA, P = 64 and 256) and for the composed segment re-encode
+   against the segment kernel on real run buffers;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -40,10 +48,23 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    images at 3 levels, the launches of its eight kernels counted from 0
    (one 4-level encode runs P = 4096), held against the JAX RD encode
    (tests/fixtures/torch_port_rd_reference.npz), then ``--rd-merge`` once;
-4. / 4b. / 4c. / 4d. kernel and plain times at the 4K shapes of each path
-   (each compared once more), and each path's device-resident step, CUDA
-   events, median of 10 runs after warm-up, with a torch.profiler
-   breakdown.
+3e. the natural path: ``encode_image_merged(fused_layout="natural",
+   return_state=True)`` on the same images, its two kernels' launches
+   counted from 0 (the Morton pair's must stay 0), held as in 3c against
+   the JAX default encode and against the JAX natural-layout encode
+   (tests/fixtures/torch_port_natural_reference.npz), and against the
+   port's Morton encode, dithering off and on: the two orders of a block's
+   float sums flip a few endpoints at 4K, so owners, alive counts, runs and
+   serializer-state columns are counted and held to the tolerances of the
+   JAX checks, decoded pixels 99.9% equal; then the composed coalesce pass
+   on the 4K default state, ``crush_eval_rows`` counted from 0, bit-equal to
+   the segment kernel's pass;
+4. / 4b. / 4c. / 4d. / 4e. kernel and plain times at the 4K shapes of each
+   path (each compared once more), and each path's device-resident step,
+   CUDA events, median of 10 runs after warm-up, with a torch.profiler
+   breakdown; 4e also times the natural pair against the Morton pair, the
+   natural step against the Morton step and the composed coalesce pass
+   against the segment kernel's.
 
 Prints one JSON line of kernel results (each with its launches on its
 path's main run, its time, its plain version's, and its bound: the least
@@ -68,7 +89,9 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_reference.json")
 MERGED_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_merged_reference.npz")
 COALESCE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coalesce_reference.npz")
 RD_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_rd_reference.npz")
-LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "encode_region")
+NATURAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_natural_reference.npz")
+LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "encode_region", "encode_natural",
+             "crush_eval")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
@@ -82,6 +105,14 @@ COALESCE_REPLACES = {
     "segment_encode": "limg_tpu/pallas_kernels/encode_segments.py:188",
 }
 REGION_SOURCE = "limg_tpu_torch/csrc/encode_region.cu"
+NATURAL_SOURCE = "limg_tpu_torch/csrc/encode_natural.cu"
+NATURAL_REPLACES = {
+    "fit_levels_natural": "limg_tpu/pallas_kernels/encode_natural.py:421",
+    "owner_crush_natural": "limg_tpu/pallas_kernels/encode_natural.py:528",
+}
+CRUSH_EVAL_SOURCE = "limg_tpu_torch/csrc/crush_eval.cu"
+# crush_eval_rows_k_pallas; crush_eval_rows_pallas (:1021) is its K = 1 form
+CRUSH_EVAL_REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:1063"
 # P = 256 / 1024 run encode_blocks_pallas's mono kernel (:739), P = 4096
 # its fit and crush kernels (:764, :781)
 REGION_SIZES = (256, 1024, 4096)
@@ -474,6 +505,81 @@ def phase_compare_coalesce(device, images=None) -> float:
     return worst
 
 
+def phase_compare_natural(device, images=None) -> float:
+    """fit_levels_natural / owner_crush_natural and crush_eval_rows vs their
+    plain versions, and the composed segment re-encode vs the segment
+    kernel; max abs diff."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import crush_eval as kce
+    from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.regions import _words
+    from tools.make_test_image import make_4k
+    from tools.record_torch_natural_reference import crush_eval_inputs
+
+    log("== phase 2e: natural-layout kernels and crush_eval_rows vs plain versions on the card")
+    if images is None:
+        images = {"70x90": small_image(70, 90), "301x437": make_4k(301, 437)}
+    worst, n_cases = 0.0, 0
+
+    def check(case, got, want):
+        nonlocal worst, n_cases
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        try:
+            worst = max(worst, compare_outputs(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"{case}: {e}")
+        n_cases += 1
+
+    for name, rgb in images.items():
+        for ch in (3, 4):
+            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
+            for levels in (2, 3, 4):
+                for i, (mode, nf, dith) in enumerate(SETTINGS):
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    emit_q = (i // 2) % 2 == 0
+                    case = (f"{name} ch={ch} levels={levels} {mode} nf={nf} dither={dith} "
+                            f"emit_q={emit_q}")
+                    fit = kn.fit_levels_natural_reference(words, cfg, levels)
+                    check(f"{case} fit", kn.fit_levels_natural_kernel(words, cfg, levels), fit)
+                    args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, levels, 7, emit_q)
+                    check(f"{case} crush", kn.owner_crush_natural_kernel(*args),
+                          kn.owner_crush_natural_reference(*args))
+        log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (natural fit and crush)")
+    # crush_eval_rows: every K the search asks for and the exhaustive 729,
+    # ragged N up to the full 4K buffer, both block sizes
+    for ch in (3, 4):
+        for p in (64, 256):
+            for n, k in ((1, 1), (37, 8), (1000, 27), (3001, 729), (129600, 27)):
+                packed, mask, f8p, eps, cands = crush_eval_inputs(ch, n=n, k=k, seed=p + n)
+                if p == 256:
+                    packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
+                ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in (packed, mask, f8p, eps, cands)]
+                check(f"crush_eval_rows ch={ch} P={p} N={n} K={k}",
+                      kce.crush_eval_rows_kernel(*ins, ch), kce.crush_eval_rows_reference(*ins, ch))
+    log("  crush_eval_rows: 20 cases bit-equal")
+    # the composed re-encode (seg_mixed_all_kernel + crush_eval_rows_kernel)
+    # against the segment kernel on real run buffers
+    rgb = make_4k(256, 384)
+    for ch in (3, 4):
+        img = rgb if ch == 3 else with_alpha(rgb)
+        buf, _ = image_run_buffer(img, EncodeConfig(error_factor=100, has_alpha=ch == 4,
+                                                    dithering=False), device)
+        for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
+            cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                               dithering=dith, num_factors=nf)
+            check(f"256x384 ch={ch} composed segment encode {mode} nf={nf} dither={dith}",
+                  kc.segment_encode_composed(*buf, cfg, 0x5EED),
+                  kc.segment_encode_kernel(*buf, cfg, 0x5EED))
+    log(f"phase 2e ok: {n_cases} cases, max abs diff {worst}")
+    return worst
+
+
 def check_against_fixture(name: str, out: dict, ref: dict, n_px: int):
     hist_l1 = int(np.abs(np.asarray(out["bits_histogram"]) - np.asarray(ref["bits_histogram"])).sum())
     d_psnr = out["psnr"] - ref["psnr"]
@@ -661,10 +767,12 @@ def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, ditheri
 def reset_launches():
     """Every kernel's launch count to 0."""
     from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import crush_eval as kce
     from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
 
-    for counts in (km.launches, kc.launches, kmod.launches_region):
+    for counts in (km.launches, kc.launches, kmod.launches_region, kn.launches, kce.launches):
         for k in counts:
             counts[k] = 0
     kmod.launches = 0
@@ -673,10 +781,13 @@ def reset_launches():
 def read_launches() -> dict:
     """Every kernel's launch count, by kernel name."""
     from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import crush_eval as kce
     from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
 
-    return {**km.launches, **kc.launches, "encode_fixed_p64": kmod.launches,
+    return {**km.launches, **kc.launches, **kn.launches, **kce.launches,
+            "encode_fixed_p64": kmod.launches,
             **{f"encode_region_p{p}": n for p, n in kmod.launches_region.items()}}
 
 
@@ -808,6 +919,120 @@ def phase_main_path_rd(device):
     return launched
 
 
+def composed_pass(state, cfg, seed: int, use_kernel: bool) -> tuple:
+    """One coalesce pass over a ``fused_merged_pre`` state at auto capacity,
+    through the segment kernel (``use_kernel``) or the composed re-encode:
+    (the updated rows and planes, applied, n_runs, coalesce_stats)."""
+    import limg_tpu_torch
+    from limg_tpu_torch import regions
+    from limg_tpu_torch.ops.dither import coalesce_key
+
+    nb = state["grid"].num_blocks
+    cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
+    lv = {k: None if v is None else v.clone() for k, v in state["lv0"].items()}
+    applied, n_runs, stats = regions.coalesce_segments(
+        state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
+        coalesce_key(seed, cfg.dither_seed), cap, need_planes=lv["q"] is not None,
+        use_kernel=use_kernel)
+    return lv, applied, n_runs, stats
+
+
+def phase_main_path_natural(device):
+    """encode_image_merged(fused_layout="natural", return_state=True) at 4K
+    through the natural pair, against the JAX default encode and the port's
+    Morton encode; then the composed coalesce pass on the 4K default state
+    through crush_eval_rows."""
+    import torch
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3e: natural-layout default path (encode_image_merged(fused_layout='natural', "
+        "return_state=True))")
+    fx, nfx = np.load(COALESCE_FIXTURE), np.load(NATURAL_FIXTURE)
+    images = case_images(2160, 3840)
+    h, w = images["rgb"].shape[:2]
+    nb = -(-h // 8) * -(-w // 8)
+    reset_launches()
+    outs = {}
+    for lane, img in images.items():
+        for dith in (False, True):
+            cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
+            t0 = time.perf_counter()
+            out, state = limg_tpu_torch.encode_image_merged(
+                img, cfg, num_levels=MERGED_LEVELS, return_state=True, fused_layout="natural",
+                device=device)
+            secs = time.perf_counter() - t0
+            dec = out["decoded"]
+            if (dec.shape != (h, w, 4) or not np.isfinite(out["psnr"]) or out["n_runs"] <= 0
+                    or state["rows"].shape != (6 * cfg.channels + 6, nb)
+                    or state["q"].shape != (3, 64, nb)):
+                raise AssertionError(f"{lane}: decoded {dec.shape}, psnr {out['psnr']}, "
+                                     f"runs {out['n_runs']}, state {state['rows'].shape}")
+            log(f"  4k_{lane} dither={dith}: natural encode_image_merged {secs * 1e3:.1f} ms "
+                f"wall (host copies and the state's fetch included)")
+            name = f"4k_{lane}_l{MERGED_LEVELS}"
+            log("    against the JAX default (Morton) encode:")
+            check_coalesced_against_fixture(name, out, fx, h * w, dith)
+            log("    against the JAX natural-layout encode:")
+            check_coalesced_against_fixture(name, out, nfx, h * w, dith)
+            outs[(lane, dith)] = (out, state)
+    launched = {k: v for k, v in read_launches().items()
+                if k in (*NATURAL_REPLACES, *MERGED_REPLACES, *COALESCE_REPLACES)}
+    if min(launched[k] for k in (*NATURAL_REPLACES, *COALESCE_REPLACES)) == 0 or any(
+            launched[k] for k in MERGED_REPLACES):
+        raise AssertionError(f"the natural path's launches are off: {launched}")
+    log(f"  {len(outs)} encodes, launches {launched}")
+    # the port's Morton encode of the same inputs
+    for (lane, dith), (out, state) in outs.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
+        m_out, m_state = limg_tpu_torch.encode_image_merged(
+            images[lane], cfg, num_levels=MERGED_LEVELS, return_state=True, device=device)
+        owner_agree = float((out["owner_px"] == m_out["owner_px"]).mean())
+        alive_rel = (np.abs(out["alive_counts"] - m_out["alive_counts"])
+                     / np.maximum(m_out["alive_counts"], 1))
+        dec_agree = float((out["decoded"] == m_out["decoded"]).all(axis=-1).mean())
+        cols = (state["rows"] != m_state["rows"]).any(axis=0)
+        ep_flip = int(np.abs(state["rows"][4:-2].astype(np.int64)
+                             - m_state["rows"][4:-2]).max())
+        q_cols = int((state["q"] != m_state["q"]).any(axis=(0, 1)).sum())
+        rejected = [o["coalesce_stats"]["rejected_runs"] for o in (out, m_out)]
+        log(f"  4k_{lane} dither={dith} natural vs Morton: owner agreement {owner_agree!r}, "
+            f"alive {out['alive_counts'].tolist()} vs {m_out['alive_counts'].tolist()}, runs "
+            f"{out['n_runs']} vs {m_out['n_runs']}, stats {out['coalesce_stats']} vs "
+            f"{m_out['coalesce_stats']}, state columns differing {int(cols.sum())} (largest "
+            f"endpoint difference {ep_flip}), factor columns differing {q_cols}, decoded "
+            f"pixels equal {dec_agree!r}, psnr {out['psnr']!r} vs {m_out['psnr']!r}")
+        if (owner_agree < OWNER_AGREE or (alive_rel > ALIVE_FRAC).any()
+                or abs(out["n_runs"] - m_out["n_runs"]) > RUNS_FRAC * m_out["n_runs"]
+                or abs(rejected[0] - rejected[1]) > RUNS_FRAC * rejected[1]
+                or cols.mean() > 1 - OWNER_AGREE or dec_agree < 0.999
+                or abs(out["psnr"] - m_out["psnr"]) > NODITHER_PSNR_DB
+                or abs(out["mean_bpp"] - m_out["mean_bpp"]) > NODITHER_BPP):
+            raise AssertionError(f"4k_{lane} dither={dith}: the natural encode is off the Morton one")
+    # the composed coalesce pass (coalesce_segments(use_kernel=False)) on the
+    # 4K default state, counted from 0, against the segment kernel's pass
+    cfg = EncodeConfig(error_factor=100)
+    state = limg_tpu_torch.fused_merged_pre(images["rgb"], cfg, 0, MERGED_LEVELS, device=device)
+    want = composed_pass(state, cfg, 0, True)
+    reset_launches()
+    got = composed_pass(state, cfg, 0, False)
+    composed = read_launches()
+    lv_k, lv_c = want[0], got[0]
+    diff = [k for k in lv_k if not torch.equal(lv_k[k], lv_c[k])]
+    if (diff or not torch.equal(want[1], got[1]) or int(want[2]) != int(got[2])
+            or {k: int(v) for k, v in want[3].items()} != {k: int(v) for k, v in got[3].items()}):
+        raise AssertionError(f"the composed coalesce pass differs from the segment kernel's: {diff}")
+    if composed["crush_eval_rows"] == 0 or composed["segment_encode"] != 0:
+        raise AssertionError(f"the composed pass's launches are off: {composed}")
+    launched["crush_eval_rows"] = composed["crush_eval_rows"]
+    log(f"  composed coalesce pass on the 4K RGB default state ({int(got[2])} runs): bit-equal to "
+        f"the segment kernel's; launches crush_eval_rows {composed['crush_eval_rows']}, "
+        f"seg_mixed_all {composed['seg_mixed_all']}, segment_encode {composed['segment_encode']}")
+    log("phase 3e ok")
+    return launched
+
+
 # ---------------------------------------------------------------------------
 # Bounds: bytes and operations of a call, counted from its inputs and outputs
 # (each tensor read or written once) and from the kernels' code
@@ -885,10 +1110,13 @@ def kernel_bound(name: str, args, out) -> tuple:
     if name in ("encode_fixed_p64", "encode_region"):
         packed, mask, cfg = args[:3]
         ops = encode_ops(packed.numel(), packed.numel(), cfg)
-    elif name == "fit_levels":
+    elif name in ("fit_levels", "fit_levels_natural"):
         words, cfg, levels = args
         ops = levels * words.numel() * fit_ops(cfg.channels)
-    elif name == "owner_crush":
+    elif name == "crush_eval_rows":
+        packed, channels, cands = args[0], args[5], args[4]
+        ops = cands.shape[0] * packed.numel() * eval_ops(channels)
+    elif name in ("owner_crush", "owner_crush_natural"):
         words, cfg = args[0], args[4]
         ops = encode_ops(words.numel(), words.numel(), cfg) - words.numel() * fit_ops(cfg.channels)
     elif name == "segment_encode":
@@ -1157,6 +1385,106 @@ def phase_timing_rd(device, smi: str):
     return rows, worst
 
 
+def phase_timing_natural(device, smi: str):
+    """The natural pair vs plain and vs the Morton pair, crush_eval_rows vs
+    plain at the composed pass's first call, the composed coalesce pass vs
+    the segment kernel's, and the natural default step vs the Morton one, at
+    4K (the kernels also compared)."""
+    import torch
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import crush_eval as kce
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.regions import _words
+    from tools.record_torch_reference import case_images
+
+    log("== phase 4e: natural pair, crush_eval_rows, composed coalesce pass and natural step "
+        "at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
+    images = case_images(2160, 3840)
+    rows, worst, lv = {}, 0.0, MERGED_LEVELS
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        img_d = _as_image_tensor(img, device)
+        words = _words(img_d)
+        fit = kn.fit_levels_natural_reference(words, cfg, lv)
+        worst = max(worst, compare_outputs(kn.fit_levels_natural_kernel(words, cfg, lv), fit))
+        args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, lv, 0)
+        worst = max(worst, compare_outputs(kn.owner_crush_natural_kernel(*args),
+                                           kn.owner_crush_natural_reference(*args)))
+        m_fit = km.fit_levels_kernel(words, cfg, lv)
+        m_args = (words, m_fit.owner, m_fit.f8_sel, m_fit.eps_sel, cfg, lv, 0)
+        fns = {"fit_levels_natural": (lambda: kn.fit_levels_natural_kernel(words, cfg, lv),
+                                      lambda: kn.fit_levels_natural_reference(words, cfg, lv),
+                                      lambda: km.fit_levels_kernel(words, cfg, lv),
+                                      (words, cfg, lv)),
+               "owner_crush_natural": (lambda: kn.owner_crush_natural_kernel(*args),
+                                       lambda: kn.owner_crush_natural_reference(*args),
+                                       lambda: km.owner_crush_kernel(*m_args), args)}
+        for name, (kern, plain, twin, call) in fns.items():
+            bound = kernel_bound(name, call, kern())
+            # plain, kernel, Morton twin, twin, kernel, plain: one card state
+            p1, k1, t1, t2, k2, p2 = (time_fn(f, device)
+                                      for f in (plain, kern, twin, twin, kern, plain))
+            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
+            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, Morton twin {t1!r} / {t2!r} ms, "
+                f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
+
+        # the composed coalesce pass's crush evaluations, on the default state
+        state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, device=device)
+        calls, saved = [], kce.crush_eval_rows_kernel
+
+        def spy(*a):
+            calls.append(a)
+            return saved(*a)
+
+        kce.crush_eval_rows_kernel = spy
+        try:
+            composed_pass(state, cfg, 0, False)
+        finally:
+            kce.crush_eval_rows_kernel = saved
+        # the first call: the ladder's 27 axis sweeps over the whole buffer
+        ce_args = calls[0]
+        got = kce.crush_eval_rows_kernel(*ce_args)
+        worst = max(worst, compare_outputs(got, kce.crush_eval_rows_reference(*ce_args)))
+        bound = kernel_bound("crush_eval_rows", ce_args, got)
+        kern = lambda: kce.crush_eval_rows_kernel(*ce_args)
+        plain = lambda: kce.crush_eval_rows_reference(*ce_args)
+        p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+        rows[("crush_eval_rows", lane)] = (min(k1, k2), min(p1, p2), *bound)
+        log(f"  4K {lane} crush_eval_rows ({len(calls)} calls in the composed pass; timed K = "
+            f"{ce_args[4].shape[0]}, N = {ce_args[0].shape[1]}): kernel {k1!r} / {k2!r} ms, "
+            f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
+        seg_pass = lambda: composed_pass(state, cfg, 0, True)[0]["dist"]
+        comp_pass = lambda: composed_pass(state, cfg, 0, False)[0]["dist"]
+        s1, c1, c2, s2 = (time_fn(f, device) for f in (seg_pass, comp_pass, comp_pass, seg_pass))
+        log(f"  4K {lane} coalesce pass at auto capacity: composed (use_kernel=False) {c1!r} / "
+            f"{c2!r} ms, segment kernel {s1!r} / {s2!r} ms [{smi}]")
+
+        mpx = img.shape[0] * img.shape[1] * 1e-6
+        nb = state["grid"].num_blocks
+
+        def step(layout):
+            st = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, need_q=False,
+                                                 fused_layout=layout, device=device)
+            cap = limg_tpu_torch.auto_run_capacity(int(st["n_run_blocks"]), nb)
+            out = limg_tpu_torch.fused_merged_finish(st, cfg, 0, lv, False, cap,
+                                                     fused_layout=layout)
+            return out["total_err"], out["mean_bpp"]
+
+        m1, n1, n2, m2 = (time_fn(lambda lay=lay: step(lay), device)
+                          for lay in ("morton", "natural", "natural", "morton"))
+        log(f"  4K {lane} default step (fused_merged_pre, host capacity read, "
+            f"fused_merged_finish; emit_planes=False): natural {n1!r} / {n2!r} ms = "
+            f"{mpx / min(n1, n2) * 1e3!r} Mpx/s, Morton {m1!r} / {m2!r} ms [{smi}]")
+        if lane == "rgb":
+            profile_step(lambda: step("natural"), device, f"{lane} natural default")
+    log(f"phase 4e ok: 4K natural and crush_eval_rows outputs equal the plain versions' "
+        f"(max abs diff {worst})")
+    return rows, worst
+
+
 def profile_step(fn, device, lane: str, iters: int = 5):
     """Device time by operation over ``iters`` perf steps (torch.profiler),
     and the device-busy share of the profiled window."""
@@ -1203,14 +1531,17 @@ def main():
     worst_m = phase_compare_merged(device)
     worst_c = phase_compare_coalesce(device)
     worst_r = phase_compare_region(device)
+    worst_n = phase_compare_natural(device)
     launched = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
     launched_c = phase_main_path_coalesce(device)
     launched_r = phase_main_path_rd(device)
+    launched_n = phase_main_path_natural(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
     rows_c, worst4k_c = phase_timing_coalesce(device, smi)
     rows_r, worst4k_r = phase_timing_rd(device, smi)
+    rows_n, worst4k_n = phase_timing_natural(device, smi)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
                           max(worst, worst4k), rows["rgb"])]
@@ -1224,6 +1555,18 @@ def main():
         name = f"encode_region_p{p}"
         kernels.append(kernel_row(name, REGION_SOURCE, REPLACES, launched_r[name],
                                   max(worst_r, worst4k_r), rows_r[(p, "rgb")]))
+    for name, replaces in NATURAL_REPLACES.items():
+        kernels.append(kernel_row(name, NATURAL_SOURCE, replaces, launched_n[name],
+                                  max(worst_n, worst4k_n), rows_n[(name, "rgb")]))
+    kernels.append(kernel_row("crush_eval_rows", CRUSH_EVAL_SOURCE, CRUSH_EVAL_REPLACES,
+                              launched_n["crush_eval_rows"], max(worst_n, worst4k_n),
+                              rows_n[("crush_eval_rows", "rgb")]))
+    # the order in which to redesign the kernels: first any slower than a
+    # PyTorch call, then by the time their main runs spend above the bound
+    behind = sorted(kernels, key=lambda k: (k["library_ms"] is None or k["ms"] <= k["library_ms"],
+                                            -k["launches"] * (k["ms"] - k["bound_ms"])))
+    log("redesign order (launches x (ms - bound_ms), 4K RGB): " + ", ".join(
+        f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f}" for k in behind))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

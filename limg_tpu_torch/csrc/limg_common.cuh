@@ -18,7 +18,9 @@
 // (limg_tpu_torch/ops/reduce.py, ops/fit.py) follow too, so kernel and
 // plain version agree bit for bit:
 // - over a block's 64 pixels, x[l] + x[l+32], then butterfly shuffles at
-//   16, 8, 4, 2, 1: the values of the halving tree x[:n/2] + x[n/2:];
+//   16, 8, 4, 2, 1: the values of the halving tree x[:n/2] + x[n/2:]; the
+//   natural-layout kernels (encode_natural.cu) sum in that layout's order
+//   instead (nat_sum);
 // - across a region's warps, a pairwise-adjacent tree in Morton order,
 //   (w0 + w1) + (w2 + w3), ..., through shared memory;
 // - channel sums and other short sums are left folds;
@@ -65,6 +67,33 @@ __device__ __forceinline__ float tree_sum(float lo, float hi) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s = s + __shfl_xor_sync(kFull, s, off);
   return s;
+}
+
+// Sum of x over the block's 64 pixels in the natural layout's order
+// (limg_tpu/pallas_kernels/encode_natural.py:130 fold_sum; ops/reduce.py
+// nat_block_sum): a left fold over the 8 pixel rows of each column, then a
+// pairwise tree over the 8 column sums, partners x^1, x^2, x^4. Lane l holds
+// column l % 8 of rows l / 8 (lo) and 4 + l / 8 (hi).
+__device__ __forceinline__ float nat_sum(float lo, float hi) {
+  const int col = (int)(threadIdx.x & 7);
+  float s = __shfl_sync(kFull, lo, col);
+#pragma unroll
+  for (int r = 1; r < 4; ++r) s = s + __shfl_sync(kFull, lo, col + 8 * r);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) s = s + __shfl_sync(kFull, hi, col + 8 * r);
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) s = s + __shfl_xor_sync(kFull, s, off);
+  return s;
+}
+
+// A block's float sum: the natural layout's order (NAT) or the halving tree.
+template <bool NAT>
+__device__ __forceinline__ float block_sum(float lo, float hi) {
+  if constexpr (NAT) {
+    return nat_sum(lo, hi);
+  } else {
+    return tree_sum(lo, hi);
+  }
 }
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -491,7 +520,7 @@ __device__ __forceinline__ float signed_inv_len(const float (&v)[CH], float mf) 
   return il * mf;
 }
 
-template <int CH>
+template <int CH, bool NAT = false>
 __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const float mf[2],
                                                  float (&dir)[CH]) {
   float inv_len[2];
@@ -503,15 +532,16 @@ __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const 
     inv_len[j] = signed_inv_len<CH>(vj, mf[j]);
   }
 #pragma unroll
-  for (int c = 0; c < CH; ++c) dir[c] = tree_sum(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
+  for (int c = 0; c < CH; ++c)
+    dir[c] = block_sum<NAT>(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
 }
 
 // Sign-corrected unit-vector mean of the region (ops/fit.py _signed_unit_mean).
-template <int CH, class Red>
+template <int CH, bool NAT = false, class Red>
 __device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const float mf[2],
                                                  float inv_count, const Red& red,
                                                  float (&dir)[CH]) {
-  unit_vector_sums<CH>(v, mf, dir);
+  unit_vector_sums<CH, NAT>(v, mf, dir);
   red.sum(dir);
 #pragma unroll
   for (int c = 0; c < CH; ++c) dir[c] = dir[c] * inv_count;
@@ -619,10 +649,11 @@ struct FitSteps {
 };
 
 // This block's pixel sums of each channel (the per-block part of the avg).
-template <int CH>
+template <int CH, bool NAT = false>
 __device__ __forceinline__ void channel_sums(const Pixels<CH>& p, float (&sums)[CH]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c) sums[c] = tree_sum(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
+  for (int c = 0; c < CH; ++c)
+    sums[c] = block_sum<NAT>(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
 }
 
 // The six rounded endpoint rows of a fitted region. Empty regions (count 0;
@@ -718,27 +749,28 @@ __device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (
 // Masked 3-axis fit of the reducer's region, then the u8 factors of this
 // warp's pixels against the region's rounded endpoints. Outputs the region
 // pixel count, avg, the six endpoint rows (dirA_min, dirA_max, dirB_offset,
-// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j].
-template <int CH, class Red>
+// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j]. NAT: each block's float
+// sums in the natural layout's order (block_sum).
+template <int CH, bool NAT = false, class Red>
 __device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
                                 float (&avg)[CH], int (&ep)[6][CH], int (&f8)[3][2]) {
   count = red.sum_int(__reduce_add_sync(kFull, p.mask[0] + p.mask[1]));
   const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
-  channel_sums<CH>(p, avg);
+  channel_sums<CH, NAT>(p, avg);
   red.sum(avg);
 #pragma unroll
   for (int c = 0; c < CH; ++c) avg[c] = avg[c] * inv_count;
   FitSteps<CH> st;
   st.center(p, avg);
   float dir_a[CH], dir_b[CH], dir_c[CH];
-  signed_unit_mean<CH>(st.corrected, p.mf, inv_count, red, dir_a);
+  signed_unit_mean<CH, NAT>(st.corrected, p.mf, inv_count, red, dir_a);
   st.axis_a(p, avg, dir_a);
-  signed_unit_mean<CH>(st.resid_a, p.mf, inv_count, red, dir_b);
+  signed_unit_mean<CH, NAT>(st.resid_a, p.mf, inv_count, red, dir_b);
   st.axis_b(p, dir_b);
   if (CH == 3) {
     FitSteps<CH>::cross(dir_a, dir_b, dir_c);
   } else {
-    signed_unit_mean<CH>(st.resid_ab, p.mf, inv_count, red, dir_c);
+    signed_unit_mean<CH, NAT>(st.resid_ab, p.mf, inv_count, red, dir_c);
   }
   float mn[3], mx[3];
   st.extremes(p, dir_c, mn, mx);

@@ -18,7 +18,11 @@ versions.
   (limg_tpu/pallas_kernels/encode_segments.py:188): refit, factors, crush
   search, dither and decode of the contiguous segments (at most SEG_CAP
   members each) of the compacted run buffer, every per-segment value
-  broadcast to its members.
+  broadcast to its members. ``segment_encode_composed`` computes the same
+  from plain ops, the JAX package's jnp branch of ``coalesce_segments``
+  (limg_tpu/regions.py:737-772), with its segment scans and the crush
+  search's candidate evaluations on the kernels of ``seg_mixed_all_kernel``
+  and ``kernels/crush_eval.py``.
 
 On a CUDA tensor each wrapper launches ``csrc/coalesce.cu`` (built at first
 use) or raises; on a CPU tensor it runs the plain version. The two agree
@@ -243,20 +247,21 @@ def _check_segment_inputs(packed_c, mask_c, seg_c, blocks):
             raise ValueError(f"{name} must be ({n},) int32, got {tuple(t.shape)} {t.dtype}")
 
 
-def segment_encode_reference(packed_c: torch.Tensor, mask_c: torch.Tensor,
-                             seg_c: torch.Tensor, blocks: torch.Tensor,
-                             cfg: EncodeConfig, key: int, emit_q: bool = True) -> SegmentEncode:
-    """Plain version of segment_encode_kernel, on any device: the fixed-grid
-    encode's steps with every region reduction a segment scan
-    (ops/reduce.py SegmentReducer)."""
+def _segment_encode(packed_c, mask_c, seg_c, blocks, cfg: EncodeConfig, key: int,
+                    emit_q: bool, kernels: bool) -> SegmentEncode:
+    """The fixed-grid encode's steps with every region reduction a segment
+    scan (ops/reduce.py SegmentReducer); ``kernels`` routes the scans and
+    the crush search's candidate evaluations through their kernels'
+    wrappers, which take the plain versions on a CPU tensor."""
     _check_segment_inputs(packed_c, mask_c, seg_c, blocks)
     ch = cfg.channels
     px = torch.stack([unpack_plane(packed_c, c) for c in range(ch)])   # (ch, 64, N)
-    red = SegmentReducer(seg_c)
+    red = SegmentReducer(seg_c, seg_mixed_all_kernel if kernels else seg_mixed_all)
     d, count = fit_regions(px, mask_c, ch, red)
     f8 = torch.stack([q.to(torch.int32) for q in quantize_factors(*extract_factors(px, d, ch))])
     d = drop_decomposition_axes(d, cfg.num_factors)
-    shifts = force_dropped_axes(find_shifts(px, mask_c, f8, d, cfg, red)[0], cfg.num_factors)
+    shifts = force_dropped_axes(find_shifts(px, mask_c, f8, d, cfg, red, use_kernel=kernels)[0],
+                                cfg.num_factors)
     q = dither_crush_key(f8, shifts, key, enabled=cfg.dithering and cfg.crush_bits,
                          blocks=blocks)
     dec = decode_blocks(q, shifts, d, ch)
@@ -272,6 +277,25 @@ def segment_encode_reference(packed_c: torch.Tensor, mask_c: torch.Tensor,
         eps=torch.stack(list(d[1:])),
         avg=d.avg,
     )
+
+
+def segment_encode_reference(packed_c: torch.Tensor, mask_c: torch.Tensor,
+                             seg_c: torch.Tensor, blocks: torch.Tensor,
+                             cfg: EncodeConfig, key: int, emit_q: bool = True) -> SegmentEncode:
+    """Plain version of segment_encode_kernel, on any device."""
+    return _segment_encode(packed_c, mask_c, seg_c, blocks, cfg, key, emit_q, kernels=False)
+
+
+def segment_encode_composed(packed_c: torch.Tensor, mask_c: torch.Tensor,
+                            seg_c: torch.Tensor, blocks: torch.Tensor,
+                            cfg: EncodeConfig, key: int, emit_q: bool = True) -> SegmentEncode:
+    """segment_encode_kernel's function as a composition of ops: the plain
+    version's steps, with each segment scan through seg_mixed_all_kernel and
+    each batch of crush candidates through crush_eval_rows_kernel
+    (ops/crush.py find_shifts(use_kernel=True)). On a CUDA tensor it equals
+    the segment kernel bit for bit; on a CPU tensor it is the plain
+    version."""
+    return _segment_encode(packed_c, mask_c, seg_c, blocks, cfg, key, emit_q, kernels=True)
 
 
 def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,

@@ -46,7 +46,7 @@ from ..ops.decode import decode_blocks
 from ..ops.dither import dither_crush, dither_key
 from ..ops.error import weighted_error
 from ..ops.factors import extract_factors, quantize_factors
-from ..ops.fit import Decomposition, drop_decomposition_axes, fit_regions, tree_sum
+from ..ops.fit import Decomposition, drop_decomposition_axes, fit_regions
 from ..ops.match import match_decomps, reason_bits
 from ..ops.morton import MortonOrder, morton_mask
 from ..ops.reduce import GroupReducer, OwnerReducer, pairwise_tree
@@ -84,14 +84,6 @@ def _check_words(words: torch.Tensor, levels: int) -> None:
         raise ValueError(f"levels must be {MIN_LEVELS}-{MAX_LEVELS}, got {levels}")
 
 
-def _morton_blocks(words: torch.Tensor, levels: int):
-    """Row-major word image -> (order, (64, NBP) Morton words, mask)."""
-    h, w = words.shape
-    packed, _, grid = layout.blockify_words(words)
-    order = MortonOrder(grid.blocks_y, grid.blocks_x, levels, words.device)
-    return order, order.embed(packed), morton_mask(h, w, levels, words.device)
-
-
 def _unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([layout.unpack_plane(packed, c) for c in range(n)])
 
@@ -107,36 +99,89 @@ def _first_of_group(row: torch.Tensor, group: int) -> torch.Tensor:
     return x.expand(*row.shape[:-1], n // group, group).reshape(row.shape)
 
 
-def fit_levels_reference(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
-    """Plain PyTorch version of the fit kernel, on any device."""
-    _check_words(words, levels)
+class MortonBlocks:
+    """The plain versions' block order for the Morton kernels: the grid
+    padded to whole top-level squares, in Morton order (ops/morton.py), so
+    that a level-l region is an aligned group of 4^l lanes. The natural
+    layout's counterpart is kernels/encode_natural.py ``NatBlocks``; the
+    plain bodies below take either.
+
+    ``packed`` / ``mask`` (64, NBP) are the padded blocks' words and real
+    pixels; ``embed`` / ``restore`` move per-block rows (..., NB) in and
+    out of that order, ``embed_pixels`` / ``restore_pixels`` the kernels'
+    (64, NB) pixel planes; ``dither_blocks`` (NBP,) is each block's index
+    in the image's grid (its dither counter)."""
+
+    def __init__(self, words: torch.Tensor, levels: int):
+        h, w = words.shape
+        packed, _, grid = layout.blockify_words(words)
+        self.order = MortonOrder(grid.blocks_y, grid.blocks_x, levels, words.device)
+        self.packed = self.order.embed(packed)
+        self.mask = morton_mask(h, w, levels, words.device)
+        self.lane = torch.arange(self.order.num_padded, device=words.device)
+        self.dither_blocks = self.order.perm.clamp(min=0)
+
+    def group_reducer(self, lvl: int):
+        return GroupReducer(4 ** lvl)
+
+    def owner_reducer(self, owner: torch.Tensor, levels: int):
+        return OwnerReducer(self.embed(owner), levels)
+
+    def leads(self, lvl: int) -> torch.Tensor:
+        """(NBP,) bool: the first blocks of the level-lvl regions."""
+        return (self.lane & (4 ** lvl - 1)) == 0
+
+    def first_children(self, lvl: int) -> torch.Tensor:
+        """(NBP,) bool: the blocks of each level-lvl region's first child."""
+        return (self.lane & (4 ** lvl - 4 ** (lvl - 1))) == 0
+
+    def first_of(self, row: torch.Tensor, lvl: int) -> torch.Tensor:
+        """Broadcast each level-lvl region's first entry over it."""
+        return _first_of_group(row, 4 ** lvl)
+
+    def combine(self, row: torch.Tensor, lvl: int, op) -> torch.Tensor:
+        """Combine each level-lvl region by the pairwise tree; broadcast."""
+        return pairwise_tree(row, 4 ** lvl, op)
+
+    def embed(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.order.embed(rows)
+
+    def restore(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.order.restore(rows)
+
+    embed_pixels = embed
+    restore_pixels = restore
+
+
+def fit_levels_body(blocks, cfg: EncodeConfig, levels: int) -> FitLevels:
+    """The fit kernels' function on ``blocks`` (``MortonBlocks`` or
+    kernels/encode_natural.py ``NatBlocks``), whose reducers set the order
+    of the float sums."""
     ch = cfg.channels
-    order, packed, mask = _morton_blocks(words, levels)
-    px = _unpack(packed, ch)
-    lane = torch.arange(order.num_padded, device=words.device)
-    owner = torch.zeros(order.num_padded, dtype=torch.int32, device=words.device)
-    alive = torch.ones(order.num_padded, dtype=torch.bool, device=words.device)
+    px = _unpack(blocks.packed, ch)
+    n, dev = px.shape[-1], px.device
+    owner = torch.zeros(n, dtype=torch.int32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
     counts, reasons, sel, prev = [], [], None, None
     for lvl in range(levels):
-        d, count = fit_regions(px, mask, ch, GroupReducer(4 ** lvl))
+        d, count = fit_regions(px, blocks.mask, ch, blocks.group_reducer(lvl))
         f8 = _pack_factors(torch.stack(
             [q.to(torch.int32) for q in quantize_factors(*extract_factors(px, d, ch))]))
         d = drop_decomposition_axes(d, cfg.num_factors)
         if lvl == 0:
             sel = (f8, d)
         else:
-            # each child region against its group's first child; empty
+            # each child region against its region's first child; empty
             # children (grid padding) match
-            child, group = 4 ** (lvl - 1), 4 ** lvl
             p_d, p_count = prev
-            c0 = Decomposition(*(_first_of_group(f, group) for f in p_d))
+            c0 = Decomposition(*(blocks.first_of(f, lvl) for f in p_d))
             m, stats = match_decomps(p_d, c0, ch)
-            is_child0 = (lane & (group - child)) == 0
-            ok = is_child0 | m | (p_count <= 0) | (_first_of_group(p_count, group) <= 0)
-            alive = pairwise_tree(alive & ok, group, torch.logical_and)
+            is_child0 = blocks.first_children(lvl)
+            ok = is_child0 | m | (p_count <= 0) | (blocks.first_of(p_count, lvl) <= 0)
+            alive = blocks.combine(alive & ok, lvl, torch.logical_and)
             owner = torch.where(alive, lvl, owner)
-            reasons.append(pairwise_tree(torch.where(is_child0, 0, reason_bits(stats)),
-                                         group, torch.bitwise_or))
+            reasons.append(blocks.combine(torch.where(is_child0, 0, reason_bits(stats)), lvl,
+                                          torch.bitwise_or))
             # alive only ever shrinks, so the last level alive is the owner
             sel = (torch.where(alive, f8, sel[0]),
                    Decomposition(*(torch.where(alive, a, b) for a, b in zip(d, sel[1]))))
@@ -145,44 +190,40 @@ def fit_levels_reference(words: torch.Tensor, cfg: EncodeConfig, levels: int) ->
 
     stats_bits = torch.zeros_like(owner)
     for lvl in range(levels):
-        is_lead = (lane & (4 ** lvl - 1)) == 0
-        hit = is_lead & (owner >= lvl) & (counts[lvl] > 0)
+        hit = blocks.leads(lvl) & (owner >= lvl) & (counts[lvl] > 0)
         stats_bits = stats_bits | (hit.to(torch.int32) << lvl)
-    reason_rows = [torch.where(((lane & (4 ** lvl - 1)) == 0) & (counts[lvl] > 0), r, 0)
+    reason_rows = [torch.where(blocks.leads(lvl) & (counts[lvl] > 0), r, 0)
                    for lvl, r in enumerate(reasons, start=1)]
     f8_sel, d_sel = sel
     return FitLevels(
-        cnt0=order.restore(counts[0]),
-        f8_sel=order.restore(f8_sel),
-        eps_sel=order.restore(torch.stack(list(d_sel[1:]))),
-        avg_sel=order.restore(d_sel.avg),
-        owner=order.restore(owner),
-        stats_bits=order.restore(stats_bits),
-        reasons=order.restore(torch.stack(reason_rows)),
+        cnt0=blocks.restore(counts[0]),
+        f8_sel=blocks.restore_pixels(f8_sel),
+        eps_sel=blocks.restore(torch.stack(list(d_sel[1:]))),
+        avg_sel=blocks.restore(d_sel.avg),
+        owner=blocks.restore(owner),
+        stats_bits=blocks.restore(stats_bits),
+        reasons=blocks.restore(torch.stack(reason_rows)),
     )
 
 
-def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.Tensor,
-                          eps_sel: torch.Tensor, cfg: EncodeConfig, levels: int,
-                          seed: int, emit_q: bool = True) -> OwnerCrush:
-    """Plain PyTorch version of the crush kernel, on any device."""
-    _check_words(words, levels)
+def owner_crush_body(blocks, owner: torch.Tensor, f8_sel: torch.Tensor, eps_sel: torch.Tensor,
+                     cfg: EncodeConfig, levels: int, seed: int, emit_q: bool) -> OwnerCrush:
+    """The crush kernels' function on ``blocks`` (see ``fit_levels_body``)."""
     ch = cfg.channels
-    order, packed, mask = _morton_blocks(words, levels)
-    px = _unpack(packed, ch)
-    mask_i = mask.to(torch.int32)
-    red = OwnerReducer(order.embed(owner), levels)
-    eps = order.embed(eps_sel)
+    px = _unpack(blocks.packed, ch)
+    mask_i = blocks.mask.to(torch.int32)
+    red = blocks.owner_reducer(owner, levels)
+    eps = blocks.embed(eps_sel)
     d = Decomposition(torch.zeros(eps.shape[1:], dtype=torch.float32, device=eps.device),
                       *eps.unbind(0))
-    f8 = _unpack(order.embed(f8_sel), 3)
-    shifts = force_dropped_axes(find_shifts(px, mask, f8, d, cfg, red)[0], cfg.num_factors)
+    f8 = _unpack(blocks.embed_pixels(f8_sel), 3)
+    shifts = force_dropped_axes(find_shifts(px, blocks.mask, f8, d, cfg, red)[0],
+                                cfg.num_factors)
     q = dither_crush(f8, shifts, seed, cfg.dither_seed,
-                     enabled=cfg.dithering and cfg.crush_bits,
-                     blocks=order.perm.clamp(min=0))
+                     enabled=cfg.dithering and cfg.crush_bits, blocks=blocks.dither_blocks)
     dec = decode_blocks(q, shifts, d, ch)
     err = (weighted_error(dec, px) * mask_i).to(torch.float32)
-    dist_blk = tree_sum(err, 0)
+    dist_blk = red.block_sum(err)
     count = red.sum(mask_i)
     s_eff = torch.clamp(shifts, max=8)
     fac_bits = (8 - s_eff[0]) * count + (8 - s_eff[1]) * count + (8 - s_eff[2]) * count
@@ -190,13 +231,28 @@ def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torc
                       // torch.clamp(count, min=1), max=0xFF)
     bpp = bpp * (mask_i.sum(dim=0) > 0)
     return OwnerCrush(
-        shifts=order.restore(shifts),
-        q=order.restore(_pack_factors(q)) if emit_q else None,
-        dec=order.restore(_pack_decoded(dec, ch)),
-        dist=order.restore(red.combine_sum(dist_blk)),
-        dist_blk=order.restore(dist_blk),
-        bpp=order.restore(bpp.to(torch.int32)),
+        shifts=blocks.restore(shifts),
+        q=blocks.restore_pixels(_pack_factors(q)) if emit_q else None,
+        dec=blocks.restore_pixels(_pack_decoded(dec, ch)),
+        dist=blocks.restore(red.combine_sum(dist_blk)),
+        dist_blk=blocks.restore(dist_blk),
+        bpp=blocks.restore(bpp.to(torch.int32)),
     )
+
+
+def fit_levels_reference(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
+    """Plain PyTorch version of the fit kernel, on any device."""
+    _check_words(words, levels)
+    return fit_levels_body(MortonBlocks(words, levels), cfg, levels)
+
+
+def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.Tensor,
+                          eps_sel: torch.Tensor, cfg: EncodeConfig, levels: int,
+                          seed: int, emit_q: bool = True) -> OwnerCrush:
+    """Plain PyTorch version of the crush kernel, on any device."""
+    _check_words(words, levels)
+    return owner_crush_body(MortonBlocks(words, levels), owner, f8_sel, eps_sel, cfg, levels,
+                            seed, emit_q)
 
 
 @functools.cache

@@ -270,13 +270,18 @@ def force_dropped_axes(shifts: torch.Tensor, num_factors: int) -> torch.Tensor:
     return torch.maximum(shifts, forced[:, None])
 
 
-def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=None):
+def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=None,
+                use_kernel: bool = False):
     """Dispatch by cfg.crush_mode. Returns (shifts (3, NB) i32, block_err).
 
     ``f8_u8``: the three (P, NB) uint8 factor planes (or a (3, P, NB)
     tensor); ``d``: the decomposition the search decodes with (already
     axis-dropped when cfg.num_factors < 3), region values broadcast to
     member blocks; ``red``: the region reducer (default: each block alone).
+    ``use_kernel`` sends every batch of candidate evaluations through
+    kernels/crush_eval.py ``crush_eval_rows_kernel`` (the counterpart of
+    limg_tpu/ops/segments.py:402-455), which takes blocks of at most 256
+    pixels without an error pre-scale; the plain versions keep the default.
     """
     red = BlockReducer() if red is None else red
     channels = cfg.channels
@@ -291,8 +296,24 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
     es = err_scale_shift(px.shape[1] * red.chunks)
     ss = red.seg_err_shift
 
+    if use_kernel:
+        from ..kernels.crush_eval import MAX_PIXELS, crush_eval_rows_kernel, pack_words
+
+        if px.shape[1] > MAX_PIXELS or es:
+            raise ValueError(f"crush_eval_rows_kernel takes blocks of at most {MAX_PIXELS} "
+                             f"pixels and no error pre-scale, got P = {px.shape[1]}, "
+                             f"pre-scale {es}")
+        packed, f8_packed = pack_words(px), pack_words(f8)
+        eps = torch.stack(list(d[1:]))
+
+        def evaluate(cands):
+            return crush_eval_rows_kernel(packed, mask_i, f8_packed, eps, cands, channels)
+    else:
+        def evaluate(cands):
+            return evaluate_batch(px, mask_i, f8, d, cands, channels, es)
+
     def eval_batch(cands):
-        pm, be = evaluate_batch(px, mask_i, f8, d, cands, channels, es)
+        pm, be = evaluate(cands)
         return red.combine_max(pm), red.combine_sum(be >> ss)
 
     floors = None

@@ -73,11 +73,14 @@ def packed_words(image: torch.Tensor) -> torch.Tensor:
     return image.contiguous().view(torch.int32)[..., 0]
 
 
-def blockify_words(words: torch.Tensor, block: int = BLOCK_SIZE):
+def blockify_words(words: torch.Tensor, block: int = BLOCK_SIZE, grid: BlockGrid | None = None):
     """(H, W) int32 packed words -> ((block*block, NB) int32 words, mask,
-    grid), edge blocks zero-padded."""
+    grid), edge blocks zero-padded. ``grid`` (default: the smallest grid
+    covering the image) may hold more blocks; the mask marks real pixels.
+    The natural layout (kernels/encode_natural.py) blockifies its (H', W')
+    planes here."""
     h, w = words.shape
-    g = grid_for(h, w, block)
+    g = grid_for(h, w, block) if grid is None else grid._replace(height=h, width=w)
     tiles = _pad_to_grid(words, g, block).reshape(g.blocks_y, block, g.blocks_x, block)
     px = tiles.permute(1, 3, 0, 2).reshape(block * block, g.num_blocks)
     return px, _block_mask(h, w, g, block, words.device), g
@@ -98,6 +101,14 @@ def unblockify(px: torch.Tensor, grid: BlockGrid, block: int = BLOCK_SIZE) -> to
     img = tiles.permute(3, 1, 4, 2, 0).reshape(
         grid.blocks_y * block, grid.blocks_x * block, c)
     return img[: grid.height, : grid.width]
+
+
+def block_plane(px: torch.Tensor, grid: BlockGrid) -> torch.Tensor:
+    """(64, NB) -> the (8 * blocks_y, 8 * blocks_x) row-major plane, edge
+    padding kept: a natural-layout plane (the JAX package's
+    ``nat_unblockify``, limg_tpu/pallas_kernels/encode_natural.py:270)."""
+    full = grid._replace(height=grid.blocks_y * BLOCK_SIZE, width=grid.blocks_x * BLOCK_SIZE)
+    return unblockify(px[None], full)[..., 0]
 
 
 def broadcast_block_plane(vals: torch.Tensor, grid: BlockGrid,

@@ -15,6 +15,15 @@ A reducer maps per-pixel arrays ``(..., P, N)`` or per-block rows
 - across the blocks of a contiguous segment of the run-coalescing buffer
   (``SegmentReducer``), the doubling scan of ops/segments.py.
 
+The natural layout's reducers (``NatGroupReducer``, ``NatOwnerReducer``,
+the counterparts of limg_tpu/pallas_kernels/encode_natural.py:115-209) sum
+in its own order: inside a block a left fold over the 8 pixel rows of each
+column, then a pairwise-adjacent tree over the 8 columns (``nat_block_sum``;
+XLA's order for the JAX kernel's row fold, then its lane butterflies at
+x^1, x^2, x^4); across a quadtree square of a row-major block grid, x pairs
+then y pairs at each level (``nat_pairwise``), which pairs blocks as the
+Morton tree does.
+
 Integer sums wrap in int32 and, like min and max, do not depend on order.
 ``chunks`` is the most blocks a region can hold: the crush search's
 block-error pre-scale depends on it (ops/crush.py ``err_scale_shift``).
@@ -40,6 +49,34 @@ def pairwise_tree(row: torch.Tensor, group: int, op) -> torch.Tensor:
     return x.expand(*row.shape[:-1], n // group, group).reshape(row.shape)
 
 
+def nat_block_sum(x: torch.Tensor) -> torch.Tensor:
+    """(..., 64, N) -> (..., N): each block's sum in the natural layout's
+    order, a left fold over its 8 pixel rows, then a pairwise-adjacent tree
+    over the 8 column sums."""
+    r = x.reshape(*x.shape[:-2], 8, 8, x.shape[-1])          # (..., row, col, N)
+    s = r[..., 0, :, :]
+    for row in range(1, 8):
+        s = s + r[..., row, :, :]
+    while s.shape[-2] > 1:
+        s = s[..., 0::2, :] + s[..., 1::2, :]
+    return s[..., 0, :]
+
+
+def nat_pairwise(row: torch.Tensor, blocks_x: int, side: int, op) -> torch.Tensor:
+    """Combine the aligned ``side`` x ``side`` squares of a row-major block
+    grid ``blocks_x`` wide (both sides multiples of ``side``, a power of 2)
+    by x pairs then y pairs at each level; broadcast back."""
+    if side == 1:
+        return row
+    lead, n = row.shape[:-1], row.shape[-1]
+    shape = (*lead, n // blocks_x // side, side, blocks_x // side, side)
+    x = row.reshape(shape)
+    while x.shape[-1] > 1:
+        x = op(x[..., 0::2], x[..., 1::2])
+        x = op(x[..., 0::2, :, :], x[..., 1::2, :, :])
+    return x.expand(shape).reshape(row.shape)
+
+
 class _Reducer:
     chunks = 1
     # block-error sums are shifted right by this before the cross-block sum
@@ -57,9 +94,13 @@ class _Reducer:
     def combine_min(self, row):
         return self.combine(row, torch.minimum)
 
+    def block_sum(self, x):
+        """(..., P, N) -> each block's own sum (..., N)."""
+        return tree_sum(x, -2)
+
     def sum(self, x):
         """(..., P, N) -> region sums (..., N)."""
-        return self.combine_sum(tree_sum(x, -2))
+        return self.combine_sum(self.block_sum(x))
 
     def max(self, x):
         return self.combine_max(x.amax(dim=-2))
@@ -107,21 +148,63 @@ class SegmentReducer(_Reducer):
     """Regions are contiguous segments of the last axis, ``seg_c`` (N,) the
     segment id of each block (limg_tpu/pallas_kernels/encode_segments.py:63
     ``_SegReducer``). Per-block error sums carry no pre-scale and are
-    shifted right by SEG_ERR_SHIFT before the cross-block sum."""
+    shifted right by SEG_ERR_SHIFT before the cross-block sum. ``scan`` is
+    the scan chain, ``seg_mixed_all`` or its kernel's wrapper
+    (kernels/coalesce.py ``seg_mixed_all_kernel``)."""
 
     seg_err_shift = SEG_ERR_SHIFT
 
-    def __init__(self, seg_c: torch.Tensor):
+    def __init__(self, seg_c: torch.Tensor, scan=seg_mixed_all):
         self.seg_c = seg_c
+        self.scan = scan
 
     def combine(self, row, op):
         rows = row.reshape(-1, row.shape[-1])
         if op is torch.add:
-            out = seg_mixed_all(rows, self.seg_c, rows.shape[0])
+            out = self.scan(rows, self.seg_c, rows.shape[0])
         elif op is torch.maximum:
-            out = seg_mixed_all(rows, self.seg_c, 0)
+            out = self.scan(rows, self.seg_c, 0)
         elif op is torch.minimum:
-            out = -seg_mixed_all(-rows, self.seg_c, 0)
+            out = -self.scan(-rows, self.seg_c, 0)
         else:
             raise ValueError(f"no segment scan for {op}")
         return out.reshape(row.shape)
+
+
+class _NatReducer(_Reducer):
+    """Blocks of a row-major grid ``blocks_x`` wide, summed in the natural
+    layout's in-block order."""
+
+    def block_sum(self, x):
+        return nat_block_sum(x)
+
+
+class NatGroupReducer(_NatReducer):
+    """Regions are the aligned 2^lvl x 2^lvl squares of a row-major block
+    grid (encode_natural.py:152 ``NatGroupReducer``)."""
+
+    def __init__(self, lvl: int, blocks_x: int):
+        self.side = 1 << lvl
+        self.blocks_x = blocks_x
+        self.chunks = 4 ** lvl
+
+    def combine(self, row, op):
+        return nat_pairwise(row, self.blocks_x, self.side, op)
+
+
+class NatOwnerReducer(_NatReducer):
+    """Each block's region is its own owner-level square of a row-major
+    block grid (encode_natural.py:179 ``NatOwnerReducer``)."""
+
+    def __init__(self, owner: torch.Tensor, levels: int, blocks_x: int):
+        self.owner = owner
+        self.levels = levels
+        self.blocks_x = blocks_x
+        self.chunks = 4 ** (levels - 1)
+
+    def combine(self, row, op):
+        out = row
+        for lvl in range(1, self.levels):
+            out = torch.where(self.owner == lvl, nat_pairwise(row, self.blocks_x, 1 << lvl, op),
+                              out)
+        return out

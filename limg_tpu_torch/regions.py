@@ -29,13 +29,22 @@ lambda * distortion (RD) than its blocks did (``coalesce_segments``,
 kernels/coalesce.py). On a CUDA device these are hand-written kernels; on
 the CPU their plain versions.
 
+The match policy's fit and crush run in one of two layouts
+(``fused_layout``): "morton" (the default; kernels/encode_merged.py) or
+"natural" (kernels/encode_natural.py, the JAX package's
+pallas_kernels/encode_natural.py), whose kernels sum each block in the
+natural layout's order and write the factor and decoded planes in the
+image's own row-major layout; without coalescing the decoded plane is the
+decoded image. The RD policy has one layout, as in the JAX package.
+
 The port keeps every per-block plane in row-major block order, so the JAX
 package's Morton lane relayouts (``mpos``, ``embed_rows``) and
-``_stride_take`` have no counterpart here.
+``_stride_take`` have no counterpart here. ``return_state=True`` adds the
+LTP1 serializer's state of the encode (limg_tpu/regions.py:1520-1535,
+:2024-2035), for both policies and both layouts.
 
-Not ported here, and raising NotImplementedError: the LTP1 serializer
-state, the dense path (``num_levels`` outside 2-4) and
-``fused_layout="natural"``.
+Not ported here, and raising NotImplementedError: the dense path
+(``num_levels`` outside 2-4).
 """
 
 from __future__ import annotations
@@ -49,9 +58,10 @@ from .config import BLOCK_SIZE, EncodeConfig, static_block_bits
 from .encoder import _as_image_tensor, resolve_device
 from .kernels.coalesce import (match_neighbors_kernel, match_pairs_kernel,
                                seg_min_all, seg_mixed_all_kernel, seg_sum_all,
-                               segment_encode_kernel)
+                               segment_encode_composed, segment_encode_kernel)
 from .kernels.encode_fixed import encode_blocks_kernel
 from .kernels.encode_merged import MAX_LEVELS, MIN_LEVELS, fit_levels_kernel, owner_crush_kernel
+from .kernels.encode_natural import fit_levels_natural_kernel, owner_crush_natural_kernel
 from .ops import layout
 from .ops.dither import coalesce_key
 from .ops.error import max_possible_error
@@ -60,34 +70,25 @@ from .ops.segments import SEG_CAP
 
 # argument -> the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "return_state": "Queue 1 item 10",
     "num_levels": "Queue 1 item 13",
-    "fused_layout": "Queue 2 row 9",
 }
 
 MERGE_POLICIES = ("match", "rd")
+FUSED_LAYOUTS = ("morton", "natural")
 
 # level grids of this many blocks or more take the neighbour-match kernel;
 # smaller ones are paired into one match_pairs launch (limg_tpu/regions.py:298)
 NEIGHBOR_KERNEL_MIN_BLOCKS = 16384
 
 
-def _check_supported(num_levels: int, merge_policy: str, return_state: bool,
-                     fused_layout: str) -> None:
-    def refuse(arg, what):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md {_NOT_PORTED[arg]})")
-
+def _check_supported(num_levels: int, merge_policy: str, fused_layout: str) -> None:
     if merge_policy not in MERGE_POLICIES:
         raise ValueError(f"merge_policy must be one of {MERGE_POLICIES}, got {merge_policy!r}")
-    if return_state:
-        refuse("return_state", "return_state=True (LTP1 serializer state)")
     if not MIN_LEVELS <= num_levels <= MAX_LEVELS:
-        refuse("num_levels", f"num_levels={num_levels} (the dense merged path)")
-    if fused_layout == "natural":
-        refuse("fused_layout", "fused_layout='natural'")
-    if fused_layout != "morton":
-        raise ValueError(f"fused_layout must be 'morton' or 'natural', got {fused_layout!r}")
+        raise NotImplementedError(f"num_levels={num_levels} (the dense merged path) is not "
+                                  f"ported yet (ROADMAP.md {_NOT_PORTED['num_levels']})")
+    if fused_layout not in FUSED_LAYOUTS:
+        raise ValueError(f"fused_layout must be one of {FUSED_LAYOUTS}, got {fused_layout!r}")
 
 
 def _words(image: torch.Tensor) -> torch.Tensor:
@@ -432,7 +433,8 @@ def compact_runs(seg_id: torch.Tensor, is_run: torch.Tensor, cap: int):
 
 def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: EncodeConfig,
                       key: int, cap: int, need_planes: bool, merge_policy: str = "match",
-                      rd_lambda=0.0, header_bits: int | None = None):
+                      rd_lambda=0.0, header_bits: int | None = None,
+                      use_kernel: bool | None = None):
     """Re-encode the run blocks grouped by ``seg_id`` and write back the
     runs that do not cost more: more bits (match policy), or more bits +
     ``rd_lambda`` * distortion (RD policy).
@@ -447,8 +449,12 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
     with the JAX package's ``old_header_included=True``. The run blocks are
     sorted by (is_run, seg_id), so each segment is contiguous, and the first
     ``cap`` go into the buffer; the one segment the capacity cut splits is
-    reverted and counted. Returns (applied (NB,) bool, n_runs,
-    coalesce_stats).
+    reverted and counted. ``use_kernel`` picks the re-encode: the segment
+    kernel (True, and the default None; a CPU tensor takes its plain
+    version), or its composition of ops (False; kernels/coalesce.py
+    ``segment_encode_composed``, the JAX package's jnp branch,
+    limg_tpu/regions.py:737-772), bit-equal to it. Returns (applied (NB,)
+    bool, n_runs, coalesce_stats).
     """
     ch = cfg.channels
     nb, dev = seg_id.shape[0], seg_id.device
@@ -471,8 +477,8 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
     n_dropped = (is_start & sel_is_run & (seg_orig == split_seg)).sum()
     n_overflow = is_run.sum() - sel_is_run.sum()
 
-    enc = segment_encode_kernel(packed_c, mask_c, seg_c, sel.to(torch.int32), cfg, key,
-                                emit_q=need_planes)
+    encode = segment_encode_composed if use_kernel is False else segment_encode_kernel
+    enc = encode(packed_c, mask_c, seg_c, sel.to(torch.int32), cfg, key, emit_q=need_planes)
     s_eff = torch.clamp(enc.shifts, max=8)
     fac_bits_blk = ((8 - s_eff) * enc.count_blk[None]).sum(dim=0, dtype=torch.int32)
     header = static_block_bits(ch) if header_bits is None else header_bits
@@ -534,10 +540,13 @@ def _pre_state(words: torch.Tensor, grid: layout.BlockGrid, lv0: dict, owner0, l
     rows and planes ``lv0`` (shifts, bits, bpp, dist, eps, avg, dec, q), the
     owner level, region leader and pixel count of each block, the stats row
     (bit l: a level-l-aligned block whose owner level is >= l), the merge
-    stats, and with ``coalesce`` the runs and the level-0 pixel planes."""
+    stats, and with ``coalesce`` the runs and the level-0 pixel planes.
+    ``dec_nat`` is the natural layout's decoded plane when ``lv0`` holds no
+    block-major one; ``layout`` names the fit's and crush's layout."""
     state = dict(grid=grid, lv0=lv0, owner0=owner0, lead0=lead0, cnt0=cnt0,
                  stats_row=stats_row, merge_stats=merge_stats, seg0=None, is_run0=None,
-                 n_run_blocks=torch.zeros((), dtype=torch.int64, device=lead0.device))
+                 n_run_blocks=torch.zeros((), dtype=torch.int64, device=lead0.device),
+                 dec_nat=None, layout="morton")
     if coalesce:
         seg0, is_run0 = build_runs_multilevel(owner0, lv0["avg"], lv0["eps"], lead0, grid,
                                               num_levels, channels)
@@ -548,16 +557,30 @@ def _pre_state(words: torch.Tensor, grid: layout.BlockGrid, lv0: dict, owner0, l
 
 
 def _fused_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int,
-               need_q: bool, coalesce: bool):
+               need_q: bool, coalesce: bool, fused_layout: str = "morton"):
     """Match policy, stages A-E: fit every level, merge test and owner select
     (one kernel), crush at the owner level (one kernel), leaders and bits,
-    and with ``coalesce`` run building."""
+    and with ``coalesce`` run building. ``fused_layout="natural"`` runs the
+    natural-layout kernels (limg_tpu/regions.py:1234-1278): their decoded
+    plane is the image, blockified only for the coalesce pass's write-back,
+    and their factor plane is blockified for the planes and the state."""
     ch = cfg.channels
     words = _words(img)
     grid = layout.grid_for(*words.shape)
-    fit = fit_levels_kernel(words, cfg, num_levels)
-    crush = owner_crush_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, num_levels,
-                               seed, emit_q=need_q)
+    dec_nat = None
+    if fused_layout == "natural":
+        fit = fit_levels_natural_kernel(words, cfg, num_levels)
+        crush = owner_crush_natural_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg,
+                                           num_levels, seed, emit_q=need_q)
+        if coalesce:
+            dec = layout.blockify_words(crush.dec)[0]
+        else:
+            dec, dec_nat = None, crush.dec
+        crush = crush._replace(dec=dec, q=layout.blockify_words(crush.q)[0] if need_q else None)
+    else:
+        fit = fit_levels_kernel(words, cfg, num_levels)
+        crush = owner_crush_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, num_levels,
+                                   seed, emit_q=need_q)
     merge_stats = [{name: (r & bit).ne(0).sum() for name, bit in MATCH_REASON_BITS}
                    for r in fit.reasons]
     lead0 = _leaders(fit.owner, grid, num_levels)
@@ -565,8 +588,10 @@ def _fused_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int,
                bits=_bits_with_header(crush.shifts, fit.cnt0, lead0, static_block_bits(ch)),
                bpp=crush.bpp, dist=crush.dist_blk, eps=fit.eps_sel, avg=fit.avg_sel,
                dec=crush.dec, q=crush.q)
-    return _pre_state(words, grid, lv0, fit.owner, lead0, fit.cnt0, fit.stats_bits,
-                      merge_stats, num_levels, ch, coalesce)
+    state = _pre_state(words, grid, lv0, fit.owner, lead0, fit.cnt0, fit.stats_bits,
+                       merge_stats, num_levels, ch, coalesce)
+    state.update(dec_nat=dec_nat, layout=fused_layout)
+    return state
 
 
 def _rd_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int, need_q: bool,
@@ -636,36 +661,52 @@ def _rd_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int, ne
                       num_levels, ch, coalesce)
 
 
-def _decoded_image(dec_packed: torch.Tensor, grid: layout.BlockGrid) -> torch.Tensor:
-    """(64, NB) packed decoded words -> (H, W, 4) uint8."""
-    words = layout.unblockify(dec_packed[None], grid, BLOCK_SIZE)[..., 0]
+def _decoded_image(dec_packed: torch.Tensor | None, grid: layout.BlockGrid,
+                   dec_nat: torch.Tensor | None = None) -> torch.Tensor:
+    """(64, NB) packed decoded words, or without them the natural (H', W')
+    plane ``dec_nat`` -> (H, W, 4) uint8."""
+    if dec_packed is None:
+        words = dec_nat[:grid.height, :grid.width]
+    else:
+        words = layout.unblockify(dec_packed[None], grid, BLOCK_SIZE)[..., 0]
     return words.contiguous().view(torch.uint8).reshape(grid.height, grid.width, 4)
 
 
 def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
                   emit_planes: bool, cap: int | None, merge_policy: str = "match",
-                  rd_lambda=0.0, header_bits: int | None = None):
+                  rd_lambda=0.0, header_bits: int | None = None, return_state: bool = False):
     """Stages F-G of either policy: with a run capacity ``cap`` (None: no
     coalescing) the coalesce pass, then the stats as flat level-0 sums, the
-    decoded image, and with ``emit_planes`` the per-block planes."""
+    decoded image, with ``emit_planes`` the per-block planes, and with
+    ``return_state`` the LTP1 serializer's state (limg_tpu/regions.py:
+    1520-1535): ``ser_rows`` (6ch + 6, NB) int32 [owner level, 3 shifts,
+    the 6ch endpoint rows, run region id, run applied] and ``ser_q`` (3, 64,
+    NB) uint8 crushed factors."""
+    need_q = emit_planes or return_state
+    if need_q and state["lv0"]["q"] is None:
+        raise ValueError("emit_planes and return_state need a state made with need_q=True")
     grid, lv = state["grid"], state["lv0"]
     nb, owner0, cnt0 = grid.num_blocks, state["owner0"], state["cnt0"]
     dev = cnt0.device
     n_runs = torch.zeros((), dtype=torch.int64, device=dev)
     coalesce_stats, rid_blk = {}, state["lead0"]
+    # without coalescing, every block is its own run region, none applied
+    run_rid = torch.arange(nb, dtype=torch.int32, device=dev)
+    applied = torch.zeros(nb, dtype=torch.bool, device=dev)
     if cap is not None:
         # the coalesce pass updates the rows in place: work on copies
         lv = {k: None if v is None else v.clone() for k, v in lv.items()}
         applied, n_runs, coalesce_stats = coalesce_segments(
             state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
-            coalesce_key(seed, cfg.dither_seed), cap, need_planes=emit_planes,
+            coalesce_key(seed, cfg.dither_seed), cap, need_planes=need_q,
             merge_policy=merge_policy, rd_lambda=rd_lambda, header_bits=header_bits)
         rid_blk = torch.where(applied, state["seg0"], rid_blk)
+        run_rid = torch.where(applied, state["seg0"], run_rid)
     cnt0 = cnt0.to(torch.int64)
     s_eff0 = torch.clamp(lv["shifts"], max=8).to(torch.int64)
     one_hot = s_eff0[:, None, :] == torch.arange(9, device=dev)[None, :, None]
     out = dict(
-        decoded=_decoded_image(lv["dec"], grid),
+        decoded=_decoded_image(lv["dec"], grid, state["dec_nat"]),
         accum_bits=((8 - s_eff0) * cnt0[None]).sum(dim=1),
         bits_histogram=(one_hot * cnt0[None, None, :]).sum(dim=2),
         alive_counts=torch.stack([((state["stats_row"] >> lvl) & 1).sum()
@@ -684,33 +725,37 @@ def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
         out["region_rows"] = owner0 * nb + rid_blk
         q = torch.stack([(lv["q"] >> (8 * k)) & 0xFF for k in range(3)])
         out["factors_pnb"] = ((q << s_eff0[:, None, :]) & 0xFF).to(torch.uint8)
+    if return_state:
+        out["ser_rows"] = torch.cat([owner0[None], lv["shifts"], lv["eps"].reshape(-1, nb),
+                                     run_rid[None], applied[None]]).to(torch.int32)
+        out["ser_q"] = torch.stack([(lv["q"] >> (8 * k)) & 0xFF
+                                    for k in range(3)]).to(torch.uint8)
     return out
 
 
-def _check_planes(state: dict, emit_planes: bool) -> None:
-    if emit_planes and state["lv0"]["q"] is None:
-        raise ValueError("emit_planes needs a state made with need_q=True")
-
-
 def fused_merged_pre(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
-                     need_q: bool = True, device="cuda"):
-    """Stages A-E with run building, on ``device``. The state's
-    ``n_run_blocks`` (a 0-d tensor) is what ``encode_image_merged`` reads
-    on the host to size the coalesce buffer; pair with
-    ``fused_merged_finish``."""
-    _check_supported(num_levels, "match", False, "morton")
+                     need_q: bool = True, fused_layout: str = "morton", device="cuda"):
+    """Stages A-E with run building, on ``device``, in the kernels' layout
+    ``fused_layout``. The state's ``n_run_blocks`` (a 0-d tensor) is what
+    ``encode_image_merged`` reads on the host to size the coalesce buffer;
+    pair with ``fused_merged_finish``."""
+    _check_supported(num_levels, "match", fused_layout)
     img = _as_image_tensor(image, resolve_device(device))
-    return _fused_pre(img, cfg, seed, num_levels, need_q, coalesce=True)
+    return _fused_pre(img, cfg, seed, num_levels, need_q, coalesce=True,
+                      fused_layout=fused_layout)
 
 
 def fused_merged_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
-                        emit_planes: bool, cap: int):
+                        emit_planes: bool, cap: int, return_state: bool = False,
+                        fused_layout: str = "morton"):
     """Stages F-G on a ``fused_merged_pre`` state: the coalesce pass at the
     member capacity ``cap``, then the outputs of
-    ``encode_image_merged_fused_device``. ``seed`` must be the pre
-    stage's."""
-    _check_planes(state, emit_planes)
-    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap)
+    ``encode_image_merged_fused_device``. ``seed`` and ``fused_layout`` must
+    be the pre stage's."""
+    if state["layout"] != fused_layout:
+        raise ValueError(f"a {state['layout']!r} state, fused_layout={fused_layout!r}")
+    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap,
+                         return_state=return_state)
 
 
 def fused_rd_pre(image, cfg: EncodeConfig, seed: int = 0, rd_lambda: float = 0.01,
@@ -718,20 +763,20 @@ def fused_rd_pre(image, cfg: EncodeConfig, seed: int = 0, rd_lambda: float = 0.0
                  device="cuda"):
     """RD policy, stages A-E with run building, on ``device``
     (limg_tpu/regions.py:1791); pair with ``fused_rd_finish``."""
-    _check_supported(num_levels, "rd", False, "morton")
+    # the JAX package's RD path has one layout, whatever fused_layout says
+    _check_supported(num_levels, "rd", "morton")
     img = _as_image_tensor(image, resolve_device(device))
     return _rd_pre(img, cfg, seed, num_levels, need_q, rd_lambda, header_bits, coalesce=True)
 
 
 def fused_rd_finish(state: dict, cfg: EncodeConfig, seed: int, rd_lambda: float,
                     num_levels: int, emit_planes: bool, cap: int,
-                    header_bits: int | None = None):
+                    header_bits: int | None = None, return_state: bool = False):
     """RD policy, stages F-G on a ``fused_rd_pre`` state, with the RD
     acceptance of runs; ``seed``, ``rd_lambda`` and ``header_bits`` must be
     the pre stage's."""
-    _check_planes(state, emit_planes)
     return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap, "rd", rd_lambda,
-                         header_bits)
+                         header_bits, return_state)
 
 
 def encode_image_merged_fused_device(image, cfg: EncodeConfig, seed: int = 0,
@@ -743,7 +788,8 @@ def encode_image_merged_fused_device(image, cfg: EncodeConfig, seed: int = 0,
 
     ``cap_frac`` sets the coalesce buffer's capacity directly: 0 and 1 mean
     full capacity, > 1 nb // cap_frac (at least 4096), < 0 pins
-    min(nb, -cap_frac). Returns a dict: ``decoded`` (H, W, 4) uint8,
+    min(nb, -cap_frac). ``fused_layout`` is "morton" or "natural" (the
+    kernels' layout). Returns a dict: ``decoded`` (H, W, 4) uint8,
     ``accum_bits`` (3,), ``bits_histogram`` (3, 9), ``alive_counts``
     (num_levels,), ``mean_bpp`` and ``total_err`` (float64 scalars),
     ``merge_stats`` (one dict of reason counts per level 1..num_levels-1),
@@ -751,13 +797,16 @@ def encode_image_merged_fused_device(image, cfg: EncodeConfig, seed: int = 0,
     overflow_run_blocks, rejected_runs; {} without coalescing); with
     ``emit_planes`` also ``endpoint_rows`` (6ch, NB), ``block_rows8`` (5, NB)
     uint8 [3 shifts, bpp, owner], ``region_rows`` (NB,) and ``factors_pnb``
-    (3, 64, NB) uint8.
+    (3, 64, NB) uint8; with ``return_state`` also ``ser_rows`` and ``ser_q``,
+    the LTP1 serializer's state.
     """
-    _check_supported(num_levels, "match", return_state, fused_layout)
+    _check_supported(num_levels, "match", fused_layout)
     img = _as_image_tensor(image, resolve_device(device))
-    state = _fused_pre(img, cfg, seed, num_levels, need_q=emit_planes, coalesce=coalesce)
+    state = _fused_pre(img, cfg, seed, num_levels, need_q=emit_planes or return_state,
+                       coalesce=coalesce, fused_layout=fused_layout)
     cap = _coalesce_cap(cap_frac, state["grid"].num_blocks) if coalesce else None
-    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap)
+    return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap,
+                         return_state=return_state)
 
 
 def encode_image_merged_rd_device(image, cfg: EncodeConfig, seed: int = 0,
@@ -771,12 +820,14 @@ def encode_image_merged_rd_device(image, cfg: EncodeConfig, seed: int = 0,
     rd_cost_saved / cost_reject per level. ``header_bits`` is the region
     header the cut and the run acceptance charge (None: the static
     estimate)."""
-    _check_supported(num_levels, "rd", return_state, "morton")
+    # the JAX package's RD path has one layout
+    _check_supported(num_levels, "rd", "morton")
     img = _as_image_tensor(image, resolve_device(device))
-    state = _rd_pre(img, cfg, seed, num_levels, emit_planes, rd_lambda, header_bits, coalesce)
+    state = _rd_pre(img, cfg, seed, num_levels, emit_planes or return_state, rd_lambda,
+                    header_bits, coalesce)
     cap = _coalesce_cap(cap_frac, state["grid"].num_blocks) if coalesce else None
     return _fused_finish(state, cfg, seed, num_levels, emit_planes, cap, "rd", rd_lambda,
-                         header_bits)
+                         header_bits, return_state)
 
 
 def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
@@ -794,23 +845,30 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
     ``merge_policy`` is "match" (the default) or "rd", whose cut and run
     acceptance weigh bits + ``rd_lambda`` * distortion, charging
     ``rd_header_bits`` per region (None: the static estimate).
+    ``fused_layout`` ("morton" or "natural") picks the match policy's
+    kernels; the RD policy ignores it, as the JAX package does.
     ``cap_frac=0`` (the default) is auto run capacity: the pre stage runs,
     the host reads the run-block count (one sync), and the coalesce stage
     runs once at ``auto_run_capacity``, so no run is dropped. Another value
-    goes to the device entry point as it is.
+    goes to the device entry point as it is. ``return_state=True`` returns
+    ``(out, state)``, ``state`` the LTP1 serializer's input
+    (``limg_tpu.bitstream.serialize_from_state``): height, width,
+    num_levels, channels, rows (6ch + 6, NB) int32, q (3, 64, NB) uint8
+    (NumPy arrays) and n_runs.
     """
-    _check_supported(num_levels, merge_policy, return_state, fused_layout)
+    _check_supported(num_levels, merge_policy, fused_layout)
     rd = merge_policy == "rd"
     if coalesce and cap_frac == 0:
+        need_q = fetch_planes or return_state
         if rd:
-            state = fused_rd_pre(image, cfg, seed, rd_lambda, num_levels, need_q=fetch_planes,
+            state = fused_rd_pre(image, cfg, seed, rd_lambda, num_levels, need_q=need_q,
                                  header_bits=rd_header_bits, device=device)
         else:
-            state = fused_merged_pre(image, cfg, seed, num_levels, need_q=fetch_planes,
-                                     device=device)
+            state = fused_merged_pre(image, cfg, seed, num_levels, need_q=need_q,
+                                     fused_layout=fused_layout, device=device)
         cap = auto_run_capacity(int(state["n_run_blocks"]), state["grid"].num_blocks)
         out = _fused_finish(state, cfg, seed, num_levels, fetch_planes, cap, merge_policy,
-                            rd_lambda, rd_header_bits)
+                            rd_lambda, rd_header_bits, return_state)
     elif rd:
         out = encode_image_merged_rd_device(image, cfg, seed, rd_lambda, num_levels,
                                             fetch_planes, coalesce, return_state,
@@ -854,4 +912,8 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
             owner_px=expand(rows8[4])[0],
             endpoint_rows=out["endpoint_rows"].cpu().numpy(),
         )
+    if return_state:
+        return np_out, dict(height=h, width=w, num_levels=num_levels, channels=cfg.channels,
+                            rows=out["ser_rows"].cpu().numpy(), q=out["ser_q"].cpu().numpy(),
+                            n_runs=np_out["n_runs"])
     return np_out

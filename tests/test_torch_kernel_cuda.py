@@ -215,3 +215,74 @@ def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num
     torch.cuda.synchronize(device)
     assert kc.launches["segment_encode"] == before + 1
     _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x1234ABCD))
+
+
+# ---------------------------------------------------------------------------
+# The natural-layout pair (kernels/encode_natural.py) and the segment crush
+# evaluation (kernels/crush_eval.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("levels", [2, 3, 4])
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_natural_kernels_match_plain_versions(device, channels, mode, num_factors,
+                                              dithering, levels):
+    from limg_tpu_torch.kernels import encode_natural as kn
+
+    words = _words(75, 101, channels, 13, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = dict(kn.launches)
+    fit = kn.fit_levels_natural_kernel(words, cfg, levels)
+    torch.cuda.synchronize(device)
+    want = kn.fit_levels_natural_reference(words, cfg, levels)
+    _assert_same(fit, want)
+    args = (words, want.owner, want.f8_sel, want.eps_sel, cfg, levels, 5, not dithering)
+    got = kn.owner_crush_natural_kernel(*args)
+    torch.cuda.synchronize(device)
+    _assert_same(got, kn.owner_crush_natural_reference(*args))
+    assert kn.launches == {k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.parametrize("k", [1, 8, 27, 729])
+@pytest.mark.parametrize("p", [64, 256])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_crush_eval_kernel_matches_plain_version(device, channels, p, k):
+    from limg_tpu_torch.kernels import crush_eval as kce
+    from tools.record_torch_natural_reference import crush_eval_inputs
+
+    packed, mask, f8p, eps, cands = crush_eval_inputs(channels, n=333, k=k, seed=p)
+    if p == 256:
+        packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in (packed, mask, f8p, eps, cands)]
+    before = kce.launches["crush_eval_rows"]
+    got = kce.crush_eval_rows_kernel(*ins, channels)
+    torch.cuda.synchronize(device)
+    assert kce.launches["crush_eval_rows"] == before + 1
+    for g, w in zip(got, kce.crush_eval_rows_reference(*ins, channels)):
+        assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_composed_segment_encode_matches_segment_kernel(device, channels, mode, num_factors,
+                                                        dithering):
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import crush_eval as kce
+
+    rng = np.random.default_rng(channels * 10 + num_factors)
+    buf = seeded_run_buffer(rng, 700, channels, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = kce.launches["crush_eval_rows"]
+    got = kc.segment_encode_composed(*buf, cfg, 0x1234ABCD)
+    torch.cuda.synchronize(device)
+    assert (kce.launches["crush_eval_rows"] > before) == (mode != "none")
+    _assert_same(got, kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD))

@@ -283,10 +283,10 @@ def test_4k_fixture_is_complete(fixture):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(coalesce=False, return_state=True), "Queue 1 item 10"),
-    (dict(coalesce=False, num_levels=1), "Queue 1 item 13"),
-    (dict(coalesce=False, num_levels=5), "Queue 1 item 13"),
-    (dict(fused_layout="natural"), "Queue 2 row 9"),
+    pytest.param(dict(coalesce=False, num_levels=1), "Queue 1 item 13",
+                 id="kwargs1-Queue 1 item 13"),
+    pytest.param(dict(coalesce=False, num_levels=5), "Queue 1 item 13",
+                 id="kwargs2-Queue 1 item 13"),
 ])
 def test_unported_arguments_raise(kwargs, item):
     img = np.zeros((16, 16, 3), np.uint8)
@@ -294,6 +294,24 @@ def test_unported_arguments_raise(kwargs, item):
                limg_tpu_torch.encode_image_merged_fused_device):
         with pytest.raises(NotImplementedError, match=item):
             fn(img, EncodeConfig(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(coalesce=False, return_state=True),
+                                    dict(fused_layout="natural")])
+def test_state_and_natural_layout_run_where_they_were_refused(kwargs):
+    """``return_state=True`` and ``fused_layout="natural"`` (ROADMAP.md Queue
+    1 item 10, Queue 2 row 9) now encode the input they were refused on,
+    through both entry points."""
+    img = np.zeros((16, 16, 3), np.uint8)
+    out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(), device="cpu", **kwargs)
+    if kwargs.get("return_state"):
+        out, state = out
+        assert state["rows"].shape == (24, 4) and state["q"].shape == (3, 64, 4)
+    np.testing.assert_array_equal(out["decoded"][..., :3], img)
+    dev = limg_tpu_torch.encode_image_merged_fused_device(img, EncodeConfig(), device="cpu",
+                                                          **kwargs)
+    assert dev["decoded"].shape == (16, 16, 4)
+    assert ("ser_rows" in dev) == bool(kwargs.get("return_state"))
 
 
 def test_rd_policy_runs_where_it_was_refused():
@@ -350,7 +368,9 @@ def test_wrappers_check_their_inputs():
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library's cache key."""
     srcs = build.source_files(build.CSRC / "encode_merged.cu")
-    assert {p.name for p in srcs} == {"encode_merged.cu", "limg_common.cuh"}
+    assert {p.name for p in srcs} == {"encode_merged.cu", "encode_merged.cuh", "limg_common.cuh"}
+    assert {p.name for p in build.source_files(build.CSRC / "encode_natural.cu")} == {
+        "encode_natural.cu", "encode_merged.cuh", "limg_common.cuh"}
     assert {p.name for p in build.source_files(build.CSRC / "encode_fixed.cu")} == {
         "encode_fixed.cu", "limg_common.cuh"}
     for p in build.CSRC.iterdir():

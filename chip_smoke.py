@@ -20,10 +20,13 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    inputs): integer outputs bit-equal, dist within 1e-6 relative, over
    images, channel counts, crush modes, num_factors and dithering;
 2b. the same for ``fit_levels`` and ``owner_crush`` over levels 2 to 4,
-   RGB and RGBA, aligned and edge-padded images, and the same settings;
+   RGB and RGBA, aligned and edge-padded images (4-level squares cut by
+   both edges), and the same settings;
 2c. the same for the four run-coalescing kernels (``match_pairs``,
    ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
-   fitted rows, random and real segment maps, RGB and RGBA, every crush
+   fitted rows, random and real segment maps, segment_encode's edges
+   (segments of 1, 31, 32, 33 and 256 members across its tiles, a tail of
+   lanes with no member, no member at all), RGB and RGBA, every crush
    mode, num_factors 1-3, dithering off and on;
 2d. the same for ``encode_region`` at P = 256, 1024 and 4096 (16x16, 32x32
    and 64x64 pixel regions), RGB and RGBA, aligned and edge-padded images,
@@ -53,24 +56,26 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    counted from 0 (the Morton pair's must stay 0), held as in 3c against
    the JAX default encode and against the JAX natural-layout encode
    (tests/fixtures/torch_port_natural_reference.npz), and against the
-   port's Morton encode, dithering off and on: the two orders of a block's
-   float sums flip a few endpoints at 4K, so owners, alive counts, runs and
-   serializer-state columns are counted and held to the tolerances of the
-   JAX checks, decoded pixels 99.9% equal; then the composed coalesce pass
+   port's Morton encode, dithering off and on, equal bit for bit (planes,
+   stats, runs, serializer state: both layouts sum a block in one order);
+   then the composed coalesce pass
    on the 4K default state, ``crush_eval_rows`` counted from 0, bit-equal to
    the segment kernel's pass;
 4. / 4b. / 4c. / 4d. / 4e. kernel and plain times at the 4K shapes of each
    path (each compared once more), and each path's device-resident step,
    CUDA events, median of 10 runs after warm-up, with a torch.profiler
-   breakdown; 4e also times the natural pair against the Morton pair, the
-   natural step against the Morton step and the composed coalesce pass
-   against the segment kernel's.
+   breakdown (the fit, owner-crush and segment kernels' device time in the
+   step beside their events time alone) and each kernel's launches per
+   default and RD step; 4e also times the natural pair against the Morton
+   pair, the natural step against the Morton step and the composed
+   coalesce pass against the segment kernel's.
 
-Prints one JSON line of kernel results (each with its launches on its
-path's main run, its time, its plain version's, and its bound: the least
-time the card could take for the call's bytes and operations), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero.
+Prints the order in which to redesign the kernels (the ms each loses above
+its bound per default step, then per RD step), one JSON line of kernel
+results (each with its launches on its path's main run, its time, its
+plain version's, and its bound: the least time the card could take for
+the call's bytes and operations), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -290,7 +295,7 @@ def phase_compare_merged(device, images=None) -> float:
     log("== phase 2b: fused quadtree kernels vs plain versions on the card")
     if images is None:
         images = {"256x384": make_4k(256, 384), "70x90": small_image(70, 90),
-                  "301x437": make_4k(301, 437)}
+                  "301x437": make_4k(301, 437), "37x200": make_4k(37, 200)}
     worst, n_cases = 0.0, 0
     for name, rgb in images.items():
         for ch in (3, 4):
@@ -399,6 +404,29 @@ def seeded_run_buffer(rng, n: int, ch: int, device):
                  for a in (words, mask, seg_map(rng, n), blocks))
 
 
+def edge_run_buffers(rng, ch: int, device) -> dict:
+    """Run buffers at segment_encode's edges: segments of 1, 31, 32, 33 and
+    256 members, some crossing the kernel's 128-lane tiles, then a tail of
+    lanes with no member (singletons and longer segments); the same map
+    with no member pixel at all; and the members alone."""
+    import torch
+
+    spans = [1, 31, 32, 33, 256, 1, 33, 95, 256, 32, 31, 1]
+    tail = [1, 7, 1, 1, 40, 3, 256, 1, 1, 20]
+    n_mem, n = sum(spans), sum(spans) + sum(tail)
+    seg = np.concatenate([np.full(k, start, np.int32) for k, start in
+                          zip(spans + tail, np.cumsum([0] + spans + tail)[:-1])])
+    words, mask, _, blocks = seeded_run_buffer(rng, n, ch, device)
+    mask = mask.clone()
+    mask[:, n_mem:] = False
+    seg = torch.from_numpy(seg).to(device)
+    cut = (words[:, :n_mem].contiguous(), mask[:, :n_mem].contiguous(), seg[:n_mem].contiguous(),
+           blocks[:n_mem].contiguous())
+    return {"edges+empty tail": (words, mask, seg, blocks),
+            "no member": (words, torch.zeros_like(mask), seg, blocks),
+            "edges": cut}
+
+
 def image_run_buffer(img, cfg, device, levels: int = MERGED_LEVELS):
     """The run buffer of one image as the default encode builds it, and the
     owner-selected (7ch, by, bx) rows its run building matched on."""
@@ -476,7 +504,16 @@ def phase_compare_coalesce(device, images=None) -> float:
                 check(f"segment_encode seeded ch={ch} n={n} {mode} nf={nf} dither={dith}",
                       kc.segment_encode_kernel(*buf, cfg, 0x5EED),
                       kc.segment_encode_reference(*buf, cfg, 0x5EED))
-    log(f"  seeded: {n_cases} cases bit-equal")
+    # segment encode at its edges: 1-256 members, tile crossings, empty lanes
+    for ch in (3, 4):
+        for name, buf in edge_run_buffers(rng, ch, device).items():
+            for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
+                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                   dithering=dith, num_factors=nf)
+                check(f"segment_encode {name} ch={ch} {mode} nf={nf} dither={dith}",
+                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
+    log(f"  seeded and edge buffers: {n_cases} cases bit-equal")
     # real run buffers and fitted rows of edge-padded and aligned images
     for name, rgb in images.items():
         for ch in (3, 4):
@@ -983,33 +1020,22 @@ def phase_main_path_natural(device):
             launched[k] for k in MERGED_REPLACES):
         raise AssertionError(f"the natural path's launches are off: {launched}")
     log(f"  {len(outs)} encodes, launches {launched}")
-    # the port's Morton encode of the same inputs
+    # the port's Morton encode of the same inputs: both layouts sum a block
+    # in one order, so the two encodes are equal bit for bit
     for (lane, dith), (out, state) in outs.items():
         cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
         m_out, m_state = limg_tpu_torch.encode_image_merged(
             images[lane], cfg, num_levels=MERGED_LEVELS, return_state=True, device=device)
-        owner_agree = float((out["owner_px"] == m_out["owner_px"]).mean())
-        alive_rel = (np.abs(out["alive_counts"] - m_out["alive_counts"])
-                     / np.maximum(m_out["alive_counts"], 1))
-        dec_agree = float((out["decoded"] == m_out["decoded"]).all(axis=-1).mean())
-        cols = (state["rows"] != m_state["rows"]).any(axis=0)
-        ep_flip = int(np.abs(state["rows"][4:-2].astype(np.int64)
-                             - m_state["rows"][4:-2]).max())
-        q_cols = int((state["q"] != m_state["q"]).any(axis=(0, 1)).sum())
-        rejected = [o["coalesce_stats"]["rejected_runs"] for o in (out, m_out)]
-        log(f"  4k_{lane} dither={dith} natural vs Morton: owner agreement {owner_agree!r}, "
-            f"alive {out['alive_counts'].tolist()} vs {m_out['alive_counts'].tolist()}, runs "
-            f"{out['n_runs']} vs {m_out['n_runs']}, stats {out['coalesce_stats']} vs "
-            f"{m_out['coalesce_stats']}, state columns differing {int(cols.sum())} (largest "
-            f"endpoint difference {ep_flip}), factor columns differing {q_cols}, decoded "
-            f"pixels equal {dec_agree!r}, psnr {out['psnr']!r} vs {m_out['psnr']!r}")
-        if (owner_agree < OWNER_AGREE or (alive_rel > ALIVE_FRAC).any()
-                or abs(out["n_runs"] - m_out["n_runs"]) > RUNS_FRAC * m_out["n_runs"]
-                or abs(rejected[0] - rejected[1]) > RUNS_FRAC * rejected[1]
-                or cols.mean() > 1 - OWNER_AGREE or dec_agree < 0.999
-                or abs(out["psnr"] - m_out["psnr"]) > NODITHER_PSNR_DB
-                or abs(out["mean_bpp"] - m_out["mean_bpp"]) > NODITHER_BPP):
-            raise AssertionError(f"4k_{lane} dither={dith}: the natural encode is off the Morton one")
+        differ = [k for k in ("decoded", "owner_px", "alive_counts", "bits_histogram", "factors",
+                              "endpoint_rows") if not np.array_equal(out[k], m_out[k])]
+        differ += [k for k in ("psnr", "mean_bpp", "n_runs", "coalesce_stats")
+                   if out[k] != m_out[k]]
+        differ += [f"state {k}" for k in ("rows", "q") if not np.array_equal(state[k], m_state[k])]
+        log(f"  4k_{lane} dither={dith} natural vs Morton: "
+            + (f"differ in {differ}" if differ else "equal (planes, stats, runs, state)"))
+        if differ:
+            raise AssertionError(f"4k_{lane} dither={dith}: the natural encode differs from the "
+                                 f"Morton one in {differ}")
     # the composed coalesce pass (coalesce_segments(use_kernel=False)) on the
     # 4K default state, counted from 0, against the segment kernel's pass
     cfg = EncodeConfig(error_factor=100)
@@ -1106,7 +1132,10 @@ def call_bound(ops: int, nbytes: int) -> tuple:
 
 
 def kernel_bound(name: str, args, out) -> tuple:
-    """The bound of the call ``name(*args)`` that returned ``out``."""
+    """The bound of the call ``name(*args)`` that returned ``out``, from the
+    work its inputs need: segment_encode counts the fit, search and finish
+    of the lanes that hold a member pixel and the bytes of every lane's
+    mask, ids and outputs, since a lane with no member needs no fit."""
     if name in ("encode_fixed_p64", "encode_region"):
         packed, mask, cfg = args[:3]
         ops = encode_ops(packed.numel(), packed.numel(), cfg)
@@ -1120,10 +1149,14 @@ def kernel_bound(name: str, args, out) -> tuple:
         words, cfg = args[0], args[4]
         ops = encode_ops(words.numel(), words.numel(), cfg) - words.numel() * fit_ops(cfg.channels)
     elif name == "segment_encode":
+        # a lane whose segment holds no member pixel needs no fit, search or
+        # decode, and its pixels need not be read: count the fit, search and
+        # finish of the member lanes, every lane's mask, ids and outputs
         packed_c, mask_c, cfg = args[0], args[1], args[4]
-        # the search runs on the run members only; every lane is decoded
-        members = int(mask_c.any(dim=0).sum()) * packed_c.shape[0]
-        ops = encode_ops(packed_c.numel(), members, cfg)
+        members = int(mask_c.any(dim=0).sum())
+        ops = encode_ops(members * packed_c.shape[0], members * packed_c.shape[0], cfg)
+        skipped = (packed_c.shape[1] - members) * packed_c.shape[0] * packed_c.element_size()
+        return call_bound(ops, tensor_bytes(args, out) - skipped)
     elif name == "match_pairs":
         ops = match_ops(args[0].shape[1], args[2])
     elif name == "match_neighbors":
@@ -1237,7 +1270,9 @@ def phase_timing_merged(device, smi: str):
         step_ms = time_fn(step, device)
         log(f"  4K {lane} merged step (encode_image_merged_fused_device, emit_planes=False): "
             f"{step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        profile_step(step, device, f"{lane} merged")
+        prof = profile_step(step, device, f"{lane} merged")
+        for name in fns:
+            log_profiled(prof, name, rows[(name, lane)][0], lane, smi)
     log(f"phase 4b ok: 4K merged kernel outputs equal the plain versions' (max abs diff {worst})")
     return rows, worst
 
@@ -1328,10 +1363,14 @@ def phase_timing_coalesce(device, smi: str):
         log(f"  4K {lane} default merged step (fused_merged_pre, host capacity read, "
             f"fused_merged_finish; emit_planes=False): {step_ms!r} ms = "
             f"{mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        profile_step(step, device, f"{lane} default merged")
+        prof = profile_step(step, device, f"{lane} default merged")
+        log_profiled(prof, "segment_encode", rows[("segment_encode", lane)][0], lane, smi)
+        if lane == "rgb":
+            per_step = launches_per_step(step)
+            log(f"  kernel launches per default step: {per_step}")
     log(f"phase 4c ok: 4K run-coalescing kernel outputs equal the plain versions' "
         f"(max abs diff {worst})")
-    return rows, worst
+    return rows, worst, per_step
 
 
 def phase_timing_rd(device, smi: str):
@@ -1381,8 +1420,11 @@ def phase_timing_rd(device, smi: str):
         log(f"  4K {lane} RD step (fused_rd_pre, host capacity read, fused_rd_finish; "
             f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
         profile_step(step, device, f"{lane} RD")
+        if lane == "rgb":
+            per_step = launches_per_step(step)
+            log(f"  kernel launches per RD step: {per_step}")
     log(f"phase 4d ok: 4K region kernel outputs equal the plain version's (max abs diff {worst})")
-    return rows, worst
+    return rows, worst, per_step
 
 
 def phase_timing_natural(device, smi: str):
@@ -1479,10 +1521,18 @@ def phase_timing_natural(device, smi: str):
             f"fused_merged_finish; emit_planes=False): natural {n1!r} / {n2!r} ms = "
             f"{mpx / min(n1, n2) * 1e3!r} Mpx/s, Morton {m1!r} / {m2!r} ms [{smi}]")
         if lane == "rgb":
-            profile_step(lambda: step("natural"), device, f"{lane} natural default")
+            prof = profile_step(lambda: step("natural"), device, f"{lane} natural default")
+            log_profiled(prof, "fit_levels", rows[("fit_levels_natural", lane)][0], lane, smi)
     log(f"phase 4e ok: 4K natural and crush_eval_rows outputs equal the plain versions' "
         f"(max abs diff {worst})")
     return rows, worst
+
+
+def launches_per_step(fn) -> dict:
+    """Each kernel's launches in one call of the step ``fn``."""
+    reset_launches()
+    fn()
+    return {k: v for k, v in read_launches().items() if v}
 
 
 def profile_step(fn, device, lane: str, iters: int = 5):
@@ -1510,6 +1560,15 @@ def profile_step(fn, device, lane: str, iters: int = 5):
         f"per step, idle share {1 - busy / wall_us!r} (profiler on)")
     for key, us in rows[:8]:
         log(f"    {us!r:>22} us  {key[:90]}")
+    return dict(rows)
+
+
+def log_profiled(profile: dict, kernel: str, events_ms: float, lane: str, smi: str):
+    """A kernel's device time in a step's profile (ms per step) beside its
+    events time alone."""
+    us = sum(v for k, v in profile.items() if f"{kernel}_kernel<" in k)
+    log(f"  4K {lane} {kernel}: events {events_ms!r} ms alone, profiler device time "
+        f"{us / 1e3!r} ms per step [{smi}]")
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, timing) -> dict:
@@ -1539,8 +1598,8 @@ def main():
     launched_n = phase_main_path_natural(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
-    rows_c, worst4k_c = phase_timing_coalesce(device, smi)
-    rows_r, worst4k_r = phase_timing_rd(device, smi)
+    rows_c, worst4k_c, per_default = phase_timing_coalesce(device, smi)
+    rows_r, worst4k_r, per_rd = phase_timing_rd(device, smi)
     rows_n, worst4k_n = phase_timing_natural(device, smi)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
@@ -1562,11 +1621,17 @@ def main():
                               launched_n["crush_eval_rows"], max(worst_n, worst4k_n),
                               rows_n[("crush_eval_rows", "rgb")]))
     # the order in which to redesign the kernels: first any slower than a
-    # PyTorch call, then by the time their main runs spend above the bound
+    # PyTorch call, then by the time they lose above the bound in one
+    # default merged step, then in one RD step (launches per step, phases
+    # 4c and 4d)
+    def lost(k, per_step):
+        return per_step.get(k["name"], 0) * (k["ms"] - k["bound_ms"])
+
     behind = sorted(kernels, key=lambda k: (k["library_ms"] is None or k["ms"] <= k["library_ms"],
-                                            -k["launches"] * (k["ms"] - k["bound_ms"])))
-    log("redesign order (launches x (ms - bound_ms), 4K RGB): " + ", ".join(
-        f"{k['name']} {k['launches'] * (k['ms'] - k['bound_ms']):.3f}" for k in behind))
+                                            -lost(k, per_default), -lost(k, per_rd)))
+    log("redesign order (ms lost above the bound per default step / per RD step, launches x "
+        "(ms - bound_ms), 4K RGB): " + ", ".join(
+            f"{k['name']} {lost(k, per_default):.3f} / {lost(k, per_rd):.3f}" for k in behind))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

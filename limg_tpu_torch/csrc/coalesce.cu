@@ -20,29 +20,39 @@
 // What bounds them on the H100: the match kernels are ~40 float operations
 // per probe lane and pair, over 160 K pairs at 4K (compute, a few us); the
 // scan is 8 shared-memory steps over data read once. The segment encode
-// does the work of the fixed-grid kernel per block (a fit and 35+ exact
-// candidate decodes) plus a segment reduction after every fit step and
-// candidate batch, so it is compute- and barrier-bound.
+// does the work of the fixed-grid kernel per member block (a fit and 35+
+// exact candidate decodes at ladder K = 8), so its bound is operations
+// (chip_smoke.py kernel_bound); it runs far from it, compute- and
+// barrier-bound: a segment reduction after every fit step and candidate
+// batch.
 //
 // segment_encode's design: segment ids are the first member's position,
 // members are contiguous and a segment has at most SEG_CAP of them. CTA k
 // takes the whole segments that start in lanes [128k, 128k + 128), at most
-// 383 lanes, so every reduction stays inside the CTA. A warp works on one
-// block at a time (its 64 pixels in registers, as in encode_fixed) and loops
-// over the CTA's blocks; between the steps of the fit and between candidate
-// batches the blocks' partial values meet in shared memory:
+// 383 lanes, so every reduction stays inside the CTA. It first counts each
+// segment's member pixels: the lanes of a segment with none (the buffer's
+// tail of non-run lanes, 27% of the lanes at 4K) get the plain version's
+// outputs for an empty region at once (write_empty), and every later loop
+// walks only the other lanes (S.act); a CTA of such lanes alone stops
+// there. A warp works on one block at a time (its 64 pixels in registers,
+// as in encode_fixed) and loops over the CTA's active blocks; between the
+// steps of the fit and between candidate batches the blocks' partial values
+// meet in shared memory:
 // - float sums (counts, channel sums, unit-vector sums) and the factor
 //   extremes go through the doubling scan of ops/segments.py in the plain
 //   version's order, fwd + bwd - x, which is not the exact segment sum and
-//   can differ between members;
+//   can differ between members: between two CTA barriers each warp scans
+//   whole segments (scan_segments), a segment of up to 32 members by
+//   shuffles (at 4K all but ~70 of ~37,000), a longer one over shared
+//   memory with the warp's own barriers;
 // - the crush's integer pixel maxima and error sums are order-free, so they
 //   are per-segment shared-memory atomics;
 // - the fit's per-pixel steps are repeated from the image in each phase
 //   (limg_common.cuh FitSteps), its factors go to a scratch plane for the
 //   crush, and per-block state (region values, ladder boxes, candidates,
 //   the running best) lives in shared memory, one column per block.
-// Empty blocks (non-run lanes: zero mask) run the same code and get the
-// plain version's outputs; nothing is skipped.
+// One warp per segment, with no CTA barrier after the counts, computed the
+// same bits but took 3x the time at 4K (PERF.md).
 
 #include "limg_common.cuh"
 
@@ -197,6 +207,9 @@ enum : int {
 
 struct SegShared {
   int seg[kSegLanes];  // local index of each block's segment start
+  int len[kSegLanes];  // at a segment start: its lane count
+  int act[kSegLanes];  // the lanes whose segment holds a member pixel
+  int n_act;
   float sx[kScanRows][kSegLanes], sf[kScanRows][kSegLanes], sb[kScanRows][kSegLanes];
   int acc[2 * kBatch][kSegLanes];  // per-segment pixel maxima, then error sums
   int st[kStateRows][kSegLanes];
@@ -253,48 +266,72 @@ __device__ __forceinline__ void load_pixels(const SegParams& P, size_t b, int la
   }
 }
 
-// Doubling scan of rows [0, nrows) of sx over the CTA's nl blocks (sums on
-// rows [0, n_sum), max on the rest), results back in sx. All threads.
-__device__ void tile_scan(SegShared& S, int nl, int nrows, int n_sum) {
-  constexpr int kPer = (kScanRows * kSegLanes + kSegThreads - 1) / kSegThreads;
-  const int tid = threadIdx.x;
-  for (int e = tid; e < nrows * kSegLanes; e += kSegThreads) {
-    const int r = e / kSegLanes, i = e % kSegLanes;
-    if (i < nl) S.sf[r][i] = S.sb[r][i] = S.sx[r][i];
-  }
-  __syncthreads();
-  for (int d = 1; d < kSegCap; d <<= 1) {
-    float nf[kPer], nbk[kPer];
+// The doubling scan of ops/segments.py over the CTA's segments that hold a
+// member pixel: rows [0, NROWS) of sx, sums on rows [0, NSUM), max on the
+// rest, results back in sx. Each warp scans the segments that start in
+// every 8th 32-lane chunk, alone: a step's partner outside the segment is
+// skipped, as the plain version's segment-id guard skips it, so a segment
+// of up to 32 members takes shuffles (the steps from 32 on have no
+// partner) and a longer one the rows sf / sb between the warp's barriers.
+// Exact: the plain version's fwd + bwd - x and max(fwd, bwd) in its order.
+// Called between CTA barriers (the partial values are in sx).
+template <int NROWS, int NSUM>
+__device__ void scan_segments(SegShared& S, int nl) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int chunk = warp; chunk * 32 < nl; chunk += kSegWarps) {
+    const int c = chunk * 32 + lane;
+    unsigned starts = __ballot_sync(kFull, c < nl && S.seg[c] == c && S.st[S_COUNT][c] > 0);
+    while (starts) {
+      const int s = chunk * 32 + __ffs(starts) - 1, n = S.len[s];
+      starts &= starts - 1;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int e = tid + k * kSegThreads;
-      const int r = e / kSegLanes, i = e % kSegLanes;
-      if (r < nrows && i < nl) {
-        const bool sum = r < n_sum;
-        float f = S.sf[r][i], b = S.sb[r][i];
-        if (i >= d && S.seg[i - d] == S.seg[i]) f = sum ? f + S.sf[r][i - d] : fmaxf(f, S.sf[r][i - d]);
-        if (i + d < nl && S.seg[i + d] == S.seg[i])
-          b = sum ? b + S.sb[r][i + d] : fmaxf(b, S.sb[r][i + d]);
-        nf[k] = f;
-        nbk[k] = b;
+      for (int r = 0; r < NROWS; ++r) {
+        const bool sum = r < NSUM;
+        if (n <= 32) {
+          const float x = lane < n ? S.sx[r][s + lane] : 0.0f;
+          float f = x, b = x;
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) {
+            const float pf = __shfl_up_sync(kFull, f, d), pb = __shfl_down_sync(kFull, b, d);
+            if (lane >= d) f = sum ? f + pf : fmaxf(f, pf);
+            if (lane + d < n) b = sum ? b + pb : fmaxf(b, pb);
+          }
+          if (lane < n) S.sx[r][s + lane] = sum ? (f + b) - x : fmaxf(f, b);
+        } else {
+          constexpr int kPer = kSegCap / 32;
+          float* sf = S.sf[r] + s;
+          float* sb = S.sb[r] + s;
+          for (int j = lane; j < n; j += 32) sf[j] = sb[j] = S.sx[r][s + j];
+          __syncwarp();
+          for (int d = 1; d < n; d <<= 1) {
+            float nf[kPer], nbk[kPer];
+#pragma unroll
+            for (int e = 0; e < kPer; ++e) {
+              const int j = lane + 32 * e;
+              if (j < n) {
+                nf[e] = j >= d ? (sum ? sf[j] + sf[j - d] : fmaxf(sf[j], sf[j - d])) : sf[j];
+                nbk[e] = j + d < n ? (sum ? sb[j] + sb[j + d] : fmaxf(sb[j], sb[j + d])) : sb[j];
+              }
+            }
+            __syncwarp();
+#pragma unroll
+            for (int e = 0; e < kPer; ++e) {
+              const int j = lane + 32 * e;
+              if (j < n) {
+                sf[j] = nf[e];
+                sb[j] = nbk[e];
+              }
+            }
+            __syncwarp();
+          }
+          for (int j = lane; j < n; j += 32) {
+            const float x = S.sx[r][s + j];
+            S.sx[r][s + j] = sum ? (sf[j] + sb[j]) - x : fmaxf(sf[j], sb[j]);
+          }
+          __syncwarp();
+        }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int e = tid + k * kSegThreads;
-      const int r = e / kSegLanes, i = e % kSegLanes;
-      if (r < nrows && i < nl) {
-        S.sf[r][i] = nf[k];
-        S.sb[r][i] = nbk[k];
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < nrows * kSegLanes; e += kSegThreads) {
-    const int r = e / kSegLanes, i = e % kSegLanes;
-    if (i < nl)
-      S.sx[r][i] = r < n_sum ? (S.sf[r][i] + S.sb[r][i]) - S.sx[r][i] : fmaxf(S.sf[r][i], S.sb[r][i]);
   }
   __syncthreads();
 }
@@ -323,7 +360,8 @@ template <int CH>
 __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, int step,
                               int out_row) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < nl; i += kSegWarps) {
+  for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
+    const int i = S.act[ai];
     Pixels<CH> p;
     load_pixels<CH>(P, (size_t)(a + i), lane, p);
     FitRegion<CH> r;
@@ -348,7 +386,7 @@ __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, i
     }
   }
   __syncthreads();
-  tile_scan(S, nl, CH, CH);
+  scan_segments<CH, CH>(S, nl);
   for (int i = threadIdx.x; i < nl; i += kSegThreads) {
     const float ic = inv_count(S, i);
 #pragma unroll
@@ -402,7 +440,8 @@ __device__ void eval_batch(const SegParams& P, SegShared& S, int a, int nl, int 
     if (i < nl) S.acc[r][i] = r < kBatch ? (-2147483647 - 1) : 0;
   }
   __syncthreads();
-  for (int i = warp; i < nl; i += kSegWarps) {
+  for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
+    const int i = S.act[ai];
     Block<CH> blk;
     load_crush_block<CH>(P, S, a, i, lane, blk);
     const int at = S.seg[i];
@@ -448,6 +487,30 @@ __device__ __forceinline__ void fold(SegShared& S, int i, int c, const int (&s)[
   S.st[S_ERR][i] = err;
 }
 
+// Block b of a segment with no member pixel: the plain version's outputs
+// for an empty region (zero fit and factors, the search's (0, 0, 0) and the
+// forced drops, a dither that leaves zero factors zero, a zero decode),
+// written without the work (tests/test_torch_kernel_orders.py holds the
+// plain version to them).
+template <int CH>
+__device__ void write_empty(const SegParams& P, size_t b, int lane) {
+  const int zero[CH][2] = {};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const size_t at = b * kP + lane + 32 * j;
+    if (P.q != nullptr) P.q[at] = 0;
+    P.dec[at] = pack_decoded<CH>(zero, 0);
+  }
+  if (lane < 3) P.shifts[(size_t)lane * P.n + b] = lane >= P.num_factors ? 8 : 0;
+  if (lane < 6 * CH) P.eps[(size_t)lane * P.n + b] = 0;
+  if (lane < CH) P.avg[(size_t)lane * P.n + b] = 0.0f;
+  if (lane == 0) {
+    P.dist_blk[b] = 0.0f;
+    P.count_blk[b] = 0;
+    P.count_mem[b] = 0;
+  }
+}
+
 template <int CH>
 __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const SegParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -457,6 +520,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   // the CTA's blocks: the segments starting in [lo, hi), up to the next start
   const int lo = blockIdx.x * kSegTile, hi = min(lo + kSegTile, P.n);
   if (tid < 2) S.range[tid] = P.n;
+  if (tid == 2) S.n_act = 0;
   __syncthreads();
   for (int t = tid; t < 2 * kSegCap; t += kSegThreads) {
     const int g = (t < kSegCap ? lo : hi) + t % kSegCap;
@@ -473,22 +537,40 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   }
   __syncthreads();
 
-  // ---- fit: pixel counts and channel sums -> avg
+  // ---- segment pixel counts; the lanes of segments with no member pixel
+  // (the buffer's tail of non-run lanes) take the short path, the others go
+  // on the active list that every per-block loop below walks
   for (int i = warp; i < nl; i += kSegWarps) {
+    const size_t at = (size_t)(a + i) * kP + lane;
+    const int cnt = __reduce_add_sync(kFull, (P.mask[at] != 0 ? 1 : 0) + (P.mask[at + 32] != 0 ? 1 : 0));
+    if (lane == 0 && cnt > 0) atomicAdd(&S.acc[0][S.seg[i]], cnt);
+  }
+  __syncthreads();
+  for (int i = tid; i < nl; i += kSegThreads) {
+    S.st[S_COUNT][i] = S.acc[0][S.seg[i]];
+    if (S.st[S_COUNT][i] > 0) S.act[atomicAdd(&S.n_act, 1)] = i;
+    if (i == nl - 1 || S.seg[i + 1] != S.seg[i]) S.len[S.seg[i]] = i - S.seg[i] + 1;
+  }
+  __syncthreads();
+  const int na = S.n_act;
+  for (int i = warp; i < nl; i += kSegWarps)
+    if (S.st[S_COUNT][i] == 0) write_empty<CH>(P, (size_t)(a + i), lane);
+  if (na == 0) return;  // uniform: no member pixel in the CTA
+
+  // ---- fit: channel sums -> avg
+  for (int ai = warp; ai < na; ai += kSegWarps) {
+    const int i = S.act[ai];
     Pixels<CH> p;
     load_pixels<CH>(P, (size_t)(a + i), lane, p);
-    const int cnt = __reduce_add_sync(kFull, p.mask[0] + p.mask[1]);
     float sums[CH];
     channel_sums<CH>(p, sums);
     if (lane == 0) {
-      atomicAdd(&S.acc[0][S.seg[i]], cnt);
 #pragma unroll
       for (int c = 0; c < CH; ++c) S.sx[c][i] = sums[c];
     }
   }
   __syncthreads();
-  for (int i = tid; i < nl; i += kSegThreads) S.st[S_COUNT][i] = S.acc[0][S.seg[i]];
-  tile_scan(S, nl, CH, CH);
+  scan_segments<CH, CH>(S, nl);
   for (int i = tid; i < nl; i += kSegThreads) {
     const float ic = inv_count(S, i);
 #pragma unroll
@@ -502,7 +584,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   if (CH == 4) fit_direction<CH>(P, S, a, nl, 3, S_DIRC);
 
   // ---- fit: factor extremes (min as -max(-x))
-  for (int i = warp; i < nl; i += kSegWarps) {
+  for (int ai = warp; ai < na; ai += kSegWarps) {
+    const int i = S.act[ai];
     Pixels<CH> p;
     load_pixels<CH>(P, (size_t)(a + i), lane, p);
     FitRegion<CH> r;
@@ -527,7 +610,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     }
   }
   __syncthreads();
-  tile_scan(S, nl, 6, 0);
+  scan_segments<6, 0>(S, nl);
   for (int i = tid; i < nl; i += kSegThreads) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -538,7 +621,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();
 
   // ---- fit: endpoints, factors (to the scratch plane), endpoint and avg rows
-  for (int i = warp; i < nl; i += kSegWarps) {
+  for (int ai = warp; ai < na; ai += kSegWarps) {
+    const int i = S.act[ai];
     const size_t b = (size_t)(a + i);
     Pixels<CH> p;
     load_pixels<CH>(P, b, lane, p);
@@ -647,7 +731,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
       __syncthreads();
     }
     // lattice keys and the K best candidates of each block
-    for (int i = warp; i < nl; i += kSegWarps) {
+    for (int ai = warp; ai < na; ai += kSegWarps) {
+      const int i = S.act[ai];
       LadderBox box;
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
@@ -689,7 +774,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   }
 
   // ---- dither, decode and the outputs
-  for (int i = warp; i < nl; i += kSegWarps) {
+  for (int ai = warp; ai < na; ai += kSegWarps) {
+    const int i = S.act[ai];
     const size_t b = (size_t)(a + i);
     Block<CH> blk;
     load_crush_block<CH>(P, S, a, i, lane, blk);

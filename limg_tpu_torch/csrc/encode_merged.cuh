@@ -13,35 +13,51 @@
 //
 // NAT = true makes them the natural-layout pair, fit_levels_natural and
 // owner_crush_natural (limg_tpu/pallas_kernels/encode_natural.py:421,
-// :528): the same functions with each block's float sums in the natural
-// layout's order (limg_common.cuh nat_sum), and the pixel planes (f8_sel,
-// q, dec) as natural (8 by0, 8 bx0) row-major planes instead of block-major
-// (nb, 64) ones. Across blocks both pair a square's blocks alike: Morton
-// order's pairwise tree is the natural kernels' x-then-y butterfly.
-//
-// Geometry: one CTA per top-level square of G x G blocks (G = 2^(levels-1),
-// 4x4 = 32x32 px at 3 levels), one warp per block, warps in Morton order
-// (x in the even bits), so every level-l region is an aligned group of 4^l
-// warps. At 4 levels a square of 64 blocks is a thread block cluster of four
-// 16-warp CTAs that reduce through distributed shared memory. Each warp reads its block straight from the row-major (H, W) word
-// image and masks pixels outside (h, w): no relayout, no mask plane. Blocks
-// of the square outside the grid are empty warps; like the reference's
-// padding lanes they count zero pixels and auto-match.
+// :528): the same functions with the pixel planes (f8_sel, q, dec) as
+// natural (8 by0, 8 bx0) row-major planes instead of block-major (nb, 64)
+// ones. Both pairs sum a block in the natural layout's order (a left fold
+// over its 8 rows, then a pairwise tree over its 8 columns; ops/reduce.py
+// nat_block_sum), so the two layouts give the same encode bit for bit, as
+// the JAX package's do. Across blocks both pair a square's blocks alike:
+// Morton order's pairwise tree is the natural kernels' x-then-y butterfly.
 //
 // What bounds them on the H100: a 4K image is 33 MB of words, read once by
 // each kernel (~10 us each at 3.35 TB/s). The fit does levels full fits
 // (about 25 float passes over the pixels each) plus one 27-probe match per
 // child region; the crush does 35+ exact candidate decodes per block, as
-// the fixed-grid kernel does. Both are compute- and barrier-bound: region
-// reductions are shared-memory exchanges between the square's warps
-// (limg_common.cuh GroupReducer / OwnerReducer), each a pair of
-// __syncthreads. A simple first version: no tensor cores, TMA or tuning.
+// the fixed-grid kernel does. Both are bound by operations (chip_smoke.py
+// kernel_bound), and in practice by how their region reductions wait.
 //
-// Bit-exactness with the plain PyTorch versions (kernels/encode_merged.py,
-// kernels/encode_natural.py) rests on the orders listed in limg_common.cuh,
-// on the Morton warp order of the cross-block trees, and on the match
-// predicate's fixed order (limg_common.cuh match_rows, shared with
-// coalesce.cu).
+// fit_levels' design: eight lanes a block, lane l holding column l % 8
+// (pixels l % 8 + 8 k), four blocks a warp in Morton order (x in the even
+// bits), so a warp is a level-1 region and a level-l region an aligned
+// group of 4^(l-1) warps. A CTA holds one top-level square: 4 warps at 3
+// levels, 16 at 4 (no cluster), 4 squares of one warp at 2. Then:
+// - a block's sums are 7 in-lane adds and xor shuffles 1, 2, 4 (the natural
+//   order's row fold and column tree), and a level-1 region's are xor 8,
+//   16 (the Morton pairwise tree): levels 0 and 1 take no CTA barrier;
+// - a level-l region (l >= 2) puts one value per warp in shared memory,
+//   passes one barrier (two slot sets alternate) and combines the group's
+//   values one to a lane by xor butterflies, the same pairwise tree; about
+//   six exchanges a level;
+// - the merge test, alive chain and owner select read the children's
+//   region rows (endpoints, avg, count) from shared memory, 8 lanes a test
+//   (limg_common.cuh match_rows<CH, 8>), and the owner level's rows stay in
+//   shared memory until the block's lanes write them out;
+// - only the pixels (as floats) and each pixel's selected factors live in
+//   a lane's registers; the fit's per-pixel steps are recomputed from them
+//   in each pass instead of kept.
+// owner_crush puts one warp on each block (2 pixels a lane, Square below;
+// a 4-level square is a 4-CTA cluster) and sums a block by nat_sum.
+//
+// Both kernels read each block straight from the row-major (H, W) word
+// image and mask pixels outside (h, w): no relayout, no mask plane. Blocks
+// of a square outside the grid are empty; like the reference's padding
+// lanes they count zero pixels and auto-match. Bit-exactness with the
+// plain PyTorch versions (kernels/encode_merged.py, kernels/encode_natural.py)
+// rests on the orders listed in limg_common.cuh, on the Morton order of the
+// cross-block trees, and on the match predicate's fixed order
+// (limg_common.cuh match_rows, shared with coalesce.cu).
 
 #pragma once
 
@@ -88,26 +104,9 @@ __device__ __forceinline__ void load_block(const int32_t* __restrict__ words, in
   }
 }
 
-// Per-warp state of the level loop.
-template <int CH>
-struct FitState {
-  Pixels<CH> px;
-  int warp, lane;
-  int num_factors;
-  // owner-level selection (overwritten while the block's square stays alive)
-  int f8_sel[2];
-  int ep_sel[6][CH];
-  float avg_sel[CH];
-  int owner;
-  int alive;
-  // the previous level's region (endpoints after the num_factors drop)
-  int p_ep[6][CH];
-  float p_avg[CH];
-  int p_count;
-  int cnt0;
-  int nonempty;   // bit l: the level-l region holds pixels
-  int reason[4];  // group-ORed reason bits of the level-l merge decision
-};
+// ---------------------------------------------------------------------------
+// owner_crush: one warp a block
+// ---------------------------------------------------------------------------
 
 // A top-level square of 4^L blocks, one warp each: one CTA of up to 16
 // warps, or (L = 3) a cluster of four CTAs of 16 warps that exchange through
@@ -134,139 +133,6 @@ struct Square {
     return warp;
   }
 };
-
-template <int CH, class Ex, int LVL, bool NAT>
-__device__ void fit_level(FitState<CH>& st, const Ex& ex) {
-  constexpr int kGroup = 1 << (2 * LVL);
-  const GroupReducer<Ex, kGroup> red{ex};
-  int count, ep[6][CH], f8[3][2];
-  float avg[CH];
-  fit_and_factors<CH, NAT>(st.px, red, count, avg, ep, f8);
-  drop_axes<CH>(ep, st.num_factors);
-  int f8p[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) f8p[j] = f8[0][j] | (f8[1][j] << 8) | (f8[2][j] << 16);
-
-  bool take = LVL == 0;
-  if constexpr (LVL == 0) {
-    st.cnt0 = count;
-  } else {
-    // the group's first child: its previous-level region values sit on the
-    // group's first warp
-    constexpr int kChild = 1 << (2 * (LVL - 1));
-    constexpr int kN = 6 * CH + 1;
-    int mine[kN];
-#pragma unroll
-    for (int e = 0; e < 6; ++e) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) mine[e * CH + c] = st.p_ep[e][c];
-    }
-    mine[6 * CH] = st.p_count;
-    ex.put_ints(mine, kN);
-    ex.put_floats(st.p_avg, CH);
-    const int first = ex.warp & ~(kGroup - 1);
-    int c0_ep[6][CH];
-    float c0_avg[CH];
-#pragma unroll
-    for (int e = 0; e < 6; ++e) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) c0_ep[e][c] = ex.iget(e * CH + c, first);
-    }
-    const int c0_count = ex.iget(6 * CH, first);
-#pragma unroll
-    for (int c = 0; c < CH; ++c) c0_avg[c] = ex.fget(c, first);
-    ex.done();
-
-    bool m;
-    const int reason = match_rows<CH>(st.p_avg, st.p_ep, c0_avg, c0_ep, st.lane, m);
-    const bool is_child0 = (ex.warp & (kGroup - kChild)) == 0;
-    const bool ok = is_child0 || m || st.p_count <= 0 || c0_count <= 0;
-    st.alive = red.fold_int(st.alive & (ok ? 1 : 0), 1);
-    st.reason[LVL] = red.fold_int(is_child0 ? 0 : reason, 2);
-    if (st.alive) {
-      st.owner = LVL;
-      take = true;
-    }
-  }
-  if (take) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) st.f8_sel[j] = f8p[j];
-#pragma unroll
-    for (int e = 0; e < 6; ++e) {
-#pragma unroll
-      for (int c = 0; c < CH; ++c) st.ep_sel[e][c] = ep[e][c];
-    }
-#pragma unroll
-    for (int c = 0; c < CH; ++c) st.avg_sel[c] = avg[c];
-  }
-  if (count > 0) st.nonempty |= 1 << LVL;
-#pragma unroll
-  for (int e = 0; e < 6; ++e) {
-#pragma unroll
-    for (int c = 0; c < CH; ++c) st.p_ep[e][c] = ep[e][c];
-  }
-#pragma unroll
-  for (int c = 0; c < CH; ++c) st.p_avg[c] = avg[c];
-  st.p_count = count;
-}
-
-template <int CH, class Ex, int LVL, int L, bool NAT>
-__device__ __forceinline__ void fit_levels_from(FitState<CH>& st, const Ex& ex) {
-  fit_level<CH, Ex, LVL, NAT>(st, ex);
-  if constexpr (LVL < L) fit_levels_from<CH, Ex, LVL + 1, L, NAT>(st, ex);
-}
-
-template <int CH, int L, bool NAT>
-__global__ void __launch_bounds__(Square<L>::kW * 32, 1)
-fit_levels_kernel(const int32_t* __restrict__ words, int h, int w, int num_factors,
-                  int32_t* __restrict__ cnt0_out, int32_t* __restrict__ f8_out,
-                  int32_t* __restrict__ eps_out, float* __restrict__ avg_out,
-                  int32_t* __restrict__ owner_out, int32_t* __restrict__ stats_out,
-                  int32_t* __restrict__ reasons_out) {
-  using Sq = Square<L>;
-  __shared__ int ibuf[2 * kMaxExchange * Sq::kW];
-  __shared__ float fbuf[kMaxFloats * Sq::kW];
-  const int by0 = (h + 7) / 8, bx0 = (w + 7) / 8, nb = by0 * bx0;
-  FitState<CH> st;
-  int by, bx;
-  st.warp = Sq::locate(bx0, by, bx);
-  st.lane = threadIdx.x & 31;
-  st.num_factors = num_factors;
-  load_block<CH>(words, h, w, by, bx, st.lane, st.px);
-  st.owner = 0;
-  st.alive = 1;
-  st.nonempty = 0;
-  const typename Sq::Ex ex{ibuf, fbuf, st.warp, st.lane};
-  fit_levels_from<CH, typename Sq::Ex, 0, L, NAT>(st, ex);
-
-  if (by >= by0 || bx >= bx0) return;  // after the last barrier
-  const size_t b = (size_t)by * bx0 + bx;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) f8_out[plane_at<NAT>(by, bx, bx0, st.lane + 32 * j)] = st.f8_sel[j];
-  if (st.lane == 0) {
-    cnt0_out[b] = st.cnt0;
-    owner_out[b] = st.owner;
-    int stats = 0;
-#pragma unroll
-    for (int l = 0; l <= L; ++l) {
-      const bool lead = (st.warp & ((1 << (2 * l)) - 1)) == 0;
-      const bool nonempty = (st.nonempty >> l) & 1;
-      if (lead && st.owner >= l && nonempty) stats |= 1 << l;
-      if (l >= 1) reasons_out[(size_t)(l - 1) * nb + b] = lead && nonempty ? st.reason[l] : 0;
-    }
-    stats_out[b] = stats;
-  }
-  if (st.lane < CH) {
-    // lane c writes channel c of the six endpoint rows and avg
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      if (c != st.lane) continue;
-#pragma unroll
-      for (int e = 0; e < 6; ++e) eps_out[((size_t)e * CH + c) * nb + b] = st.ep_sel[e][c];
-      avg_out[(size_t)c * nb + b] = st.avg_sel[c];
-    }
-  }
-}
 
 template <int CH, int L, bool NAT>
 __global__ void __launch_bounds__(Square<L>::kW * 32, 1)
@@ -320,7 +186,7 @@ owner_crush_kernel(const int32_t* __restrict__ words, int h, int w, int crush_mo
   int q[3][2], dec[CH][2];
   float err_f[2];
   dither_decode<CH>(blk, best, dither != 0, key, (uint32_t)b, lane, q, dec, err_f);
-  const float dist_blk = block_sum<NAT>(err_f[0], err_f[1]);
+  const float dist_blk = nat_sum(err_f[0], err_f[1]);
   const float dist = red.sum_float(dist_blk);
 
   if (!in_grid) return;  // after the last barrier
@@ -367,12 +233,448 @@ int launch(void (*kernel)(Params...), int h, int w, cudaStream_t st, Args... arg
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fit_levels: eight lanes a block, four blocks a warp
+// ---------------------------------------------------------------------------
+
+// A top-level square of 4^L blocks for the fit. Lane l of a warp holds
+// column l % 8 of block l / 8 of the warp, and a warp's 4 blocks are
+// consecutive in Morton order, so a warp is a level-1 region and a level-l
+// region (l >= 2) an aligned group of 4^(l-1) warps. A CTA holds one square
+// (4 warps at L = 2, 16 at L = 3), or 4 squares of one warp each at L = 1.
+template <int L>
+struct FitSquare {
+  static constexpr int kG = 1 << L;                // blocks per side
+  static constexpr int kBlocks = 1 << (2 * L);     // blocks per square
+  static constexpr int kW = kBlocks / 4;           // warps per square
+  static constexpr int kSquares = L == 1 ? 4 : 1;  // squares per CTA
+  static constexpr int kWarps = kW * kSquares;
+};
+
+constexpr int kFitPut = 8;   // values one exchange publishes per warp
+constexpr int kRegion = 29;  // a region's row: 6 * 4 endpoints, 4 avg, count
+
+template <class T>
+__device__ __forceinline__ float to_bits(T x);
+template <>
+__device__ __forceinline__ float to_bits<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_bits<int>(int x) { return __int_as_float(x); }
+template <class T>
+__device__ __forceinline__ T from_bits(float x);
+template <>
+__device__ __forceinline__ float from_bits<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ int from_bits<int>(float x) { return __float_as_int(x); }
+
+struct IAdd {
+  __device__ int operator()(int a, int b) const { return add_wrap(a, b); }
+};
+struct IAnd {
+  __device__ int operator()(int a, int b) const { return a & b; }
+};
+struct IOr {
+  __device__ int operator()(int a, int b) const { return a | b; }
+};
+
+// op over aligned groups of TO lanes by xor butterflies at FROM, 2 FROM,
+// ... < TO: the pairwise-adjacent tree over the groups of FROM lanes, the
+// same bits in every lane for a commutative op.
+template <int FROM, int TO, class T, class Op>
+__device__ __forceinline__ T butterfly(T x, Op op) {
+#pragma unroll
+  for (int off = FROM; off < TO; off <<= 1) x = op(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// Exchange between the W warps of a square: lane 0 of each warp puts its
+// values, one barrier, and each aligned group of G warps combines them by
+// the pairwise-adjacent tree in warp (Morton) order, one value per lane,
+// xor butterflies. Two slot sets alternate, so one barrier per exchange
+// suffices: a warp writes a set again only after the next exchange's
+// barrier, which every warp reaches after its reads of this one.
+template <int W>
+struct SquareExchange {
+  float* buf;  // [2][kFitPut][W]
+  int warp, lane, set;
+
+  __device__ float* slots() const { return buf + set * kFitPut * W; }
+  template <int N, class T>
+  __device__ void put(const T (&v)[N], int at) const {
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) slots()[(at + i) * W + warp] = to_bits<T>(v[i]);
+    }
+  }
+  template <int G, int N, class T, class Op>
+  __device__ void tree(T (&v)[N], int at, Op op) const {
+    constexpr int kPer = 32 / G;  // values one round combines
+    const int base = warp & ~(G - 1);
+#pragma unroll
+    for (int r = 0; r < (N + kPer - 1) / kPer; ++r) {
+      const int i = r * kPer + lane / G;
+      T x = T(0);
+      if (i < N) x = from_bits<T>(slots()[(at + i) * W + base + lane % G]);
+      x = butterfly<1, G>(x, op);
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+        if (r * kPer + q < N) v[r * kPer + q] = __shfl_sync(kFull, x, q * G);
+    }
+  }
+};
+
+// One lane's part of the fit of every level of its block: the block's
+// column sub (pixels sub + 8 k, k = 0..7) in registers, the region values
+// each step needs in every lane of the region, and the level loop's state.
+// A block's float sums take the natural layout's order: the left fold over
+// the column's 8 rows in the lane, then the pairwise tree over the 8 columns
+// (xor 1, 2, 4; limg_common.cuh nat_sum, ops/reduce.py nat_block_sum).
+template <int CH, int L>
+struct FitLane {
+  using Sq = FitSquare<L>;
+  static constexpr int kCtaBlocks = Sq::kBlocks * Sq::kSquares;
+
+  float pxf[CH][8];
+  int nrows;    // rows of the block inside the image (<= 0 outside)
+  bool colv;    // the column is inside the image
+  int sub, bsq, blk;  // column; block's Morton index in its square; its smem row
+  int num_factors;
+  SquareExchange<Sq::kW> ex;
+  int* rows;    // [2][kCtaBlocks][kRegion]: the last two levels' region rows
+  int* sel;     // [kCtaBlocks][7 * CH]: endpoints and avg at the owner level
+  int f8_sel[8];
+  int owner, alive, nonempty, cnt0;
+  int reason[L + 1];
+
+  __device__ bool valid(int k) const { return colv && k < nrows; }
+  __device__ float mf(int k) const { return valid(k) ? 1.0f : 0.0f; }
+  __device__ int* row(int set, int b) const { return rows + (set * kCtaBlocks + b) * kRegion; }
+
+  // region reduction of a block's values (every lane of the block holds
+  // them): blocks of a warp by xor 8, 16; warps of a square by the exchange
+  template <int LVL, int N, class T, class Op>
+  __device__ void in_warp(T (&v)[N], Op op) const {
+    if constexpr (LVL >= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = butterfly<8, 32>(v[i], op);
+    }
+  }
+  template <int LVL, int N, class T, class Op>
+  __device__ void region(T (&v)[N], Op op) {
+    in_warp<LVL>(v, op);
+    if constexpr (LVL >= 2) {
+      ex.put(v, 0);
+      __syncthreads();
+      ex.template tree<1 << (2 * (LVL - 1))>(v, 0, op);
+      ex.set ^= 1;
+    }
+  }
+  template <int LVL, int N1, class T1, class Op1, int N2, class T2, class Op2>
+  __device__ void region(T1 (&a)[N1], Op1 op1, T2 (&b)[N2], Op2 op2) {
+    in_warp<LVL>(a, op1);
+    in_warp<LVL>(b, op2);
+    if constexpr (LVL >= 2) {
+      ex.put(a, 0);
+      ex.put(b, N1);
+      __syncthreads();
+      ex.template tree<1 << (2 * (LVL - 1))>(a, 0, op1);
+      ex.template tree<1 << (2 * (LVL - 1))>(b, N1, op2);
+      ex.set ^= 1;
+    }
+  }
+
+  // Sign-corrected unit-vector mean of the region (ops/fit.py
+  // _signed_unit_mean) of the per-pixel vectors vec(k, v), masked.
+  template <int LVL, class Vec>
+  __device__ void unit_mean(Vec vec, float inv_count, float (&dir)[CH]) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float v[CH];
+      vec(k, v);
+      const float il = signed_inv_len<CH>(v, mf(k));
+#pragma unroll
+      for (int c = 0; c < CH; ++c) dir[c] = k == 0 ? v[c] * il : dir[c] + v[c] * il;
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) dir[c] = butterfly<1, 8>(dir[c], AddOp());
+    region<LVL>(dir, AddOp());
+#pragma unroll
+    for (int c = 0; c < CH; ++c) dir[c] = dir[c] * inv_count;
+  }
+
+  // The fit's per-pixel steps (limg_common.cuh FitSteps, one pixel)
+  __device__ void centred(int k, const float (&avg)[CH], float (&v)[CH]) const {
+    const float m = mf(k);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) v[c] = (pxf[c][k] - avg[c]) * m;
+  }
+  // resid_a and est of pixel k; returns fac_a
+  __device__ float resid_a(int k, const float (&avg)[CH], const float (&dir_a)[CH], float inv_a,
+                           float (&est)[CH], float (&r)[CH]) const {
+    float cv[CH];
+    centred(k, avg, cv);
+    const float m = mf(k);
+    float dot = cv[0] * dir_a[0];
+#pragma unroll
+    for (int c = 1; c < CH; ++c) dot = dot + cv[c] * dir_a[c];
+    const float fa = (dot * inv_a) * m;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      est[c] = avg[c] + fa * dir_a[c];
+      r[c] = (pxf[c][k] - est[c]) * m;
+    }
+    return fa;
+  }
+  // resid_ab of pixel k; sets fac_a and fac_b
+  __device__ void resid_ab(int k, const float (&avg)[CH], const float (&dir_a)[CH], float inv_a,
+                           const float (&dir_b)[CH], float inv_b, float (&r)[CH], float& fa,
+                           float& fb) const {
+    float est[CH], ra[CH];
+    fa = resid_a(k, avg, dir_a, inv_a, est, ra);
+    const float m = mf(k);
+    float dot = ra[0] * dir_b[0];
+#pragma unroll
+    for (int c = 1; c < CH; ++c) dot = dot + ra[c] * dir_b[c];
+    fb = (dot * inv_b) * m;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float est_b = est[c] + fb * dir_b[c];
+      r[c] = (pxf[c][k] - est_b) * m;
+    }
+  }
+
+  template <int LVL>
+  __device__ void level() {
+    // ---- pixel count and channel sums -> avg
+    int cnt[1] = {0};
+    float avg[CH];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float m = mf(k);
+      cnt[0] += valid(k) ? 1 : 0;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) avg[c] = k == 0 ? pxf[c][k] * m : avg[c] + pxf[c][k] * m;
+    }
+    cnt[0] = butterfly<1, 8>(cnt[0], IAdd());
+#pragma unroll
+    for (int c = 0; c < CH; ++c) avg[c] = butterfly<1, 8>(avg[c], AddOp());
+    region<LVL>(avg, AddOp(), cnt, IAdd());
+    const int count = cnt[0];
+    const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) avg[c] = avg[c] * inv_count;
+
+    // ---- the three directions
+    float dir_a[CH], dir_b[CH], dir_c[CH];
+    unit_mean<LVL>([&](int k, float (&v)[CH]) { centred(k, avg, v); }, inv_count, dir_a);
+    const float inv_a = inv_or_zero(dot_self<CH>(dir_a));
+    unit_mean<LVL>([&](int k, float (&v)[CH]) {
+      float est[CH];
+      resid_a(k, avg, dir_a, inv_a, est, v);
+    }, inv_count, dir_b);
+    const float inv_b = inv_or_zero(dot_self<CH>(dir_b));
+    if constexpr (CH == 3) {
+      FitSteps<CH>::cross(dir_a, dir_b, dir_c);
+    } else {
+      unit_mean<LVL>([&](int k, float (&v)[CH]) {
+        float fa, fb;
+        resid_ab(k, avg, dir_a, inv_a, dir_b, inv_b, v, fa, fb);
+      }, inv_count, dir_c);
+    }
+    const float inv_c = inv_or_zero(dot_self<CH>(dir_c));
+
+    // ---- factor extremes over the region's valid pixels
+    float mn[3], mx[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mn[i] = kBig;
+      mx[i] = -kBig;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float r[CH], f[3];
+      resid_ab(k, avg, dir_a, inv_a, dir_b, inv_b, r, f[0], f[1]);
+      float dot = r[0] * dir_c[0];
+#pragma unroll
+      for (int c = 1; c < CH; ++c) dot = dot + r[c] * dir_c[c];
+      f[2] = (dot * inv_c) * mf(k);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        mn[i] = fminf(mn[i], valid(k) ? f[i] : kBig);
+        mx[i] = fmaxf(mx[i], valid(k) ? f[i] : -kBig);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mn[i] = butterfly<1, 8>(mn[i], MinOp());
+      mx[i] = butterfly<1, 8>(mx[i], MaxOp());
+    }
+    region<LVL>(mn, MinOp(), mx, MaxOp());
+
+    // ---- endpoints, the u8 factors, the reduced-factor drop
+    int ep[6][CH];
+    round_endpoints<CH>(count, avg, dir_a, dir_b, dir_c, mn, mx, ep);
+    int f8[8];
+    {
+      FactorFrame<CH> fr;
+      fr.set(ep);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float px[CH];
+        int f[3];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) px[c] = pxf[c][k];
+        fr.f8_of(px, f);
+        f8[k] = f[0] | (f[1] << 8) | (f[2] << 16);
+      }
+    }
+    drop_axes<CH>(ep, num_factors);
+
+    // ---- the merge test of each child against its region's first child,
+    // on the previous level's region rows, then the alive chain
+    bool take = LVL == 0;
+    if constexpr (LVL == 0) {
+      cnt0 = count;
+    } else {
+      constexpr int kChild = 1 << (2 * (LVL - 1)), kGroup = 1 << (2 * LVL);
+      if constexpr (LVL == 1) __syncwarp();  // level 0's rows are this warp's
+      float p_avg[CH], c0_avg[CH];
+      int p_ep[6][CH], c0_ep[6][CH], p_count, c0_count;
+      load_row(row((LVL - 1) & 1, blk), p_ep, p_avg, p_count);
+      load_row(row((LVL - 1) & 1, blk & ~(kGroup - 1)), c0_ep, c0_avg, c0_count);
+      bool m;
+      const int reason_bits = match_rows<CH, 8>(p_avg, p_ep, c0_avg, c0_ep, sub, m);
+      const bool is_child0 = (bsq & (kGroup - kChild)) == 0;
+      const bool ok = is_child0 || m || p_count <= 0 || c0_count <= 0;
+      int a[1] = {alive & (ok ? 1 : 0)}, r[1] = {is_child0 ? 0 : reason_bits};
+      region<LVL>(a, IAnd(), r, IOr());
+      alive = a[0];
+      reason[LVL] = r[0];
+      if (alive) {
+        owner = LVL;
+        take = true;
+      }
+    }
+    if (take) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f8_sel[k] = f8[k];
+      if (sub == 0) store_row(sel + blk * 7 * CH, ep, avg, -1);
+    }
+    if (count > 0) nonempty |= 1 << LVL;
+    if constexpr (LVL < L) {
+      if (sub == 0) store_row(row(LVL & 1, blk), ep, avg, count);
+      level<LVL + 1>();
+    }
+  }
+
+  // a region row: 6 CH endpoints, CH avg (bits), then the count (if >= 0)
+  static __device__ void store_row(int* r, const int (&ep)[6][CH], const float (&avg)[CH],
+                                   int count) {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) r[e * CH + c] = ep[e][c];
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) r[6 * CH + c] = __float_as_int(avg[c]);
+    if (count >= 0) r[7 * CH] = count;
+  }
+  static __device__ void load_row(const int* r, int (&ep)[6][CH], float (&avg)[CH], int& count) {
+#pragma unroll
+    for (int e = 0; e < 6; ++e) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) ep[e][c] = r[e * CH + c];
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) avg[c] = __int_as_float(r[6 * CH + c]);
+    count = r[7 * CH];
+  }
+};
+
+template <int CH, int L, bool NAT>
+__global__ void __launch_bounds__(FitSquare<L>::kWarps * 32, L == 3 ? 1 : 4)
+fit_levels_kernel(const int32_t* __restrict__ words, int h, int w, int num_factors,
+                  int32_t* __restrict__ cnt0_out, int32_t* __restrict__ f8_out,
+                  int32_t* __restrict__ eps_out, float* __restrict__ avg_out,
+                  int32_t* __restrict__ owner_out, int32_t* __restrict__ stats_out,
+                  int32_t* __restrict__ reasons_out) {
+  using Sq = FitSquare<L>;
+  using Lane = FitLane<CH, L>;
+  __shared__ float xbuf[2 * kFitPut * Sq::kW];
+  __shared__ int rows[2 * Lane::kCtaBlocks * kRegion];
+  __shared__ int sel[Lane::kCtaBlocks * 7 * CH];
+  const int by0 = (h + 7) / 8, bx0 = (w + 7) / 8, nb = by0 * bx0;
+  const int warp = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const int squares_x = (bx0 + Sq::kG - 1) / Sq::kG;
+  const int square = (int)blockIdx.x * Sq::kSquares + warp / Sq::kW;
+  // whole warps of the last CTA at L = 1, which has no CTA barrier
+  if (square >= squares_x * ((by0 + Sq::kG - 1) / Sq::kG)) return;
+
+  Lane f;
+  f.sub = lane & 7;
+  f.bsq = (warp % Sq::kW) * 4 + (lane >> 3);
+  f.blk = (warp / Sq::kW) * Sq::kBlocks + f.bsq;
+  int oy, ox;
+  morton_yx<L>(f.bsq, oy, ox);
+  const int by = (square / squares_x) * Sq::kG + oy, bx = (square % squares_x) * Sq::kG + ox;
+  const int col = bx * 8 + f.sub;
+  f.colv = col < w;
+  f.nrows = min(h - by * 8, 8);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t word = f.valid(k) ? (uint32_t)words[(size_t)(by * 8 + k) * w + col] : 0u;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) f.pxf[c][k] = (float)((word >> (8 * c)) & 0xFFu);
+  }
+  f.num_factors = num_factors;
+  f.ex = SquareExchange<Sq::kW>{xbuf, warp % Sq::kW, lane, 0};
+  f.rows = rows;
+  f.sel = sel;
+  f.owner = 0;
+  f.alive = 1;
+  f.nonempty = 0;
+#pragma unroll
+  for (int l = 0; l <= L; ++l) f.reason[l] = 0;
+  f.template level<0>();
+  __syncwarp();  // the owner level's row, written by the block's lane 0
+
+  if (by >= by0 || bx >= bx0) return;  // after the last barrier
+  const size_t b = (size_t)by * bx0 + bx;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) f8_out[plane_at<NAT>(by, bx, bx0, f.sub + 8 * k)] = f.f8_sel[k];
+  if (f.sub == 0) {
+    cnt0_out[b] = f.cnt0;
+    owner_out[b] = f.owner;
+    int stats = 0;
+#pragma unroll
+    for (int l = 0; l <= L; ++l) {
+      const bool lead = (f.bsq & ((1 << (2 * l)) - 1)) == 0;
+      const bool nonempty = (f.nonempty >> l) & 1;
+      if (lead && f.owner >= l && nonempty) stats |= 1 << l;
+      if (l >= 1) reasons_out[(size_t)(l - 1) * nb + b] = lead && nonempty ? f.reason[l] : 0;
+    }
+    stats_out[b] = stats;
+  }
+  if (f.sub < CH) {
+    // lane c of the block writes channel c of the six endpoint rows and avg
+    const int* r = sel + f.blk * 7 * CH;
+#pragma unroll
+    for (int e = 0; e < 6; ++e) eps_out[((size_t)e * CH + f.sub) * nb + b] = r[e * CH + f.sub];
+    avg_out[(size_t)f.sub * nb + b] = __int_as_float(r[6 * CH + f.sub]);
+  }
+}
+
 template <int CH, int L, bool NAT>
 int launch_fit(const int32_t* words, int h, int w, int num_factors, int32_t* cnt0, int32_t* f8,
                int32_t* eps, float* avg, int32_t* owner, int32_t* stats, int32_t* reasons,
                cudaStream_t st) {
-  return launch<L>(fit_levels_kernel<CH, L, NAT>, h, w, st, words, h, w, num_factors, cnt0, f8,
-                   eps, avg, owner, stats, reasons);
+  using Sq = FitSquare<L>;
+  const int side = 8 * Sq::kG;
+  const int squares = ((h + side - 1) / side) * ((w + side - 1) / side);
+  const int grid = (squares + Sq::kSquares - 1) / Sq::kSquares;
+  fit_levels_kernel<CH, L, NAT><<<grid, Sq::kWarps * 32, 0, st>>>(
+      words, h, w, num_factors, cnt0, f8, eps, avg, owner, stats, reasons);
+  return (int)cudaGetLastError();
 }
 
 template <int CH, int L, bool NAT>

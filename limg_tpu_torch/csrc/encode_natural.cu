@@ -3,23 +3,23 @@
 // limg_tpu/pallas_kernels/encode_natural.py: fit_levels_natural (:421,
 // kernel :307) and owner_crush_natural (:528, kernel :463).
 //
-// They are encode_merged.cuh's kernels with NAT = true: each block's float
-// sums in the natural layout's order (limg_common.cuh nat_sum: the JAX
-// kernels' 8-row fold, then their lane butterflies at x^1, x^2, x^4), and
-// f8_sel, q and dec as natural (8 by0, 8 bx0) row-major planes, the padded
-// image's own layout. Across a square's blocks the JAX kernels' alternating
-// x / y butterflies (NatGroupReducer :152, NatOwnerReducer :179) pair the
-// blocks as the Morton pair's pairwise tree does, so the region trees are
-// the Morton kernels'. The TPU tiling ((64, 512) tiles, _C_W padding), the
-// one-hot MXU compaction of lane-replicated rows (_compact / _expand
-// :212-238) and rows_to_blocks (:248) have no counterpart: a warp holds a
-// block and writes its per-block rows in row-major block order directly.
-// Dither draws the counter hash of the Morton pair, keyed by the global
-// block and pixel (the JAX kernel keys its TPU PRNG by tile, :491).
+// They are encode_merged.cuh's kernels with NAT = true: f8_sel, q and dec
+// as natural (8 by0, 8 bx0) row-major planes, the padded image's own
+// layout. Each block's float sums take the natural layout's order (the JAX
+// kernels' 8-row fold, then their lane butterflies at x^1, x^2, x^4), which
+// the Morton pair takes too. Across a square's blocks the JAX kernels'
+// alternating x / y butterflies (NatGroupReducer :152, NatOwnerReducer
+// :179) pair the blocks as the Morton pair's pairwise tree does, so the
+// region trees are the Morton kernels'. The TPU tiling ((64, 512) tiles,
+// _C_W padding), the one-hot MXU compaction of lane-replicated rows
+// (_compact / _expand :212-238) and rows_to_blocks (:248) have no
+// counterpart: a block's lanes write its per-block rows in row-major block
+// order directly. Dither draws the counter hash of the Morton pair, keyed
+// by the global block and pixel (the JAX kernel keys its TPU PRNG by tile,
+// :491).
 //
-// What bounds them on the H100 is what bounds the Morton pair
-// (encode_merged.cuh): compute and the shared-memory region exchanges; the
-// natural in-block sum costs 11 shuffles where the halving tree costs 5.
+// What bounds them on the H100, and the fit's design, are the Morton
+// pair's (encode_merged.cuh).
 
 #include "encode_merged.cuh"
 

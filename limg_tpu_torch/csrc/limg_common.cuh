@@ -1,15 +1,15 @@
 // Device code shared by the encode kernels (encode_fixed.cu, encode_merged.cu,
 // coalesce.cu).
 //
-// One warp holds one 8x8 block: lane l holds pixels l and l + 32. What a
-// kernel reduces over is a *region*: one block (the fixed grid), or an
+// One warp holds one 8x8 block: lane l holds pixels l and l + 32 (the
+// quadtree fit, encode_merged.cuh, lays a block over 8 lanes instead). What
+// a kernel reduces over is a *region*: one block (the fixed grid), or an
 // aligned square of 4^l blocks whose warps sit in one CTA in Morton order
 // (the quadtree levels), or a contiguous segment of the run-coalescing
 // buffer (coalesce.cu, which calls the per-block pieces below between its
 // own segment scans). The region reduction is a policy class:
 //
 // - BlockReducer: the region is the block; the warp's own sums are final;
-// - GroupReducer<Ex, GROUP>: aligned groups of GROUP warps of a square;
 // - OwnerReducer<Ex, L>: each warp's group is 4^owner warps, owner per warp.
 // A square of up to 16 blocks is one CTA; a square of 64 is a cluster of
 // four CTAs (Exchange).
@@ -19,8 +19,8 @@
 // plain version agree bit for bit:
 // - over a block's 64 pixels, x[l] + x[l+32], then butterfly shuffles at
 //   16, 8, 4, 2, 1: the values of the halving tree x[:n/2] + x[n/2:]; the
-//   natural-layout kernels (encode_natural.cu) sum in that layout's order
-//   instead (nat_sum);
+//   quadtree kernels of both layouts (encode_merged.cuh) sum in the
+//   natural layout's order instead (nat_sum);
 // - across a region's warps, a pairwise-adjacent tree in Morton order,
 //   (w0 + w1) + (w2 + w3), ..., through shared memory;
 // - channel sums and other short sums are left folds;
@@ -84,16 +84,6 @@ __device__ __forceinline__ float nat_sum(float lo, float hi) {
 #pragma unroll
   for (int off = 1; off < 8; off <<= 1) s = s + __shfl_xor_sync(kFull, s, off);
   return s;
-}
-
-// A block's float sum: the natural layout's order (NAT) or the halving tree.
-template <bool NAT>
-__device__ __forceinline__ float block_sum(float lo, float hi) {
-  if constexpr (NAT) {
-    return nat_sum(lo, hi);
-  } else {
-    return tree_sum(lo, hi);
-  }
 }
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -288,46 +278,6 @@ struct MaxOp {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
-template <class Ex, int GROUP>
-struct GroupReducer {
-  Ex ex;
-
-  __device__ int base() const { return ex.warp & ~(GROUP - 1); }
-
-  template <int N, class Op>
-  __device__ void tree(float (&v)[N], Op op) const {
-    if constexpr (GROUP > 1) {
-      ex.put_floats(v, N);
-      const int b = base();
-#pragma unroll
-      for (int i = 0; i < N; ++i)
-        v[i] = pair_tree<GROUP>([&](int k) { return ex.fget(i, b + k); }, op);
-      ex.done();
-    }
-  }
-  template <int N> __device__ void sum(float (&v)[N]) const { tree(v, AddOp()); }
-  template <int N> __device__ void min(float (&v)[N]) const { tree(v, MinOp()); }
-  template <int N> __device__ void max(float (&v)[N]) const { tree(v, MaxOp()); }
-
-  // op over the group: 0 = sum, 1 = and, 2 = or
-  __device__ int fold_int(int v, int op) const {
-    if constexpr (GROUP == 1) {
-      return v;
-    } else {
-      ex.put_ints(&v, 1);
-      const int b = base();
-      int acc = ex.iget(0, b);
-      for (int k = 1; k < GROUP; ++k) {
-        const int x = ex.iget(0, b + k);
-        acc = op == 0 ? add_wrap(acc, x) : (op == 1 ? (acc & x) : (acc | x));
-      }
-      ex.done();
-      return acc;
-    }
-  }
-  __device__ int sum_int(int v) const { return fold_int(v, 0); }
-};
-
 // Each warp's region is the aligned group of 4^owner warps holding it, in a
 // square of 4^L warps.
 template <class Ex, int L>
@@ -520,7 +470,7 @@ __device__ __forceinline__ float signed_inv_len(const float (&v)[CH], float mf) 
   return il * mf;
 }
 
-template <int CH, bool NAT = false>
+template <int CH>
 __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const float mf[2],
                                                  float (&dir)[CH]) {
   float inv_len[2];
@@ -533,15 +483,15 @@ __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const 
   }
 #pragma unroll
   for (int c = 0; c < CH; ++c)
-    dir[c] = block_sum<NAT>(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
+    dir[c] = tree_sum(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
 }
 
 // Sign-corrected unit-vector mean of the region (ops/fit.py _signed_unit_mean).
-template <int CH, bool NAT = false, class Red>
+template <int CH, class Red>
 __device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const float mf[2],
                                                  float inv_count, const Red& red,
                                                  float (&dir)[CH]) {
-  unit_vector_sums<CH, NAT>(v, mf, dir);
+  unit_vector_sums<CH>(v, mf, dir);
   red.sum(dir);
 #pragma unroll
   for (int c = 0; c < CH; ++c) dir[c] = dir[c] * inv_count;
@@ -649,11 +599,11 @@ struct FitSteps {
 };
 
 // This block's pixel sums of each channel (the per-block part of the avg).
-template <int CH, bool NAT = false>
+template <int CH>
 __device__ __forceinline__ void channel_sums(const Pixels<CH>& p, float (&sums)[CH]) {
 #pragma unroll
   for (int c = 0; c < CH; ++c)
-    sums[c] = block_sum<NAT>(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
+    sums[c] = tree_sum(p.pxf[c][0] * p.mf[0], p.pxf[c][1] * p.mf[1]);
 }
 
 // The six rounded endpoint rows of a fitted region. Empty regions (count 0;
@@ -749,28 +699,27 @@ __device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (
 // Masked 3-axis fit of the reducer's region, then the u8 factors of this
 // warp's pixels against the region's rounded endpoints. Outputs the region
 // pixel count, avg, the six endpoint rows (dirA_min, dirA_max, dirB_offset,
-// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j]. NAT: each block's float
-// sums in the natural layout's order (block_sum).
-template <int CH, bool NAT = false, class Red>
+// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j].
+template <int CH, class Red>
 __device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
                                 float (&avg)[CH], int (&ep)[6][CH], int (&f8)[3][2]) {
   count = red.sum_int(__reduce_add_sync(kFull, p.mask[0] + p.mask[1]));
   const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
-  channel_sums<CH, NAT>(p, avg);
+  channel_sums<CH>(p, avg);
   red.sum(avg);
 #pragma unroll
   for (int c = 0; c < CH; ++c) avg[c] = avg[c] * inv_count;
   FitSteps<CH> st;
   st.center(p, avg);
   float dir_a[CH], dir_b[CH], dir_c[CH];
-  signed_unit_mean<CH, NAT>(st.corrected, p.mf, inv_count, red, dir_a);
+  signed_unit_mean<CH>(st.corrected, p.mf, inv_count, red, dir_a);
   st.axis_a(p, avg, dir_a);
-  signed_unit_mean<CH, NAT>(st.resid_a, p.mf, inv_count, red, dir_b);
+  signed_unit_mean<CH>(st.resid_a, p.mf, inv_count, red, dir_b);
   st.axis_b(p, dir_b);
   if (CH == 3) {
     FitSteps<CH>::cross(dir_a, dir_b, dir_c);
   } else {
-    signed_unit_mean<CH, NAT>(st.resid_ab, p.mf, inv_count, red, dir_c);
+    signed_unit_mean<CH>(st.resid_ab, p.mf, inv_count, red, dir_c);
   }
   float mn[3], mx[3];
   st.extremes(p, dir_c, mn, mx);
@@ -1022,10 +971,11 @@ __device__ __forceinline__ int32_t pack_decoded(const int (&dec)[CH][2], int j) 
 
 // ---------------------------------------------------------------------------
 // The merge predicate (ops/match.py match_decomps): fit_levels in
-// encode_merged.cu and the run-building match kernels in coalesce.cu share
+// encode_merged.cuh and the run-building match kernels in coalesce.cu share
 // it. Fixed order: left folds over channels and terms, and the 27-probe
-// mean as a left fold over probes 0..26 (lane p computes probe p; the fold
-// walks the lanes by shuffle), then / 27.0f.
+// mean as a left fold over probes 0..26 (lane j of a group of LANES lanes
+// computes probes j, j + LANES, ...; the fold walks them by shuffle), then
+// / 27.0f.
 // ---------------------------------------------------------------------------
 
 constexpr float kMaxRatio = 1.375f;
@@ -1092,8 +1042,10 @@ __device__ __forceinline__ void probe_factors(const float (&col)[CH], const int 
 }
 
 // Merge test of region a (candidate) against region b (reference):
-// ops/match.py match_decomps. Returns the MATCH_REASON_BITS mask; sets match.
-template <int CH>
+// ops/match.py match_decomps, by the aligned group of LANES lanes (a power
+// of two up to 32) holding ``lane`` (its index in the group); all 32 lanes
+// of the warp call it. Returns the MATCH_REASON_BITS mask; sets match.
+template <int CH, int LANES = 32>
 __device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
                           const float (&avg_b)[CH], const int (&ep_b)[6][CH], int lane,
                           bool& match) {
@@ -1116,11 +1068,19 @@ __device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
   const float ratio = (sum_a + 1.0f) / (sum_b + 1.0f);
   const bool ratio_ok = ratio <= kMaxRatio && ratio >= kMinRatio;
 
-  // lane p < 27 evaluates probe p = a + 3b + 9c (half steps along A, B, C)
-  float dev = 0.0f;
-  if (lane < 27) {
-    const float pw[3] = {(float)(lane % 3) * 0.5f, (float)((lane / 3) % 3) * 0.5f,
-                         (float)((lane / 9) % 3) * 0.5f};
+  // probe p = a + 3b + 9c (half steps along A, B, C) on lane p % LANES
+  constexpr int kPer = (27 + LANES - 1) / LANES;
+  float devs[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int p = lane + LANES * i;
+    float dev = 0.0f;
+    if (p >= 27) {
+      devs[i] = dev;
+      continue;
+    }
+    const float pw[3] = {(float)(p % 3) * 0.5f, (float)((p / 3) % 3) * 0.5f,
+                         (float)((p / 9) % 3) * 0.5f};
     float col_b[CH], col_a[CH];
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -1136,10 +1096,11 @@ __device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
     dev = dev + fabsf(ga) * (1.0f / nb.lsq[0]);
     dev = dev + fabsf(0.5f - gb) * 2.0f * (1.0f / nb.lsq[1]);
     dev = dev + fabsf(0.5f - gc) * 2.0f * (1.0f / nb.lsq[2]);
+    devs[i] = dev;
   }
-  float mean = __shfl_sync(kFull, dev, 0);
+  float mean = __shfl_sync(kFull, devs[0], 0, LANES);
 #pragma unroll
-  for (int p = 1; p < 27; ++p) mean = mean + __shfl_sync(kFull, dev, p);
+  for (int p = 1; p < 27; ++p) mean = mean + __shfl_sync(kFull, devs[p / LANES], p % LANES, LANES);
   mean = mean / 27.0f;
   const bool probe_ok = mean < kMaxFactorSum;
 

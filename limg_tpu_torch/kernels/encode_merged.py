@@ -27,8 +27,11 @@ MATCH_REASON_BITS at nonempty level-l top-left blocks, 0 elsewhere.
 On a CUDA tensor each wrapper launches ``csrc/encode_merged.cu`` (built at
 first use) or raises; on a CPU tensor it runs the plain version, which
 works in Morton block order (ops/morton.py) with the reducers of
-ops/reduce.py, so that it adds floats in the kernel's order. The two agree
-bit for bit on the card.
+ops/reduce.py, so that it adds floats in the kernel's order: a block in
+the natural layout's order (``nat_block_sum``, as the natural pair of
+kernels/encode_natural.py does, so the two layouts encode alike), a
+region's blocks by the pairwise tree. The two agree bit for bit on the
+card.
 """
 
 from __future__ import annotations

@@ -5,11 +5,12 @@ versions.
 ``fit_levels_natural`` (limg_tpu/pallas_kernels/encode_natural.py:421) and
 ``owner_crush_natural_kernel`` that of ``owner_crush_natural`` (:528): the
 functions of ``fit_levels_kernel`` and ``owner_crush_kernel``
-(kernels/encode_merged.py) on the row-major image, with every block's float
-sums in the natural layout's order (ops/reduce.py ``nat_block_sum``: a left
+(kernels/encode_merged.py) on the row-major image. Both pairs sum a block
+in the natural layout's order (ops/reduce.py ``nat_block_sum``: a left
 fold over the block's 8 pixel rows, then a pairwise tree over its 8
-columns). Across the blocks of a quadtree square they pair blocks as the
-Morton pair does (``nat_pairwise``: x pairs, then y pairs, at each level).
+columns), and across the blocks of a quadtree square this pair combines
+blocks as the Morton pair does (``nat_pairwise``: x pairs, then y pairs,
+at each level), so the two layouts give the same encode bit for bit.
 
 They return the ``FitLevels`` / ``OwnerCrush`` tuples of
 kernels/encode_merged.py, per-block rows in row-major block order, except

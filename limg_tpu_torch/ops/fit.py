@@ -16,8 +16,9 @@ Every float sum has one fixed order, which the CUDA kernel
   ``1 / sqrt(x)`` in place of an approximate rsqrt.
 
 The quadtree levels fit regions of 4^l blocks (``fit_regions``): each sum
-is the block's halving tree, then a tree across the region's blocks
-(ops/reduce.py). ``fit_blocks`` is the one-block-region case.
+is the block's sum in the natural layout's order, then a tree across the
+region's blocks (ops/reduce.py). ``fit_blocks`` is the one-block-region
+case.
 
 The JAX package sums in XLA's order, so rounded endpoints can differ from
 it by 1 on a few blocks.

@@ -4,25 +4,28 @@ A reducer maps per-pixel arrays ``(..., P, N)`` or per-block rows
 ``(..., N)`` to per-region values broadcast back to every member block,
 ``(..., N)``. Floats are summed in one order that the CUDA kernels follow:
 
-- inside a block, the halving tree ``x[:n/2] + x[n/2:]`` over its P pixels
+- inside a block of the fixed grid, of an RD region or of the run buffer,
+  the halving tree ``x[:n/2] + x[n/2:]`` over its P pixels
   (``ops.fit.tree_sum``; in a kernel, one warp's shuffles at P = 64, a
   CTA's shared-memory tree at P = 256, 1024 and 4096);
-- across the blocks of a region, blocks in Morton order (ops/morton.py)
-  and a pairwise-adjacent tree ``x[..., 0::2] + x[..., 1::2]``, which is
-  what the JAX package's lane butterfly (limg_tpu/pallas_kernels/
-  encode_merged.py:282 ``_butterfly``) computes; in a kernel, a
-  shared-memory tree over the warps of the region;
+- inside a block of a quadtree level, in either layout, the natural
+  layout's order (``nat_block_sum``): a left fold over the block's 8 pixel
+  rows of each column, then a pairwise-adjacent tree over the 8 columns
+  (XLA's order for the JAX natural kernels' row fold, then their lane
+  butterflies at x^1, x^2, x^4; limg_tpu/pallas_kernels/encode_natural.py
+  :115-209). The Morton pair adds in this order too, so the two layouts
+  give the same encode bit for bit, as the JAX package's do; against the
+  JAX package's Morton kernels it flips fewer endpoints than the halving
+  tree (tools/count_block_order_flips.py);
+- across the blocks of a quadtree region, blocks in Morton order
+  (ops/morton.py) and a pairwise-adjacent tree ``x[..., 0::2] +
+  x[..., 1::2]``, which is what the JAX package's lane butterfly
+  (limg_tpu/pallas_kernels/encode_merged.py:282 ``_butterfly``) computes;
+  in the natural layout, x pairs then y pairs at each level of a square of
+  a row-major block grid (``nat_pairwise``), which pairs blocks as the
+  Morton tree does;
 - across the blocks of a contiguous segment of the run-coalescing buffer
   (``SegmentReducer``), the doubling scan of ops/segments.py.
-
-The natural layout's reducers (``NatGroupReducer``, ``NatOwnerReducer``,
-the counterparts of limg_tpu/pallas_kernels/encode_natural.py:115-209) sum
-in its own order: inside a block a left fold over the 8 pixel rows of each
-column, then a pairwise-adjacent tree over the 8 columns (``nat_block_sum``;
-XLA's order for the JAX kernel's row fold, then its lane butterflies at
-x^1, x^2, x^4); across a quadtree square of a row-major block grid, x pairs
-then y pairs at each level (``nat_pairwise``), which pairs blocks as the
-Morton tree does.
 
 Integer sums wrap in int32 and, like min and max, do not depend on order.
 ``chunks`` is the most blocks a region can hold: the crush search's
@@ -117,7 +120,15 @@ class BlockReducer(_Reducer):
         return row
 
 
-class GroupReducer(_Reducer):
+class _QuadReducer(_Reducer):
+    """Blocks of a quadtree level, summed in the natural layout's in-block
+    order (``nat_block_sum``)."""
+
+    def block_sum(self, x):
+        return nat_block_sum(x)
+
+
+class GroupReducer(_QuadReducer):
     """Regions are aligned groups of ``group`` Morton-ordered blocks."""
 
     def __init__(self, group: int):
@@ -128,7 +139,7 @@ class GroupReducer(_Reducer):
         return pairwise_tree(row, self.group, op)
 
 
-class OwnerReducer(_Reducer):
+class OwnerReducer(_QuadReducer):
     """Each block's region is its own owner-level group: the aligned group
     of 4^owner Morton-ordered blocks holding it (``owner``: (N,) int)."""
 
@@ -171,15 +182,7 @@ class SegmentReducer(_Reducer):
         return out.reshape(row.shape)
 
 
-class _NatReducer(_Reducer):
-    """Blocks of a row-major grid ``blocks_x`` wide, summed in the natural
-    layout's in-block order."""
-
-    def block_sum(self, x):
-        return nat_block_sum(x)
-
-
-class NatGroupReducer(_NatReducer):
+class NatGroupReducer(_QuadReducer):
     """Regions are the aligned 2^lvl x 2^lvl squares of a row-major block
     grid (encode_natural.py:152 ``NatGroupReducer``)."""
 
@@ -192,7 +195,7 @@ class NatGroupReducer(_NatReducer):
         return nat_pairwise(row, self.blocks_x, self.side, op)
 
 
-class NatOwnerReducer(_NatReducer):
+class NatOwnerReducer(_QuadReducer):
     """Each block's region is its own owner-level square of a row-major
     block grid (encode_natural.py:179 ``NatOwnerReducer``)."""
 

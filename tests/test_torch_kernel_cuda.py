@@ -217,6 +217,45 @@ def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num
     _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x1234ABCD))
 
 
+@pytest.mark.parametrize("buffer", ["edges+empty tail", "no member", "edges"])
+@pytest.mark.parametrize("mode,num_factors,dithering", [
+    ("ladder", 3, True), ("exhaustive", 1, False), ("guess", 2, True), ("none", 3, False),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_segment_encode_kernel_at_its_edges(device, channels, mode, num_factors, dithering,
+                                            buffer):
+    """Segments of 1, 31, 32, 33 and 256 members, some across the kernel's
+    128-lane tiles; a tail of lanes with no member; no member at all."""
+    from chip_smoke import edge_run_buffers
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    buf = edge_run_buffers(np.random.default_rng(channels), channels, device)[buffer]
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+    torch.cuda.synchronize(device)
+    _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x5EED))
+
+
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("h,w", [(37, 200), (130, 70), (8, 8)])
+def test_fit_kernel_at_ragged_squares(device, h, w, channels, natural):
+    """4-level squares (one 16-warp CTA each) cut by both image edges, and
+    an image of one block."""
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+
+    words = _words(h, w, channels, h + w, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4)
+    kernel, plain = ((kn.fit_levels_natural_kernel, kn.fit_levels_natural_reference) if natural
+                     else (km.fit_levels_kernel, km.fit_levels_reference))
+    for levels in (2, 3, 4):
+        got = kernel(words, cfg, levels)
+        torch.cuda.synchronize(device)
+        _assert_same(got, plain(words, cfg, levels))
+
+
 # ---------------------------------------------------------------------------
 # The natural-layout pair (kernels/encode_natural.py) and the segment crush
 # evaluation (kernels/crush_eval.py)

@@ -95,9 +95,12 @@ def test_group_reducer_is_a_pairwise_tree(group):
     rng = np.random.default_rng(group)
     x = rng.normal(0, 1e4, (3, 64, 256)).astype(np.float32)
     red = GroupReducer(group)
-    blk = x[:, :32] + x[:, 32:]                 # halving tree over pixels
-    for n in (16, 8, 4, 2, 1):
-        blk = blk[:, :n] + blk[:, n:2 * n]
+    rows = x.reshape(3, 8, 8, 256)              # (ch, pixel row, column, block)
+    blk = rows[:, 0]
+    for r in range(1, 8):                       # left fold over the rows ...
+        blk = blk + rows[:, r]
+    while blk.shape[1] > 1:                     # ... pairwise over the columns
+        blk = blk[:, 0::2] + blk[:, 1::2]
     want = _np_pairwise(blk[:, 0], group, np.add)
     got = red.sum(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)    # bitwise: same order

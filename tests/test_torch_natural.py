@@ -54,8 +54,8 @@ torch.set_num_threads(1)
 PSNR_DB, BPP, OWNER_AGREE, RUNS_FRAC = 0.02, 0.01, 0.995, 0.02
 # blocks whose outputs differ from the fixture's, per image (see above)
 DIFFERING_BLOCKS = {"small_rgba_l3": 1, "small_rgba_l4": 1}
-# serializer columns of make_4k(256, 384) at 3 levels in which the natural
-# layout's block-sum order differs from the Morton path's halving tree
+# serializer columns of make_4k(256, 384) at 3 levels that the halving tree,
+# in place of the natural layout's block-sum order, moves in both layouts
 NATURAL_ORDER_MOVES = {"rgb": 14, "rgba": 0}
 # the tiny images whose full planes and state the fixture holds
 FULL_PLANE_CASES = [n for n, c in nrec.CASES.items() if c[4]]
@@ -274,30 +274,60 @@ def test_natural_matches_morton(has_alpha):
     assert n["n_runs"] == m["n_runs"] and n["coalesce_stats"] == m["coalesce_stats"]
 
 
+def _assert_same_encode(a, st_a, b, st_b):
+    for key in ("decoded", "factors", "owner_px", "region_id", "shift", "bpp", "alive_counts",
+                "endpoint_rows"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for key in ("psnr", "mean_bpp", "n_runs", "coalesce_stats", "merge_stats"):
+        assert a[key] == b[key], key
+    np.testing.assert_array_equal(st_a["rows"], st_b["rows"])
+    np.testing.assert_array_equal(st_a["q"], st_b["q"])
+
+
 @pytest.mark.parametrize("lane,dithering", [("rgb", False), ("rgb", True), ("rgba", True)])
 def test_natural_in_the_morton_block_order_equals_morton(monkeypatch, lane, dithering):
-    """The layouts differ only in the order of a block's float sums: with the
-    Morton path's halving tree in place of nat_block_sum, the natural encode
-    equals the Morton one bit for bit, state included; with its own order
-    it moves ``NATURAL_ORDER_MOVES`` serializer columns."""
+    """The layouts differ only in the order of a block's float sums, and
+    both take the natural layout's: the natural encode equals the Morton one
+    bit for bit, state included. With the halving tree in place of
+    nat_block_sum the two stay equal, and the halving tree moves
+    ``NATURAL_ORDER_MOVES`` serializer columns."""
     img = mrec.make_4k_lane(*mrec.SMALL, lane)
     cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dithering)
-    m, st_m = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=3, return_state=True,
-                                                 device="cpu")
-    _, st_own = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=3, return_state=True,
-                                                   fused_layout="natural", device="cpu")
-    moved = int((st_own["rows"] != st_m["rows"]).any(axis=0).sum())
-    print(f"{lane} dithering={dithering}: the natural order moves {moved} serializer columns")
-    assert moved == NATURAL_ORDER_MOVES[lane]
+
+    def both():
+        return [limg_tpu_torch.encode_image_merged(img, cfg, num_levels=3, return_state=True,
+                                                   fused_layout=layout_, device="cpu")
+                for layout_ in ("morton", "natural")]
+
+    (m, st_m), (n, st_n) = both()
+    _assert_same_encode(n, st_n, m, st_m)
     halving = functools.partial(tree_sum, dim=-2)
     monkeypatch.setattr(reduce_mod, "nat_block_sum", halving)
-    n, st_n = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=3, return_state=True,
+    (mh, st_mh), (nh, st_nh) = both()
+    _assert_same_encode(nh, st_nh, mh, st_mh)
+    moved = int((st_mh["rows"] != st_m["rows"]).any(axis=0).sum())
+    print(f"{lane} dithering={dithering}: the halving tree moves {moved} serializer columns")
+    assert moved == NATURAL_ORDER_MOVES[lane]
+
+
+@pytest.mark.parametrize("lane,levels,dithering", [("rgb", 2, False), ("rgba", 3, True),
+                                                   ("rgb", 4, True), ("rgba", 2, False)])
+def test_natural_encode_equals_morton_bit_for_bit(lane, levels, dithering):
+    """The port's natural-layout encode equals its Morton encode bit for
+    bit, state included, as the JAX package's layouts agree
+    (tests/test_natural.py); here on an edge-padded image with a flat band
+    (merges at every level)."""
+    img = make_test_image(np.random.default_rng(levels), h=77, w=141)
+    img[8:40, :, :3] = [40, 90, 200]
+    if lane == "rgb":
+        img = np.ascontiguousarray(img[:, :, :3])
+    cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dithering)
+    m, st_m = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels, return_state=True,
+                                                 device="cpu")
+    n, st_n = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels, return_state=True,
                                                  fused_layout="natural", device="cpu")
-    for key in ("decoded", "factors", "owner_px", "region_id", "shift", "bpp", "alive_counts"):
-        np.testing.assert_array_equal(n[key], m[key], err_msg=key)
-    assert n["n_runs"] == m["n_runs"] and n["coalesce_stats"] == m["coalesce_stats"]
-    np.testing.assert_array_equal(st_n["rows"], st_m["rows"])
-    np.testing.assert_array_equal(st_n["q"], st_m["q"])
+    assert m["n_runs"] > 0 and m["alive_counts"][1] > 0
+    _assert_same_encode(n, st_n, m, st_m)
 
 
 @pytest.mark.parametrize("dithering", [False, True])

@@ -1,0 +1,378 @@
+"""Time the quadtree fit and segment-encode kernels of limg_tpu_torch alone at
+4K on one CUDA card, beside a baseline build of the same kernels.
+
+    python3 tools/profile_torch_kernels.py [--baseline DIR] [--out FILE]
+
+Builds ``encode_merged``, ``encode_natural`` and ``coalesce`` from this
+checkout (and, with ``--baseline``, from the checkout at DIR into DIR's own
+``build/kernels``) and prints what ``ptxas -v`` reports for every kernel:
+registers, spill bytes, stack frame. Then, on the 4K RGB and RGBA test
+images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
+
+- each kernel of this checkout against its plain version on the same
+  inputs (bit-equal, as chip_smoke.py holds them);
+- each kernel's time alone, CUDA events (median of 10 single calls after a
+  warm-up, and the mean of 10 calls back to back, which hides the host's
+  launch overhead) and torch.profiler device time of the kernel itself
+  (mean over 5 calls) side by side: ``fit_levels`` at 3 levels and at 2
+  (the price of a level), ``fit_levels_natural``, ``owner_crush``,
+  ``owner_crush_natural``, and ``segment_encode`` on the default encode's
+  run buffer, whole and cut to its member lanes (the price of the lanes
+  that hold no run member); with a baseline, the two builds in turns
+  (baseline, this, this, baseline);
+- the run buffer's segment lengths (how many segments and 128-lane tiles
+  hold more than 32 members);
+- the default merged step (``fused_merged_pre``, the capacity read,
+  ``fused_merged_finish``) by events and by the profiler's device busy time,
+  with each build;
+- the 4K encodes of every merged path (Morton with and without coalescing,
+  natural, RD) with dithering off, with each build: PSNR, bpp, runs, and
+  the blocks whose owner level differs from the JAX package's recorded
+  default encode (tests/fixtures/torch_port_coalesce_reference.npz).
+
+The baseline's kernels run through this checkout's wrappers (their C entry
+points are unchanged), so both builds see the same inputs and glue. Writes
+the numbers as JSON to FILE (default build/profile_kernels.json).
+Needs a CUDA card and nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+LIBRARIES = ("encode_merged", "encode_natural", "coalesce")
+COALESCE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_coalesce_reference.npz"
+RUNS = 10
+PROFILED = 5
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def ptxas_lines(text: str) -> list[str]:
+    """ptxas -v's report, one line per kernel: name<template arguments>,
+    registers, stack frame, spill stores / loads."""
+    out, name = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function .*?\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)", ln)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            name, frame, spill = f"{m.group(1)}<{args}>", "", ""
+        elif name and "stack frame" in ln:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            frame, spill = m.group(1), f"{m.group(2)}/{m.group(3)}"
+        elif name and "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, stack {frame or 0} B, spill stores/loads "
+                       f"{spill or '0/0'} B")
+            name = None
+    return out
+
+
+def build_baseline(checkout: Path) -> dict:
+    """Compile the baseline checkout's libraries with this checkout's nvcc
+    flags; {name: ctypes.CDLL}."""
+    import ctypes
+
+    from limg_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
+
+    out_dir = checkout / "build" / "kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+
+    def one(name):
+        out = out_dir / f"lib{name}_baseline.so"
+        src = checkout / "limg_tpu_torch" / "csrc" / f"{name}.cu"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        return name, ctypes.CDLL(str(out)), proc.stdout + proc.stderr
+
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(one, LIBRARIES))
+    ptxas = {name: ptxas_lines(text) for name, _, text in built}
+    return {name: lib for name, lib, _ in built}, ptxas
+
+
+def declare(lib, name: str):
+    """Give a baseline library the C signatures the wrappers declare."""
+    import ctypes
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "encode_merged":
+        lib.limg_fit_levels.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
+        lib.limg_owner_crush.argtypes = [ptr] + [i32] * 10 + [ctypes.c_uint32] + [ptr] * 10
+        fns = (lib.limg_fit_levels, lib.limg_owner_crush)
+    elif name == "encode_natural":
+        lib.limg_fit_levels_natural.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
+        lib.limg_owner_crush_natural.argtypes = ([ptr] + [i32] * 10 + [ctypes.c_uint32]
+                                                 + [ptr] * 10)
+        fns = (lib.limg_fit_levels_natural, lib.limg_owner_crush_natural)
+    else:
+        lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+        lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
+        lib.limg_seg_scan_i32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
+        lib.limg_seg_scan_f32.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr,
+                                          ptr]
+        lib.limg_segment_encode.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 10
+        fns = (lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan_i32,
+               lib.limg_seg_scan_f32, lib.limg_segment_encode)
+    for fn in fns:
+        fn.restype = i32
+    lib.limg_cuda_error_string.argtypes = [i32]
+    lib.limg_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class Builds:
+    """Switches the wrappers between this checkout's libraries and the
+    baseline's."""
+
+    def __init__(self, baseline: dict | None):
+        from limg_tpu_torch.kernels import coalesce, encode_merged, encode_natural
+
+        self.mods = {"encode_merged": encode_merged, "encode_natural": encode_natural,
+                     "coalesce": coalesce}
+        self.own = {n: m._library for n, m in self.mods.items()}
+        self.base = ({n: declare(lib, n) for n, lib in baseline.items()}
+                     if baseline else None)
+
+    def use(self, which: str):
+        for n, m in self.mods.items():
+            if which == "this":
+                m._library = self.own[n]
+            else:
+                lib = self.base[n]
+                m._library = lambda lib=lib: lib
+
+    @property
+    def names(self):
+        return ("baseline", "this", "this", "baseline") if self.base else ("this", "this")
+
+
+def events_ms(fn, device) -> tuple[float, float]:
+    """(median ms of RUNS single calls, mean ms of RUNS calls back to back)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(RUNS):
+        fn()
+    end.record()
+    end.synchronize()
+    return float(np.median(times)), start.elapsed_time(end) / RUNS
+
+
+def profiled(fn, device, pattern: str | None) -> tuple[float, float]:
+    """(device ms per call of the kernels whose name matches ``pattern``,
+    device busy ms per call) by torch.profiler over PROFILED calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(PROFILED):
+            fn()
+        torch.cuda.synchronize(device)
+    kern = busy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        busy += e.self_device_time_total
+        if pattern and re.search(pattern, e.key):
+            kern += e.self_device_time_total
+    return kern / PROFILED / 1e3, busy / PROFILED / 1e3
+
+
+def segment_lengths(seg) -> dict:
+    seg = seg.cpu().numpy()
+    starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
+    lengths = np.diff(np.r_[starts, seg.size])
+    tiles = set()
+    for s, n in zip(starts, lengths):
+        if n > 32:
+            tiles.add(int(s) // 128)
+    return {"segments": int(starts.size), "max": int(lengths.max()),
+            "over_32": int((lengths > 32).sum()),
+            "members_in_over_32": int(lengths[lengths > 32].sum()),
+            "tiles": -(-seg.size // 128), "tiles_with_over_32": len(tiles)}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, help="a checkout of the baseline tree")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "profile_kernels.json")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False: this tool needs a CUDA card")
+    import limg_tpu_torch
+    from chip_smoke import compare_outputs, image_run_buffer, run_text
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import build
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.regions import _words
+    from tools.record_torch_reference import case_images
+
+    device = torch.device("cuda", 0)
+    smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    log("card:", torch.cuda.get_device_name(0), "|", smi, "| torch", torch.__version__)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(build.load_library, LIBRARIES))
+    log(f"built {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {"this": {n: ptxas_lines(build.build_log.get(n, "")) for n in LIBRARIES}}
+    baseline = None
+    if args.baseline:
+        baseline, ptxas["baseline"] = build_baseline(args.baseline.resolve())
+    builds = Builds(baseline)
+    for which, libs in ptxas.items():
+        for name, lines in libs.items():
+            for ln in lines:
+                if "fit_levels" in ln or "segment_encode" in ln or "owner_crush" in ln:
+                    log(f"  ptxas {which} {name}: {ln}")
+    result = {"card": smi, "ptxas": ptxas, "kernels": {}, "steps": {}, "encodes": {},
+              "segments": {}}
+    fx = np.load(COALESCE_FIXTURE)
+    images = case_images(2160, 3840)
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        img_d = _as_image_tensor(img, device)
+        words = _words(img_d)
+        builds.use("this")
+        fit = km.fit_levels_kernel(words, cfg, 3)
+        fit_n = kn.fit_levels_natural_kernel(words, cfg, 3)
+        crush_args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, 3, 0)
+        crush_n_args = (words, fit_n.owner, fit_n.f8_sel, fit_n.eps_sel, cfg, 3, 0)
+        (packed, mask, seg, blocks), _ = image_run_buffer(
+            img, EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False), device)
+        members = int(mask.any(dim=0).sum())
+        cut = tuple(t[..., :members].contiguous() for t in (packed, mask, seg, blocks))
+        result["segments"][lane] = {**segment_lengths(seg), "lanes": int(seg.numel()),
+                                    "member_lanes": members}
+        log(f"  4K {lane} run buffer: {result['segments'][lane]}")
+        calls = {
+            "fit_levels L3": (lambda: km.fit_levels_kernel(words, cfg, 3), r"fit_levels_kernel"),
+            "fit_levels L2": (lambda: km.fit_levels_kernel(words, cfg, 2), r"fit_levels_kernel"),
+            "fit_levels_natural L3": (lambda: kn.fit_levels_natural_kernel(words, cfg, 3),
+                                      r"fit_levels_kernel"),
+            "owner_crush L3": (lambda: km.owner_crush_kernel(*crush_args), r"owner_crush_kernel"),
+            "owner_crush_natural L3": (lambda: kn.owner_crush_natural_kernel(*crush_n_args),
+                                       r"owner_crush_kernel"),
+            "segment_encode all lanes": (lambda: kc.segment_encode_kernel(packed, mask, seg,
+                                                                          blocks, cfg, 0x5EED),
+                                         r"segment_encode_kernel"),
+            "segment_encode member lanes": (lambda: kc.segment_encode_kernel(*cut, cfg, 0x5EED),
+                                            r"segment_encode_kernel"),
+        }
+        builds.use("this")
+        plain = {
+            "fit_levels L3": lambda: km.fit_levels_reference(words, cfg, 3),
+            "fit_levels L2": lambda: km.fit_levels_reference(words, cfg, 2),
+            "fit_levels_natural L3": lambda: kn.fit_levels_natural_reference(words, cfg, 3),
+            "owner_crush L3": lambda: km.owner_crush_reference(*crush_args),
+            "owner_crush_natural L3": lambda: kn.owner_crush_natural_reference(*crush_n_args),
+            "segment_encode all lanes": lambda: kc.segment_encode_reference(
+                packed, mask, seg, blocks, cfg, 0x5EED),
+            "segment_encode member lanes": lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED),
+        }
+        for name, ref in plain.items():
+            got = calls[name][0]()
+            torch.cuda.synchronize(device)
+            compare_outputs(got, ref())
+        log(f"  4K {lane}: {len(plain)} kernel calls bit-equal to their plain versions")
+        for name, (fn, pattern) in calls.items():
+            rows = []
+            for which in builds.names:
+                builds.use(which)
+                ev, batch = events_ms(fn, device)
+                kern, _ = profiled(fn, device, pattern)
+                rows.append({"build": which, "events_ms": ev, "batch_ms": batch,
+                             "profiler_ms": kern})
+            result["kernels"][f"{lane} {name}"] = rows
+            log(f"  4K {lane} {name}: " + ", ".join(
+                f"{r['build']} {r['events_ms']!r} ms (back to back {r['batch_ms']!r}, profiler "
+                f"{r['profiler_ms']!r})" for r in rows) + f" [{smi}]")
+
+        nb = 270 * 480
+
+        def step():
+            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, 3, need_q=False, device=device)
+            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, 3, False, cap)
+            return out["total_err"], out["mean_bpp"]
+
+        rows = []
+        for which in builds.names:
+            builds.use(which)
+            ev, _ = events_ms(step, device)
+            _, busy = profiled(step, device, None)
+            rows.append({"build": which, "events_ms": ev, "device_busy_ms": busy})
+        result["steps"][f"{lane} default merged step"] = rows
+        log(f"  4K {lane} default merged step: " + ", ".join(
+            f"{r['build']} {r['events_ms']!r} ms (device busy {r['device_busy_ms']!r})"
+            for r in rows) + f" [{smi}]")
+
+        ref_owner = fx[f"4k_{lane}_l3.owner"]
+        paths = {
+            "morton default": dict(),
+            "morton no coalescing": dict(coalesce=False),
+            "natural default": dict(fused_layout="natural"),
+            "rd": dict(merge_policy="rd", rd_lambda=0.01),
+        }
+        cfg0 = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
+        for path, kw in paths.items():
+            rows = []
+            for which in dict.fromkeys(builds.names):
+                builds.use(which)
+                out = limg_tpu_torch.encode_image_merged(img, cfg0, num_levels=3, device=device,
+                                                         **kw)
+                owner = out["owner_px"][::8, ::8].reshape(-1)
+                rows.append({"build": which, "psnr": out["psnr"], "mean_bpp": out["mean_bpp"],
+                             "n_runs": int(out["n_runs"]),
+                             "owners_off_jax": int((owner != ref_owner).sum()),
+                             "decoded_sum": int(out["decoded"].astype(np.int64).sum())})
+            result["encodes"][f"{lane} {path}"] = rows
+            log(f"  4K {lane} {path} encode (dithering off): " + "; ".join(
+                f"{r['build']} psnr {r['psnr']!r} bpp {r['mean_bpp']!r} runs {r['n_runs']} "
+                f"owners off JAX {r['owners_off_jax']} decoded sum {r['decoded_sum']}"
+                for r in rows) + f" (JAX runs {int(fx[f'4k_{lane}_l3.n_runs'])})")
+    builds.use("this")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(result, indent=1))
+    log(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -21,10 +21,14 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    images, channel counts, crush modes, num_factors and dithering;
 2b. the same for ``fit_levels`` and ``owner_crush`` over levels 2 to 4,
    RGB and RGBA, aligned and edge-padded images (4-level squares cut by
-   both edges), and the same settings;
+   both edges), and the same settings; and ``owner_crush`` at ragged
+   squares owned at levels 2 and 3 (images whose sides are not multiples
+   of 32 or 64 px, with a flat corner), q emitted and not, dithering off
+   and on;
 2c. the same for the four run-coalescing kernels (``match_pairs``,
    ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
-   fitted rows, random and real segment maps, segment_encode's edges
+   fitted rows (``match_neighbors`` also on planes of 1, 2, odd and
+   non-multiple-of-32 blocks a side), random and real segment maps, segment_encode's edges
    (segments of 1, 31, 32, 33 and 256 members across its tiles, a tail of
    lanes with no member, no member at all), RGB and RGBA, every crush
    mode, num_factors 1-3, dithering off and on;
@@ -33,7 +37,8 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    the settings of phase 2;
 2e. the same for ``fit_levels_natural`` and ``owner_crush_natural`` (levels
    2 to 4, RGB and RGBA, edge-padded images, the settings of phase 2, q
-   emitted and not), for ``crush_eval_rows`` (K = 1, 8, 27 and 729, ragged
+   emitted and not; the crush also at phase 2b's ragged squares), for
+   ``crush_eval_rows`` (K = 1, 8, 27 and 729, ragged
    N, RGB and RGBA, P = 64 and 256) and for the composed segment re-encode
    against the segment kernel on real run buffers;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
@@ -71,7 +76,8 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    coalesce pass against the segment kernel's.
 
 Prints the order in which to redesign the kernels (the ms each loses above
-its bound per default step, then per RD step), one JSON line of kernel
+its bound per default step, then per RD step: its profiler device time in
+the step less the bounds of its launches there), one JSON line of kernel
 results (each with its launches on its path's main run, its time, its
 plain version's, and its bound: the least time the card could take for
 the call's bytes and operations), the card's name and power limit, and
@@ -82,6 +88,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -174,6 +181,60 @@ def with_alpha(rgb: np.ndarray) -> np.ndarray:
 
     h, w = rgb.shape[:2]
     return np.concatenate([rgb, gradient_alpha(h, w)[..., None]], axis=-1)
+
+
+# owner crush and match_neighbors at their edges: image sizes that are not
+# multiples of 32 or 64 px, and row planes of 1, 2, odd and non-multiple-of-32
+# blocks a side
+RAGGED_SIZES = ((37, 200), (130, 70), (8, 8), (100, 260))
+NEIGHBOR_EDGES = ((1, 1), (1, 2), (2, 1), (2, 2), (1, 33), (2, 31), (3, 97), (33, 2), (17, 45),
+                  (31, 33))
+
+
+def flat_corner(img: np.ndarray) -> np.ndarray:
+    """``img`` with a flat bottom-right quarter: the squares cut by both
+    image edges merge up to the top level, so regions owned at level 2 or
+    3 hold blocks outside the grid."""
+    out = img.copy()
+    h, w = out.shape[:2]
+    out[h // 2:, w // 2:] = (90, 140, 60, 200)[: out.shape[2]]
+    return out
+
+
+def compare_ragged_crush(device, fit_plain, kernel, plain, sizes=RAGGED_SIZES,
+                         channels=(3, 4), compare=None) -> tuple:
+    """An owner-crush kernel against its plain version at ragged squares
+    (``flat_corner`` images of ``sizes``), levels 2-4, RGB and RGBA, q
+    emitted and not, dithering off and on, each case held by ``compare``
+    (default ``compare_outputs``); (max abs diff, cases)."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.regions import _words
+
+    worst, n_cases = 0.0, 0
+    for h, w in sizes:
+        rgb = small_image(h, w)
+        for ch in channels:
+            words = _words(_as_image_tensor(flat_corner(rgb if ch == 3 else with_alpha(rgb)),
+                                            device))
+            for levels in (2, 3, 4):
+                for emit_q in (True, False):
+                    for dith in (False, True):
+                        cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, dithering=dith)
+                        fit = fit_plain(words, cfg, levels)
+                        args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, levels, 7, emit_q)
+                        got = kernel(*args)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        try:
+                            worst = max(worst, (compare or compare_outputs)(
+                                got, plain(*args)) or 0.0)
+                        except AssertionError as e:
+                            raise AssertionError(f"ragged {h}x{w} ch={ch} levels={levels} "
+                                                 f"emit_q={emit_q} dither={dith}: {e}")
+                        n_cases += 1
+    return worst, n_cases
 
 
 def phase_environment():
@@ -318,6 +379,10 @@ def phase_compare_merged(device, images=None) -> float:
                         raise AssertionError(f"{case}: {e}")
                     n_cases += 1
         log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (fit and crush)")
+    ragged, n_ragged = compare_ragged_crush(device, km.fit_levels_reference,
+                                            km.owner_crush_kernel, km.owner_crush_reference)
+    worst, n_cases = max(worst, ragged), n_cases + n_ragged
+    log(f"  owner_crush at ragged squares: {n_ragged} cases bit-equal")
     log(f"phase 2b ok: {n_cases} cases, max abs diff {worst}")
     return worst
 
@@ -484,6 +549,10 @@ def phase_compare_coalesce(device, images=None) -> float:
             plane = torch.from_numpy(seeded_rows(rng, by * bx, ch)).to(device).reshape(-1, by, bx)
             check(f"match_neighbors seeded ch={ch} {by}x{bx}",
                   kc.match_neighbors_kernel(plane, ch), kc.match_neighbors_reference(plane, ch))
+        for by, bx in NEIGHBOR_EDGES:
+            plane = torch.from_numpy(seeded_rows(rng, by * bx, ch)).to(device).reshape(-1, by, bx)
+            check(f"match_neighbors at its edges ch={ch} {by}x{bx}",
+                  kc.match_neighbors_kernel(plane, ch), kc.match_neighbors_reference(plane, ch))
     # the scan on random segment maps, int and float rows, every row mix
     for n in (1, 1000, 5000, 129600):
         seg = torch.from_numpy(seg_map(rng, n)).to(device)
@@ -587,6 +656,11 @@ def phase_compare_natural(device, images=None) -> float:
                     check(f"{case} crush", kn.owner_crush_natural_kernel(*args),
                           kn.owner_crush_natural_reference(*args))
         log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (natural fit and crush)")
+    ragged, n_ragged = compare_ragged_crush(device, kn.fit_levels_natural_reference,
+                                            kn.owner_crush_natural_kernel,
+                                            kn.owner_crush_natural_reference)
+    worst, n_cases = max(worst, ragged), n_cases + n_ragged
+    log(f"  owner_crush_natural at ragged squares: {n_ragged} cases bit-equal")
     # crush_eval_rows: every K the search asks for and the exhaustive 729,
     # ragged N up to the full 4K buffer, both block sizes
     for ch in (3, 4):
@@ -1079,13 +1153,24 @@ def tensor_bytes(*objs) -> int:
     return total
 
 
+def axis_decode_ops(ch: int) -> int:
+    """Operations of one axis's decode of one pixel (limg_common.cuh
+    decode_est): a shift and a multiply of the factor, per channel a
+    multiply, two adds and a shift."""
+    return 2 + ch * 4
+
+
+def pixel_err_ops(ch: int) -> int:
+    """Operations of one pixel's error under a decode (pixel_err): per
+    channel a clamp (2), a subtract and a square, the weighted sum (2 per
+    channel); the pixel max and the error sum."""
+    return ch * 4 + ch * 2 + 2
+
+
 def eval_ops(ch: int) -> int:
-    """Operations of one crush candidate on one pixel (limg_common.cuh
-    decode_est + pixel_err): per axis a shift and a multiply, per axis and
-    channel a multiply, two adds and a shift; per channel a clamp (2), a
-    subtract and a square, the weighted sum (2 per channel); the pixel max
-    and the error sum."""
-    return 3 * 2 + 3 * ch * 4 + ch * 4 + ch * 2 + 2
+    """Operations of one crush candidate on one pixel: three axes' decode
+    and the error."""
+    return 3 * axis_decode_ops(ch) + pixel_err_ops(ch)
 
 
 def fit_ops(ch: int) -> int:
@@ -1103,25 +1188,55 @@ def finish_ops(ch: int) -> int:
     return 3 * 6 + eval_ops(ch)
 
 
-def crush_candidates(cfg) -> int:
-    """Candidates the crush search evaluates per region for ``cfg``."""
+def search_ops(cfg) -> int:
+    """Operations of the crush search per pixel of a searched region, as
+    far as the candidates need them. Ladder: the 25 distinct per-axis
+    sweeps ((0, 0, 0), the floors of a reduced-factor mode, and each axis at
+    shifts 1-8 with the others at 0) share the three axes' decode at shift 0
+    (and their per-axis sums, a channel add each), so each of the 24 others
+    decodes one axis; every sweep prices its error; then ``ladder_k`` full
+    candidates. Exhaustive: the 729 triples, (0, 0, 0) among them. Guess:
+    the four canned triples and (0, 0, 0) for the floors."""
     if not cfg.crush_bits or cfg.crush_mode == "none":
         return 0
-    n = {"ladder": 27 + cfg.ladder_k, "exhaustive": 729, "guess": 4}[cfg.crush_mode]
-    return n + (1 if cfg.num_factors < 3 else 0)
+    ch = cfg.channels
+    if cfg.crush_mode == "ladder":
+        sweeps = 3 * axis_decode_ops(ch) + 3 * ch + 24 * axis_decode_ops(ch) + 25 * pixel_err_ops(ch)
+        return sweeps + cfg.ladder_k * eval_ops(ch)
+    n = {"exhaustive": 729, "guess": 4 + (1 if cfg.num_factors < 3 else 0)}[cfg.crush_mode]
+    return n * eval_ops(ch)
 
 
 def encode_ops(pixels: int, searched: int, cfg) -> int:
     """A full encode of ``pixels`` pixels, ``searched`` of them members of
     the regions the crush search evaluates."""
     ch = cfg.channels
-    return pixels * (fit_ops(ch) + finish_ops(ch)) + searched * crush_candidates(cfg) * eval_ops(ch)
+    return pixels * (fit_ops(ch) + finish_ops(ch)) + searched * search_ops(cfg)
 
 
 def match_ops(pairs: int, ch: int) -> int:
     """The 27-probe merge test of ``pairs`` pairs: per probe a decode of
     three factors per channel (4 each) and a deviation sum (ch + 2)."""
     return pairs * 27 * (3 * ch * 4 + ch + 2)
+
+
+def probed_pairs(rows_a, rows_b, ch: int) -> int:
+    """Pairs of (7ch, N) row stacks whose merge bit needs the probes: not a
+    fast accept and a ratio inside its limits (ops/match.py match_decomps;
+    elsewhere the bit is known without them)."""
+    from limg_tpu_torch.kernels.coalesce import _as_decomp
+    from limg_tpu_torch.ops.match import match_decomps
+
+    stats = match_decomps(_as_decomp(rows_a, ch), _as_decomp(rows_b, ch), ch)[1]
+    return int((~stats["fast_accept"] & ~stats["ratio_reject"]).sum())
+
+
+def neighbor_probed_pairs(plane, ch: int) -> int:
+    """probed_pairs of a (7ch, by, bx) plane's real neighbour pairs: each
+    block with its right and its down neighbour, where it has one."""
+    n = plane.shape[0]
+    return (probed_pairs(plane[:, :, 1:].reshape(n, -1), plane[:, :, :-1].reshape(n, -1), ch)
+            + probed_pairs(plane[:, 1:].reshape(n, -1), plane[:, :-1].reshape(n, -1), ch))
 
 
 def call_bound(ops: int, nbytes: int) -> tuple:
@@ -1158,9 +1273,9 @@ def kernel_bound(name: str, args, out) -> tuple:
         skipped = (packed_c.shape[1] - members) * packed_c.shape[0] * packed_c.element_size()
         return call_bound(ops, tensor_bytes(args, out) - skipped)
     elif name == "match_pairs":
-        ops = match_ops(args[0].shape[1], args[2])
+        ops = match_ops(probed_pairs(*args[:3]), args[2])
     elif name == "match_neighbors":
-        ops = match_ops(2 * args[0].shape[1] * args[0].shape[2], args[1])
+        ops = match_ops(neighbor_probed_pairs(*args[:2]), args[1])
     elif name == "seg_mixed_all":
         from limg_tpu_torch.ops.segments import scan_steps
 
@@ -1277,6 +1392,76 @@ def phase_timing_merged(device, smi: str):
     return rows, worst
 
 
+def step_bounds(fn) -> dict:
+    """Each kernel's bound summed over its launches in one call of the step
+    ``fn``, every launch at its own shape: {kernel name: ms}."""
+    from limg_tpu_torch import encoder, regions
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+
+    wrappers = [(kc, "match_neighbors_kernel"), (kc, "match_pairs_kernel"),
+                (kc, "seg_mixed_all_kernel"), (kc, "segment_encode_kernel"),
+                (km, "fit_levels_kernel"), (km, "owner_crush_kernel"),
+                (kn, "fit_levels_natural_kernel"), (kn, "owner_crush_natural_kernel"),
+                (kmod, "encode_blocks_kernel")]
+    totals, saved = {}, {n: getattr(m, n) for m, n in wrappers}
+
+    def spy(fname):
+        def call(*args, **kwargs):
+            out = saved[fname](*args, **kwargs)
+            name = fname[:-len("_kernel")]
+            if fname == "encode_blocks_kernel":
+                p = args[0].shape[0]
+                name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
+            kind = "encode_region" if name.startswith("encode_region") else name
+            totals[name] = totals.get(name, 0.0) + kernel_bound(kind, args, out)[0]
+            return out
+        return call
+
+    users = (regions, encoder)
+    try:
+        for mod, fname in wrappers:
+            setattr(mod, fname, spy(fname))
+            for user in users:
+                if hasattr(user, fname):
+                    setattr(user, fname, getattr(mod, fname))
+        fn()
+    finally:
+        for mod, fname in wrappers:
+            setattr(mod, fname, saved[fname])
+            for user in users:
+                if hasattr(user, fname):
+                    setattr(user, fname, saved[fname])
+    return totals
+
+
+def profiled_kernel_name(key: str):
+    """The kernel name (as the launch counts have it) of a profiled CUDA
+    kernel's symbol; step_losses drops the names of PyTorch's own."""
+    m = re.search(r"(\w+)_kernel<([^>]*)>", key)
+    if not m:
+        return None
+    name, targs = m.group(1), [t.strip() for t in m.group(2).split(",")]
+    if name in ("fit_levels", "owner_crush"):
+        return name + ("_natural" if targs[-1] == "true" else "")
+    if name == "encode_region":
+        return f"encode_region_p{targs[0]}"
+    return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
+
+
+def step_losses(profile: dict, bounds: dict) -> dict:
+    """Each kernel's ms lost above its bound in one step: its profiler
+    device time in the step less the bound of its launches there."""
+    device_ms, ours = {}, set(read_launches())
+    for key, us in profile.items():
+        name = profiled_kernel_name(key)
+        if name in ours:
+            device_ms[name] = device_ms.get(name, 0.0) + us / 1e3
+    return {name: ms - bounds.get(name, 0.0) for name, ms in device_ms.items()}
+
+
 def capture_coalesce_calls(fn) -> dict:
     """Run ``fn`` with the four run-coalescing wrappers recording their
     arguments: {wrapper name: [args, ...]}."""
@@ -1366,11 +1551,12 @@ def phase_timing_coalesce(device, smi: str):
         prof = profile_step(step, device, f"{lane} default merged")
         log_profiled(prof, "segment_encode", rows[("segment_encode", lane)][0], lane, smi)
         if lane == "rgb":
-            per_step = launches_per_step(step)
-            log(f"  kernel launches per default step: {per_step}")
+            log(f"  kernel launches per default step: {launches_per_step(step)}")
+            losses = step_losses(prof, step_bounds(step))
+            log(f"  ms lost above the bound per default step: {losses}")
     log(f"phase 4c ok: 4K run-coalescing kernel outputs equal the plain versions' "
         f"(max abs diff {worst})")
-    return rows, worst, per_step
+    return rows, worst, losses
 
 
 def phase_timing_rd(device, smi: str):
@@ -1419,12 +1605,13 @@ def phase_timing_rd(device, smi: str):
         step_ms = time_fn(step, device)
         log(f"  4K {lane} RD step (fused_rd_pre, host capacity read, fused_rd_finish; "
             f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        profile_step(step, device, f"{lane} RD")
+        prof = profile_step(step, device, f"{lane} RD")
         if lane == "rgb":
-            per_step = launches_per_step(step)
-            log(f"  kernel launches per RD step: {per_step}")
+            log(f"  kernel launches per RD step: {launches_per_step(step)}")
+            losses = step_losses(prof, step_bounds(step))
+            log(f"  ms lost above the bound per RD step: {losses}")
     log(f"phase 4d ok: 4K region kernel outputs equal the plain version's (max abs diff {worst})")
-    return rows, worst, per_step
+    return rows, worst, losses
 
 
 def phase_timing_natural(device, smi: str):
@@ -1598,8 +1785,8 @@ def main():
     launched_n = phase_main_path_natural(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
-    rows_c, worst4k_c, per_default = phase_timing_coalesce(device, smi)
-    rows_r, worst4k_r, per_rd = phase_timing_rd(device, smi)
+    rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)
+    rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
     rows_n, worst4k_n = phase_timing_natural(device, smi)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
@@ -1622,16 +1809,17 @@ def main():
                               rows_n[("crush_eval_rows", "rgb")]))
     # the order in which to redesign the kernels: first any slower than a
     # PyTorch call, then by the time they lose above the bound in one
-    # default merged step, then in one RD step (launches per step, phases
-    # 4c and 4d)
-    def lost(k, per_step):
-        return per_step.get(k["name"], 0) * (k["ms"] - k["bound_ms"])
+    # default merged step, then in one RD step (each kernel's profiler
+    # device time in the step less the bounds of its launches there at
+    # their own shapes, phases 4c and 4d)
+    def lost(k, losses):
+        return losses.get(k["name"], 0.0)
 
     behind = sorted(kernels, key=lambda k: (k["library_ms"] is None or k["ms"] <= k["library_ms"],
-                                            -lost(k, per_default), -lost(k, per_rd)))
-    log("redesign order (ms lost above the bound per default step / per RD step, launches x "
-        "(ms - bound_ms), 4K RGB): " + ", ".join(
-            f"{k['name']} {lost(k, per_default):.3f} / {lost(k, per_rd):.3f}" for k in behind))
+                                            -lost(k, lost_default), -lost(k, lost_rd)))
+    log("redesign order (ms lost above the bound per default step / per RD step: device time "
+        "in the step less the launches' bounds, 4K RGB): " + ", ".join(
+            f"{k['name']} {lost(k, lost_default):.3f} / {lost(k, lost_rd):.3f}" for k in behind))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

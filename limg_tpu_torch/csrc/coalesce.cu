@@ -6,8 +6,11 @@
 //   (limg_common.cuh match_rows, the predicate fit_levels uses too).
 // - match_neighbors replaces match_neighbors_pallas (:587, kernel :537): the
 //   same test of each block against its right and its down neighbour on the
-//   (7ch, by, bx) row plane. One warp per block, which reads its neighbours
-//   by address: no halo tiles (those exist for the TPU's (8, 128) tiling).
+//   (7ch, by, bx) row plane. One thread per block, as the TPU kernel has one
+//   lane per block: a warp's threads read 32 consecutive blocks' rows, and
+//   their neighbours' by address (no halo tiles: those exist for the TPU's
+//   (8, 128) tiling); a thread folds its 27 probes in order, and skips them
+//   where the match bit does not depend on them.
 // - seg_scan replaces limg_tpu/pallas_kernels/seg_scan.py:
 //   seg_mixed_all_pallas (:140, kernel :41): the doubling-scan chain of
 //   ops/segments.py over one row of 1024 lanes per CTA, with halos of
@@ -18,7 +21,8 @@
 //   dither and decode of the contiguous segments of the run buffer.
 //
 // What bounds them on the H100: the match kernels are ~40 float operations
-// per probe lane and pair, over 160 K pairs at 4K (compute, a few us); the
+// per probe and pair, over 2 x 129,600 neighbour pairs at level 0 of a 4K
+// image (operations, a few us); the
 // scan is 8 shared-memory steps over data read once. The segment encode
 // does the work of the fixed-grid kernel per member block (a fit and 35+
 // exact candidate decodes at ladder K = 8), so its bound is operations
@@ -85,31 +89,33 @@ match_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b, int
   if (lane == 0) out[g] = m;
 }
 
+// One thread a block: the threads of a warp take consecutive blocks of the
+// (7ch, by, bx) plane, so each of their row loads (the block, its right
+// neighbour g + 1, its down neighbour g + bx) is one coalesced read.
+constexpr int kNeighborThreads = 128;
+
 template <int CH>
-__global__ void __launch_bounds__(kMatchWarps * 32)
+__global__ void __launch_bounds__(kNeighborThreads)
 match_neighbors_kernel(const float* __restrict__ rows, int by, int bx, bool* __restrict__ right,
                        bool* __restrict__ down) {
-  const int lane = threadIdx.x & 31;
   const int nb = by * bx;
-  const int g = blockIdx.x * kMatchWarps + (threadIdx.x >> 5);
-  if (g >= nb) return;  // whole warps
-  const int y = g / bx, x = g % bx;
+  const int g = blockIdx.x * kNeighborThreads + threadIdx.x;
+  if (g >= nb) return;
+  const int y = g / bx, x = g - y * bx;
   float avg_b[CH], avg_a[CH];
   int ep_b[6][CH], ep_a[6][CH];
   load_decomp<CH>(rows, nb, g, avg_b, ep_b);
   bool m_right = false, m_down = false;
   if (x + 1 < bx) {  // a = the +1 neighbour, b = the block itself
     load_decomp<CH>(rows, nb, g + 1, avg_a, ep_a);
-    match_rows<CH>(avg_a, ep_a, avg_b, ep_b, lane, m_right);
+    match_rows<CH, 1>(avg_a, ep_a, avg_b, ep_b, 0, m_right);
   }
   if (y + 1 < by) {
     load_decomp<CH>(rows, nb, g + bx, avg_a, ep_a);
-    match_rows<CH>(avg_a, ep_a, avg_b, ep_b, lane, m_down);
+    match_rows<CH, 1>(avg_a, ep_a, avg_b, ep_b, 0, m_down);
   }
-  if (lane == 0) {
-    right[g] = m_right;
-    down[g] = m_down;
-  }
+  right[g] = m_right;
+  down[g] = m_down;
 }
 
 // ---------------------------------------------------------------------------
@@ -855,7 +861,8 @@ int limg_match_neighbors(const float* rows, int by, int bx, int channels, bool* 
   if (by <= 0 || bx <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = by * bx;
-  const dim3 grid((unsigned)((nb + kMatchWarps - 1) / kMatchWarps)), block(kMatchWarps * 32);
+  const dim3 grid((unsigned)((nb + kNeighborThreads - 1) / kNeighborThreads)),
+      block(kNeighborThreads);
   if (channels == 4) {
     match_neighbors_kernel<4><<<grid, block, 0, st>>>(rows, by, bx, right, down);
   } else if (channels == 3) {

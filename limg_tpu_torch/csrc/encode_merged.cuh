@@ -47,8 +47,32 @@
 // - only the pixels (as floats) and each pixel's selected factors live in
 //   a lane's registers; the fit's per-pixel steps are recomputed from them
 //   in each pass instead of kept.
-// owner_crush puts one warp on each block (2 pixels a lane, Square below;
-// a 4-level square is a 4-CTA cluster) and sums a block by nat_sum.
+// owner_crush's design is the fit's layout (CrushLane below): eight lanes a
+// block, 8 pixels a lane, four blocks a warp, one CTA a top-level square.
+// The search is 25 distinct per-axis sweeps and K = 8 peeled candidates at
+// ladder K = 8, each an exact decode of every pixel: 86% of the device time
+// of the earlier one-warp-a-block kernel at 4K RGB (H100 80GB HBM3,
+// 700.00 W; PERF.md). So:
+// - a warp is a level-1 region and the fit's owner level is uniform over
+//   every region, so a warp whose region is one block or the warp itself
+//   reduces a candidate's pixel max and error sum (integers: any order) by
+//   xor 1, 2, 4 or one warp reduction, with no CTA barrier; only a CTA that
+//   holds a level-2 or level-3 region passes barriers, one a batch;
+// - candidates are reduced in batches: the 27 sweeps (one decode of
+//   (0, 0, 0) for all three axes) in one, the K ladder candidates in
+//   another (their peel order does not depend on their errors), then the
+//   region's values stay in shared memory, one row a block or warp, so no
+//   lane holds 54 sweep values in registers;
+// - the sweeps of one axis share the decode of the other two axes (shift
+//   0), summed once per pixel; the block's decode frame (normals, offsets)
+//   sits in shared memory, read once per candidate, which keeps the kernel
+//   at 128 registers without spills; a decoded channel's clamp to [0, 255]
+//   is one DPX instruction (__vimin_s32_relu);
+// - the ladder's 64 keys are 8 a lane over the block's 8 lanes; the peel is
+//   an arg-max (lowest index on ties) by xor 1, 2, 4;
+// - a block's error sum takes the natural order (in-lane row fold, xor 1,
+//   2, 4), a region's dist the Morton pairwise tree (xor 8, 16, then the
+//   warps' tree through one exchange).
 //
 // Both kernels read each block straight from the row-major (H, W) word
 // image and mask pixels outside (h, w): no relayout, no mask plane. Blocks
@@ -89,148 +113,6 @@ __device__ __forceinline__ void morton_yx(int w, int& y, int& x) {
     x |= ((w >> (2 * b)) & 1) << b;
     y |= ((w >> (2 * b + 1)) & 1) << b;
   }
-}
-
-// Loads this warp's block of the (h, w) word image.
-template <int CH>
-__device__ __forceinline__ void load_block(const int32_t* __restrict__ words, int h, int w,
-                                           int by, int bx, int lane, Pixels<CH>& p) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int pix = lane + 32 * j;
-    const int r = by * 8 + (pix >> 3), c = bx * 8 + (pix & 7);
-    const bool valid = r < h && c < w;
-    p.set(j, valid ? (uint32_t)words[(size_t)r * w + c] : 0u, valid);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// owner_crush: one warp a block
-// ---------------------------------------------------------------------------
-
-// A top-level square of 4^L blocks, one warp each: one CTA of up to 16
-// warps, or (L = 3) a cluster of four CTAs of 16 warps that exchange through
-// distributed shared memory. CTA rank r holds the level-2 sub-square r in
-// Morton order.
-template <int L>
-struct Square {
-  static constexpr int kG = 1 << L;            // blocks per side
-  static constexpr int kWarps = 1 << (2 * L);  // blocks per square
-  static constexpr int kCtas = kWarps > 16 ? kWarps / 16 : 1;
-  static constexpr int kW = kWarps / kCtas;    // warps per CTA
-  using Ex = Exchange<kW, kCtas>;
-
-  // This warp's index in the square and its block's (by, bx) in the grid.
-  __device__ static int locate(int bx0, int& by, int& bx) {
-    int rank = 0;
-    if constexpr (kCtas > 1) rank = (int)cooperative_groups::this_cluster().block_rank();
-    const int warp = rank * kW + (int)(threadIdx.x >> 5);
-    const int square = (int)blockIdx.x / kCtas, squares_x = (bx0 + kG - 1) / kG;
-    int oy, ox;
-    morton_yx<L>(warp, oy, ox);
-    by = (square / squares_x) * kG + oy;
-    bx = (square % squares_x) * kG + ox;
-    return warp;
-  }
-};
-
-template <int CH, int L, bool NAT>
-__global__ void __launch_bounds__(Square<L>::kW * 32, 1)
-owner_crush_kernel(const int32_t* __restrict__ words, int h, int w, int crush_mode, int dither,
-                   int ladder_k, int num_factors, int max_pix, int max_blk, uint32_t key,
-                   const int32_t* __restrict__ owner_in, const int32_t* __restrict__ f8_in,
-                   const int32_t* __restrict__ eps_in, int32_t* __restrict__ shifts_out,
-                   int32_t* __restrict__ q_out, int32_t* __restrict__ dec_out,
-                   float* __restrict__ dist_out, float* __restrict__ dist_blk_out,
-                   int32_t* __restrict__ bpp_out) {
-  using Sq = Square<L>;
-  __shared__ int ibuf[2 * kMaxExchange * Sq::kW];
-  __shared__ float fbuf[kMaxFloats * Sq::kW];
-  const int by0 = (h + 7) / 8, bx0 = (w + 7) / 8, nb = by0 * bx0;
-  int by, bx;
-  const int warp = Sq::locate(bx0, by, bx), lane = threadIdx.x & 31;
-  const bool in_grid = by < by0 && bx < bx0;
-  const size_t b = in_grid ? (size_t)by * bx0 + bx : 0;
-
-  Pixels<CH> p;
-  load_block<CH>(words, h, w, by, bx, lane, p);
-  Block<CH> blk;
-  int ep[6][CH];
-#pragma unroll
-  for (int e = 0; e < 6; ++e) {
-#pragma unroll
-    for (int c = 0; c < CH; ++c) ep[e][c] = in_grid ? eps_in[((size_t)e * CH + c) * nb + b] : 0;
-  }
-  blk.set_endpoints(ep);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int f8w = in_grid ? f8_in[plane_at<NAT>(by, bx, bx0, lane + 32 * j)] : 0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) blk.f8[k][j] = (f8w >> (8 * k)) & 0xFF;
-    blk.mask[j] = p.mask[j];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) blk.px[c][j] = p.px[c][j];
-  }
-  // empty warps outside the grid contribute zeros to every region sum
-  const OwnerReducer<typename Sq::Ex, L> red{typename Sq::Ex{ibuf, fbuf, warp, lane},
-                                             in_grid ? owner_in[b] : 0};
-  const int cnt_blk = __reduce_add_sync(kFull, p.mask[0] + p.mask[1]);
-  blk.count = red.sum_int(cnt_blk);
-  blk.max_pix = max_pix;
-  blk.max_blk = max_blk;
-  blk.es = (kP << (2 * L)) >= 2048 ? 4 : 0;  // ops/crush.py err_scale_shift
-
-  int best[3];
-  crush_search<CH>(blk, red, crush_mode, ladder_k, num_factors, lane, best);
-
-  int q[3][2], dec[CH][2];
-  float err_f[2];
-  dither_decode<CH>(blk, best, dither != 0, key, (uint32_t)b, lane, q, dec, err_f);
-  const float dist_blk = nat_sum(err_f[0], err_f[1]);
-  const float dist = red.sum_float(dist_blk);
-
-  if (!in_grid) return;  // after the last barrier
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const size_t at = plane_at<NAT>(by, bx, bx0, lane + 32 * j);
-    if (q_out != nullptr) q_out[at] = q[0][j] | (q[1][j] << 8) | (q[2][j] << 16);
-    dec_out[at] = pack_decoded<CH>(dec, j);
-  }
-  if (lane == 0) {
-    const int count = blk.count;
-    int fac_bits = 0;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      shifts_out[(size_t)k * nb + b] = best[k];
-      fac_bits = add_wrap(fac_bits, mul_wrap(8 - min(best[k], 8), count));
-    }
-    const int bits = header_bits(CH) + fac_bits;
-    const int bpp = min(0xFF, (bits + count / 2) / max(count, 1));
-    bpp_out[b] = cnt_blk > 0 ? bpp : 0;
-    dist_out[b] = dist;
-    dist_blk_out[b] = dist_blk;
-  }
-}
-
-// One CTA (or cluster of CTAs) per top-level square of an (h, w) image.
-template <int L, class... Params, class... Args>
-int launch(void (*kernel)(Params...), int h, int w, cudaStream_t st, Args... args) {
-  using Sq = Square<L>;
-  const int side = 8 * Sq::kG;
-  const int squares = ((h + side - 1) / side) * ((w + side - 1) / side);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(squares * Sq::kCtas));
-  cfg.blockDim = dim3(Sq::kW * 32);
-  cfg.stream = st;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = Sq::kCtas;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = Sq::kCtas > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -275,6 +157,9 @@ struct IAnd {
 };
 struct IOr {
   __device__ int operator()(int a, int b) const { return a | b; }
+};
+struct IMax {
+  __device__ int operator()(int a, int b) const { return max(a, b); }
 };
 
 // op over aligned groups of TO lanes by xor butterflies at FROM, 2 FROM,
@@ -664,6 +549,542 @@ fit_levels_kernel(const int32_t* __restrict__ words, int h, int w, int num_facto
   }
 }
 
+// ---------------------------------------------------------------------------
+// owner_crush: eight lanes a block, four blocks a warp (the fit's layout)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxCands = 27;                  // candidates in one batch (the sweeps)
+constexpr int kBatchVals = 2 * kMaxCands + 2;  // their pixel maxima and error sums, the count
+constexpr int kRowStride = kBatchVals + 1;     // a block's row of region values
+constexpr int kCandBatch = 8;                  // ladder candidates verified per batch
+
+struct LMax {
+  __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
+};
+
+// Shared memory of one CTA of the crush: each block's decode frame (axis
+// normals n[k][c], then offsets m[k][c]), each block's row of region values
+// of the current batch (for a warp whose region is one block, each block's
+// own row; else the warp's first block's row), the warps' partial values
+// for the exchange (two sets), and each block's peeled ladder triples.
+template <int CH, int L>
+struct CrushShared {
+  using Sq = FitSquare<L>;
+  static constexpr int kCtaBlocks = Sq::kBlocks * Sq::kSquares;
+  int frames[kCtaBlocks * 6 * CH];
+  int rows[kCtaBlocks * kRowStride];
+  int xs[L >= 2 ? 2 * kBatchVals * Sq::kW : 1];
+  int trips[kCtaBlocks * kCandBatch];
+};
+
+// One lane's part of the crush of its block: the column sub (pixels sub +
+// 8 k, k = 0..7) and its u8 factors in registers, the block's decode frame
+// in shared memory, and the state of the search. The owner level is
+// uniform over a warp (a warp is a level-1 region, and the fit's owner is
+// uniform over every region); xchg is uniform over the CTA: some region of
+// the CTA spans warps (owner >= 2), so every batch passes one barrier.
+template <int CH, int L>
+struct CrushLane {
+  using Sq = FitSquare<L>;
+
+  int px[CH][8];
+  int f8w[8];      // pixel k's u8 factors, axis a in byte a
+  int vmask;       // bit k: pixel k lies inside the image
+  int sub, lane, warp, blk, owner, set;
+  bool xchg;
+  int count;       // region pixel count
+  int max_pix, max_blk, es;
+  bool floors;
+  int floor_pix, floor_blk;
+  CrushShared<CH, L>* sh;
+
+  // the block's axis normal n[k][c] and offset m[k][c]
+  __device__ const int* frame() const { return sh->frames + blk * 6 * CH; }
+  __device__ int n_at(int k, int c) const { return frame()[k * CH + c]; }
+  __device__ int m_at(int k, int c) const { return frame()[(3 + k) * CH + c]; }
+
+  __device__ bool admissible(int pm, int be) const {
+    return limg::admissible(pm, be, count, max_pix, max_blk, es, floors, floor_pix, floor_blk);
+  }
+  __device__ bool operator()(int pm, int be) const { return admissible(pm, be); }
+
+  // limg_common.cuh pixel_err of pixel k (0 outside the image), the clamp
+  // to [0, 255] by one instruction (__vimin_s32_relu: max(min(x, 255), 0))
+  __device__ int pixel_err_of(const int (&est)[CH], int k) const {
+    int d2[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int d = __vimin_s32_relu(est[c], 255) - px[c][k];
+      d2[c] = d * d;
+    }
+    const bool lo = d2[0] < 0x4000;
+    int e = d2[0] * (lo ? 2 : 3) + d2[1] * 4 + d2[2] * (lo ? 3 : 2);
+    if (CH == 4) e += d2[CH - 1] * 3;
+    return ((vmask >> k) & 1) ? e : 0;
+  }
+
+  // Exact (pixel max, error sum >> es) of this lane's pixels under the
+  // shift triple s (ops/crush.py evaluate_batch; the three axes' offsets,
+  // an order-free integer sum, are added first).
+  __device__ void eval(const int (&s)[3], int& pm, int& be) const {
+    int shr[3], qm[3], mul[3], nn[3][CH], msum[CH];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int se = min(s[k], 8);
+      shr[k] = 8 * k + se;
+      qm[k] = 0xFF >> se;
+      mul[k] = mult_for(se);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) nn[k][c] = s[k] > 7 ? 0 : n_at(k, c);
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      msum[c] = m_at(0, c) + (s[1] > 7 ? 0 : m_at(1, c)) + (s[2] > 7 ? 0 : m_at(2, c));
+    pm = 0;
+    be = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int est[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) est[c] = msum[c];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int fdec = ((f8w[j] >> shr[k]) & qm[k]) * mul[k];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) est[c] += (fdec * nn[k][c] + 128) >> 8;
+      }
+      const int e = pixel_err_of(est, j);
+      pm = max(pm, e);
+      be = add_wrap(be, e >> es);
+    }
+  }
+
+  // The sweeps of axis A quantize only A: the decode of the other two axes
+  // at shift 0 (offset and unquantized factor term) is the same for all of
+  // them, summed once per pixel and channel.
+  template <int A>
+  __device__ void sweep_base(int (&base)[CH][8]) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        int v = 0;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          if (k != A) v += m_at(k, c) + ((((f8w[j] >> (8 * k)) & 0xFF) * n_at(k, c) + 128) >> 8);
+        base[c][j] = v;
+      }
+    }
+  }
+  // eval of (A at shift s, the other axes at 0) on sweep_base's sums
+  template <int A>
+  __device__ void eval_sweep(const int (&base)[CH][8], int s, int& pm, int& be) const {
+    const int se = min(s, 8), shr = 8 * A + se, qm = 0xFF >> se, mul = mult_for(se);
+    int nn[CH], madd[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      nn[c] = s > 7 ? 0 : n_at(A, c);
+      madd[c] = (A == 0 || s <= 7) ? m_at(A, c) : 0;
+    }
+    pm = 0;
+    be = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int fdec = ((f8w[j] >> shr) & qm) * mul;
+      int est[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) est[c] = base[c][j] + madd[c] + ((fdec * nn[c] + 128) >> 8);
+      const int e = pixel_err_of(est, j);
+      pm = max(pm, e);
+      be = add_wrap(be, e >> es);
+    }
+  }
+  // The sweeps of axis A into pairs 9 A + s; (A, 0) is (0, 0, 0) for every
+  // axis and is evaluated once, as pair 0.
+  template <int A>
+  __device__ void sweep_axis() {
+    int base[CH][8];
+    sweep_base<A>(base);
+#pragma unroll 1
+    for (int s = A == 0 ? 0 : 1; s < 9; ++s) {
+      int pm, be;
+      eval_sweep<A>(base, s, pm, be);
+      put(9 * A + s, pm, be);
+    }
+  }
+
+  __device__ int row() const { return owner == 0 ? blk : (blk & ~3); }
+  __device__ int* my_row() const { return sh->rows + row() * kRowStride; }
+
+  // Value pair i of a batch: this lane's (pixel max, error sum) over its
+  // block (xor 1, 2, 4) or its warp (one warp reduction; integers, so any
+  // order), into the block's or warp's row; a warp of a larger region
+  // publishes its part for end_batch.
+  __device__ void put(int i, int pm, int be) {
+    if (owner == 0) {
+      pm = butterfly<1, 8>(pm, IMax());
+      be = butterfly<1, 8>(be, IAdd());
+      if (sub == 0) {
+        sh->rows[blk * kRowStride + 2 * i] = pm;
+        sh->rows[blk * kRowStride + 2 * i + 1] = be;
+      }
+      return;
+    }
+    pm = __reduce_max_sync(kFull, pm);
+    be = __reduce_add_sync(kFull, be);
+    if (lane != 0) return;
+    if (owner == 1) {
+      sh->rows[blk * kRowStride + 2 * i] = pm;
+      sh->rows[blk * kRowStride + 2 * i + 1] = be;
+    } else {
+      int* xs = sh->xs + set * kBatchVals * Sq::kW;
+      xs[(2 * i) * Sq::kW + warp % Sq::kW] = pm;
+      xs[(2 * i + 1) * Sq::kW + warp % Sq::kW] = be;
+    }
+  }
+
+  // Ends a batch of n value pairs (and the count at 2 n + 1): one barrier
+  // where the CTA exchanges, the level-2 and level-3 regions' values
+  // combined one to a lane (max for the pixel maxima, wrapping sums for the
+  // rest), then the warp's own row is readable.
+  template <int G>
+  __device__ void combine(int n) {
+    constexpr int kPer = 32 / G;
+    const int* xs = sh->xs + set * kBatchVals * Sq::kW;
+    const int base = (warp % Sq::kW) & ~(G - 1);
+    for (int r = 0; r < (2 * n + 2 + kPer - 1) / kPer; ++r) {
+      const int i = r * kPer + lane / G;
+      const bool is_max = i < 2 * n && (i & 1) == 0;
+      int x = i < 2 * n + 2 ? xs[i * Sq::kW + base + lane % G] : 0;
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1) {
+        const int y = __shfl_xor_sync(kFull, x, off);
+        x = is_max ? max(x, y) : add_wrap(x, y);
+      }
+      if (lane % G == 0 && i < 2 * n + 2) my_row()[i] = x;
+    }
+  }
+  __device__ void end_batch(int n, int cnt) {
+    // the count: a block's by xor 1, 2, 4, a warp's by one reduction
+    if (owner == 0) {
+      cnt = butterfly<1, 8>(cnt, IAdd());
+      if (sub == 0) sh->rows[blk * kRowStride + 2 * n + 1] = cnt;
+    } else {
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) {
+        if (owner == 1) {
+          sh->rows[blk * kRowStride + 2 * n + 1] = cnt;
+        } else {
+          int* xs = sh->xs + set * kBatchVals * Sq::kW;
+          xs[(2 * n) * Sq::kW + warp % Sq::kW] = 0;
+          xs[(2 * n + 1) * Sq::kW + warp % Sq::kW] = cnt;
+        }
+      }
+    }
+    if constexpr (L >= 2) {
+      if (xchg) {
+        __syncthreads();
+        if (owner == 2) combine<4>(n);
+        if constexpr (L >= 3) {
+          if (owner == 3) combine<16>(n);
+        }
+        set ^= 1;
+      }
+    }
+    __syncwarp();
+  }
+  __device__ int pm_at(int i) const { return my_row()[2 * i]; }
+  __device__ int be_at(int i) const { return my_row()[2 * i + 1]; }
+
+  // The region's float sum of its blocks' dist_blk: a warp's blocks by the
+  // pairwise tree (xor 8, 16), the warps of a larger region through one
+  // exchange by the same tree in warp (Morton) order.
+  __device__ float region_dist(float d) {
+    if (owner >= 1) d = butterfly<8, 32>(d, AddOp());
+    if constexpr (L >= 2) {
+      if (xchg) {
+        int* xs = sh->xs + set * kBatchVals * Sq::kW;
+        if (lane == 0) xs[warp % Sq::kW] = __float_as_int(d);
+        __syncthreads();
+        if (owner >= 2) {
+          const int g = owner == 2 ? 4 : 16;
+          const int base = (warp % Sq::kW) & ~(g - 1);
+          float x = __int_as_float(xs[base + lane % g]);
+          x = x + __shfl_xor_sync(kFull, x, 1);
+          x = x + __shfl_xor_sync(kFull, x, 2);
+          if (g == 16) {
+            x = x + __shfl_xor_sync(kFull, x, 4);
+            x = x + __shfl_xor_sync(kFull, x, 8);
+          }
+          d = __shfl_sync(kFull, x, 0);
+        }
+      }
+    }
+    return d;
+  }
+
+  // The floors of the reduced-factor modes: the region values at (0, 0, 0).
+  __device__ void set_floors(int num_factors, int pm0, int be0) {
+    if (num_factors < 3) {
+      floors = true;
+      floor_pix = pm0;
+      floor_blk = be0;
+    }
+  }
+
+  // Peels the best remaining of the 64 lattice keys (argmax, lowest index on
+  // ties), 8 a lane: key j of this lane is index sub + 8 j.
+  __device__ void peel(int (&key)[8], const int (&base)[3], int (&s)[3]) const {
+    long long best = (long long)key[0] * 64 + (63 - sub);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) best = max(best, (long long)key[j] * 64 + (63 - (sub + 8 * j)));
+    best = butterfly<1, 8>(best, LMax());
+    const int idx = 63 - (int)(best & 63);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (idx == sub + 8 * j) key[j] = kSentinel;
+    s[0] = max(base[0] - idx / 16, 0);
+    s[1] = max(base[1] - (idx / 4) % 4, 0);
+    s[2] = max(base[2] - idx % 4, 0);
+  }
+
+  // The shift triple of this block's region (limg_common.cuh crush_search,
+  // its candidates reduced in batches); statically dropped axes get 8.
+  __device__ void search(int crush_mode, int ladder_k, int num_factors, int cnt,
+                         int (&best)[3]) {
+    best[0] = best[1] = best[2] = 0;
+    floors = false;
+    floor_pix = floor_blk = 0;
+    if (crush_mode == kLadder) {
+      // the 27 per-axis sweeps (axis a at shift s, the other axes
+      // unquantized) in one batch
+      sweep_axis<0>();
+      sweep_axis<1>();
+      sweep_axis<2>();
+      end_batch(kMaxCands, cnt);
+      count = my_row()[2 * kMaxCands + 1];
+      set_floors(num_factors, pm_at(0), be_at(0));
+      LadderBox box;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        int pm_ax[9], be_ax[9];
+#pragma unroll
+        for (int s = 0; s < 9; ++s) {
+          pm_ax[s] = pm_at(s == 0 ? 0 : 9 * a + s);
+          be_ax[s] = be_at(s == 0 ? 0 : 9 * a + s);
+        }
+        ladder_axis(box, a, pm_ax, be_ax, *this);
+      }
+      int key[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) key[j] = ladder_key(box, *this, sub + 8 * j);
+      const int base[3] = {box.base[0], box.base[1], box.base[2]};
+      // verify the K best-ranked candidates, best first, kCandBatch a batch
+      int* trips = sh->trips + blk * kCandBatch;
+      int b_tot = -1, b_err = 2147483647;
+#pragma unroll 1
+      for (int r0 = 0; r0 < ladder_k; r0 += kCandBatch) {
+        const int n = min(kCandBatch, ladder_k - r0);
+#pragma unroll 1
+        for (int i = 0; i < n; ++i) {
+          int s[3], pm, be;
+          peel(key, base, s);
+          if (sub == 0) trips[i] = s[0] | (s[1] << 4) | (s[2] << 8);
+          eval(s, pm, be);
+          put(i, pm, be);
+        }
+        end_batch(n, cnt);
+#pragma unroll 1
+        for (int i = 0; i < n; ++i) {
+          const int tr = trips[i];
+          const int s[3] = {tr & 15, (tr >> 4) & 15, tr >> 8};
+          take_if_better(*this, s, pm_at(i), be_at(i), false, best, b_tot, b_err);
+        }
+      }
+    } else if (crush_mode == kExhaustive) {
+      // all 729 triples in ascending lex order, 9 a batch; ties to later
+      int b_tot = -1, b_err = 2147483647;
+#pragma unroll 1
+      for (int i0 = 0; i0 < 729; i0 += 9) {
+#pragma unroll 1
+        for (int i = 0; i < 9; ++i) {
+          const int s[3] = {(i0 + i) / 81, ((i0 + i) / 9) % 9, i};
+          int pm, be;
+          eval(s, pm, be);
+          put(i, pm, be);
+        }
+        end_batch(9, cnt);
+        if (i0 == 0) {
+          count = my_row()[2 * 9 + 1];
+          set_floors(num_factors, pm_at(0), be_at(0));
+        }
+#pragma unroll 1
+        for (int i = 0; i < 9; ++i) {
+          const int s[3] = {(i0 + i) / 81, ((i0 + i) / 9) % 9, i};
+          take_if_better(*this, s, pm_at(i), be_at(i), true, best, b_tot, b_err);
+        }
+      }
+    } else if (crush_mode == kGuess) {
+      // (0, 0, 0) for the floors, then the four canned triples
+#pragma unroll
+      for (int t = 0; t < 5; ++t) {
+        int g[3] = {0, 0, 0}, pm, be;
+        if (t > 0) guess_triple(t - 1, g);
+        eval(g, pm, be);
+        put(t, pm, be);
+      }
+      end_batch(5, cnt);
+      count = my_row()[2 * 5 + 1];
+      set_floors(num_factors, pm_at(0), be_at(0));
+      bool ok[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) ok[t] = admissible(pm_at(1 + t), be_at(1 + t));
+      const int pick = guess_pick(ok);
+      if (pick >= 0) guess_triple(pick, best);
+    } else {
+      end_batch(0, cnt);
+      count = my_row()[1];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (k >= num_factors) best[k] = max(best[k], 8);
+  }
+};
+
+template <int CH, int L, bool NAT>
+__global__ void __launch_bounds__(FitSquare<L>::kWarps * 32, L == 3 ? 1 : 4)
+owner_crush_kernel(const int32_t* __restrict__ words, int h, int w, int crush_mode, int dither,
+                   int ladder_k, int num_factors, int max_pix, int max_blk, uint32_t key,
+                   const int32_t* __restrict__ owner_in, const int32_t* __restrict__ f8_in,
+                   const int32_t* __restrict__ eps_in, int32_t* __restrict__ shifts_out,
+                   int32_t* __restrict__ q_out, int32_t* __restrict__ dec_out,
+                   float* __restrict__ dist_out, float* __restrict__ dist_blk_out,
+                   int32_t* __restrict__ bpp_out) {
+  using Sq = FitSquare<L>;
+  __shared__ CrushShared<CH, L> shared;
+  const int by0 = (h + 7) / 8, bx0 = (w + 7) / 8, nb = by0 * bx0;
+  const int warp = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const int squares_x = (bx0 + Sq::kG - 1) / Sq::kG;
+  const int square = (int)blockIdx.x * Sq::kSquares + warp / Sq::kW;
+  // whole warps of the last CTA at L = 1, which has no CTA barrier
+  if (square >= squares_x * ((by0 + Sq::kG - 1) / Sq::kG)) return;
+  const int sy = (square / squares_x) * Sq::kG, sx = (square % squares_x) * Sq::kG;
+
+  CrushLane<CH, L> cl;
+  cl.sub = lane & 7;
+  cl.lane = lane;
+  cl.warp = warp;
+  cl.blk = warp * 4 + (lane >> 3);
+  cl.sh = &shared;
+  cl.set = 0;
+  int oy, ox;
+  morton_yx<L>((warp % Sq::kW) * 4 + (lane >> 3), oy, ox);
+  const int by = sy + oy, bx = sx + ox;
+  const bool in_grid = by < by0 && bx < bx0;
+  const size_t b = in_grid ? (size_t)by * bx0 + bx : 0;
+  const int col = bx * 8 + cl.sub, nrows = col < w ? min(max(h - by * 8, 0), 8) : 0;
+  cl.vmask = (1 << nrows) - 1;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t word = k < nrows ? (uint32_t)words[(size_t)(by * 8 + k) * w + col] : 0u;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) cl.px[c][k] = (int)((word >> (8 * c)) & 0xFFu);
+    cl.f8w[k] = in_grid ? f8_in[plane_at<NAT>(by, bx, bx0, cl.sub + 8 * k)] : 0;
+  }
+  // the block's decode frame: lane k < 3 reads axis k's endpoint rows
+  if (cl.sub < 3) {
+    int* fr = shared.frames + cl.blk * 6 * CH;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int lo = in_grid ? eps_in[((size_t)(2 * cl.sub) * CH + c) * nb + b] : 0;
+      const int hi = in_grid ? eps_in[((size_t)(2 * cl.sub + 1) * CH + c) * nb + b] : 0;
+      fr[cl.sub * CH + c] = hi - lo;
+      fr[(3 + cl.sub) * CH + c] = lo;
+    }
+  }
+  __syncwarp();
+  // The CTA exchanges if it holds a region of level 2 or 3, whose owner its
+  // first block holds; blocks outside the grid take their region's owner
+  // and add the identity (no pixel) to every reduction.
+  cl.xchg = false;
+  int region_owner = 0;  // this warp's level-2 or level-3 region's owner, or 0
+  if constexpr (L >= 2) {
+    const int mine = (warp % Sq::kW) / 4;  // this warp's level-2 sub-square
+#pragma unroll
+    for (int q = 0; q < (1 << (2 * (L - 2))); ++q) {
+      int qy, qx;
+      morton_yx<L>(16 * q, qy, qx);
+      const int y = sy + qy, x = sx + qx;
+      const int o = y < by0 && x < bx0 ? owner_in[(size_t)y * bx0 + x] : 0;
+      if (o >= 2) cl.xchg = true;
+      if (q == mine && o >= 2) region_owner = o;
+      if (q == 0 && o == 3) region_owner = 3;
+    }
+  }
+  cl.owner = __any_sync(kFull, in_grid) ? __reduce_max_sync(kFull, in_grid ? owner_in[b] : 0)
+                                        : region_owner;
+  cl.max_pix = max_pix;
+  cl.max_blk = max_blk;
+  cl.es = (kP << (2 * L)) >= 2048 ? 4 : 0;  // ops/crush.py err_scale_shift
+
+  int best[3];
+  cl.search(crush_mode, ladder_k, num_factors, nrows, best);
+
+  // dither, crush, decode; the block's error in the natural order (the
+  // column's 8 rows in order, then xor 1, 2, 4)
+  int n_int[3][CH], m_int[3][CH];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      n_int[k][c] = cl.n_at(k, c);
+      m_int[k][c] = cl.m_at(k, c);
+    }
+  }
+  float dist_blk = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    int q[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int s = best[a];
+      int v = (cl.f8w[k] >> (8 * a)) & 0xFF;
+      if (dither != 0 && s > 0 && s < 8)
+        v = min(max(v + dither_noise(dither_bits(key, (uint32_t)b, a, cl.sub + 8 * k), s), 0),
+                255);
+      q[a] = v >> min(s, 8);
+    }
+    int est[CH];
+    decode_est<CH>(q, best, n_int, m_int, est);
+    const float err = (float)cl.pixel_err_of(est, k);
+    dist_blk = k == 0 ? err : dist_blk + err;
+    if (in_grid) {
+      const size_t at = plane_at<NAT>(by, bx, bx0, cl.sub + 8 * k);
+      if (q_out != nullptr) q_out[at] = q[0] | (q[1] << 8) | (q[2] << 16);
+      uint32_t d = CH == 3 ? 0xFF000000u : 0u;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) d |= (uint32_t)min(max(est[c], 0), 255) << (8 * c);
+      dec_out[at] = (int32_t)d;
+    }
+  }
+  dist_blk = butterfly<1, 8>(dist_blk, AddOp());
+  const float dist = cl.region_dist(dist_blk);
+  const int cnt_blk = butterfly<1, 8>(nrows, IAdd());
+
+  if (!in_grid || cl.sub != 0) return;  // after the last barrier
+  int fac_bits = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    shifts_out[(size_t)k * nb + b] = best[k];
+    fac_bits = add_wrap(fac_bits, mul_wrap(8 - min(best[k], 8), cl.count));
+  }
+  const int bits = header_bits(CH) + fac_bits;
+  const int bpp = min(0xFF, (bits + cl.count / 2) / max(cl.count, 1));
+  bpp_out[b] = cnt_blk > 0 ? bpp : 0;
+  dist_out[b] = dist;
+  dist_blk_out[b] = dist_blk;
+}
+
 template <int CH, int L, bool NAT>
 int launch_fit(const int32_t* words, int h, int w, int num_factors, int32_t* cnt0, int32_t* f8,
                int32_t* eps, float* avg, int32_t* owner, int32_t* stats, int32_t* reasons,
@@ -682,9 +1103,14 @@ int launch_crush(const int32_t* words, int h, int w, int crush_mode, int dither,
                  int num_factors, int max_pix, int max_blk, uint32_t key, const int32_t* owner,
                  const int32_t* f8, const int32_t* eps, int32_t* shifts, int32_t* q,
                  int32_t* dec, float* dist, float* dist_blk, int32_t* bpp, cudaStream_t st) {
-  return launch<L>(owner_crush_kernel<CH, L, NAT>, h, w, st, words, h, w, crush_mode, dither,
-                   ladder_k, num_factors, max_pix, max_blk, key, owner, f8, eps, shifts, q, dec,
-                   dist, dist_blk, bpp);
+  using Sq = FitSquare<L>;
+  const int side = 8 * Sq::kG;
+  const int squares = ((h + side - 1) / side) * ((w + side - 1) / side);
+  const int grid = (squares + Sq::kSquares - 1) / Sq::kSquares;
+  owner_crush_kernel<CH, L, NAT><<<grid, Sq::kWarps * 32, 0, st>>>(
+      words, h, w, crush_mode, dither, ladder_k, num_factors, max_pix, max_blk, key, owner, f8,
+      eps, shifts, q, dec, dist, dist_blk, bpp);
+  return (int)cudaGetLastError();
 }
 
 // The C entry points' bodies (encode_merged.cu, encode_natural.cu): the

@@ -1,18 +1,14 @@
-// Device code shared by the encode kernels (encode_fixed.cu, encode_merged.cu,
-// coalesce.cu).
+// Device code shared by the encode kernels (encode_fixed.cu, encode_region.cu,
+// encode_merged.cuh, coalesce.cu, crush_eval.cu).
 //
 // One warp holds one 8x8 block: lane l holds pixels l and l + 32 (the
-// quadtree fit, encode_merged.cuh, lays a block over 8 lanes instead). What
-// a kernel reduces over is a *region*: one block (the fixed grid), or an
-// aligned square of 4^l blocks whose warps sit in one CTA in Morton order
-// (the quadtree levels), or a contiguous segment of the run-coalescing
-// buffer (coalesce.cu, which calls the per-block pieces below between its
-// own segment scans). The region reduction is a policy class:
-//
-// - BlockReducer: the region is the block; the warp's own sums are final;
-// - OwnerReducer<Ex, L>: each warp's group is 4^owner warps, owner per warp.
-// A square of up to 16 blocks is one CTA; a square of 64 is a cluster of
-// four CTAs (Exchange).
+// quadtree kernels, encode_merged.cuh, lay a block over 8 lanes instead and
+// keep their own region reductions). What a kernel reduces over is a
+// *region*: one block (the fixed grid, BlockReducer: the warp's own sums
+// are final), a region of P pixels over a CTA (encode_region.cu), an
+// aligned square of 4^l blocks (the quadtree levels), or a contiguous
+// segment of the run-coalescing buffer (coalesce.cu, which calls the
+// per-block pieces below between its own segment scans).
 //
 // Float sums follow one fixed order, which the plain PyTorch versions
 // (limg_tpu_torch/ops/reduce.py, ops/fit.py) follow too, so kernel and
@@ -20,9 +16,9 @@
 // - over a block's 64 pixels, x[l] + x[l+32], then butterfly shuffles at
 //   16, 8, 4, 2, 1: the values of the halving tree x[:n/2] + x[n/2:]; the
 //   quadtree kernels of both layouts (encode_merged.cuh) sum in the
-//   natural layout's order instead (nat_sum);
-// - across a region's warps, a pairwise-adjacent tree in Morton order,
-//   (w0 + w1) + (w2 + w3), ..., through shared memory;
+//   natural layout's order instead (ops/reduce.py nat_block_sum);
+// - across a quadtree region's blocks, a pairwise-adjacent tree in Morton
+//   order, (b0 + b1) + (b2 + b3), ...;
 // - channel sums and other short sums are left folds;
 // - no contraction of a * b + c (build with --fmad=false) and exact
 //   1.0f / sqrtf(x) (no --use_fast_math).
@@ -30,7 +26,6 @@
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,7 +37,6 @@ constexpr float kTiny = 1e-38f;
 constexpr float kBig = 3.4e38f;
 constexpr int kSentinel = -2147483647;  // -(2^31) + 1: a peeled lattice key
 constexpr int kMaxExchange = 27;        // candidates reduced in one exchange
-constexpr int kMaxFloats = 8;           // floats reduced in one exchange
 
 enum CrushMode { kNone = 0, kLadder = 1, kExhaustive = 2, kGuess = 3 };
 
@@ -66,23 +60,6 @@ __device__ __forceinline__ float tree_sum(float lo, float hi) {
   float s = lo + hi;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s = s + __shfl_xor_sync(kFull, s, off);
-  return s;
-}
-
-// Sum of x over the block's 64 pixels in the natural layout's order
-// (limg_tpu/pallas_kernels/encode_natural.py:130 fold_sum; ops/reduce.py
-// nat_block_sum): a left fold over the 8 pixel rows of each column, then a
-// pairwise tree over the 8 column sums, partners x^1, x^2, x^4. Lane l holds
-// column l % 8 of rows l / 8 (lo) and 4 + l / 8 (hi).
-__device__ __forceinline__ float nat_sum(float lo, float hi) {
-  const int col = (int)(threadIdx.x & 7);
-  float s = __shfl_sync(kFull, lo, col);
-#pragma unroll
-  for (int r = 1; r < 4; ++r) s = s + __shfl_sync(kFull, lo, col + 8 * r);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) s = s + __shfl_sync(kFull, hi, col + 8 * r);
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) s = s + __shfl_xor_sync(kFull, s, off);
   return s;
 }
 
@@ -207,67 +184,6 @@ struct BlockReducer {
   template <int N> __device__ void crush(int (&)[N], int (&)[N]) const {}
 };
 
-// Shared-memory scratch of the warps of one square of blocks: W warps in
-// each of CTAS CTAs (a thread block cluster when CTAS > 1, read through
-// distributed shared memory), laid out [value][warp] in each CTA:
-// 2 * kMaxExchange ints and kMaxFloats floats per warp. ``warp`` is the
-// warp's index in the square, rank * W + the warp's index in its CTA.
-template <int W, int CTAS>
-struct Exchange {
-  int* ibuf;
-  float* fbuf;
-  int warp, lane;
-
-  __device__ void barrier() const {
-    if constexpr (CTAS == 1) {
-      __syncthreads();
-    } else {
-      cooperative_groups::this_cluster().sync();
-    }
-  }
-  template <class T>
-  __device__ T* slot(T* buf, int i, int g) const {
-    if constexpr (CTAS == 1) {
-      return buf + i * W + g;
-    } else {
-      return cooperative_groups::this_cluster().map_shared_rank(buf + i * W + g % W, g / W);
-    }
-  }
-  // Offset of this warp's value i in its own CTA's buffers.
-  __device__ int own(int i) const { return i * W + (CTAS == 1 ? warp : warp % W); }
-  // Value i of square warp g, after a put.
-  __device__ int iget(int i, int g) const { return *slot(ibuf, i, g); }
-  __device__ float fget(int i, int g) const { return *slot(fbuf, i, g); }
-
-  // Publish n values of this warp (lane 0 writes), then barrier.
-  __device__ void put_ints(const int* v, int n) const {
-    if (lane == 0)
-      for (int i = 0; i < n; ++i) ibuf[own(i)] = v[i];
-    barrier();
-  }
-  __device__ void put_floats(const float* v, int n) const {
-    if (lane == 0)
-      for (int i = 0; i < n; ++i) fbuf[own(i)] = v[i];
-    barrier();
-  }
-  // Ends an exchange: no warp overwrites a slot that another still reads.
-  __device__ void done() const { barrier(); }
-};
-
-// Pairwise-adjacent tree over the GROUP values get(0..GROUP).
-template <int GROUP, class Get, class Op>
-__device__ __forceinline__ float pair_tree(Get get, Op op) {
-  float t[GROUP];
-#pragma unroll
-  for (int i = 0; i < GROUP; ++i) t[i] = get(i);
-#pragma unroll
-  for (int n = GROUP; n > 1; n >>= 1) {
-#pragma unroll
-    for (int i = 0; i < n / 2; ++i) t[i] = op(t[2 * i], t[2 * i + 1]);
-  }
-  return t[0];
-}
-
 struct AddOp {
   __device__ float operator()(float a, float b) const { return a + b; }
 };
@@ -276,72 +192,6 @@ struct MinOp {
 };
 struct MaxOp {
   __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-
-// Each warp's region is the aligned group of 4^owner warps holding it, in a
-// square of 4^L warps.
-template <class Ex, int L>
-struct OwnerReducer {
-  Ex ex;
-  int owner;
-
-  __device__ int group() const { return 1 << (2 * owner); }
-  __device__ int base() const { return ex.warp & ~(group() - 1); }
-
-  __device__ int sum_int(int v) const {
-    ex.put_ints(&v, 1);
-    int acc = 0;
-    for (int k = 0; k < group(); ++k) acc = add_wrap(acc, ex.iget(0, base() + k));
-    ex.done();
-    return acc;
-  }
-
-  // Region float sum: the pairwise tree of the owner-level group.
-  __device__ float sum_float(float v) const {
-    ex.put_floats(&v, 1);
-    const float out = level_sum<1>(v);
-    ex.done();
-    return out;
-  }
-
-  template <int LVL>
-  __device__ float level_sum(float out) const {
-    if constexpr (LVL > L) {
-      return out;
-    } else {
-      constexpr int kGroup = 1 << (2 * LVL);
-      if (owner == LVL) {
-        const int b = ex.warp & ~(kGroup - 1);
-        out = pair_tree<kGroup>([&](int k) { return ex.fget(0, b + k); }, AddOp());
-      }
-      return level_sum<LVL + 1>(out);
-    }
-  }
-
-  // Region pixel max and block-error sum of N candidates.
-  template <int N>
-  __device__ void crush(int (&pm)[N], int (&be)[N]) const {
-    if (ex.lane == 0) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        ex.ibuf[ex.own(i)] = pm[i];
-        ex.ibuf[ex.own(N + i)] = be[i];
-      }
-    }
-    ex.barrier();
-    const int g = group(), b = base();
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      int m = ex.iget(i, b), s = ex.iget(N + i, b);
-      for (int k = 1; k < g; ++k) {
-        m = max(m, ex.iget(i, b + k));
-        s = add_wrap(s, ex.iget(N + i, b + k));
-      }
-      pm[i] = m;
-      be[i] = s;
-    }
-    ex.done();
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -803,24 +653,27 @@ __device__ __forceinline__ void ladder_axis(LadderBox& box, int a, const int (&p
   }
 }
 
-// The 64 lattice keys (approx-admissible, total shift, -approx error) of
-// the box, index oa * 16 + ob * 4 + oc; this lane holds lane and lane + 32.
+// Lattice key idx (of 64, oa * 16 + ob * 4 + oc) of the box: approx-
+// admissible, total shift, -approx error.
+template <class Adm>
+__device__ __forceinline__ int ladder_key(const LadderBox& box, const Adm& adm, int idx) {
+  const int oa = idx / 16, ob = (idx / 4) % 4, oc = idx % 4;
+  const int ablk = box.err0 + (sel4(box.d_blk[0], oa) + sel4(box.d_blk[1], ob) +
+                               sel4(box.d_blk[2], oc));
+  const int apix = box.pix0 + (sel4(box.d_pix[0], oa) + sel4(box.d_pix[1], ob) +
+                               sel4(box.d_pix[2], oc));
+  const int tot = max(box.base[0] - oa, 0) + max(box.base[1] - ob, 0) + max(box.base[2] - oc, 0);
+  const int ok = adm(apix, ablk) ? 1 : 0;
+  const int err_pack = (33554431) - min(ablk >> 6, 33554431);
+  return (int)(((uint32_t)ok << 30) + ((uint32_t)tot << 25) + (uint32_t)err_pack);
+}
+
+// The 64 lattice keys of the box; this lane holds lane and lane + 32.
 template <class Adm>
 __device__ __forceinline__ void ladder_keys(const LadderBox& box, const Adm& adm, int lane,
                                             int (&key)[2]) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int idx = lane + 32 * j;
-    const int oa = idx / 16, ob = (idx / 4) % 4, oc = idx % 4;
-    const int ablk = box.err0 + (sel4(box.d_blk[0], oa) + sel4(box.d_blk[1], ob) +
-                                 sel4(box.d_blk[2], oc));
-    const int apix = box.pix0 + (sel4(box.d_pix[0], oa) + sel4(box.d_pix[1], ob) +
-                                 sel4(box.d_pix[2], oc));
-    const int tot = max(box.base[0] - oa, 0) + max(box.base[1] - ob, 0) + max(box.base[2] - oc, 0);
-    const int ok = adm(apix, ablk) ? 1 : 0;
-    const int err_pack = (33554431) - min(ablk >> 6, 33554431);
-    key[j] = (int)(((uint32_t)ok << 30) + ((uint32_t)tot << 25) + (uint32_t)err_pack);
-  }
+  for (int j = 0; j < 2; ++j) key[j] = ladder_key(box, adm, lane + 32 * j);
 }
 
 // Peels the best remaining key (argmax, min index on ties); s = its triple.
@@ -974,8 +827,8 @@ __device__ __forceinline__ int32_t pack_decoded(const int (&dec)[CH][2], int j) 
 // encode_merged.cuh and the run-building match kernels in coalesce.cu share
 // it. Fixed order: left folds over channels and terms, and the 27-probe
 // mean as a left fold over probes 0..26 (lane j of a group of LANES lanes
-// computes probes j, j + LANES, ...; the fold walks them by shuffle), then
-// / 27.0f.
+// computes probes j, j + LANES, ...; the fold walks them by shuffle; with
+// one lane, in the thread), then / 27.0f.
 // ---------------------------------------------------------------------------
 
 constexpr float kMaxRatio = 1.375f;
@@ -1041,10 +894,78 @@ __device__ __forceinline__ void probe_factors(const float (&col)[CH], const int 
   fc = dot * ilc;
 }
 
+// The probe colours of probe p = a + 3b + 9c: half steps along the axes
+// of frame b (col_b) and of frame a (col_a).
+template <int CH>
+__device__ __forceinline__ void probe_colours(int p, const Normals<CH>& na, const Normals<CH>& nb,
+                                              float (&col_a)[CH], float (&col_b)[CH]) {
+  const float pw[3] = {(float)(p % 3) * 0.5f, (float)((p / 3) % 3) * 0.5f,
+                       (float)((p / 9) % 3) * 0.5f};
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    col_b[c] = pw[0] * nb.n[0][c] + pw[1] * nb.n[1][c] + pw[2] * nb.n[2][c];
+    col_a[c] = pw[0] * na.n[0][c] + pw[1] * na.n[1][c] + pw[2] * na.n[2][c];
+  }
+}
+
+// One thread's 27-probe mean of the test of a against b (a left fold over
+// probes 0..26, then / 27): probe_factors with what every probe shares
+// (il = inv_or_zero(|n_k|^2), 1 / lsq) computed once.
+template <int CH>
+__device__ float probe_mean_thread(const int (&ep_a)[6][CH], const Normals<CH>& na,
+                                   const int (&ep_b)[6][CH], const Normals<CH>& nb) {
+  float il[2][3], rl[2][3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    il[0][k] = inv_or_zero(fold_sq<CH>(na.n[k]));
+    il[1][k] = inv_or_zero(fold_sq<CH>(nb.n[k]));
+    rl[0][k] = 1.0f / na.lsq[k];
+    rl[1][k] = 1.0f / nb.lsq[k];
+  }
+  float mean = 0.0f;
+#pragma unroll 2
+  for (int p = 0; p < 27; ++p) {
+    float col[2][CH];   // the probe colour along b's axes, projected into a; and vice versa
+    probe_colours<CH>(p, na, nb, col[1], col[0]);
+    float dev = 0.0f;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int (&ep)[6][CH] = f == 0 ? ep_a : ep_b;
+      const Normals<CH>& nr = f == 0 ? na : nb;
+      float est[CH];
+      float dot = (col[f][0] - (float)ep[0][0]) * nr.n[0][0];
+#pragma unroll
+      for (int c = 1; c < CH; ++c) dot = dot + (col[f][c] - (float)ep[0][c]) * nr.n[0][c];
+      const float fa = dot * il[f][0];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) est[c] = (float)ep[0][c] + fa * nr.n[0][c];
+      dot = (col[f][0] - est[0] - (float)ep[2][0]) * nr.n[1][0];
+#pragma unroll
+      for (int c = 1; c < CH; ++c) dot = dot + (col[f][c] - est[c] - (float)ep[2][c]) * nr.n[1][c];
+      const float fb = dot * il[f][1];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) est[c] = est[c] + fb * nr.n[1][c];
+      dot = (col[f][0] - est[0] - (float)ep[4][0]) * nr.n[2][0];
+#pragma unroll
+      for (int c = 1; c < CH; ++c) dot = dot + (col[f][c] - est[c] - (float)ep[4][c]) * nr.n[2][c];
+      const float fc = dot * il[f][2];
+      // the six deviation terms in probe_factors' order: a's three, then b's
+      dev = f == 0 ? fabsf(fa) * rl[f][0] : dev + fabsf(fa) * rl[f][0];
+      dev = dev + fabsf(0.5f - fb) * 2.0f * rl[f][1];
+      dev = dev + fabsf(0.5f - fc) * 2.0f * rl[f][2];
+    }
+    mean = p == 0 ? dev : mean + dev;
+  }
+  return mean / 27.0f;
+}
+
 // Merge test of region a (candidate) against region b (reference):
 // ops/match.py match_decomps, by the aligned group of LANES lanes (a power
 // of two up to 32) holding ``lane`` (its index in the group); all 32 lanes
-// of the warp call it. Returns the MATCH_REASON_BITS mask; sets match.
+// of the warp call it. LANES = 1 is one thread's test with no shuffle
+// (probe_mean_thread), which skips the probes where the result does not
+// depend on them (a fast accept, or the ratio out of range). Returns the
+// MATCH_REASON_BITS mask; sets match.
 template <int CH, int LANES = 32>
 __device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
                           const float (&avg_b)[CH], const int (&ep_b)[6][CH], int lane,
@@ -1068,41 +989,48 @@ __device__ int match_rows(const float (&avg_a)[CH], const int (&ep_a)[6][CH],
   const float ratio = (sum_a + 1.0f) / (sum_b + 1.0f);
   const bool ratio_ok = ratio <= kMaxRatio && ratio >= kMinRatio;
 
-  // probe p = a + 3b + 9c (half steps along A, B, C) on lane p % LANES
-  constexpr int kPer = (27 + LANES - 1) / LANES;
-  float devs[kPer];
+  bool probe_ok;
+  if constexpr (LANES == 1) {
+    probe_ok = !fast && ratio_ok &&
+               probe_mean_thread<CH>(ep_a, na, ep_b, nb) < kMaxFactorSum;
+  } else {
+    // probe p = a + 3b + 9c (half steps along A, B, C) on lane p % LANES
+    constexpr int kPer = (27 + LANES - 1) / LANES;
+    float devs[kPer];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int p = lane + LANES * i;
-    float dev = 0.0f;
-    if (p >= 27) {
+    for (int i = 0; i < kPer; ++i) {
+      const int p = lane + LANES * i;
+      float dev = 0.0f;
+      if (p >= 27) {
+        devs[i] = dev;
+        continue;
+      }
+      const float pw[3] = {(float)(p % 3) * 0.5f, (float)((p / 3) % 3) * 0.5f,
+                           (float)((p / 9) % 3) * 0.5f};
+      float col_b[CH], col_a[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        col_b[c] = pw[0] * nb.n[0][c] + pw[1] * nb.n[1][c] + pw[2] * nb.n[2][c];
+        col_a[c] = pw[0] * na.n[0][c] + pw[1] * na.n[1][c] + pw[2] * na.n[2][c];
+      }
+      float fa, fb, fc, ga, gb, gc;
+      probe_factors<CH>(col_b, ep_a, na, fa, fb, fc);
+      probe_factors<CH>(col_a, ep_b, nb, ga, gb, gc);
+      dev = fabsf(fa) * (1.0f / na.lsq[0]);
+      dev = dev + fabsf(0.5f - fb) * 2.0f * (1.0f / na.lsq[1]);
+      dev = dev + fabsf(0.5f - fc) * 2.0f * (1.0f / na.lsq[2]);
+      dev = dev + fabsf(ga) * (1.0f / nb.lsq[0]);
+      dev = dev + fabsf(0.5f - gb) * 2.0f * (1.0f / nb.lsq[1]);
+      dev = dev + fabsf(0.5f - gc) * 2.0f * (1.0f / nb.lsq[2]);
       devs[i] = dev;
-      continue;
     }
-    const float pw[3] = {(float)(p % 3) * 0.5f, (float)((p / 3) % 3) * 0.5f,
-                         (float)((p / 9) % 3) * 0.5f};
-    float col_b[CH], col_a[CH];
+    float mean = __shfl_sync(kFull, devs[0], 0, LANES);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      col_b[c] = pw[0] * nb.n[0][c] + pw[1] * nb.n[1][c] + pw[2] * nb.n[2][c];
-      col_a[c] = pw[0] * na.n[0][c] + pw[1] * na.n[1][c] + pw[2] * na.n[2][c];
-    }
-    float fa, fb, fc, ga, gb, gc;
-    probe_factors<CH>(col_b, ep_a, na, fa, fb, fc);
-    probe_factors<CH>(col_a, ep_b, nb, ga, gb, gc);
-    dev = fabsf(fa) * (1.0f / na.lsq[0]);
-    dev = dev + fabsf(0.5f - fb) * 2.0f * (1.0f / na.lsq[1]);
-    dev = dev + fabsf(0.5f - fc) * 2.0f * (1.0f / na.lsq[2]);
-    dev = dev + fabsf(ga) * (1.0f / nb.lsq[0]);
-    dev = dev + fabsf(0.5f - gb) * 2.0f * (1.0f / nb.lsq[1]);
-    dev = dev + fabsf(0.5f - gc) * 2.0f * (1.0f / nb.lsq[2]);
-    devs[i] = dev;
+    for (int p = 1; p < 27; ++p)
+      mean = mean + __shfl_sync(kFull, devs[p / LANES], p % LANES, LANES);
+    mean = mean / 27.0f;
+    probe_ok = mean < kMaxFactorSum;
   }
-  float mean = __shfl_sync(kFull, devs[0], 0, LANES);
-#pragma unroll
-  for (int p = 1; p < 27; ++p) mean = mean + __shfl_sync(kFull, devs[p / LANES], p % LANES, LANES);
-  mean = mean / 27.0f;
-  const bool probe_ok = mean < kMaxFactorSum;
 
   match = fast || (ratio_ok && probe_ok);
   if (fast) return 1;

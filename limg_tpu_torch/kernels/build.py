@@ -45,8 +45,10 @@ def find_nvcc() -> str:
         "of limg_tpu_torch are built from source at first use")
 
 
-def source_files(src: Path) -> list[Path]:
-    """``src`` and every file it includes from ``csrc/``, recursively."""
+def source_files(src: Path, csrc: Path | None = None) -> list[Path]:
+    """``src`` and every file it includes from ``csrc`` (default
+    ``csrc/``), recursively."""
+    csrc = csrc or CSRC
     seen, todo = [], [src]
     while todo:
         path = todo.pop()
@@ -54,15 +56,17 @@ def source_files(src: Path) -> list[Path]:
             continue
         seen.append(path)
         for inc in _INCLUDE.findall(path.read_text()):
-            if (CSRC / inc).exists():
-                todo.append(CSRC / inc)
+            if (csrc / inc).exists():
+                todo.append(csrc / inc)
     return sorted(seen)
 
 
-def source_digest(name: str) -> str:
-    """Hash of ``csrc/<name>.cu``, its included headers and the flags."""
+def source_digest(name: str, csrc: Path | None = None) -> str:
+    """Hash of ``<csrc>/<name>.cu`` (default ``csrc/``), its included
+    headers and the flags."""
+    csrc = csrc or CSRC
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_files(CSRC / f"{name}.cu"):
+    for path in source_files(csrc / f"{name}.cu", csrc):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return digest.hexdigest()[:16]
 

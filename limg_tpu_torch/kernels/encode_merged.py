@@ -22,7 +22,10 @@ row-major block order; pixel planes are ``(64, NB)``:
 
 ``stats_bits`` bit l marks a nonempty level-l region's top-left block whose
 owner level is >= l; ``reasons[l-1]`` holds the level-l merge decision's
-MATCH_REASON_BITS at nonempty level-l top-left blocks, 0 elsewhere.
+MATCH_REASON_BITS at nonempty level-l top-left blocks, 0 elsewhere. The
+crush takes an ``owner`` map that is uniform over each region, as the fit
+writes it: its kernel reads a region's owner from any of its blocks, and
+its plain version raises on any other map (``check_owner_regions``).
 
 On a CUDA tensor each wrapper launches ``csrc/encode_merged.cu`` (built at
 first use) or raises; on a CPU tensor it runs the plain version, which
@@ -85,6 +88,36 @@ def _check_words(words: torch.Tensor, levels: int) -> None:
         raise ValueError(f"words must be (H, W) int32, got {tuple(words.shape)} {words.dtype}")
     if not MIN_LEVELS <= levels <= MAX_LEVELS:
         raise ValueError(f"levels must be {MIN_LEVELS}-{MAX_LEVELS}, got {levels}")
+
+
+def check_owner_regions(words: torch.Tensor, owner: torch.Tensor, levels: int) -> None:
+    """Raise unless ``owner`` (NB,), in row-major block order, is a
+    quadtree of regions as the fit writes it: levels 0 to ``levels`` - 1,
+    and every block of a level-l region (its aligned 2^l x 2^l square of
+    blocks, cut by the grid) owned at l. The crush kernels read a region's
+    owner from any one of its blocks, so on any other map they and their
+    plain versions would disagree."""
+    grid = layout.grid_for(*words.shape)
+    by, bx = grid.blocks_y, grid.blocks_x
+    if tuple(owner.shape) != (by * bx,):
+        raise ValueError(f"owner must be ({by * bx},), got {tuple(owner.shape)}")
+    if owner.numel() and not (int(owner.min()) >= 0 and int(owner.max()) < levels):
+        raise ValueError(f"owner levels must be 0-{levels - 1}")
+    plane = owner.reshape(by, bx)
+    for lvl in range(1, levels):
+        s = 1 << lvl
+        ys, xs = -(-by // s), -(-bx // s)
+        at = (plane == lvl).to(torch.int8)
+        # per square: is some block owned at lvl, and are all of them (the
+        # blocks outside the grid pad the first with 0, the second with 1)
+        some = torch.zeros((ys * s, xs * s), dtype=torch.int8, device=owner.device)
+        every = torch.ones_like(some)
+        some[:by, :bx] = at
+        every[:by, :bx] = at
+        some = some.reshape(ys, s, xs, s).amax(dim=(1, 3))
+        every = every.reshape(ys, s, xs, s).amin(dim=(1, 3))
+        if not torch.equal(some, every):
+            raise ValueError(f"owner is not uniform over its level-{lvl} regions")
 
 
 def _unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -254,6 +287,7 @@ def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torc
                           seed: int, emit_q: bool = True) -> OwnerCrush:
     """Plain PyTorch version of the crush kernel, on any device."""
     _check_words(words, levels)
+    check_owner_regions(words, owner, levels)
     return owner_crush_body(MortonBlocks(words, levels), owner, f8_sel, eps_sel, cfg, levels,
                             seed, emit_q)
 
@@ -342,9 +376,11 @@ def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.T
     lib = _library()
     dev = words.device
     h, w = words.shape
-    # block-major: one warp reads one block's 64 contiguous words (free when
-    # f8_sel is fit_levels_kernel's transposed view)
+    # block-major: a block's 8 lanes read its rows of 8 contiguous words
+    # (free when f8_sel is fit_levels_kernel's transposed view); every
+    # buffer the kernel reads is held here until it is enqueued
     f8_bm = f8_sel.t().contiguous()
+    owner, eps_sel = owner.contiguous(), eps_sel.contiguous()
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -359,7 +395,7 @@ def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.T
             int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
             cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
             dither_key(seed, cfg.dither_seed),
-            owner.contiguous().data_ptr(), f8_bm.data_ptr(), eps_sel.contiguous().data_ptr(),
+            owner.data_ptr(), f8_bm.data_ptr(), eps_sel.data_ptr(),
             shifts.data_ptr(), None if q is None else q.data_ptr(), dec.data_ptr(),
             dist.data_ptr(), dist_blk.data_ptr(), bpp.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

@@ -17,7 +17,8 @@ kernels/encode_merged.py, per-block rows in row-major block order, except
 that ``f8_sel``, ``q`` and ``dec`` are natural (8 * blocks_y, 8 *
 blocks_x) int32 planes: the padded image's own layout, which the decoded
 image is without a relayout. ``owner_crush_natural_kernel`` takes
-``f8_sel`` in that layout.
+``f8_sel`` in that layout, and an ``owner`` map uniform over each region,
+as the fit writes it.
 
 The JAX kernels' TPU machinery has no counterpart here: the (64, 512) tile
 geometry and its ``_C_W`` padding, the one-hot MXU compaction of
@@ -43,7 +44,7 @@ from ..ops.dither import dither_key
 from ..ops.reduce import NatGroupReducer, NatOwnerReducer, nat_pairwise
 from .encode_fixed import _CRUSH_MODES
 from .encode_merged import (FitLevels, OwnerCrush, _check_words, _cuda_route, _raise_on,
-                            fit_levels_body, owner_crush_body)
+                            check_owner_regions, fit_levels_body, owner_crush_body)
 
 # kernel launches since the last reset (read and reset by callers)
 launches = {"fit_levels_natural": 0, "owner_crush_natural": 0}
@@ -136,6 +137,7 @@ def owner_crush_natural_reference(words: torch.Tensor, owner: torch.Tensor,
                                   emit_q: bool = True) -> OwnerCrush:
     """Plain PyTorch version of the natural crush kernel, on any device."""
     _check_words(words, levels)
+    check_owner_regions(words, owner, levels)
     return owner_crush_body(NatBlocks(words, levels), owner, f8_sel, eps_sel, cfg, levels, seed,
                             emit_q)
 
@@ -214,6 +216,8 @@ def owner_crush_natural_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel:
         return torch.empty(shape, dtype=dtype, device=dev)
 
     plane = (8 * grid.blocks_y, 8 * grid.blocks_x)
+    # every buffer the kernel reads is held here until it is enqueued
+    owner, f8_sel, eps_sel = owner.contiguous(), f8_sel.contiguous(), eps_sel.contiguous()
     shifts, dec, bpp = empty(3, nb), empty(*plane), empty(nb)
     q = empty(*plane) if emit_q else None
     dist, dist_blk = empty(nb, dtype=torch.float32), empty(nb, dtype=torch.float32)
@@ -224,8 +228,7 @@ def owner_crush_natural_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel:
             int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
             cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
             dither_key(seed, cfg.dither_seed),
-            owner.contiguous().data_ptr(), f8_sel.contiguous().data_ptr(),
-            eps_sel.contiguous().data_ptr(), shifts.data_ptr(),
+            owner.data_ptr(), f8_sel.data_ptr(), eps_sel.data_ptr(), shifts.data_ptr(),
             None if q is None else q.data_ptr(), dec.data_ptr(), dist.data_ptr(),
             dist_blk.data_ptr(), bpp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "owner_crush_natural", lib)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import seeded_rows, seeded_run_buffer, seg_map
+from chip_smoke import RAGGED_SIZES, seeded_rows, seeded_run_buffer, seg_map
 from limg_tpu_torch import EncodeConfig
 from limg_tpu_torch.kernels import encode_fixed as kmod
 from limg_tpu_torch.ops import layout
@@ -254,6 +254,44 @@ def test_fit_kernel_at_ragged_squares(device, h, w, channels, natural):
         got = kernel(words, cfg, levels)
         torch.cuda.synchronize(device)
         _assert_same(got, plain(words, cfg, levels))
+
+
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("h,w", RAGGED_SIZES)
+def test_owner_crush_kernel_at_ragged_squares(device, h, w, channels, natural):
+    """Regions owned at levels 2 and 3 cut by both image edges (a flat
+    corner merges up to the top level): their warps outside the grid take
+    the region's owner and add nothing. Levels 2-4, q emitted and not,
+    dithering off and on (chip_smoke.compare_ragged_crush, phases 2b and 2e)."""
+    from chip_smoke import compare_ragged_crush
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+
+    fit_plain, kernel, plain = (
+        (kn.fit_levels_natural_reference, kn.owner_crush_natural_kernel,
+         kn.owner_crush_natural_reference) if natural
+        else (km.fit_levels_reference, km.owner_crush_kernel, km.owner_crush_reference))
+    _, n_cases = compare_ragged_crush(device, fit_plain, kernel, plain, sizes=((h, w),),
+                                      channels=(channels,), compare=_assert_same)
+    assert n_cases == 12
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_match_neighbors_kernel_at_plane_edges(device, channels):
+    """Planes of 1, 2, odd and non-multiple-of-32 blocks a side: the last
+    thread of a row has no right neighbour, the last row no down one."""
+    from chip_smoke import NEIGHBOR_EDGES
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(channels + 10)
+    for by, bx in NEIGHBOR_EDGES:
+        plane = torch.from_numpy(seeded_rows(rng, by * bx, channels)).to(device)
+        plane = plane.reshape(7 * channels, by, bx)
+        got = kc.match_neighbors_kernel(plane, channels)
+        torch.cuda.synchronize(device)
+        for g, w in zip(got, kc.match_neighbors_reference(plane, channels)):
+            assert torch.equal(g, w), (by, bx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""The reduction orders of the quadtree fit kernel (csrc/encode_merged.cuh)
-and the segment kernel (csrc/coalesce.cu), emulated lane by lane in torch
-and held bit-equal to the plain versions' orders (ops/reduce.py,
-ops/segments.py), on the CPU; and the segment kernel's short path for
+"""The reduction orders of the quadtree kernels (csrc/encode_merged.cuh:
+the fit and the owner crush) and the run-coalescing kernels
+(csrc/coalesce.cu: the segment encode, the one-thread neighbour match),
+emulated lane by lane in torch and held bit-equal to the plain versions'
+orders and results (ops/reduce.py, ops/segments.py, ops/crush.py,
+ops/match.py), on the CPU; and the segment kernel's short path for
 segments with no member pixel, held to the plain version's outputs.
 
 The kernels run only on the card; what these tests pin is that each
@@ -17,7 +19,15 @@ layout of work over lanes adds floats in the order the plain versions
   by butterflies 1, 2, 4, 8: the pairwise-adjacent tree;
 - the segment kernel scans a segment of up to 32 members within one warp,
   shuffles up and down by 1, 2, 4, 8, 16 that skip partners outside the
-  segment: the doubling scan's fwd + bwd - x.
+  segment: the doubling scan's fwd + bwd - x;
+- the owner crush lays a block over 8 lanes as the fit does: a candidate's
+  pixel max and error sum per lane, then per block, warp and region (any
+  order: integers); the 25 distinct sweeps in one batch, the ladder's 64
+  keys 8 a lane, peeled by an arg-max over the packed (key, 63 - index),
+  the K candidates in batches of 8; a region's dist by xor 8, 16 and the
+  warps' pairwise tree;
+- match_neighbors gives each thread one block: its 27 probes fold left in
+  the thread, and are skipped where the bit does not depend on them.
 """
 
 import numpy as np
@@ -26,8 +36,13 @@ import torch
 
 from limg_tpu_torch.config import EncodeConfig
 from limg_tpu_torch.kernels import coalesce as kc
-from limg_tpu_torch.ops.fit import tree_sum
-from limg_tpu_torch.ops.reduce import nat_block_sum, pairwise_tree
+from limg_tpu_torch.kernels import encode_merged as km
+from limg_tpu_torch.ops import crush
+from limg_tpu_torch.ops.decode import decode_blocks
+from limg_tpu_torch.ops.error import weighted_error
+from limg_tpu_torch.ops.fit import Decomposition, inv_or_zero, tree_sum
+from limg_tpu_torch.ops.match import _COLOR_DIFF_FACTORS, _normals, match_decomps
+from limg_tpu_torch.ops.reduce import OwnerReducer, nat_block_sum, pairwise_tree
 from limg_tpu_torch.ops.segments import seg_mixed_all
 
 torch.set_num_threads(1)
@@ -221,3 +236,347 @@ def test_segment_short_path_equals_the_plain_version(mode, nf, dith, ch):
             assert torch.equal(got_f.view(torch.int32), want_f.view(torch.int32)), name
         else:
             assert torch.equal(got_f, want_f), name
+
+
+# ---------------------------------------------------------------------------
+# The owner crush: 8 lanes a block, 4 blocks a warp (csrc/encode_merged.cuh
+# CrushLane)
+# ---------------------------------------------------------------------------
+
+SENTINEL = -(2**31) + 1
+
+
+def _peel_lanes(key: torch.Tensor, k: int) -> list:
+    """The kernel's peel: lane l holds keys l + 8 j; each lane's best packed
+    (key, 63 - index), then a max by xor 1, 2, 4; the winner is set to the
+    sentinel. key (64, N) -> k (N,) indices."""
+    key = key.clone().to(torch.int64)
+    idx = torch.arange(64)[:, None]
+    out = []
+    for _ in range(k):
+        packed = (key * 64 + (63 - idx)).reshape(8, 8, -1)        # (j, lane, N)
+        lane_best = packed.amax(dim=0)                           # (lane, N)
+        best = _butterfly(lane_best.t(), (1, 2, 4), torch.maximum)[:, 0]
+        win = 63 - (best & 63)
+        out.append(win)
+        key = torch.where(idx == win[None], SENTINEL, key)
+    return out
+
+
+def _peel_argmax(key: torch.Tensor, k: int) -> list:
+    """ops/crush.py ladder_core's peel: argmax, lowest index on ties."""
+    iota = torch.arange(64, dtype=torch.int32)[:, None]
+    out = []
+    for _ in range(k):
+        m = key.amax(dim=0)
+        win = torch.where(key == m[None], iota, 64).amin(dim=0)
+        out.append(win.to(torch.int64))
+        key = torch.where(iota == win[None], SENTINEL, key)
+    return out
+
+
+@pytest.mark.parametrize("span", [2, 5, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_eight_keys_a_lane_peel_is_argmax_lowest_index(seed, span):
+    """Ties between keys (a span of 2 or 5 values: most keys tie), peeled
+    past all 64 (then every key is the sentinel and index 0 wins)."""
+    rng = np.random.default_rng(seed)
+    key = torch.from_numpy(rng.integers(0, span, (64, 40)).astype(np.int32))
+    key[:, :5] = SENTINEL                        # blocks with nothing left to peel
+    for got, want in zip(_peel_lanes(key, 70), _peel_argmax(key, 70)):
+        assert torch.equal(got, want)
+
+
+def _morton_inputs(h, w, ch, levels, nf):
+    """A small image's Morton-ordered blocks, the fit's owner and factors,
+    as owner_crush_body prepares them."""
+    from chip_smoke import flat_corner, small_image, with_alpha
+    from limg_tpu_torch.regions import _words
+
+    rgb = small_image(h, w)
+    img = flat_corner(rgb if ch == 3 else with_alpha(rgb))
+    words = _words(torch.from_numpy(np.ascontiguousarray(img)))
+    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, num_factors=nf)
+    fit = km.fit_levels_reference(words, cfg, levels)
+    blocks = km.MortonBlocks(words, levels)
+    px = km._unpack(blocks.packed, ch)
+    eps = blocks.embed(fit.eps_sel)
+    d = Decomposition(torch.zeros(eps.shape[1:], dtype=torch.float32), *eps.unbind(0))
+    f8 = km._unpack(blocks.embed_pixels(fit.f8_sel), 3)
+    return blocks, px, f8, d, blocks.embed(fit.owner)
+
+
+def _lane_region(err, owner, levels, es):
+    """(K, 64, N) pixel errors -> region (pixel max, error sum) (K, N): per
+    lane over its 8 pixels l + 8 k, per block by xor 1, 2, 4, per warp (4
+    blocks) and per square's warps for owners 1-3. Integer sums wrap."""
+    k, _, n = err.shape
+    lanes = err.reshape(k, 8, 8, n)                               # (K, row, lane, N)
+    pm = lanes.amax(dim=1).movedim(1, -1)                          # (K, N, lane)
+    be = (lanes >> es).sum(dim=1, dtype=torch.int32).movedim(1, -1)
+    pm = _butterfly(pm, (1, 2, 4), torch.maximum)[..., 0]
+    be = _butterfly(be, (1, 2, 4), torch.add)[..., 0]
+    out_pm, out_be = pm.clone(), be.clone()
+    for lvl in range(1, levels):
+        g = 4 ** lvl
+        gm = pm.reshape(k, n // g, g).amax(dim=-1, keepdim=True).expand(k, n // g, g)
+        gs = be.reshape(k, n // g, g).sum(dim=-1, dtype=torch.int32, keepdim=True)
+        gs = gs.expand(k, n // g, g)
+        out_pm = torch.where(owner == lvl, gm.reshape(k, n), out_pm)
+        out_be = torch.where(owner == lvl, gs.reshape(k, n), out_be)
+    return out_pm, out_be
+
+
+def _kernel_search(px, mask, f8, d, owner, cfg, levels):
+    """CrushLane::search on region values, per block: the batches and the
+    peel of csrc/encode_merged.cuh. Returns the shifts (3, N)."""
+    ch, n = cfg.channels, px.shape[-1]
+    es = crush.err_scale_shift(64 * 4 ** (levels - 1))
+    mask_i = mask.to(torch.int32)
+
+    def region(triples):
+        c = (torch.tensor(triples, dtype=torch.int32)[:, :, None].expand(-1, 3, n)
+             if isinstance(triples, list) else triples)
+        q = f8 >> torch.clamp(c, max=8)[..., None, :]
+        err = weighted_error(decode_blocks(q, c, d, ch).transpose(0, 1), px[:, None]) * mask_i
+        return (c, *_lane_region(err, owner, levels, es))
+
+    count = _lane_region(mask_i[None], owner, levels, 0)[1][0]
+    best = crush._init_best(n, px.device)
+    if not cfg.crush_bits:
+        shifts = best[0]
+    elif cfg.crush_mode == "ladder":
+        sweep = [(0, 0, 0)] + [tuple(s if ax == a else 0 for ax in range(3))
+                               for a in range(3) for s in range(1, 9)]
+        _, pm, be = region(sweep)                                 # 25 distinct sweeps
+        floors = (pm[0], be[0]) if cfg.num_factors < 3 else None
+        fl = None if floors is None else (floors[0][None], floors[1][None])
+        base, d_blk, d_pix, s_cand = [], [], [], []
+        for a in range(3):
+            pm_ax = torch.cat([pm[:1], pm[1 + 8 * a:9 + 8 * a]])
+            be_ax = torch.cat([be[:1], be[1 + 8 * a:9 + 8 * a]])
+            adm = crush._admissible(pm_ax, be_ax, count[None], cfg, fl, es)
+            b = torch.where(adm, torch.arange(9)[:, None], 0).amax(dim=0)
+            s = torch.clamp(b[None] - torch.arange(4)[:, None], min=0)
+            base.append(b)
+            s_cand.append(s)
+            d_blk.append(torch.gather(be_ax - be_ax[:1], 0, s.long()))
+            d_pix.append(torch.gather(pm_ax - pm_ax[:1], 0, s.long()))
+        ablk, apix = be[0][None] + crush._lattice(d_blk), pm[0][None] + crush._lattice(d_pix)
+        ok = crush._admissible(apix, ablk, count[None], cfg, fl, es).to(torch.int32)
+        key = ((ok << 30) + (crush._lattice(s_cand) << 25)
+               + ((2**25 - 1) - torch.clamp(ablk >> 6, max=2**25 - 1)))
+        peeled = _peel_lanes(key, cfg.ladder_k)
+        for r0 in range(0, cfg.ladder_k, 8):                      # batches of 8
+            top = torch.stack(peeled[r0:r0 + 8])
+            cands = torch.stack([torch.clamp(base[0][None] - top // 16, min=0),
+                                 torch.clamp(base[1][None] - (top // 4) % 4, min=0),
+                                 torch.clamp(base[2][None] - top % 4, min=0)], dim=1)
+            c, pm_k, be_k = region(cands.to(torch.int32))
+            best = crush._select(c, pm_k, be_k, count, cfg, floors, best, False, es)
+        shifts = best[0]
+    elif cfg.crush_mode == "exhaustive":
+        floors = None
+        triples = [(a, b, c) for a in range(9) for b in range(9) for c in range(9)]
+        for i0 in range(0, 729, 9):                               # batches of 9
+            c, pm, be = region(triples[i0:i0 + 9])
+            if i0 == 0 and cfg.num_factors < 3:
+                floors = (pm[0], be[0])
+            best = crush._select(c, pm, be, count, cfg, floors, best, True, es)
+        shifts = best[0]
+    else:                                                         # guess: (0, 0, 0), then 4
+        _, pm, be = region([(0, 0, 0)] + list(crush.GUESS_TRIPLES))
+        floors = (pm[0], be[0]) if cfg.num_factors < 3 else None
+        fl = None if floors is None else (floors[0][None], floors[1][None])
+        ok = crush._admissible(pm[1:], be[1:], count[None], cfg, fl, es)
+        t = torch.tensor(crush.GUESS_TRIPLES, dtype=torch.int32)[:, :, None]
+        hi = torch.where(ok[1][None], t[1], torch.where(ok[2][None], t[2], t[0]))
+        lo = torch.where(ok[3][None], t[3], torch.zeros_like(t[0]))
+        shifts = torch.where(ok[0][None], hi, lo)
+    return crush.force_dropped_axes(shifts, cfg.num_factors), count
+
+
+@pytest.mark.parametrize("mode,k", [("ladder", 8), ("ladder", 5), ("ladder", 11),
+                                    ("exhaustive", 8), ("guess", 8), ("none", 8)])
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("levels", [2, 3, 4])
+def test_eight_lane_crush_search_is_find_shifts(levels, nf, mode, k):
+    """The owner crush's search in the kernel's batches and peel equals
+    ops/crush.py find_shifts with the owner reducer (the plain version's
+    selection) on a small image cut by both edges, with a flat corner owned
+    at the top level."""
+    blocks, px, f8, d, owner = _morton_inputs(130, 70, 3, levels, nf)
+    cfg = EncodeConfig(error_factor=100, num_factors=nf, crush_mode=mode, ladder_k=k)
+    got, count = _kernel_search(px, blocks.mask, f8, d, owner, cfg, levels)
+    red = OwnerReducer(owner, levels)
+    want = crush.force_dropped_axes(crush.find_shifts(px, blocks.mask, f8, d, cfg, red)[0], nf)
+    real = blocks.mask.any(dim=0)
+    assert torch.equal(got[:, real], want[:, real])
+    assert torch.equal(count[real], red.sum(blocks.mask.to(torch.int32))[real])
+    assert (owner[real] == levels - 1).any()       # the top level holds cut squares
+
+
+def _region_owners(rng, n_squares: int, levels: int) -> torch.Tensor:
+    """Owner levels uniform over every region, as the fit gives them: each
+    square picks its top level or splits into sub-squares, recursively."""
+    def square(lvl):
+        if lvl == 0 or rng.random() < 0.3:
+            return [lvl] * 4 ** lvl
+        return [o for _ in range(4) for o in square(lvl - 1)]
+
+    return torch.tensor([o for _ in range(n_squares) for o in square(levels - 1)],
+                        dtype=torch.int32)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_region_dist_lane_tree_is_the_owner_pairwise_tree(levels, seed):
+    """A region's dist from its blocks' dist_blk: a warp's 4 blocks by xor 8,
+    16 (owner >= 1), the warps of a level-2 or level-3 region by the
+    exchange's butterflies 1, 2 (, 4, 8) in warp order; blocks outside the
+    grid add +0.0 and take their region's owner. Equals OwnerReducer's
+    pairwise tree in Morton order."""
+    rng = np.random.default_rng(seed * 10 + levels)
+    side = 4 ** (levels - 1)
+    n = 6 * side
+    owner = _region_owners(rng, 6, levels)
+    dist_blk = torch.from_numpy((rng.standard_normal(n) ** 2 * rng.uniform(1, 1e6, n))
+                                .astype(np.float32))
+    outside = torch.from_numpy(rng.random(n) < 0.2)
+    dist_blk = torch.where(outside, 0.0, dist_blk)
+    ref_owner = torch.where(outside, 0, owner)           # the plain version's padding
+    want = OwnerReducer(ref_owner, levels).combine_sum(dist_blk)
+    lanes = dist_blk.reshape(-1, 4)[..., None].expand(-1, 4, 8).reshape(-1, 32)
+    warp = _butterfly(lanes, (8, 16), torch.add)[:, 0]                 # (warps,)
+    got = torch.where(owner == 0, dist_blk, warp.repeat_interleave(4))
+    for lvl, g in ((2, 4), (3, 16)):
+        if lvl >= levels:
+            continue
+        x = warp.reshape(-1, g)                          # lane l of the group holds warp l
+        x = _butterfly(x, [1 << b for b in range(g.bit_length() - 1)], torch.add)[:, 0]
+        got = torch.where(owner == lvl, x.repeat_interleave(4 * g), got)
+    keep = ~outside
+    assert torch.equal(got[keep].view(torch.int32), want[keep].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# match_neighbors: one thread a block (csrc/coalesce.cu, match_rows<CH, 1>)
+# ---------------------------------------------------------------------------
+
+def _one_thread_match(da: Decomposition, db: Decomposition, ch: int) -> torch.Tensor:
+    """limg_common.cuh match_rows<CH, 1> for N pairs side by side: the
+    inverse lengths once per pair, probes 0..26 folded left in the thread
+    and then / 27, skipped (no probe evaluated) where the pair is a fast
+    accept or its ratio is out of range."""
+    na, lsq_a = _normals(da, ch)
+    nb, lsq_b = _normals(db, ch)
+    w = _COLOR_DIFF_FACTORS
+    avg_diff = (da.avg[0] - db.avg[0]) * (da.avg[0] - db.avg[0]) * w[0]
+    for c in range(1, ch):
+        avg_diff = avg_diff + (da.avg[c] - db.avg[c]) * (da.avg[c] - db.avg[c]) * w[c]
+    sum_a = lsq_a[0] + lsq_a[1] + lsq_a[2]
+    sum_b = lsq_b[0] + lsq_b[1] + lsq_b[2]
+    range_ok = (sum_a < 200.0 * 3 * ch) & (sum_b < 200.0 * 3 * ch)
+    fast = (avg_diff < 16.0 * 3 * ch) & range_ok
+    ratio = (sum_a + 1.0) / (sum_b + 1.0)
+    ratio_ok = (ratio <= 1.375) & (ratio >= np.float32(1.0 / 1.375))
+    probe = ~fast & ratio_ok                              # the threads that run the probes
+
+    def fold(v):
+        s = v[0]
+        for x in v[1:]:
+            s = s + x
+        return s
+
+    def il(n):
+        return [inv_or_zero(fold([x * x for x in n[k]])) for k in range(3)]
+
+    def factors(col, dd, n, inv):
+        lo = [dd[1][c].float() for c in range(ch)]       # dirA_min, then the offsets
+        fa = fold([(col[c] - lo[c]) * n[0][c] for c in range(ch)]) * inv[0]
+        est = [lo[c] + fa * n[0][c] for c in range(ch)]
+        ob = [dd[3][c].float() for c in range(ch)]
+        fb = fold([(col[c] - est[c] - ob[c]) * n[1][c] for c in range(ch)]) * inv[1]
+        est = [est[c] + fb * n[1][c] for c in range(ch)]
+        oc = [dd[5][c].float() for c in range(ch)]
+        fc = fold([(col[c] - est[c] - oc[c]) * n[2][c] for c in range(ch)]) * inv[2]
+        return fa, fb, fc
+
+    il_a, il_b = il(na), il(nb)
+    rl_a, rl_b = [1.0 / x for x in lsq_a], [1.0 / x for x in lsq_b]
+    sel = probe.nonzero().flatten()
+    mean = torch.zeros_like(sum_a)
+    if sel.numel():
+        sub = lambda v: v[..., sel]                       # noqa: E731
+        na_s = [[sub(x) for x in r] for r in na]
+        nb_s = [[sub(x) for x in r] for r in nb]
+        da_s = [sub(t) for t in da]
+        db_s = [sub(t) for t in db]
+        ila, ilb = [sub(x) for x in il_a], [sub(x) for x in il_b]
+        rla, rlb = [sub(x) for x in rl_a], [sub(x) for x in rl_b]
+        acc = None
+        for p in range(27):
+            pw = [float(p % 3) * 0.5, float((p // 3) % 3) * 0.5, float((p // 9) % 3) * 0.5]
+            col_b = [pw[0] * nb_s[0][c] + pw[1] * nb_s[1][c] + pw[2] * nb_s[2][c]
+                     for c in range(ch)]
+            col_a = [pw[0] * na_s[0][c] + pw[1] * na_s[1][c] + pw[2] * na_s[2][c]
+                     for c in range(ch)]
+            fa, fb, fc = factors(col_b, da_s, na_s, ila)
+            ga, gb, gc = factors(col_a, db_s, nb_s, ilb)
+            dev = fa.abs() * rla[0]
+            dev = dev + (0.5 - fb).abs() * 2.0 * rla[1]
+            dev = dev + (0.5 - fc).abs() * 2.0 * rla[2]
+            dev = dev + ga.abs() * rlb[0]
+            dev = dev + (0.5 - gb).abs() * 2.0 * rlb[1]
+            dev = dev + (0.5 - gc).abs() * 2.0 * rlb[2]
+            acc = dev if acc is None else acc + dev
+        mean[sel] = acc / 27.0
+    return fast | (probe & (mean < 3.0))
+
+
+def _decomp(rows: torch.Tensor, ch: int) -> Decomposition:
+    return Decomposition(rows[:ch], *(rows[(1 + e) * ch:(2 + e) * ch].to(torch.int32)
+                                      for e in range(6)))
+
+
+def _edge_pairs(ch: int) -> tuple:
+    """Row pairs at the predicate's edges: degenerate axes (zero normals),
+    flat blocks of two colours (a contract: they match), length-sum ratios
+    of exactly 1.375 and 1 / 1.375, and seeded pairs."""
+    from chip_smoke import seeded_rows
+
+    rng = np.random.default_rng(ch)
+    a = seeded_rows(rng, 400, ch)
+    b = a + (rng.random(a.shape) < 0.3) * rng.integers(-6, 7, a.shape)
+    a[ch:, :40] = 0                                     # flat a
+    b[ch:, :20] = 0                                     # flat b: two flat colours
+    a[ch:, 40:60] = a[ch:, 40:60] // 16 * 16            # coarse normals, some zero
+    b[3 * ch:5 * ch, 60:80] = b[3 * ch:5 * ch, 60:80][:, :1]    # axis B degenerate
+    # sums of the +3-biased weighted lengths: a 21, b 15 -> ratio 22 / 16
+    for i, (ra, rb) in enumerate(((21, 15), (15, 21))):
+        col = 80 + i
+        for r, lsq in ((a, ra), (b, rb)):
+            r[ch:, col] = 0
+            r[ch, col] = r[2 * ch, col] = 0                 # axis A: n = (1, 1, 0) ...
+            r[2 * ch:2 * ch + 2, col] = 1
+            if lsq == 21:                                   # ... and axis B too
+                r[4 * ch:4 * ch + 2, col] = 1
+        a[:ch, col] = b[:ch, col] + 30                      # no fast accept
+    return torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b.astype(np.float32))
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_one_thread_probe_loop_is_match_decomps(ch):
+    a, b = _edge_pairs(ch)
+    da, db = _decomp(a, ch), _decomp(b, ch)
+    want, stats = match_decomps(da, db, ch)
+    got = _one_thread_match(da, db, ch)
+    assert torch.equal(got, want)
+    # the edges are there: skipped probes both ways, and the exact ratios
+    assert stats["fast_accept"].any() and stats["ratio_reject"].any()
+    assert (~stats["fast_accept"] & ~stats["ratio_reject"]).any()
+    sums = [sum(_normals(x, ch)[1]) for x in (da, db)]
+    ratio = (sums[0] + 1.0) / (sums[1] + 1.0)
+    assert (ratio[80] == 1.375) and (ratio[81] == np.float32(1.0 / 1.375))
+    assert not stats["ratio_reject"][80:82].any()
+    assert want[:20].all()                                # flat pairs of two colours match

@@ -368,6 +368,39 @@ def test_wrappers_check_their_inputs():
         km.fit_levels_kernel(words.to("meta"), cfg, 3)
 
 
+@pytest.mark.parametrize("natural", [False, True])
+def test_owner_crush_takes_only_owner_maps_uniform_over_regions(natural):
+    """The crush kernels read a region's owner from any one of its blocks,
+    so both plain versions take an owner map only where every block of a
+    level-l region (its aligned square, cut by the grid) is owned at l."""
+    from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.regions import _words
+
+    img = make_test_image(np.random.default_rng(3), 40, 72)     # 5 x 9 blocks
+    words = _words(torch.from_numpy(img[..., :3].copy()))
+    cfg = EncodeConfig()
+    fit_plain, plain = ((kn.fit_levels_natural_reference, kn.owner_crush_natural_reference)
+                        if natural else (km.fit_levels_reference, km.owner_crush_reference))
+    fit = fit_plain(words, cfg, 3)
+
+    def crush(cells):
+        owner = torch.zeros((5, 9), dtype=torch.int32)
+        for (y, x), lvl in cells.items():
+            owner[y, x] = lvl
+        return plain(words, owner.reshape(-1), fit.f8_sel, fit.eps_sel, cfg, 3, 0)
+
+    crush({})
+    crush({(0, 0): 1, (0, 1): 1, (1, 0): 1, (1, 1): 1})
+    crush({(4, 8): 2})                   # the level-2 square's one block in the grid
+    crush({(y, x): 2 for y in range(4) for x in range(4, 8)})
+    for bad in ({(0, 0): 1}, {(4, 6): 1}, {(y, x): 2 for y in range(4) for x in range(4)
+                                           if (y, x) != (3, 3)}):
+        with pytest.raises(ValueError, match="uniform"):
+            crush(bad)
+    with pytest.raises(ValueError, match="levels"):
+        crush({(4, 8): 3})
+
+
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library's cache key."""
     srcs = build.source_files(build.CSRC / "encode_merged.cu")
@@ -383,3 +416,16 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "limg_common.cuh").write_text((tmp_path / "limg_common.cuh").read_text() + "\n")
     assert build.source_digest("encode_fixed") != before
 
+
+
+def test_build_key_of_another_checkout(tmp_path):
+    """A baseline checkout's sources (tools/profile_torch_kernels.py
+    --baseline) are keyed by their own text: equal to this checkout's
+    while they are a copy, different once a header is edited."""
+    for p in build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    assert build.source_digest("encode_merged", tmp_path) == build.source_digest("encode_merged")
+    (tmp_path / "encode_merged.cuh").write_text((tmp_path / "encode_merged.cuh").read_text()
+                                                + "\n")
+    assert build.source_digest("encode_merged", tmp_path) != build.source_digest("encode_merged")
+    assert build.source_digest("encode_fixed", tmp_path) == build.source_digest("encode_fixed")

@@ -1,7 +1,9 @@
-"""Time the quadtree fit and segment-encode kernels of limg_tpu_torch alone at
-4K on one CUDA card, beside a baseline build of the same kernels.
+"""Time the quadtree fit, owner-crush, neighbour-match and segment-encode
+kernels of limg_tpu_torch alone at 4K on one CUDA card, beside a baseline
+build of the same kernels.
 
-    python3 tools/profile_torch_kernels.py [--baseline DIR] [--out FILE]
+    python3 tools/profile_torch_kernels.py [--baseline DIR] [--out FILE] [--lane rgb]
+                                           [--kernels-only]
 
 Builds ``encode_merged``, ``encode_natural`` and ``coalesce`` from this
 checkout (and, with ``--baseline``, from the checkout at DIR into DIR's own
@@ -15,16 +17,20 @@ images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
   warm-up, and the mean of 10 calls back to back, which hides the host's
   launch overhead) and torch.profiler device time of the kernel itself
   (mean over 5 calls) side by side: ``fit_levels`` at 3 levels and at 2
-  (the price of a level), ``fit_levels_natural``, ``owner_crush``,
-  ``owner_crush_natural``, and ``segment_encode`` on the default encode's
+  (the price of a level), ``fit_levels_natural``, ``owner_crush`` (ladder
+  K = 8, and with ``crush_mode="none"``, which prices the search),
+  ``owner_crush_natural``, ``match_neighbors`` on the default encode's
+  level-0 and level-1 row planes, (7ch, 270, 480) and (7ch, 135, 240),
+  and ``segment_encode`` on the default encode's
   run buffer, whole and cut to its member lanes (the price of the lanes
   that hold no run member); with a baseline, the two builds in turns
   (baseline, this, this, baseline);
 - the run buffer's segment lengths (how many segments and 128-lane tiles
-  hold more than 32 members);
-- the default merged step (``fused_merged_pre``, the capacity read,
-  ``fused_merged_finish``) by events and by the profiler's device busy time,
-  with each build;
+  hold more than 32 members), and how many blocks own at each level (the
+  fit's ``owner``) and how many 3-level squares hold an owner of level 2;
+- the default merged step and the natural default step
+  (``fused_merged_pre``, the capacity read, ``fused_merged_finish``) by
+  events and by the profiler's device busy time, with each build;
 - the 4K encodes of every merged path (Morton with and without coalescing,
   natural, RD) with dithering off, with each build: PSNR, bpp, runs, and
   the blocks whose owner level differs from the JAX package's recorded
@@ -87,20 +93,26 @@ def build_baseline(checkout: Path) -> dict:
     flags; {name: ctypes.CDLL}."""
     import ctypes
 
-    from limg_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc
+    from limg_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc, source_digest
 
+    csrc = checkout / "limg_tpu_torch" / "csrc"
     out_dir = checkout / "build" / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
 
     def one(name):
-        out = out_dir / f"lib{name}_baseline.so"
-        src = checkout / "limg_tpu_torch" / "csrc" / f"{name}.cu"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-        return name, ctypes.CDLL(str(out)), proc.stdout + proc.stderr
+        # keyed by the baseline's sources, headers and the flags, as
+        # kernels/build.py keys this checkout's libraries
+        out = out_dir / f"lib{name}_baseline_{source_digest(name, csrc)}.so"
+        log_file = out.with_suffix(".log")
+        if not out.exists():
+            src = csrc / f"{name}.cu"
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+            log_file.write_text(proc.stdout + proc.stderr)
+        return name, ctypes.CDLL(str(out)), log_file.read_text()
 
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         built = list(pool.map(one, LIBRARIES))
@@ -228,6 +240,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="a checkout of the baseline tree")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "profile_kernels.json")
+    ap.add_argument("--lane", choices=("rgb", "rgba"), action="append",
+                    help="the image lanes to run (default both; torch.profiler drops the "
+                         "kernel rows of a second lane in one process, so give one a run)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time the kernels alone and stop (no steps, no encodes)")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -260,13 +277,15 @@ def main():
     for which, libs in ptxas.items():
         for name, lines in libs.items():
             for ln in lines:
-                if "fit_levels" in ln or "segment_encode" in ln or "owner_crush" in ln:
+                if re.search(r"fit_levels|segment_encode|owner_crush|match_", ln):
                     log(f"  ptxas {which} {name}: {ln}")
     result = {"card": smi, "ptxas": ptxas, "kernels": {}, "steps": {}, "encodes": {},
-              "segments": {}}
+              "segments": {}, "owners": {}}
     fx = np.load(COALESCE_FIXTURE)
     images = case_images(2160, 3840)
     for lane, img in images.items():
+        if args.lane and lane not in args.lane:
+            continue
         cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
         img_d = _as_image_tensor(img, device)
         words = _words(img_d)
@@ -275,8 +294,18 @@ def main():
         fit_n = kn.fit_levels_natural_kernel(words, cfg, 3)
         crush_args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, 3, 0)
         crush_n_args = (words, fit_n.owner, fit_n.f8_sel, fit_n.eps_sel, cfg, 3, 0)
-        (packed, mask, seg, blocks), _ = image_run_buffer(
+        cfg_none = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", crush_mode="none")
+        none_args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg_none, 3, 0)
+        owners = torch.bincount(fit.owner.long(), minlength=3).tolist()
+        top = fit.owner.reshape(270, 480)[::4, ::4]   # each 3-level square's first block
+        result["owners"][lane] = {"blocks_per_level": owners,
+                                  "squares_with_level_2": int((top == 2).sum()),
+                                  "squares": int(top.numel())}
+        log(f"  4K {lane} owner levels (blocks at 0 / 1 / 2): {owners}; squares owned at "
+            f"level 2: {int((top == 2).sum())} of {int(top.numel())}")
+        (packed, mask, seg, blocks), plane = image_run_buffer(
             img, EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False), device)
+        planes = [plane.contiguous(), plane[:, ::2, ::2].contiguous()]
         members = int(mask.any(dim=0).sum())
         cut = tuple(t[..., :members].contiguous() for t in (packed, mask, seg, blocks))
         result["segments"][lane] = {**segment_lengths(seg), "lanes": int(seg.numel()),
@@ -288,8 +317,14 @@ def main():
             "fit_levels_natural L3": (lambda: kn.fit_levels_natural_kernel(words, cfg, 3),
                                       r"fit_levels_kernel"),
             "owner_crush L3": (lambda: km.owner_crush_kernel(*crush_args), r"owner_crush_kernel"),
+            "owner_crush L3 crush none": (lambda: km.owner_crush_kernel(*none_args),
+                                          r"owner_crush_kernel"),
             "owner_crush_natural L3": (lambda: kn.owner_crush_natural_kernel(*crush_n_args),
                                        r"owner_crush_kernel"),
+            "match_neighbors level 0": (lambda: kc.match_neighbors_kernel(planes[0], cfg.channels),
+                                        r"match_neighbors_kernel"),
+            "match_neighbors level 1": (lambda: kc.match_neighbors_kernel(planes[1], cfg.channels),
+                                        r"match_neighbors_kernel"),
             "segment_encode all lanes": (lambda: kc.segment_encode_kernel(packed, mask, seg,
                                                                           blocks, cfg, 0x5EED),
                                          r"segment_encode_kernel"),
@@ -302,7 +337,12 @@ def main():
             "fit_levels L2": lambda: km.fit_levels_reference(words, cfg, 2),
             "fit_levels_natural L3": lambda: kn.fit_levels_natural_reference(words, cfg, 3),
             "owner_crush L3": lambda: km.owner_crush_reference(*crush_args),
+            "owner_crush L3 crush none": lambda: km.owner_crush_reference(*none_args),
             "owner_crush_natural L3": lambda: kn.owner_crush_natural_reference(*crush_n_args),
+            "match_neighbors level 0": lambda: kc.match_neighbors_reference(planes[0],
+                                                                           cfg.channels),
+            "match_neighbors level 1": lambda: kc.match_neighbors_reference(planes[1],
+                                                                           cfg.channels),
             "segment_encode all lanes": lambda: kc.segment_encode_reference(
                 packed, mask, seg, blocks, cfg, 0x5EED),
             "segment_encode member lanes": lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED),
@@ -325,24 +365,30 @@ def main():
                 f"{r['build']} {r['events_ms']!r} ms (back to back {r['batch_ms']!r}, profiler "
                 f"{r['profiler_ms']!r})" for r in rows) + f" [{smi}]")
 
+        if args.kernels_only:
+            continue
         nb = 270 * 480
 
-        def step():
-            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, 3, need_q=False, device=device)
+        def step(layout):
+            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, 3, need_q=False, device=device,
+                                                    fused_layout=layout)
             cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, 3, False, cap)
+            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, 3, False, cap,
+                                                     fused_layout=layout)
             return out["total_err"], out["mean_bpp"]
 
-        rows = []
-        for which in builds.names:
-            builds.use(which)
-            ev, _ = events_ms(step, device)
-            _, busy = profiled(step, device, None)
-            rows.append({"build": which, "events_ms": ev, "device_busy_ms": busy})
-        result["steps"][f"{lane} default merged step"] = rows
-        log(f"  4K {lane} default merged step: " + ", ".join(
-            f"{r['build']} {r['events_ms']!r} ms (device busy {r['device_busy_ms']!r})"
-            for r in rows) + f" [{smi}]")
+        for layout in ("morton", "natural"):
+            rows = []
+            for which in builds.names:
+                builds.use(which)
+                ev, _ = events_ms(lambda: step(layout), device)
+                _, busy = profiled(lambda: step(layout), device, None)
+                rows.append({"build": which, "events_ms": ev, "device_busy_ms": busy})
+            name = "default merged step" if layout == "morton" else "natural default step"
+            result["steps"][f"{lane} {name}"] = rows
+            log(f"  4K {lane} {name}: " + ", ".join(
+                f"{r['build']} {r['events_ms']!r} ms (device busy {r['device_busy_ms']!r})"
+                for r in rows) + f" [{smi}]")
 
         ref_owner = fx[f"4k_{lane}_l3.owner"]
         paths = {

@@ -18,7 +18,9 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    source, all started together;
 2. ``encode_fixed_p64`` vs its plain PyTorch version on the card (same
    inputs): integer outputs bit-equal, dist within 1e-6 relative, over
-   images, channel counts, crush modes, num_factors and dithering;
+   images, channel counts, crush modes, num_factors and dithering, and at
+   its edges (a last CTA of fewer blocks than the others, all-masked
+   blocks);
 2b. the same for ``fit_levels`` and ``owner_crush`` over levels 2 to 4,
    RGB and RGBA, aligned and edge-padded images (4-level squares cut by
    both edges), and the same settings; and ``owner_crush`` at ragged
@@ -34,7 +36,8 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    mode, num_factors 1-3, dithering off and on;
 2d. the same for ``encode_region`` at P = 256, 1024 and 4096 (16x16, 32x32
    and 64x64 pixel regions), RGB and RGBA, aligned and edge-padded images,
-   the settings of phase 2;
+   the settings of phase 2, and at its edges (part-filled last CTAs,
+   all-masked regions);
 2e. the same for ``fit_levels_natural`` and ``owner_crush_natural`` (levels
    2 to 4, RGB and RGBA, edge-padded images, the settings of phase 2, q
    emitted and not; the crush also at phase 2b's ragged squares), for
@@ -307,6 +310,60 @@ SETTINGS = ([(mode, 3, dith) for mode in ("ladder", "exhaustive", "guess", "none
             + [("exhaustive", 1, False), ("guess", 2, True)])
 
 
+# the region encode at its edges: a last CTA that holds fewer regions than
+# the others (32 blocks a CTA at P = 64, 8 regions at 256, 2 at 1024; 96 x
+# 160 px is 240 blocks, 60 / 15 / 6 regions) and regions with no pixel
+# inside the image (a grid one region row and column larger than the image)
+EDGE_IMAGE = (96, 160)
+EDGE_SETTINGS = [("ladder", 3, True), ("exhaustive", 1, False), ("guess", 2, True),
+                 ("none", 3, False), ("ladder", 1, False)]
+
+
+def region_edge_buffers(words, p: int) -> dict:
+    """{name: (packed, mask)} of the (H, W) words at P = p: the image's own
+    grid, and a grid one region row and column larger (all-masked regions)."""
+    from limg_tpu_torch.ops import layout
+
+    side = int(p ** 0.5)
+    g = layout.grid_for(*words.shape, side)
+    big = g._replace(blocks_y=g.blocks_y + 1, blocks_x=g.blocks_x + 1)
+    return {"grid": layout.blockify_words(words, side)[:2],
+            "all-masked row and column": layout.blockify_words(words, side, big)[:2]}
+
+
+def compare_region_edges(device, sizes, settings=EDGE_SETTINGS) -> tuple:
+    """encode_fixed_p64 / encode_region vs the plain version on
+    region_edge_buffers of the EDGE_IMAGE, RGB and RGBA; (max abs diff,
+    cases)."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.regions import _words
+    from tools.make_test_image import make_4k
+
+    worst, n_cases = 0.0, 0
+    rgb = make_4k(*EDGE_IMAGE)
+    for ch in (3, 4):
+        words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
+        for p in sizes:
+            for buf, (packed, mask) in region_edge_buffers(words, p).items():
+                for mode, nf, dith in settings:
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    got = kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
+                    want = kmod.encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    try:
+                        worst = max(worst, compare_outputs(got, want))
+                    except AssertionError as e:
+                        raise AssertionError(f"edge {buf} ch={ch} P={p} {mode} nf={nf} "
+                                             f"dither={dith}: {e}")
+                    n_cases += 1
+    return worst, n_cases
+
+
 def phase_compare(device, images=None) -> float:
     """Kernel vs plain version over the case grid; returns the max abs diff."""
     import torch
@@ -340,6 +397,9 @@ def phase_compare(device, images=None) -> float:
                 worst = max(worst, err)
                 n_cases += 1
         log(f"  {name}: {len(settings) * 2} cases bit-equal")
+    edge, n_edge = compare_region_edges(device, (64,))
+    worst, n_cases = max(worst, edge), n_cases + n_edge
+    log(f"  a part-filled last CTA and all-masked blocks: {n_edge} cases bit-equal")
     log(f"phase 2 ok: {n_cases} cases, max abs diff {worst}")
     return worst
 
@@ -421,6 +481,9 @@ def phase_compare_region(device, images=None) -> float:
                                              f"dither={dith}: {e}")
                     n_cases += 1
         log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal")
+    edge, n_edge = compare_region_edges(device, REGION_SIZES)
+    worst, n_cases = max(worst, edge), n_cases + n_edge
+    log(f"  part-filled last CTAs and all-masked regions: {n_edge} cases bit-equal")
     log(f"phase 2d ok: {n_cases} cases, max abs diff {worst}")
     return worst
 
@@ -1446,8 +1509,8 @@ def profiled_kernel_name(key: str):
     name, targs = m.group(1), [t.strip() for t in m.group(2).split(",")]
     if name in ("fit_levels", "owner_crush"):
         return name + ("_natural" if targs[-1] == "true" else "")
-    if name == "encode_region":
-        return f"encode_region_p{targs[0]}"
+    if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
+        return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
     return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
 
 

@@ -1,22 +1,25 @@
-// Device code shared by the encode kernels (encode_fixed.cu, encode_region.cu,
-// encode_merged.cuh, coalesce.cu, crush_eval.cu).
+// Device code shared by the encode kernels (region_encode.cuh for
+// encode_fixed.cu and encode_region.cu, crush_search.cuh, encode_merged.cuh,
+// coalesce.cu, crush_eval.cu).
 //
-// One warp holds one 8x8 block: lane l holds pixels l and l + 32 (the
-// quadtree kernels, encode_merged.cuh, lay a block over 8 lanes instead and
-// keep their own region reductions). What a kernel reduces over is a
-// *region*: one block (the fixed grid, BlockReducer: the warp's own sums
-// are final), a region of P pixels over a CTA (encode_region.cu), an
-// aligned square of 4^l blocks (the quadtree levels), or a contiguous
-// segment of the run-coalescing buffer (coalesce.cu, which calls the
-// per-block pieces below between its own segment scans).
+// The per-block pieces below hold one 8x8 block in one warp (lane l holds
+// pixels l and l + 32): the run-coalescing kernel (coalesce.cu) calls them
+// between its own segment scans. The kernels that lay a block over eight
+// lanes (the quadtree kernels of encode_merged.cuh, the region encode of
+// region_encode.cuh) keep their own per-lane steps and reductions and share
+// the crush search of crush_search.cuh. What a kernel reduces over is a
+// *region*: a block or a region of P pixels (the fixed grid and the RD
+// levels), an aligned square of 4^l blocks (the quadtree levels), or a
+// contiguous segment of the run-coalescing buffer.
 //
 // Float sums follow one fixed order, which the plain PyTorch versions
 // (limg_tpu_torch/ops/reduce.py, ops/fit.py) follow too, so kernel and
 // plain version agree bit for bit:
-// - over a block's 64 pixels, x[l] + x[l+32], then butterfly shuffles at
-//   16, 8, 4, 2, 1: the values of the halving tree x[:n/2] + x[n/2:]; the
-//   quadtree kernels of both layouts (encode_merged.cuh) sum in the
-//   natural layout's order instead (ops/reduce.py nat_block_sum);
+// - over a block's or region's P pixels, the halving tree x[:n/2] +
+//   x[n/2:] (here x[l] + x[l+32], then butterfly shuffles at 16, 8, 4, 2,
+//   1); the quadtree kernels of both layouts (encode_merged.cuh) sum a
+//   block in the natural layout's order instead (ops/reduce.py
+//   nat_block_sum);
 // - across a quadtree region's blocks, a pairwise-adjacent tree in Morton
 //   order, (b0 + b1) + (b2 + b3), ...;
 // - channel sums and other short sums are left folds;
@@ -36,7 +39,6 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kTiny = 1e-38f;
 constexpr float kBig = 3.4e38f;
 constexpr int kSentinel = -2147483647;  // -(2^31) + 1: a peeled lattice key
-constexpr int kMaxExchange = 27;        // candidates reduced in one exchange
 
 enum CrushMode { kNone = 0, kLadder = 1, kExhaustive = 2, kGuess = 3 };
 
@@ -170,19 +172,6 @@ __device__ __forceinline__ int pixel_err(const int (&est)[CH], const int (&px)[C
   if (CH == 4) e += d2[CH - 1] * 3;
   return e;
 }
-
-// ---------------------------------------------------------------------------
-// Region reducers. Every member is called by all threads of the CTA with
-// warp-uniform arguments; a block's own value goes in, its region's comes out.
-// ---------------------------------------------------------------------------
-
-struct BlockReducer {
-  template <int N> __device__ void sum(float (&)[N]) const {}
-  template <int N> __device__ void min(float (&)[N]) const {}
-  template <int N> __device__ void max(float (&)[N]) const {}
-  __device__ int sum_int(int v) const { return v; }
-  template <int N> __device__ void crush(int (&)[N], int (&)[N]) const {}
-};
 
 struct AddOp {
   __device__ float operator()(float a, float b) const { return a + b; }
@@ -334,17 +323,6 @@ __device__ __forceinline__ void unit_vector_sums(const float (&v)[CH][2], const 
 #pragma unroll
   for (int c = 0; c < CH; ++c)
     dir[c] = tree_sum(v[c][0] * inv_len[0], v[c][1] * inv_len[1]);
-}
-
-// Sign-corrected unit-vector mean of the region (ops/fit.py _signed_unit_mean).
-template <int CH, class Red>
-__device__ __forceinline__ void signed_unit_mean(const float (&v)[CH][2], const float mf[2],
-                                                 float inv_count, const Red& red,
-                                                 float (&dir)[CH]) {
-  unit_vector_sums<CH>(v, mf, dir);
-  red.sum(dir);
-#pragma unroll
-  for (int c = 0; c < CH; ++c) dir[c] = dir[c] * inv_count;
 }
 
 // Per-pixel projection factor dot(v, d) / |d|^2 (0 for a zero direction).
@@ -546,39 +524,6 @@ __device__ __forceinline__ void extract_factors(const Pixels<CH>& p, const int (
   }
 }
 
-// Masked 3-axis fit of the reducer's region, then the u8 factors of this
-// warp's pixels against the region's rounded endpoints. Outputs the region
-// pixel count, avg, the six endpoint rows (dirA_min, dirA_max, dirB_offset,
-// dirB_mag, dirC_offset, dirC_mag) and f8[axis][j].
-template <int CH, class Red>
-__device__ void fit_and_factors(const Pixels<CH>& p, const Red& red, int& count,
-                                float (&avg)[CH], int (&ep)[6][CH], int (&f8)[3][2]) {
-  count = red.sum_int(__reduce_add_sync(kFull, p.mask[0] + p.mask[1]));
-  const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
-  channel_sums<CH>(p, avg);
-  red.sum(avg);
-#pragma unroll
-  for (int c = 0; c < CH; ++c) avg[c] = avg[c] * inv_count;
-  FitSteps<CH> st;
-  st.center(p, avg);
-  float dir_a[CH], dir_b[CH], dir_c[CH];
-  signed_unit_mean<CH>(st.corrected, p.mf, inv_count, red, dir_a);
-  st.axis_a(p, avg, dir_a);
-  signed_unit_mean<CH>(st.resid_a, p.mf, inv_count, red, dir_b);
-  st.axis_b(p, dir_b);
-  if (CH == 3) {
-    FitSteps<CH>::cross(dir_a, dir_b, dir_c);
-  } else {
-    signed_unit_mean<CH>(st.resid_ab, p.mf, inv_count, red, dir_c);
-  }
-  float mn[3], mx[3];
-  st.extremes(p, dir_c, mn, mx);
-  red.min(mn);
-  red.max(mx);
-  round_endpoints<CH>(count, avg, dir_a, dir_b, dir_c, mn, mx, ep);
-  extract_factors<CH>(p, ep, f8);
-}
-
 // Reduced-factor modes: dropped axes' endpoints are zeroed before the search
 // (ops/fit.py drop_decomposition_axes).
 template <int CH>
@@ -687,99 +632,6 @@ __device__ __forceinline__ void ladder_peel(int (&key)[2], const LadderBox& box,
   s[0] = max(box.base[0] - idx / 16, 0);
   s[1] = max(box.base[1] - (idx / 4) % 4, 0);
   s[2] = max(box.base[2] - idx % 4, 0);
-}
-
-// The shift triple of this warp's region; statically dropped axes get 8.
-// Blk is Block<CH> or any type with its eval / admissible / floors members
-// (encode_region.cu's regions of many warps).
-template <int CH, class Blk, class Red>
-__device__ void crush_search(Blk& blk, const Red& red, int crush_mode, int ladder_k,
-                             int num_factors, int lane, int (&best)[3]) {
-  best[0] = best[1] = best[2] = 0;
-  blk.floors = false;
-  blk.floor_pix = blk.floor_blk = 0;
-  if (crush_mode != kNone && num_factors < 3) {
-    const int zero[3] = {0, 0, 0};
-    int pm[1], be[1];
-    blk.eval(zero, pm[0], be[0]);
-    red.crush(pm, be);
-    blk.floor_pix = pm[0];
-    blk.floor_blk = be[0];
-    blk.floors = true;
-  }
-
-  if (crush_mode == kExhaustive) {
-    // all 729 triples in ascending lex order, 9 per exchange; ties to later
-    int b_tot = -1, b_err = 2147483647;
-    for (int i0 = 0; i0 < 729; i0 += 9) {
-      int pm[9], be[9];
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        const int s[3] = {(i0 + i) / 81, ((i0 + i) / 9) % 9, i};
-        blk.eval(s, pm[i], be[i]);
-      }
-      red.crush(pm, be);
-#pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        const int s[3] = {(i0 + i) / 81, ((i0 + i) / 9) % 9, i};
-        take_if_better(blk, s, pm[i], be[i], true, best, b_tot, b_err);
-      }
-    }
-  } else if (crush_mode == kGuess) {
-    int pm[4], be[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      int g[3];
-      guess_triple(t, g);
-      blk.eval(g, pm[t], be[t]);
-    }
-    red.crush(pm, be);
-    bool ok[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) ok[t] = blk.admissible(pm[t], be[t]);
-    const int pick = guess_pick(ok);
-    if (pick >= 0) guess_triple(pick, best);
-  } else if (crush_mode == kLadder) {
-    // 27 per-axis sweeps: axis a at shift s, the other axes unquantized
-    int pm27[27], be27[27];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        int t[3] = {0, 0, 0};
-        t[a] = s;
-        blk.eval(t, pm27[9 * a + s], be27[9 * a + s]);
-      }
-    }
-    red.crush(pm27, be27);
-    LadderBox box;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      int pm_ax[9], be_ax[9];
-#pragma unroll
-      for (int s = 0; s < 9; ++s) {
-        pm_ax[s] = pm27[9 * a + s];
-        be_ax[s] = be27[9 * a + s];
-      }
-      ladder_axis(box, a, pm_ax, be_ax, blk);
-    }
-    int key[2];
-    ladder_keys(box, blk, lane, key);
-    // verify the K best-ranked candidates, best first
-    int b_tot = -1, b_err = 2147483647;
-    for (int r = 0; r < ladder_k; ++r) {
-      int s[3];
-      ladder_peel(key, box, lane, s);
-      int pm[1], be[1];
-      blk.eval(s, pm[0], be[0]);
-      red.crush(pm, be);
-      take_if_better(blk, s, pm[0], be[0], false, best, b_tot, b_err);
-    }
-  }
-  // statically dropped axes always store shift 8
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    if (k >= num_factors) best[k] = max(best[k], 8);
 }
 
 // ---------------------------------------------------------------------------

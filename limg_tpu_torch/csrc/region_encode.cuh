@@ -1,0 +1,464 @@
+// Region encode for NVIDIA Hopper (sm_90a): the kernel template of
+// encode_fixed.cu (P = 64: the fixed grid's 8x8 blocks, and the RD policy's
+// level 0) and encode_region.cu (P = 256, 1024 and 4096: the RD policy's
+// 16x16, 32x32 and 64x64 pixel regions, limg_tpu_torch/regions.py
+// _encode_level).
+//
+// Replaces the TPU kernel limg_tpu/pallas_kernels/encode_fixed.py:
+// encode_blocks_pallas (:808) at every P: the mono kernel _make_mono_kernel
+// (:739) with _fit_and_factors (:258) and _crush_dither_decode (:347) at P
+// = 64, 256 and 1024, and both halves of its split at P = 4096
+// (_make_fit_kernel :764 and _make_crush_kernel :781, split only for the
+// TPU's VMEM; here one pass, the fit's factors kept in registers). Per
+// region: the masked 3-axis fit, the u8 factors, the crush search (ladder /
+// exhaustive / guess), the num_factors drops, dither, the integer decode and
+// the weighted error.
+//
+// What bounds it on the H100: a 4K level reads 33 MB of packed pixels and
+// writes 66 MB of factor and decode words, about 30 us of HBM time, while
+// every pixel goes through 33 exact candidate decodes at ladder K = 8 (25
+// distinct sweeps, 24 of them one axis's decode on a shared base, then K
+// full ones; 729 in exhaustive mode): the kernel is bound by those integer
+// operations (chip_smoke.py kernel_bound) and by how its region reductions
+// wait.
+//
+// The design is the owner crush's lane layout (encode_merged.cuh), whose
+// search (crush_search.cuh CrushLane) it shares: every thread holds 8
+// pixels of one region in registers, pixel p = t + T j (j < 8) of the T = P
+// / 8 threads of the region, eight lanes a "block" of the search and four
+// blocks a warp. So a region is
+//   P = 64:   8 lanes (4 regions a warp; level 0 of the search),
+//   P = 256:  one warp (level 1),
+//   P = 1024: 4 warps (level 2),
+//   P = 4096: 16 warps (level 3),
+// and a CTA holds 32 regions, 8, 2 or 1 (8 warps; 16 at P = 4096). Regions
+// of a warp or less pass no CTA barrier at all; a region of several warps
+// passes one barrier per batch of values (the fit's four or five sums and
+// folds, the search's two or three batches, the dist).
+//
+// Float sums over a region's P pixels follow the plain version's halving
+// tree x[:n/2] + x[n/2:] (kernels/encode_fixed.py encode_blocks_reference,
+// ops/fit.py tree_sum) exactly: the tree's first three levels pair a
+// thread's own pixels (j + 4, j + 2, j + 1), the levels between threads of
+// different warps are one shared-memory exchange (each warp then folds the
+// region's warps in the tree's order for its lane), and the last five or
+// three levels are xor butterflies 16 ... 1 or 4, 2, 1. The mapping of
+// pixels to threads changes only who holds pixel p, never p: the dither
+// hash keeps its key (region, axis, p, P). Channel dots are left folds;
+// nvcc runs with --fmad=false and exact 1 / sqrt, so kernel and plain
+// version agree bit for bit. Integer totals (counts, the crush's pixel
+// maxima and error sums) and float minima and maxima do not depend on
+// order.
+
+#pragma once
+
+#include "crush_search.cuh"
+
+namespace {
+
+using namespace limg;
+
+template <int P>
+struct RegionGeo {
+  static constexpr int kT = P / 8;                 // threads of a region, 8 pixels each
+  static constexpr int kW = kT / 32;               // warps of a region (0: several a warp)
+  static constexpr int kLanes = kT < 32 ? kT : 32; // a region's lanes in one warp
+  static constexpr int kLevel = P == 64 ? 0 : (P == 256 ? 1 : (P == 1024 ? 2 : 3));
+  static constexpr int kWarps = P == 4096 ? 16 : 8;    // warps a CTA
+  static constexpr int kRegions = kWarps * 32 / kT;    // regions a CTA
+  static constexpr int kEs = P >= 2048 ? 4 : 0;        // ops/crush.py err_scale_shift(P)
+  // one exchange set: 4 values per lane of every warp, one int per warp
+  static constexpr int kXSet = kW >= 2 ? 4 * kWarps * 32 + kWarps : 1;
+};
+
+// The halving tree's in-thread levels over the thread's pixels t + T j:
+// f(j, v) gives the N values of pixel j; out = ((v0 + v4) + (v2 + v6)) +
+// ((v1 + v5) + (v3 + v7)).
+template <int N, class F>
+__device__ __forceinline__ void lane_tree(F f, float (&out)[N]) {
+  float h[4][N];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float lo[N], hi[N];
+    f(j, lo);
+    f(j + 4, hi);
+#pragma unroll
+    for (int i = 0; i < N; ++i) h[j][i] = lo[i] + hi[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) h[j][i] = h[j][i] + h[j + 2][i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = h[0][i] + h[1][i];
+}
+
+// A region's reductions across its threads. Two slot sets alternate, so one
+// barrier per exchange suffices: a warp writes a set again only after the
+// next exchange's barrier, which every warp reaches after its reads of this
+// one.
+template <int P>
+struct RegionExchange {
+  using G = RegionGeo<P>;
+  float* buf;  // [2][G::kXSet]
+  int warp, lane, set;
+
+  // The halving tree's levels across the region's threads, of N <= 4 values
+  // each thread summed over its own pixels; with cnt, also the region's
+  // total of an int (order-free).
+  template <int N>
+  __device__ void sum(float (&v)[N], int* cnt = nullptr) {
+    if constexpr (G::kW < 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int off = G::kLanes / 2; off > 0; off >>= 1)
+          v[i] = v[i] + __shfl_xor_sync(kFull, v[i], off);
+      }
+      if (cnt != nullptr) *cnt = butterfly<1, G::kLanes>(*cnt, IAdd());
+    } else {
+      float* s = buf + set * G::kXSet;
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[(i * G::kWarps + warp) * 32 + lane] = v[i];
+      if (cnt != nullptr) {
+        const int c = __reduce_add_sync(kFull, *cnt);
+        if (lane == 0) s[4 * G::kWarps * 32 + warp] = __int_as_float(c);
+      }
+      __syncthreads();
+      const int w0 = warp & ~(G::kW - 1);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        float x[G::kW];
+#pragma unroll
+        for (int w = 0; w < G::kW; ++w) x[w] = s[(i * G::kWarps + w0 + w) * 32 + lane];
+#pragma unroll
+        for (int n = G::kW / 2; n > 0; n >>= 1) {
+#pragma unroll
+          for (int w = 0; w < n; ++w) x[w] = x[w] + x[w + n];
+        }
+        v[i] = x[0];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v[i] = v[i] + __shfl_xor_sync(kFull, v[i], off);
+      }
+      if (cnt != nullptr) {
+        int c = 0;
+#pragma unroll
+        for (int w = 0; w < G::kW; ++w)
+          c = add_wrap(c, __float_as_int(s[4 * G::kWarps * 32 + w0 + w]));
+        *cnt = c;
+      }
+      set ^= 1;
+    }
+  }
+
+  // The region's minima and maxima of three values each (order-free).
+  __device__ void fold(float (&mn)[3], float (&mx)[3]) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mn[i] = butterfly<1, G::kLanes>(mn[i], MinOp());
+      mx[i] = butterfly<1, G::kLanes>(mx[i], MaxOp());
+    }
+    if constexpr (G::kW >= 2) {
+      float* s = buf + set * G::kXSet;
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          s[i * G::kWarps + warp] = mn[i];
+          s[(3 + i) * G::kWarps + warp] = mx[i];
+        }
+      }
+      __syncthreads();
+      const int w0 = warp & ~(G::kW - 1);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        mn[i] = s[i * G::kWarps + w0];
+        mx[i] = s[(3 + i) * G::kWarps + w0];
+#pragma unroll
+        for (int w = 1; w < G::kW; ++w) {
+          mn[i] = fminf(mn[i], s[i * G::kWarps + w0 + w]);
+          mx[i] = fmaxf(mx[i], s[(3 + i) * G::kWarps + w0 + w]);
+        }
+      }
+      set ^= 1;
+    }
+  }
+};
+
+// The region's fit values and one pixel's steps of the masked 3-axis fit
+// (ops/fit.py fit_regions): f the pixel's channels, m its mask (0 or 1).
+// Each step repeats the earlier ones, which gives the same values.
+template <int CH>
+struct RegionFit {
+  float avg[CH], dir_a[CH], dir_b[CH], dir_c[CH];
+  float inv_a, inv_b, inv_c;
+
+  static __device__ __forceinline__ float project(const float (&v)[CH], const float (&d)[CH],
+                                                  float inv_d2) {
+    float dot = v[0] * d[0];
+#pragma unroll
+    for (int c = 1; c < CH; ++c) dot = dot + v[c] * d[c];
+    return dot * inv_d2;
+  }
+  __device__ __forceinline__ void corrected(const float (&f)[CH], float m, float (&v)[CH]) const {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) v[c] = (f[c] - avg[c]) * m;
+  }
+  __device__ __forceinline__ void step_a(const float (&f)[CH], float m, float& fa,
+                                         float (&est)[CH], float (&ra)[CH]) const {
+    float cor[CH];
+    corrected(f, m, cor);
+    fa = project(cor, dir_a, inv_a) * m;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      est[c] = avg[c] + fa * dir_a[c];
+      ra[c] = (f[c] - est[c]) * m;
+    }
+  }
+  __device__ __forceinline__ void step_b(const float (&f)[CH], float m, float& fa, float& fb,
+                                         float (&rab)[CH]) const {
+    float est[CH], ra[CH];
+    step_a(f, m, fa, est, ra);
+    fb = project(ra, dir_b, inv_b) * m;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float eb = est[c] + fb * dir_b[c];
+      rab[c] = (f[c] - eb) * m;
+    }
+  }
+};
+
+struct Args {
+  const int32_t* packed;   // (nb, P) block-major words
+  const uint8_t* mask;     // (nb, P)
+  int nb, crush_mode, dither, ladder_k, num_factors, max_pix, max_blk;
+  uint32_t key;
+  int32_t* shifts;         // (3, nb)
+  int32_t* q;              // (nb, P)
+  int32_t* dec;            // (nb, P)
+  float* dist;             // (nb,)
+  int32_t* eps;            // (6, CH, nb) or null
+  float* avg;              // (CH, nb) or null
+};
+
+template <int P, int CH>
+__global__ void __launch_bounds__(RegionGeo<P>::kWarps * 32, P == 4096 ? 1 : 2)
+encode_region_kernel(const Args a) {
+  using G = RegionGeo<P>;
+  __shared__ CrushShared<CH, G::kWarps, G::kLevel> shared;
+  __shared__ float xbuf[2 * G::kXSet];
+  const int warp = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const int t = (int)threadIdx.x % G::kT;
+  const int r = (int)blockIdx.x * G::kRegions + (int)threadIdx.x / G::kT;
+  // the last CTA's regions past nb are empty and write nothing, but take
+  // part in every shuffle and barrier
+  const bool live = r < a.nb;
+  const size_t base = (size_t)r * P;
+
+  float pxf[CH][8];
+  int vmask = 0;  // bit j: pixel t + T j lies inside the image
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = t + G::kT * j;
+    uint32_t word = 0u;
+    if (live) {
+      word = (uint32_t)a.packed[base + p];
+      vmask |= (a.mask[base + p] != 0 ? 1 : 0) << j;
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) pxf[c][j] = (float)((word >> (8 * c)) & 0xFFu);
+  }
+  auto mf = [&](int j) { return ((vmask >> j) & 1) ? 1.0f : 0.0f; };
+  auto pix = [&](int j, float (&f)[CH]) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) f[c] = pxf[c][j];
+  };
+  RegionExchange<P> ex{xbuf, warp, lane, 0};
+
+  // ---- fit ---------------------------------------------------------------
+  RegionFit<CH> fit;
+  int count = __popc(vmask);
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    const float m = mf(j);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) o[c] = pxf[c][j] * m;
+  }, fit.avg);
+  ex.sum(fit.avg, &count);
+  const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.avg[c] = fit.avg[c] * inv_count;
+
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    float f[CH], v[CH];
+    pix(j, f);
+    const float m = mf(j);
+    fit.corrected(f, m, v);
+    const float il = signed_inv_len<CH>(v, m);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) o[c] = v[c] * il;
+  }, fit.dir_a);
+  ex.sum(fit.dir_a);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.dir_a[c] = fit.dir_a[c] * inv_count;
+  fit.inv_a = inv_or_zero(dot_self<CH>(fit.dir_a));
+
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    float f[CH], fa, est[CH], ra[CH];
+    pix(j, f);
+    const float m = mf(j);
+    fit.step_a(f, m, fa, est, ra);
+    const float il = signed_inv_len<CH>(ra, m);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) o[c] = ra[c] * il;
+  }, fit.dir_b);
+  ex.sum(fit.dir_b);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.dir_b[c] = fit.dir_b[c] * inv_count;
+  fit.inv_b = inv_or_zero(dot_self<CH>(fit.dir_b));
+
+  if constexpr (CH == 3) {
+    FitSteps<CH>::cross(fit.dir_a, fit.dir_b, fit.dir_c);
+  } else {
+    lane_tree<CH>([&](int j, float (&o)[CH]) {
+      float f[CH], fa, fb, rab[CH];
+      pix(j, f);
+      const float m = mf(j);
+      fit.step_b(f, m, fa, fb, rab);
+      const float il = signed_inv_len<CH>(rab, m);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) o[c] = rab[c] * il;
+    }, fit.dir_c);
+    ex.sum(fit.dir_c);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) fit.dir_c[c] = fit.dir_c[c] * inv_count;
+  }
+  fit.inv_c = inv_or_zero(dot_self<CH>(fit.dir_c));
+
+  float mn[3] = {kBig, kBig, kBig}, mx[3] = {-kBig, -kBig, -kBig};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float f[CH], fac[3], rab[CH];
+    pix(j, f);
+    const float m = mf(j);
+    fit.step_b(f, m, fac[0], fac[1], rab);
+    fac[2] = RegionFit<CH>::project(rab, fit.dir_c, fit.inv_c) * m;
+    const bool in = (vmask >> j) & 1;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      mn[k] = fminf(mn[k], in ? fac[k] : kBig);
+      mx[k] = fmaxf(mx[k], in ? fac[k] : -kBig);
+    }
+  }
+  ex.fold(mn, mx);
+  int ep[6][CH];
+  round_endpoints<CH>(count, fit.avg, fit.dir_a, fit.dir_b, fit.dir_c, mn, mx, ep);
+
+  // ---- the u8 factors, the drops, the decomposition's outputs ---------------
+  int f8w[8];
+  {
+    FactorFrame<CH> fr;
+    fr.set(ep);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float f[CH];
+      int f8[3];
+      pix(j, f);
+      fr.f8_of(f, f8);
+      f8w[j] = f8[0] | (f8[1] << 8) | (f8[2] << 16);
+    }
+  }
+  drop_axes<CH>(ep, a.num_factors);
+  if (live && a.eps != nullptr && t == 0) {
+    // static indices only: an index by thread would put ep and fit in local
+    // memory
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+#pragma unroll
+      for (int e = 0; e < 6; ++e) a.eps[((size_t)e * CH + c) * a.nb + r] = ep[e][c];
+      a.avg[(size_t)c * a.nb + r] = fit.avg[c];
+    }
+  }
+
+  // ---- the crush search (crush_search.cuh) --------------------------------
+  CrushLane<CH, G::kWarps, G::kLevel> cl;
+  cl.sub = lane & 7;
+  cl.lane = lane;
+  cl.warp = warp;
+  cl.blk = warp * 4 + (lane >> 3);
+  cl.owner = G::kLevel;
+  cl.xchg = G::kLevel >= 2;
+  cl.set = 0;
+  cl.sh = &shared;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) cl.px[c][j] = (int)pxf[c][j];
+    cl.f8w[j] = f8w[j];
+  }
+  cl.vmask = vmask;
+  cl.max_pix = a.max_pix;
+  cl.max_blk = a.max_blk;
+  cl.es = G::kEs;
+  cl.set_frame(ep);
+  __syncwarp();
+  int best[3];
+  cl.search(a.crush_mode, a.ladder_k, a.num_factors, __popc(vmask), best);
+
+  // ---- dither, decode, weighted error -----------------------------------------
+  int n_int[3][CH], m_int[3][CH];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      n_int[k][c] = cl.n_at(k, c);
+      m_int[k][c] = cl.m_at(k, c);
+    }
+  }
+  const bool dither = a.dither != 0;
+  float dist[1];
+  lane_tree<1>([&](int j, float (&o)[1]) {
+    const int p = t + G::kT * j;
+    int q[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int s = best[k];
+      int v = (cl.f8w[j] >> (8 * k)) & 0xFF;
+      if (dither && s > 0 && s < 8)
+        v = min(max(v + dither_noise(dither_bits_p(a.key, (uint32_t)r, k, p, P), s), 0), 255);
+      q[k] = v >> min(s, 8);
+    }
+    int est[CH];
+    decode_est<CH>(q, best, n_int, m_int, est);
+    o[0] = (float)cl.pixel_err_of(est, j);
+    if (live) {
+      uint32_t w = CH == 4 ? 0u : 0xFF000000u;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) w |= (uint32_t)__vimin_s32_relu(est[c], 255) << (8 * c);
+      a.q[base + p] = q[0] | (q[1] << 8) | (q[2] << 16);
+      a.dec[base + p] = (int32_t)w;
+    }
+  }, dist);
+  ex.sum(dist);
+
+  if (live && t == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) a.shifts[(size_t)k * a.nb + r] = best[k];
+    a.dist[r] = dist[0];
+  }
+}
+
+// Launches encode_region_kernel<P> for the channel count on `st`; returns
+// cudaGetLastError().
+template <int P>
+int launch_region(const Args& a, int channels, cudaStream_t st) {
+  using G = RegionGeo<P>;
+  const int grid = (a.nb + G::kRegions - 1) / G::kRegions;
+  if (channels == 4) {
+    encode_region_kernel<P, 4><<<grid, G::kWarps * 32, 0, st>>>(a);
+  } else {
+    encode_region_kernel<P, 3><<<grid, G::kWarps * 32, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -10,13 +10,14 @@ levels 1-3), and returns its outputs in its layouts:
     dist (1, NB) f32 [, dirA_min, dirA_max, dirB_offset, dirB_mag,
     dirC_offset, dirC_mag (ch, NB) i32, avg (ch, NB) f32]
 
-On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (P = 64, one warp
-per block) or ``csrc/encode_region.cu`` (P > 64, one CTA per region), each
-built at first use, and raises if the launch fails; on a CPU tensor it runs
-``encode_blocks_reference``, which composes the plain ops of
-``limg_tpu_torch.ops`` in the kernels' arithmetic order: every float sum
-over a region's P pixels is one halving tree. The two agree bit for bit on
-the card. The JAX kernel sums 256-pixel chunks and then folds the chunks,
+On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (P = 64) or
+``csrc/encode_region.cu`` (P > 64), each built at first use from one
+template, ``csrc/region_encode.cuh`` (a region's pixels 8 a thread over
+P / 8 threads, the owner crush's crush search), and raises if the launch
+fails; on a CPU tensor it runs ``encode_blocks_reference``, which composes
+the plain ops of ``limg_tpu_torch.ops`` in the kernels' arithmetic order:
+every float sum over a region's P pixels is one halving tree. The two
+agree bit for bit on the card. The JAX kernel sums 256-pixel chunks and then folds the chunks,
 so a rounded endpoint can differ from it by 1 at P >= 1024.
 
 The dither key of a region of P = 64 * 4^l pixels is ``level_key(seed,
@@ -134,8 +135,7 @@ def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
         raise RuntimeError(f"no kernel for device {packed.device}")
     dev = packed.device
     ch, (p, nb) = cfg.channels, packed.shape
-    # block-major copies: a warp (P = 64) or a CTA reads one region's
-    # contiguous words
+    # block-major copies: a region's threads read its contiguous words
     packed_bm = packed.t().contiguous()
     mask_bm = mask.t().contiguous()
     shifts = torch.empty((3, nb), dtype=torch.int32, device=dev)

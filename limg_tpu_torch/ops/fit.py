@@ -5,7 +5,7 @@ float32 passes over the ``(ch, P, NB)`` tensor of every block. Ragged edge
 blocks are handled with a validity mask.
 
 Every float sum has one fixed order, which the CUDA kernel
-(csrc/encode_fixed.cu) follows too, so the two agree bit for bit:
+(csrc/region_encode.cuh) follows too, so the two agree bit for bit:
 
 - over the P pixels of a block or region (64 for an 8x8 block; 256, 1024
   or 4096 for the RD policy's 16x16, 32x32 and 64x64 regions), a halving

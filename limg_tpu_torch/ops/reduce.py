@@ -6,8 +6,10 @@ A reducer maps per-pixel arrays ``(..., P, N)`` or per-block rows
 
 - inside a block of the fixed grid, of an RD region or of the run buffer,
   the halving tree ``x[:n/2] + x[n/2:]`` over its P pixels
-  (``ops.fit.tree_sum``; in a kernel, one warp's shuffles at P = 64, a
-  CTA's shared-memory tree at P = 256, 1024 and 4096);
+  (``ops.fit.tree_sum``; in the region encode kernel, each thread's
+  pixels t + (P / 8) j first, then one exchange across a region's warps
+  at P = 1024 and 4096, then shuffles; in the segment kernel, one warp's
+  shuffles);
 - inside a block of a quadtree level, in either layout, the natural
   layout's order (``nat_block_sum``): a left fold over the block's 8 pixel
   rows of each column, then a pairwise-adjacent tree over the 8 columns

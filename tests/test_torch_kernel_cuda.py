@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RAGGED_SIZES, seeded_rows, seeded_run_buffer, seg_map
+from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, region_edge_buffers,
+                        seeded_rows, seeded_run_buffer, seg_map)
 from limg_tpu_torch import EncodeConfig
 from limg_tpu_torch.kernels import encode_fixed as kmod
 from limg_tpu_torch.ops import layout
@@ -88,6 +89,32 @@ def test_region_kernel_matches_plain_version(device, p, channels, mode, num_fact
             torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
         else:
             assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("buffer", ["grid", "all-masked row and column"])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("p", [64, 256, 1024, 4096])
+def test_region_kernel_at_its_edges(device, p, channels, buffer):
+    """csrc/region_encode.cuh where a CTA is part-filled or a region is
+    empty: 96 x 160 px leaves the last CTA with 16 of its 32 blocks at P =
+    64, 4 of 8 regions at 256, 1 of 2 at 1024; a grid one region row and
+    column larger than the image adds regions with no pixel inside."""
+    words = _words(*EDGE_IMAGE, channels, 23, device)
+    packed, mask = region_edge_buffers(words, p)[buffer]
+    if buffer != "grid":
+        assert not mask.any(dim=0).all()
+    for mode, num_factors, dithering in EDGE_SETTINGS:
+        cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                           dithering=dithering, num_factors=num_factors)
+        got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
+        torch.cuda.synchronize(device)
+        want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, (mode, i)
+            if g.dtype.is_floating_point:
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(g, w), (mode, i)
 
 
 def test_kernel_rejects_bad_inputs(device):

@@ -1,5 +1,6 @@
 """The reduction orders of the quadtree kernels (csrc/encode_merged.cuh:
-the fit and the owner crush) and the run-coalescing kernels
+the fit and the owner crush), the region encode (csrc/region_encode.cuh:
+the fixed grid and the RD levels) and the run-coalescing kernels
 (csrc/coalesce.cu: the segment encode, the one-thread neighbour match),
 emulated lane by lane in torch and held bit-equal to the plain versions'
 orders and results (ops/reduce.py, ops/segments.py, ops/crush.py,
@@ -27,7 +28,13 @@ layout of work over lanes adds floats in the order the plain versions
   the K candidates in batches of 8; a region's dist by xor 8, 16 and the
   warps' pairwise tree;
 - match_neighbors gives each thread one block: its 27 probes fold left in
-  the thread, and are skipped where the bit does not depend on them.
+  the thread, and are skipped where the bit does not depend on them;
+- the region encode gives each of a region's T = P / 8 threads the pixels
+  t + T j: its sums are the halving tree's in-thread levels, one exchange
+  across the region's warps (P = 1024, 4096), then butterflies (8 lanes a
+  block at P = 64, a warp from 256 on); its crush search is the owner
+  crush's (csrc/crush_search.cuh), every lane of a region at level
+  log4(P / 64).
 """
 
 import numpy as np
@@ -328,10 +335,19 @@ def _lane_region(err, owner, levels, es):
 
 
 def _kernel_search(px, mask, f8, d, owner, cfg, levels):
-    """CrushLane::search on region values, per block: the batches and the
-    peel of csrc/encode_merged.cuh. Returns the shifts (3, N)."""
+    """The owner crush's search: CrushLane::search on its regions' values.
+    Returns the shifts (3, N) and the region counts (N,)."""
+    return _search_batches(px, mask, f8, d, cfg,
+                           lambda err, es: _lane_region(err, owner, levels, es),
+                           crush.err_scale_shift(64 * 4 ** (levels - 1)))
+
+
+def _search_batches(px, mask, f8, d, cfg, lanes, es):
+    """CrushLane::search (csrc/crush_search.cuh) on region values per block:
+    its batches and its peel; ``lanes(err, es)`` reduces (K, P, N) pixel
+    errors to the (pixel max, error sum) (K, N) of each block's region, as
+    the lanes of the kernel do. Returns the shifts (3, N) and the counts."""
     ch, n = cfg.channels, px.shape[-1]
-    es = crush.err_scale_shift(64 * 4 ** (levels - 1))
     mask_i = mask.to(torch.int32)
 
     def region(triples):
@@ -339,9 +355,9 @@ def _kernel_search(px, mask, f8, d, owner, cfg, levels):
              if isinstance(triples, list) else triples)
         q = f8 >> torch.clamp(c, max=8)[..., None, :]
         err = weighted_error(decode_blocks(q, c, d, ch).transpose(0, 1), px[:, None]) * mask_i
-        return (c, *_lane_region(err, owner, levels, es))
+        return (c, *lanes(err, es))
 
-    count = _lane_region(mask_i[None], owner, levels, 0)[1][0]
+    count = lanes(mask_i[None], 0)[1][0]
     best = crush._init_best(n, px.device)
     if not cfg.crush_bits:
         shifts = best[0]
@@ -414,6 +430,117 @@ def test_eight_lane_crush_search_is_find_shifts(levels, nf, mode, k):
     assert torch.equal(got[:, real], want[:, real])
     assert torch.equal(count[real], red.sum(blocks.mask.to(torch.int32))[real])
     assert (owner[real] == levels - 1).any()       # the top level holds cut squares
+
+
+# ---------------------------------------------------------------------------
+# The region encode: regions of P = 64, 256, 1024 or 4096 pixels on the owner
+# crush's lanes (csrc/region_encode.cuh), thread t of the T = P / 8 threads
+# of a region holding pixels t + T j
+# ---------------------------------------------------------------------------
+
+def _region_threads(x: torch.Tensor) -> torch.Tensor:
+    """(..., P, N) -> (..., N, T, 8): thread t holds pixels t + T j."""
+    p, n = x.shape[-2:]
+    return x.reshape(*x.shape[:-2], 8, p // 8, n).movedim(-1, -3).transpose(-1, -2)
+
+
+def _region_lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """The region encode's float sum of (P, N) pixel values: per thread the
+    halving tree's in-thread levels (j + 4, j + 2, j + 1); threads of one
+    warp by butterflies T/2 ... 1 (16 ... 1 at T >= 32); at T > 32 first the
+    exchange, whose every warp folds the region's W warps lane by lane in
+    the tree's order (w + W/2, ..., w + 1). Returns each thread's result
+    (N, T)."""
+    v = _region_threads(x)                                 # (N, T, 8)
+    v = v[..., :4] + v[..., 4:]
+    v = v[..., :2] + v[..., 2:]
+    v = v[..., 0] + v[..., 1]                              # (N, T)
+    t = v.shape[-1]
+    if t > 32:
+        w = t // 32
+        xw = v.reshape(-1, w, 32)                          # lane l of warp i: thread 32 i + l
+        while xw.shape[1] > 1:
+            half = xw.shape[1] // 2
+            xw = xw[:, :half] + xw[:, half:]
+        v = xw[:, 0][:, None, :].expand(-1, w, 32).reshape(-1, t)
+    width = min(t, 32)
+    lanes = v.reshape(v.shape[0], -1, width)
+    lanes = _butterfly(lanes, [width >> b for b in range(1, width.bit_length())], torch.add)
+    return lanes.reshape(v.shape)
+
+
+@pytest.mark.parametrize("p", [64, 256, 1024, 4096])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_region_lane_halving_tree_is_tree_sum(p, seed):
+    """P = 64: 8 lanes a block (in-lane k + 4, + 2, + 1, then xor 4, 2, 1);
+    256: a warp; 1024: 4 warps and one exchange; 4096: 16 warps and one
+    exchange. Every thread of a region holds ops/fit.py tree_sum, bit for
+    bit, on random floats with masked (zero) pixels."""
+    rng = np.random.default_rng(seed * 7 + p)
+    n = 24
+    x = rng.standard_normal((p, n)) * rng.uniform(1e-3, 1e3, (p, n))
+    x[rng.random((p, n)) < 0.2] = 0.0
+    x = torch.from_numpy(x.astype(np.float32))
+    got = _region_lane_sum(x)                              # (N, T)
+    want = tree_sum(x, 0)
+    for t in range(p // 8):
+        assert torch.equal(got[:, t].view(torch.int32), want.view(torch.int32))
+
+
+def _region_lanes(err, es):
+    """(K, P, N) pixel errors of regions of P pixels -> (pixel max, error
+    sum) (K, N) as the region encode's lanes give them: each thread over its
+    8 pixels t + T j, a block's 8 lanes, then its warp and the region's
+    warps (integers: any order; sums wrap)."""
+    k, p, n = err.shape
+    t = p // 8
+    per = _region_threads(err)                             # (K, N, T, 8)
+    pm = per.amax(dim=-1)
+    be = (per >> es).sum(dim=-1, dtype=torch.int32)        # (K, N, T)
+    pm = pm.reshape(k, n, t // 8, 8).amax(dim=-1).amax(dim=-1)
+    be = be.reshape(k, n, t // 8, 8).sum(dim=-1, dtype=torch.int32).sum(dim=-1, dtype=torch.int32)
+    return pm, be
+
+
+def _region_inputs(h, w, ch, p, nf):
+    """The regions of P pixels of a small image cut by both edges, with the
+    plain version's fit, u8 factors and drops (kernels/encode_fixed.py
+    encode_blocks_reference)."""
+    from chip_smoke import small_image, with_alpha
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.fit import drop_decomposition_axes, fit_blocks
+    from limg_tpu_torch.regions import _words
+
+    rgb = small_image(h, w)
+    img = rgb if ch == 3 else with_alpha(rgb)
+    words = _words(torch.from_numpy(np.ascontiguousarray(img)))
+    packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
+    px = torch.stack([layout.unpack_plane(packed, c) for c in range(ch)])
+    d = fit_blocks(px, mask, ch)
+    f8 = torch.stack([q.to(torch.int32) for q in quantize_factors(*extract_factors(px, d, ch))])
+    return px, mask, f8, drop_decomposition_axes(d, nf)
+
+
+@pytest.mark.parametrize("mode,k", [("ladder", 8), ("ladder", 5), ("ladder", 11),
+                                    ("exhaustive", 8), ("guess", 8), ("none", 8)])
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("p", [64, 256, 1024, 4096])
+def test_region_crush_search_is_find_shifts(p, nf, mode, k):
+    """The region encode's search (CrushLane::search, every lane of a region
+    at level log4(P / 64), the error pre-scale of P) in the kernel's batches
+    and peel equals ops/crush.py find_shifts on the regions of a small image
+    whose edge regions are cut by both image edges (RGB at P = 64 and 1024,
+    RGBA at 256 and 4096)."""
+    ch = 4 if p in (256, 4096) else 3
+    px, mask, f8, d = _region_inputs(90, 140, ch, p, nf)
+    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, num_factors=nf, crush_mode=mode,
+                       ladder_k=k)
+    got, count = _search_batches(px, mask, f8, d, cfg, _region_lanes, crush.err_scale_shift(p))
+    want = crush.force_dropped_axes(crush.find_shifts(px, mask, f8, d, cfg)[0], nf)
+    assert torch.equal(got, want)
+    assert torch.equal(count, mask.sum(dim=0, dtype=torch.int32))
+    assert not mask.all(dim=0).all()                       # regions cut by the edge
 
 
 def _region_owners(rng, n_squares: int, levels: int) -> torch.Tensor:

@@ -404,11 +404,12 @@ def test_owner_crush_takes_only_owner_maps_uniform_over_regions(natural):
 def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library's cache key."""
     srcs = build.source_files(build.CSRC / "encode_merged.cu")
-    assert {p.name for p in srcs} == {"encode_merged.cu", "encode_merged.cuh", "limg_common.cuh"}
+    assert {p.name for p in srcs} == {"encode_merged.cu", "encode_merged.cuh", "crush_search.cuh",
+                                      "limg_common.cuh"}
     assert {p.name for p in build.source_files(build.CSRC / "encode_natural.cu")} == {
-        "encode_natural.cu", "encode_merged.cuh", "limg_common.cuh"}
+        "encode_natural.cu", "encode_merged.cuh", "crush_search.cuh", "limg_common.cuh"}
     assert {p.name for p in build.source_files(build.CSRC / "encode_fixed.cu")} == {
-        "encode_fixed.cu", "limg_common.cuh"}
+        "encode_fixed.cu", "region_encode.cuh", "crush_search.cuh", "limg_common.cuh"}
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)

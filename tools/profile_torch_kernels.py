@@ -1,12 +1,12 @@
-"""Time the quadtree fit, owner-crush, neighbour-match and segment-encode
-kernels of limg_tpu_torch alone at 4K on one CUDA card, beside a baseline
-build of the same kernels.
+"""Time the region-encode, quadtree fit, owner-crush, neighbour-match and
+segment-encode kernels of limg_tpu_torch alone at 4K on one CUDA card,
+beside a baseline build of the same kernels.
 
     python3 tools/profile_torch_kernels.py [--baseline DIR] [--out FILE] [--lane rgb]
-                                           [--kernels-only]
+                                           [--kernels-only] [--kernels REGEX]
 
-Builds ``encode_merged``, ``encode_natural`` and ``coalesce`` from this
-checkout (and, with ``--baseline``, from the checkout at DIR into DIR's own
+Builds ``encode_fixed``, ``encode_region``, ``encode_merged``,
+``encode_natural`` and ``coalesce`` from this checkout (and, with ``--baseline``, from the checkout at DIR into DIR's own
 ``build/kernels``) and prints what ``ptxas -v`` reports for every kernel:
 registers, spill bytes, stack frame. Then, on the 4K RGB and RGBA test
 images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
@@ -16,7 +16,12 @@ images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
 - each kernel's time alone, CUDA events (median of 10 single calls after a
   warm-up, and the mean of 10 calls back to back, which hides the host's
   launch overhead) and torch.profiler device time of the kernel itself
-  (mean over 5 calls) side by side: ``fit_levels`` at 3 levels and at 2
+  (mean over 5 calls; beside it the device busy time of the whole wrapper
+  call, whose difference is the wrapper's copies) side by side:
+  ``encode_fixed_p64`` on the fixed grid's 129,600 blocks and
+  ``encode_region`` on the RD levels' 32,400 / 8,160 / 2,040 regions of
+  256 / 1,024 / 4,096 pixels, each also with ``crush_mode="none"`` (which
+  prices the search against the fit); ``fit_levels`` at 3 levels and at 2
   (the price of a level), ``fit_levels_natural``, ``owner_crush`` (ladder
   K = 8, and with ``crush_mode="none"``, which prices the search),
   ``owner_crush_natural``, ``match_neighbors`` on the default encode's
@@ -28,13 +33,17 @@ images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
 - the run buffer's segment lengths (how many segments and 128-lane tiles
   hold more than 32 members), and how many blocks own at each level (the
   fit's ``owner``) and how many 3-level squares hold an owner of level 2;
-- the default merged step and the natural default step
-  (``fused_merged_pre``, the capacity read, ``fused_merged_finish``) by
-  events and by the profiler's device busy time, with each build;
-- the 4K encodes of every merged path (Morton with and without coalescing,
-  natural, RD) with dithering off, with each build: PSNR, bpp, runs, and
-  the blocks whose owner level differs from the JAX package's recorded
-  default encode (tests/fixtures/torch_port_coalesce_reference.npz).
+- the fixed-grid step (``encode_perf_step``), the default merged step, the
+  natural default step (``fused_merged_pre``, the capacity read,
+  ``fused_merged_finish``) and the RD step (``fused_rd_pre``, the capacity
+  read, ``fused_rd_finish``) by events and by the profiler's device busy
+  time, with each build;
+- the 4K encodes of the fixed grid and of every merged path (Morton with
+  and without coalescing, natural, RD at 3 and 4 levels) with dithering
+  off, with each build: PSNR, bpp, the decoded image's sum, and for the
+  merged paths the runs and the blocks whose owner level differs from the
+  JAX package's recorded default encode
+  (tests/fixtures/torch_port_coalesce_reference.npz).
 
 The baseline's kernels run through this checkout's wrappers (their C entry
 points are unchanged), so both builds see the same inputs and glue. Writes
@@ -57,10 +66,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-LIBRARIES = ("encode_merged", "encode_natural", "coalesce")
+LIBRARIES = ("encode_fixed", "encode_region", "encode_merged", "encode_natural", "coalesce")
 COALESCE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_coalesce_reference.npz"
 RUNS = 10
 PROFILED = 5
+RD_LAMBDA = 0.01
 
 
 def log(*args):
@@ -72,7 +82,8 @@ def ptxas_lines(text: str) -> list[str]:
     registers, stack frame, spill stores / loads."""
     out, name = [], None
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function .*?\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)", ln)
+        m = re.search(r"Compiling entry function .*?\d+([a-z][a-z0-9_]*_kernel)I((?:L[ib]\d+E)+)",
+                      ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             name, frame, spill = f"{m.group(1)}<{args}>", "", ""
@@ -125,7 +136,13 @@ def declare(lib, name: str):
     import ctypes
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "encode_merged":
+    if name == "encode_fixed":
+        lib.limg_encode_fixed_p64.argtypes = [ptr, ptr] + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 7
+        fns = (lib.limg_encode_fixed_p64,)
+    elif name == "encode_region":
+        lib.limg_encode_region.argtypes = [ptr, ptr] + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 7
+        fns = (lib.limg_encode_region,)
+    elif name == "encode_merged":
         lib.limg_fit_levels.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
         lib.limg_owner_crush.argtypes = [ptr] + [i32] * 10 + [ctypes.c_uint32] + [ptr] * 10
         fns = (lib.limg_fit_levels, lib.limg_owner_crush)
@@ -155,11 +172,13 @@ class Builds:
     baseline's."""
 
     def __init__(self, baseline: dict | None):
-        from limg_tpu_torch.kernels import coalesce, encode_merged, encode_natural
+        from limg_tpu_torch.kernels import coalesce, encode_fixed, encode_merged, encode_natural
 
         self.mods = {"encode_merged": encode_merged, "encode_natural": encode_natural,
                      "coalesce": coalesce}
+        self.fixed = encode_fixed   # one accessor, _library(name), for two libraries
         self.own = {n: m._library for n, m in self.mods.items()}
+        self.own_fixed = encode_fixed._library
         self.base = ({n: declare(lib, n) for n, lib in baseline.items()}
                      if baseline else None)
 
@@ -170,6 +189,10 @@ class Builds:
             else:
                 lib = self.base[n]
                 m._library = lambda lib=lib: lib
+        if which == "this":
+            self.fixed._library = self.own_fixed
+        else:
+            self.fixed._library = lambda name, libs=self.base: libs[name]
 
     @property
     def names(self):
@@ -245,6 +268,8 @@ def main():
                          "kernel rows of a second lane in one process, so give one a run)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="time the kernels alone and stop (no steps, no encodes)")
+    ap.add_argument("--kernels", default="",
+                    help="time only the kernel calls whose name matches this regular expression")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -256,9 +281,12 @@ def main():
     from limg_tpu_torch import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor
     from limg_tpu_torch.kernels import build
+    from limg_tpu_torch.encoder import _packed_blocks, encode_perf_step
     from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kf
     from limg_tpu_torch.kernels import encode_merged as km
     from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.ops import layout
     from limg_tpu_torch.regions import _words
     from tools.record_torch_reference import case_images
 
@@ -277,7 +305,7 @@ def main():
     for which, libs in ptxas.items():
         for name, lines in libs.items():
             for ln in lines:
-                if re.search(r"fit_levels|segment_encode|owner_crush|match_", ln):
+                if re.search(r"encode_|fit_levels|owner_crush|match_", ln):
                     log(f"  ptxas {which} {name}: {ln}")
     result = {"card": smi, "ptxas": ptxas, "kernels": {}, "steps": {}, "encodes": {},
               "segments": {}, "owners": {}}
@@ -311,7 +339,22 @@ def main():
         result["segments"][lane] = {**segment_lengths(seg), "lanes": int(seg.numel()),
                                     "member_lanes": members}
         log(f"  4K {lane} run buffer: {result['segments'][lane]}")
+        # the fixed grid's blocks and the RD levels' regions, as the RD step
+        # encodes them (endpoints emitted)
+        regions = {64: _packed_blocks(img_d)[:2]}
+        for side in (16, 32, 64):
+            regions[side * side] = layout.blockify_words(words, side)[:2]
+        region_calls, region_plain = {}, {}
+        for p, (rp, rm) in regions.items():
+            name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
+            for tag, c in (("", cfg), (" crush none", cfg_none)):
+                region_calls[name + tag] = (
+                    lambda rp=rp, rm=rm, c=c: kf.encode_blocks_kernel(rp, rm, c, 0, True),
+                    r"encode_(fixed_p64|region)_kernel")
+                region_plain[name + tag] = (
+                    lambda rp=rp, rm=rm, c=c: kf.encode_blocks_reference(rp, rm, c, 0, True))
         calls = {
+            **region_calls,
             "fit_levels L3": (lambda: km.fit_levels_kernel(words, cfg, 3), r"fit_levels_kernel"),
             "fit_levels L2": (lambda: km.fit_levels_kernel(words, cfg, 2), r"fit_levels_kernel"),
             "fit_levels_natural L3": (lambda: kn.fit_levels_natural_kernel(words, cfg, 3),
@@ -333,6 +376,7 @@ def main():
         }
         builds.use("this")
         plain = {
+            **region_plain,
             "fit_levels L3": lambda: km.fit_levels_reference(words, cfg, 3),
             "fit_levels L2": lambda: km.fit_levels_reference(words, cfg, 2),
             "fit_levels_natural L3": lambda: kn.fit_levels_natural_reference(words, cfg, 3),
@@ -347,23 +391,26 @@ def main():
                 packed, mask, seg, blocks, cfg, 0x5EED),
             "segment_encode member lanes": lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED),
         }
-        for name, ref in plain.items():
+        chosen = [name for name in calls if re.search(args.kernels, name)]
+        for name in chosen:
             got = calls[name][0]()
             torch.cuda.synchronize(device)
-            compare_outputs(got, ref())
-        log(f"  4K {lane}: {len(plain)} kernel calls bit-equal to their plain versions")
-        for name, (fn, pattern) in calls.items():
+            compare_outputs(got, plain[name]())
+        log(f"  4K {lane}: {len(chosen)} kernel calls bit-equal to their plain versions")
+        for name in chosen:
+            fn, pattern = calls[name]
             rows = []
             for which in builds.names:
                 builds.use(which)
                 ev, batch = events_ms(fn, device)
-                kern, _ = profiled(fn, device, pattern)
+                kern, busy = profiled(fn, device, pattern)
                 rows.append({"build": which, "events_ms": ev, "batch_ms": batch,
-                             "profiler_ms": kern})
+                             "profiler_ms": kern, "call_busy_ms": busy})
             result["kernels"][f"{lane} {name}"] = rows
             log(f"  4K {lane} {name}: " + ", ".join(
                 f"{r['build']} {r['events_ms']!r} ms (back to back {r['batch_ms']!r}, profiler "
-                f"{r['profiler_ms']!r})" for r in rows) + f" [{smi}]")
+                f"{r['profiler_ms']!r}, call busy {r['call_busy_ms']!r})" for r in rows)
+                + f" [{smi}]")
 
         if args.kernels_only:
             continue
@@ -377,33 +424,54 @@ def main():
                                                      fused_layout=layout)
             return out["total_err"], out["mean_bpp"]
 
-        for layout in ("morton", "natural"):
+        def rd_step():
+            state = limg_tpu_torch.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, 3, need_q=False,
+                                                device=device)
+            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = limg_tpu_torch.fused_rd_finish(state, cfg, 0, RD_LAMBDA, 3, False, cap)
+            return out["total_err"], out["mean_bpp"]
+
+        steps = {"fixed-grid step": lambda: encode_perf_step(img_d, cfg, 0, device),
+                 "default merged step": lambda: step("morton"),
+                 "natural default step": lambda: step("natural"),
+                 "RD step": rd_step}
+        for name, fn in steps.items():
             rows = []
             for which in builds.names:
                 builds.use(which)
-                ev, _ = events_ms(lambda: step(layout), device)
-                _, busy = profiled(lambda: step(layout), device, None)
+                ev, _ = events_ms(fn, device)
+                _, busy = profiled(fn, device, None)
                 rows.append({"build": which, "events_ms": ev, "device_busy_ms": busy})
-            name = "default merged step" if layout == "morton" else "natural default step"
             result["steps"][f"{lane} {name}"] = rows
             log(f"  4K {lane} {name}: " + ", ".join(
                 f"{r['build']} {r['events_ms']!r} ms (device busy {r['device_busy_ms']!r})"
                 for r in rows) + f" [{smi}]")
 
         ref_owner = fx[f"4k_{lane}_l3.owner"]
+        cfg0 = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
+        rows = []
+        for which in dict.fromkeys(builds.names):
+            builds.use(which)
+            out = limg_tpu_torch.encode_image(img, cfg0, device=device)
+            rows.append({"build": which, "psnr": out["psnr"], "mean_bpp": out["mean_bpp"],
+                         "decoded_sum": int(out["decoded"].astype(np.int64).sum())})
+        result["encodes"][f"{lane} fixed grid"] = rows
+        log(f"  4K {lane} fixed-grid encode (dithering off): " + "; ".join(
+            f"{r['build']} psnr {r['psnr']!r} bpp {r['mean_bpp']!r} decoded sum "
+            f"{r['decoded_sum']}" for r in rows))
         paths = {
             "morton default": dict(),
             "morton no coalescing": dict(coalesce=False),
             "natural default": dict(fused_layout="natural"),
-            "rd": dict(merge_policy="rd", rd_lambda=0.01),
+            "rd": dict(merge_policy="rd", rd_lambda=RD_LAMBDA),
+            "rd 4 levels": dict(merge_policy="rd", rd_lambda=RD_LAMBDA, num_levels=4),
         }
-        cfg0 = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
         for path, kw in paths.items():
             rows = []
             for which in dict.fromkeys(builds.names):
                 builds.use(which)
-                out = limg_tpu_torch.encode_image_merged(img, cfg0, num_levels=3, device=device,
-                                                         **kw)
+                kw = {"num_levels": 3, **kw}
+                out = limg_tpu_torch.encode_image_merged(img, cfg0, device=device, **kw)
                 owner = out["owner_px"][::8, ::8].reshape(-1)
                 rows.append({"build": which, "psnr": out["psnr"], "mean_bpp": out["mean_bpp"],
                              "n_runs": int(out["n_runs"]),

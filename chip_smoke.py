@@ -30,7 +30,12 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
 2c. the same for the four run-coalescing kernels (``match_pairs``,
    ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
    fitted rows (``match_neighbors`` also on planes of 1, 2, odd and
-   non-multiple-of-32 blocks a side), random and real segment maps, segment_encode's edges
+   non-multiple-of-32 blocks a side, ``match_pairs`` on 1-129 pairs around
+   a warp and a CTA, 3,000 and 16,132), random and real segment maps (the
+   batched scan, ``seg_scan``, on seeded batches of 1 to 129,600 lanes
+   around its 2,048-lane tiles, int and float rows of sum, max and min,
+   column problems, more problems than one launch takes, and every scan
+   call of a 4K default and RD encode), segment_encode's edges
    (segments of 1, 31, 32, 33 and 256 members across its tiles, a tail of
    lanes with no member, no member at all), RGB and RGBA, every crush
    mode, num_factors 1-3, dithering off and on;
@@ -499,6 +504,13 @@ def seg_map(rng, n: int, max_span: int = 256) -> np.ndarray:
     return seg
 
 
+def run_labels(rng, seg: np.ndarray) -> np.ndarray:
+    """A segment map's runs relabelled by distinct random non-negative ids
+    (the scan only compares ids: any labels of the runs scan alike)."""
+    labels = rng.permutation(8 * seg.size + 16)[:seg.size].astype(np.int32)
+    return labels[seg]
+
+
 def seeded_rows(rng, n: int, ch: int) -> np.ndarray:
     """(7ch, n) float32 Decomposition rows in the fit's ranges, some flat."""
     avg = rng.uniform(0, 255, (ch, n))
@@ -573,6 +585,65 @@ def image_run_buffer(img, cfg, device, levels: int = MERGED_LEVELS):
     return buf, rows.reshape(-1, grid.blocks_y, grid.blocks_x)
 
 
+# match_pairs: one pair, a part-filled warp, one warp, the next; the same
+# around a 128-thread CTA; many CTAs; level 2's neighbour pairs at 4K
+MATCH_PAIRS_SIZES = (1, 31, 32, 33, 127, 128, 129, 3000, 16132)
+# seg_scan problem sizes: 1 lane, within a warp, around SEG_CAP, within one
+# 2,048-lane tile, around a tile and two, and the three levels' lanes at 4K
+SCAN_SIZES = (1, 7, 255, 256, 257, 5000, 2047, 2048, 2049, 4097, 8160, 32400, 129600)
+
+
+def scan_batches(rng, device) -> dict:
+    """Seeded seg_scan batches: {name: [ScanProblem, ...]}. Every problem
+    ends inside a tile or on its edge; segments up to and over SEG_CAP
+    (where a lane sees only part of its segment), ids that are first
+    positions, other labels of the runs, or repeated and negative (-1 and
+    -2 are the outside fills' ids); int rows with wrapping sums,
+    ones rows and min / max, float rows of sums over many magnitudes;
+    column problems of (gy, gx) maps."""
+    import torch
+    from limg_tpu_torch.kernels.coalesce import ScanProblem
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def ints(n, lo=-2**31, hi=2**31 - 1):
+        return t(rng.integers(lo, hi, n).astype(np.int32))
+
+    def floats(n):
+        return t((rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)).astype(np.float32))
+
+    batches = {}
+    for dtype in ("int32", "float32"):
+        probs = []
+        for i, n in enumerate(SCAN_SIZES):
+            seg = seg_map(rng, n, (256, 16, 400)[i % 3])
+            if i % 4 == 1:
+                seg = run_labels(rng, seg)
+            elif i % 4 == 3:
+                seg = rng.integers(-3, 3, n).astype(np.int32)
+            if dtype == "int32":
+                rows, ops = [None, ints(n), ints(n, -9, 9), ints(n, 0, 2)], ("ssxn", "nxs", "s")[i % 3]
+                rows = rows[:len(ops)]
+                init = (7, -2**31, 0)[i % 3]
+            else:
+                rows, ops = [floats(n), floats(n), floats(n)], ("sxn", "s", "ss")[i % 3]
+                rows = rows[:len(ops)]
+                init = (-3.4e38, 0.0, 1.5)[i % 3]
+            probs.append(ScanProblem(t(seg), rows, ops, init))
+        batches[dtype] = probs
+    cols = []
+    for gy, gx in ((1, 300), (300, 1), (37, 61), (135, 240), (270, 480)):
+        seg = seg_map(rng, gy * gx, 20).reshape(gx, gy).T
+        cols.append(ScanProblem(t(seg), [None, t(rng.integers(0, 2, (gy, gx)).astype(np.int32))],
+                                "sn", 1, columns=True))
+    batches["columns"] = cols
+    # more problems than one launch takes
+    batches["17 problems"] = [ScanProblem(t(seg_map(rng, n, 64)), [None], "s")
+                              for n in rng.integers(1, 3000, 17)]
+    return batches
+
+
 COALESCE_SETTINGS_SEEDED = [("ladder", 3, False), ("ladder", 3, True), ("exhaustive", 1, False),
                             ("guess", 2, True), ("none", 3, False), ("ladder", 2, True)]
 
@@ -580,9 +651,11 @@ COALESCE_SETTINGS_SEEDED = [("ladder", 3, False), ("ladder", 3, True), ("exhaust
 def phase_compare_coalesce(device, images=None) -> float:
     """The four run-coalescing kernels vs their plain versions; max abs diff."""
     import torch
+    import limg_tpu_torch
     from limg_tpu_torch.config import EncodeConfig
     from limg_tpu_torch.kernels import coalesce as kc
     from tools.make_test_image import make_4k
+    from tools.record_torch_reference import case_images
 
     log("== phase 2c: run-coalescing kernels vs plain versions on the card")
     if images is None:
@@ -600,9 +673,10 @@ def phase_compare_coalesce(device, images=None) -> float:
             raise AssertionError(f"{case}: {e}")
         n_cases += 1
 
-    # match kernels on seeded rows (below and above one CTA's pairs)
+    # match kernels on seeded rows (one thread a pair: part-filled warps and
+    # CTAs, and level 2's 16,132 pairs at 4K)
     for ch in (3, 4):
-        for n in (5, 3000):
+        for n in MATCH_PAIRS_SIZES:
             a = torch.from_numpy(seeded_rows(rng, n, ch)).to(device)
             b = a + (torch.rand(a.shape, device=device) < 0.3) * torch.randint(
                 0, 6, a.shape, device=device)
@@ -626,6 +700,21 @@ def phase_compare_coalesce(device, images=None) -> float:
                 check(f"seg_mixed_all n={n} {x.dtype} n_sum={n_sum}",
                       [kc.seg_mixed_all_kernel(x, seg, n_sum)],
                       [kc.seg_mixed_all_reference(x, seg, n_sum)])
+    # the batched scan: seeded batches of every size around its 2,048-lane
+    # tiles, int and float rows of sum, max and min, column problems, and
+    # the scans of the 4K default and RD steps
+    for seed in range(3):
+        for name, batch in scan_batches(np.random.default_rng(seed), device).items():
+            check(f"seg_scan {name} seed={seed}", kc.seg_scan(batch), kc.seg_scan_reference(batch))
+    for lane, img in case_images(2160, 3840).items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
+        for policy in ("match", "rd"):
+            calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
+                img, cfg, merge_policy=policy, rd_lambda=RD_LAMBDA, fetch_planes=False,
+                device=device))["seg_scan"]
+            for i, (args, kwargs) in enumerate(calls):
+                check(f"seg_scan 4K {lane} {policy} call {i}", kc.seg_scan(*args, **kwargs),
+                      kc.seg_scan_reference(*args, **kwargs))
     # segment encode on seeded buffers (below and above one CTA's lanes)
     for ch in (3, 4):
         for n in (100, 1500):
@@ -1342,9 +1431,10 @@ def kernel_bound(name: str, args, out) -> tuple:
     elif name == "seg_mixed_all":
         from limg_tpu_torch.ops.segments import scan_steps
 
-        x = args[0]
-        # forward and backward: per step a compare, a select and an add
-        ops = x.numel() * (2 * 3 * len(scan_steps(x.shape[1])) + 2)
+        # the batched call (seg_scan): each problem's rows, forward and
+        # backward, per step a compare, a select and an add; the finish
+        ops = sum(len(p.rows) * p.seg.numel() * (2 * 3 * len(scan_steps(p.seg.numel())) + 2)
+                  for p in args[0])
     else:
         raise ValueError(name)
     return call_bound(ops, tensor_bytes(args, out))
@@ -1465,7 +1555,7 @@ def step_bounds(fn) -> dict:
     from limg_tpu_torch.kernels import encode_natural as kn
 
     wrappers = [(kc, "match_neighbors_kernel"), (kc, "match_pairs_kernel"),
-                (kc, "seg_mixed_all_kernel"), (kc, "segment_encode_kernel"),
+                (kc, "seg_scan"), (kc, "segment_encode_kernel"),
                 (km, "fit_levels_kernel"), (km, "owner_crush_kernel"),
                 (kn, "fit_levels_natural_kernel"), (kn, "owner_crush_natural_kernel"),
                 (kmod, "encode_blocks_kernel")]
@@ -1474,7 +1564,7 @@ def step_bounds(fn) -> dict:
     def spy(fname):
         def call(*args, **kwargs):
             out = saved[fname](*args, **kwargs)
-            name = fname[:-len("_kernel")]
+            name = COALESCE_WRAPPERS.get(fname, fname[:-len("_kernel")])
             if fname == "encode_blocks_kernel":
                 p = args[0].shape[0]
                 name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
@@ -1527,12 +1617,11 @@ def step_losses(profile: dict, bounds: dict) -> dict:
 
 def capture_coalesce_calls(fn) -> dict:
     """Run ``fn`` with the four run-coalescing wrappers recording their
-    arguments: {wrapper name: [args, ...]}."""
+    arguments: {wrapper name: [(args, kwargs), ...]}."""
     from limg_tpu_torch import regions
     from limg_tpu_torch.kernels import coalesce as kc
 
-    names = ("match_neighbors_kernel", "match_pairs_kernel", "seg_mixed_all_kernel",
-             "segment_encode_kernel")
+    names = tuple(COALESCE_WRAPPERS)
     calls, saved = {n: [] for n in names}, {n: getattr(kc, n) for n in names}
 
     def spy(name):
@@ -1551,6 +1640,21 @@ def capture_coalesce_calls(fn) -> dict:
             setattr(kc, n, saved[n])
             setattr(regions, n, saved[n])
     return calls
+
+
+# the run-coalescing wrappers and the kernel each launches
+COALESCE_WRAPPERS = {"match_neighbors_kernel": "match_neighbors",
+                     "match_pairs_kernel": "match_pairs", "seg_scan": "seg_mixed_all",
+                     "segment_encode_kernel": "segment_encode"}
+
+
+def call_shape(args) -> str:
+    """A captured call's shape: its first tensor's, or a scan batch's
+    problems as (rows, lanes)."""
+    first = args[0]
+    if isinstance(first, (list, tuple)):
+        return "[" + ", ".join(f"({len(p.rows)}, {p.seg.numel()})" for p in first) + "]"
+    return str(tuple(first.shape))
 
 
 def phase_timing_coalesce(device, smi: str):
@@ -1572,24 +1676,22 @@ def phase_timing_coalesce(device, smi: str):
             lambda: limg_tpu_torch.encode_image_merged(img_d, cfg, fetch_planes=False,
                                                        device=device))
         # the main path's first calls: level 0's neighbour plane, the one
-        # pair launch (level 2 at 4K), level 0's run-length scan (129,600
-        # lanes), the full-capacity segment encode
-        shapes = {
-            "match_neighbors": calls["match_neighbors_kernel"][0],
-            "match_pairs": calls["match_pairs_kernel"][0],
-            "seg_mixed_all": calls["seg_mixed_all_kernel"][0],
-            "segment_encode": calls["segment_encode_kernel"][0],
-        }
+        # pair launch (level 2 at 4K), run building's first scan (every
+        # level's horizontal run lengths and rectangle test, 129,600 +
+        # 32,400 + 8,160 lanes), the full-capacity segment encode
+        shapes = {COALESCE_WRAPPERS[k]: v[0] for k, v in calls.items()}
         log(f"  4K {lane} main-path calls: " + ", ".join(
             f"{k} {len(v)}" for k, v in calls.items()) + "; timed shapes: "
-            + ", ".join(f"{k} {tuple(c[0][0].shape)}" for k, c in shapes.items()))
+            + ", ".join(f"{k} {call_shape(c[0])}" for k, c in shapes.items()))
         mpx = img.shape[0] * img.shape[1] * 1e-6
         for name, (args, kwargs) in shapes.items():
-            kern = getattr(kc, f"{name}_kernel")
-            plain = getattr(kc, f"{name}_reference")
+            wrapper = next(k for k, v in COALESCE_WRAPPERS.items() if v == name)
+            kern = getattr(kc, wrapper)
+            plain = getattr(kc, wrapper.replace("_kernel", "") + "_reference")
             got, want = kern(*args, **kwargs), plain(*args, **kwargs)
-            worst = max(worst, compare_outputs(got if isinstance(got, tuple) else [got],
-                                               want if isinstance(want, tuple) else [want]))
+            worst = max(worst, compare_outputs(
+                got if isinstance(got, (tuple, list)) else [got],
+                want if isinstance(want, (tuple, list)) else [want]))
             bound = kernel_bound(name, args, got)
             # plain, kernel, kernel, plain: both see the same card state
             p1, k1, k2, p2 = (time_fn(lambda f=f: f(*args, **kwargs), device)

@@ -11,9 +11,12 @@ versions.
   (:587): on a (7ch, by, bx) row plane, ``m_right[y, x]`` = match((y, x+1),
   (y, x)) and ``m_down[y, x]`` = match((y+1, x), (y, x)); the last column of
   m_right and the last row of m_down are False (callers drop them).
-- ``seg_mixed_all_kernel`` takes the role of ``seg_mixed_all_pallas``
+- ``seg_scan`` takes the role of ``seg_mixed_all_pallas``
   (limg_tpu/pallas_kernels/seg_scan.py:140): the doubling-scan chain of
-  ops/segments.py over (R, N) int32 or float32 rows.
+  ops/segments.py for a batch of independent problems (``ScanProblem``:
+  each its own segment map and int32 or float32 rows of sum, max or min)
+  in one launch; ``seg_mixed_all_kernel`` (one problem of (R, N) rows),
+  ``seg_sum_all`` and ``seg_min_all`` are one-problem calls of it.
 - ``segment_encode_kernel`` takes the role of ``segment_encode_pallas``
   (limg_tpu/pallas_kernels/encode_segments.py:188): refit, factors, crush
   search, dither and decode of the contiguous segments (at most SEG_CAP
@@ -33,7 +36,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+import struct
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -55,6 +59,43 @@ launches = {"match_neighbors": 0, "match_pairs": 0, "seg_mixed_all": 0, "segment
 
 # the most ladder verifications segment_encode_kernel keeps per block
 MAX_LADDER_K = 16
+# one seg_scan launch takes at most this many problems of at most this many
+# rows (csrc/coalesce.cu kScanMaxProblems, kScanMaxRows); larger batches
+# take more launches
+SCAN_MAX_PROBLEMS = 16
+SCAN_MAX_ROWS = 4
+_SCAN_OPS = {"s": 0, "x": 1, "n": 2}   # sum, max, min (-max(-x))
+
+
+class ScanProblem(NamedTuple):
+    """One problem of a batched segment scan (``seg_scan``).
+
+    ``seg``: int32 segment ids, (N,), or a (gy, gx) map with ``columns``.
+    ``rows``: the rows to reduce, each of ``seg``'s shape, all int32 or all
+    float32; None is a row of int32 ones (a run length). ``ops``: one
+    letter per row, "s" sum, "x" max, "n" min. ``init``: the value of the
+    lanes outside the problem in a max or min row (ops/segments.py's
+    shifted-in fill; a guard on a real id never takes it). ``columns``:
+    scan the (gy, gx) map column by column, lane i at element (i % gy,
+    i // gy), and give the results in the map's own layout.
+    """
+
+    seg: torch.Tensor
+    rows: Sequence[torch.Tensor | None]
+    ops: str
+    init: int | float = 0
+    columns: bool = False
+
+
+class _ScanRow(ctypes.Structure):        # csrc/coalesce.cu ScanRow
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p), ("op", ctypes.c_int),
+                ("fill", ctypes.c_int)]
+
+
+class _ScanProblem(ctypes.Structure):    # csrc/coalesce.cu ScanProblem
+    _fields_ = [("seg", ctypes.c_void_p), ("n", ctypes.c_int), ("gy", ctypes.c_int),
+                ("steps", ctypes.c_int), ("is_float", ctypes.c_int), ("n_rows", ctypes.c_int),
+                ("rows", _ScanRow * SCAN_MAX_ROWS)]
 
 
 class SegmentEncode(NamedTuple):
@@ -97,12 +138,11 @@ def _library():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
     lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
-    lib.limg_seg_scan_i32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
-    lib.limg_seg_scan_f32.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr, ptr]
+    lib.limg_seg_scan.argtypes = [ptr, i32, ptr]
     lib.limg_segment_encode.argtypes = ([ptr] * 4 + [i32] * 8 + [ctypes.c_uint32]
                                         + [ptr] * 10)
-    for fn in (lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan_i32,
-               lib.limg_seg_scan_f32, lib.limg_segment_encode):
+    for fn in (lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan,
+               lib.limg_segment_encode):
         fn.restype = i32
     lib.limg_cuda_error_string.argtypes = [i32]
     lib.limg_cuda_error_string.restype = ctypes.c_char_p
@@ -185,8 +225,110 @@ def match_neighbors_kernel(rows: torch.Tensor, channels: int):
 
 
 # ---------------------------------------------------------------------------
-# seg_mixed_all
+# seg_scan (seg_mixed_all)
 # ---------------------------------------------------------------------------
+
+def _check_scan_problem(p: ScanProblem) -> torch.dtype:
+    """Raise on a malformed problem; the dtype of its rows."""
+    if p.seg.dtype != torch.int32 or p.seg.ndim != (2 if p.columns else 1):
+        raise ValueError(f"seg must be {'(gy, gx)' if p.columns else '(N,)'} int32, got "
+                         f"{tuple(p.seg.shape)} {p.seg.dtype}")
+    if len(p.ops) != len(p.rows) or not p.rows or set(p.ops) - set(_SCAN_OPS):
+        raise ValueError(f"ops must give one of 's', 'x', 'n' per row, got {p.ops!r} for "
+                         f"{len(p.rows)} rows")
+    dtypes = {torch.int32 if r is None else r.dtype for r in p.rows}
+    if len(dtypes) != 1 or not dtypes <= {torch.int32, torch.float32}:
+        raise ValueError(f"the rows of a problem must be all int32 or all float32, got {dtypes}")
+    for r in p.rows:
+        if r is not None and r.shape != p.seg.shape:
+            raise ValueError(f"row {tuple(r.shape)} must have seg's shape {tuple(p.seg.shape)}")
+    return dtypes.pop()
+
+
+def _lanes(t: torch.Tensor, columns: bool) -> torch.Tensor:
+    """A problem's tensor in lane order."""
+    return t.t().reshape(-1) if columns else t
+
+
+def _fill_value(init, op: str, dtype: torch.dtype):
+    """The value of a row's lanes outside the problem as they are scanned:
+    0 for a sum, ``init`` for a max, ``-init`` for a min (int32 wrapping)."""
+    v = 0 if op == "s" else (-init if op == "n" else init)
+    return float(v) if dtype == torch.float32 else (int(v) + 2**31) % 2**32 - 2**31
+
+
+def _fill_bits(init, op: str, dtype: torch.dtype) -> int:
+    """_fill_value's 32-bit pattern."""
+    v = _fill_value(init, op, dtype)
+    return struct.unpack("<i", struct.pack("<f", v))[0] if dtype == torch.float32 else v
+
+
+def seg_scan_reference(problems: Sequence[ScanProblem]) -> list[torch.Tensor]:
+    """Plain version of seg_scan: each row one ops/segments.py seg_mixed_all
+    chain (min rows as -max(-x)), which is what one call on the whole
+    problem gives each of its rows."""
+    outs = []
+    for p in problems:
+        dtype = _check_scan_problem(p)
+        seg = _lanes(p.seg, p.columns)
+        res = []
+        for row, op in zip(p.rows, p.ops):
+            x = (torch.ones(seg.shape, dtype=torch.int32, device=seg.device) if row is None
+                 else _lanes(row, p.columns))[None]
+            if op == "n":
+                y = -seg_mixed_all(-x, seg, 0, _fill_value(p.init, op, dtype))[0]
+            else:
+                y = seg_mixed_all(x, seg, int(op == "s"), p.init)[0]
+            res.append(y.reshape(p.seg.shape[::-1]).t() if p.columns else y)
+        outs.append(torch.stack(res))
+    return outs
+
+
+def seg_scan(problems: Sequence[ScanProblem]) -> list[torch.Tensor]:
+    """The doubling-scan chain of ops/segments.py for independent problems:
+    per problem an (R, *seg.shape) tensor, row i the segment sums, maxima or
+    minima (``ops[i]``) of row i, each lane holding its segment's total.
+
+    Bit-equal to one plain ``seg_mixed_all`` call per problem, step count
+    (``scan_steps(N)``), outside fills (id -1 left and -2 right) and the
+    float sum's ``fwd + bwd - x`` included, for any ids: every CTA scans one
+    row over one tile of one problem, its lanes outside the problem
+    carrying those fills, and compares ids as the plain version does. A CPU
+    tensor goes to the plain version; CUDA tensors take one launch for up to
+    SCAN_MAX_PROBLEMS problems of up to SCAN_MAX_ROWS rows (a problem with
+    more rows counts as several) or raise.
+    """
+    dtypes = [_check_scan_problem(p) for p in problems]
+    tensors = [t for p in problems for t in (p.seg, *p.rows) if t is not None]
+    if not tensors or not _device_route(*tensors):
+        return seg_scan_reference(problems)
+    dev = tensors[0].device
+    outs, descs, keep = [], [], []
+    for p, dtype in zip(problems, dtypes):
+        seg = p.seg.contiguous()
+        out = torch.empty((len(p.rows), *seg.shape), dtype=dtype, device=dev)
+        outs.append(out)
+        n = seg.numel()
+        if n == 0:
+            continue
+        rows = [None if r is None else r.contiguous() for r in p.rows]
+        keep += [seg, *rows]
+        for k in range(0, len(rows), SCAN_MAX_ROWS):
+            d = _ScanProblem(seg=seg.data_ptr(), n=n, gy=seg.shape[0] if p.columns else 0,
+                             steps=len(scan_steps(n)), is_float=int(dtype == torch.float32),
+                             n_rows=len(rows[k:k + SCAN_MAX_ROWS]))
+            for i, (r, op) in enumerate(zip(rows[k:k + SCAN_MAX_ROWS], p.ops[k:])):
+                d.rows[i] = _ScanRow(x=None if r is None else r.data_ptr(),
+                                     out=out[k + i].data_ptr(), op=_SCAN_OPS[op],
+                                     fill=_fill_bits(p.init, op, dtype))
+            descs.append(d)
+    for k in range(0, len(descs), SCAN_MAX_PROBLEMS):
+        batch = descs[k:k + SCAN_MAX_PROBLEMS]
+        array = (_ScanProblem * len(batch))(*batch)
+        _launch("seg_mixed_all", "limg_seg_scan", dev, ctypes.addressof(array), len(batch))
+    del keep   # alive until the launches: the allocator may reuse a freed block at once
+    return outs
+
 
 def seg_mixed_all_reference(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_max=0):
     """Plain version of seg_mixed_all_kernel (ops/segments.py)."""
@@ -195,7 +337,8 @@ def seg_mixed_all_reference(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, in
 
 def seg_mixed_all_kernel(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_max=0):
     """(R, N) int32 or float32 rows, seg_c (N,) int32: rows [:n_sum] summed,
-    the rest maxed, over contiguous segments; see ops/segments.py."""
+    the rest maxed, over contiguous segments; see ops/segments.py. One
+    seg_scan problem."""
     if x.ndim != 2 or x.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"x must be (R, N) int32 or float32, got {tuple(x.shape)} {x.dtype}")
     if seg_c.shape != (x.shape[1],) or seg_c.dtype != torch.int32:
@@ -205,29 +348,21 @@ def seg_mixed_all_kernel(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_
         raise ValueError(f"n_sum must be in [0, {x.shape[0]}], got {n_sum}")
     if not _device_route(x, seg_c):
         return seg_mixed_all_reference(x, seg_c, n_sum, init_max)
-    r, n = x.shape
-    xc, sc = x.contiguous(), seg_c.contiguous()
-    out = torch.empty_like(xc)
-    if r == 0 or n == 0:
-        return out
-    steps = len(scan_steps(n))
-    if x.dtype == torch.int32:
-        _launch("seg_mixed_all", "limg_seg_scan_i32", x.device, xc.data_ptr(), sc.data_ptr(),
-                r, n, n_sum, int(init_max), steps, out.data_ptr())
-    else:
-        _launch("seg_mixed_all", "limg_seg_scan_f32", x.device, xc.data_ptr(), sc.data_ptr(),
-                r, n, n_sum, float(init_max), steps, out.data_ptr())
-    return out
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    ops = "s" * n_sum + "x" * (x.shape[0] - n_sum)
+    return seg_scan([ScanProblem(seg_c, list(x.contiguous()), ops, init_max)])[0]
 
 
 def seg_sum_all(x: torch.Tensor, seg_c: torch.Tensor) -> torch.Tensor:
     """Per-member segment sums of the (N,) row ``x``, through the kernel."""
-    return seg_mixed_all_kernel(x[None], seg_c, 1)[0]
+    return seg_scan([ScanProblem(seg_c, (x,), "s")])[0][0]
 
 
 def seg_min_all(x: torch.Tensor, seg_c: torch.Tensor, init=0) -> torch.Tensor:
-    """Per-member segment minima of the (N,) row ``x``: -max(-x)."""
-    return -seg_mixed_all_kernel(-x[None], seg_c, 0, -init)[0]
+    """Per-member segment minima of the (N,) row ``x``: -max(-x), in the
+    kernel's registers."""
+    return seg_scan([ScanProblem(seg_c, (x,), "n", init)])[0][0]
 
 
 # ---------------------------------------------------------------------------

@@ -56,9 +56,8 @@ import torch
 
 from .config import BLOCK_SIZE, EncodeConfig, static_block_bits
 from .encoder import _as_image_tensor, resolve_device
-from .kernels.coalesce import (match_neighbors_kernel, match_pairs_kernel,
-                               seg_min_all, seg_mixed_all_kernel, seg_sum_all,
-                               segment_encode_composed, segment_encode_kernel)
+from .kernels.coalesce import (ScanProblem, match_neighbors_kernel, match_pairs_kernel,
+                               seg_scan, segment_encode_composed, segment_encode_kernel)
 from .kernels.encode_fixed import encode_blocks_kernel
 from .kernels.encode_merged import MAX_LEVELS, MIN_LEVELS, fit_levels_kernel, owner_crush_kernel
 from .kernels.encode_natural import fit_levels_natural_kernel, owner_crush_natural_kernel
@@ -258,81 +257,120 @@ def neighbor_pair_matches(rows_per_level, grids, channels: int):
     return out
 
 
-def _axis_run_len(seg2: torch.Tensor, axis: int) -> torch.Tensor:
-    """Per-cell length of runs contiguous along ``axis`` of a 2-D segment
-    map, by the segment scan (row boundaries always break segments, so the
-    flattened scan is safe)."""
-    s = seg2 if axis == 1 else seg2.t()
-    ln = seg_sum_all(torch.ones(s.numel(), dtype=torch.int32, device=s.device),
-                     s.reshape(-1)).reshape(s.shape)
-    return ln if axis == 1 else ln.t()
+def _horizontal_segments(owned: torch.Tensor, grid: layout.BlockGrid, max_members: int,
+                         matches) -> torch.Tensor:
+    """(gy, gx) int32 ids of the horizontal runs of one level: owned cells
+    linked left to a matching owned neighbour, at most ``max_members``
+    columns apart; each id is the run's first cell's flat index."""
+    gy, gx = grid.blocks_y, grid.blocks_x
+    dev = owned.device
+    idx2 = torch.arange(gy * gx, dtype=torch.int32, device=dev).reshape(gy, gx)
+    if gx == 1:
+        return idx2
+    own2 = owned.reshape(gy, gx)
+    link_left = torch.zeros((gy, gx), dtype=torch.bool, device=dev)
+    link_left[:, 1:] = matches[0] & own2[:, 1:] & own2[:, :-1]
+    link_left &= (torch.arange(gx, device=dev) % max_members != 0)[None, :]
+    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    return torch.cummax(torch.where(link_left, neg, idx2), dim=1).values
 
 
-def build_runs(owned: torch.Tensor, grid: layout.BlockGrid, max_members: int, matches):
-    """Link owned cells of one level into runs of matching neighbours.
+def build_runs_levels(levels) -> list:
+    """Link the owned cells of each level into runs of matching neighbours.
 
     Horizontal runs link left, horizontal singletons link up into vertical
     runs, and equal-span horizontal runs stack into rectangles when every
-    vertical pair matches (limg_tpu/regions.py:376 ``build_runs``).
-    ``owned``: (NB,) bool; ``matches``: this level's (m_left, m_up) from
-    ``neighbor_pair_matches``. Returns (seg_id (NB,) int32, the run's first
-    cell's flat index; run_len (NB,) int32 per cell).
+    vertical pair matches (limg_tpu/regions.py:376 ``build_runs``, per
+    level). ``levels``: (owned (NB,) bool, grid, max_members, matches: the
+    level's (m_left, m_up) from ``neighbor_pair_matches``) per level. The
+    segment scans go stage by stage across all levels, each stage one
+    ``seg_scan`` launch: every level's horizontal run lengths and rectangle
+    test (the AND of the vertical matches over a horizontal run is a
+    segment min), then every level's vertical run lengths, scanned down the
+    columns of the (gy, gx) map in place. Returns [(seg_id (NB,) int32, the
+    run's first cell's flat index; run_len (NB,) int32 per cell)] per
+    level.
     """
-    max_members = max(2, max_members)
-    rw_cap = min(16, max(2, int(max_members ** 0.5)))
-    rh_cap = max(1, max_members // rw_cap)
-    gy, gx = grid.blocks_y, grid.blocks_x
-    nb, dev = gy * gx, owned.device
-    own2 = owned.reshape(gy, gx)
-    idx2 = torch.arange(nb, dtype=torch.int32, device=dev).reshape(gy, gx)
-    neg = torch.full((), -1, dtype=torch.int32, device=dev)
+    st = []
+    for owned, grid, max_members, matches in levels:
+        max_members = max(2, max_members)
+        rw_cap = min(16, max(2, int(max_members ** 0.5)))
+        st.append(dict(owned=owned, gy=grid.blocks_y, gx=grid.blocks_x,
+                       max_members=max_members, rw_cap=rw_cap,
+                       rh_cap=max(1, max_members // rw_cap), matches=matches,
+                       seg_h2=_horizontal_segments(owned, grid, max_members, matches)))
 
-    # horizontal runs
-    if gx > 1:
-        link_left = torch.zeros((gy, gx), dtype=torch.bool, device=dev)
-        link_left[:, 1:] = matches[0] & own2[:, 1:] & own2[:, :-1]
-        link_left &= (torch.arange(gx, device=dev) % max_members != 0)[None, :]
-        seg_h2 = torch.cummax(torch.where(link_left, neg, idx2), dim=1).values
-        len_h = _axis_run_len(seg_h2, 1).reshape(-1)
-        seg_h = seg_h2.reshape(-1)
-    else:
-        seg_h2 = idx2
-        seg_h = idx2.reshape(-1)
-        len_h = torch.ones(nb, dtype=torch.int32, device=dev)
+    # stage 1: horizontal run lengths, and the rectangle test's vertical AND
+    problems, users = [], []
+    for s in st:
+        gy, gx = s["gy"], s["gx"]
+        if gx == 1:
+            continue
+        rows, ops = [None], "s"
+        if gy > 1:
+            vmatch = torch.zeros((gy, gx), dtype=torch.int32, device=s["owned"].device)
+            vmatch[1:] = s["matches"][1].to(torch.int32)
+            rows.append(vmatch.reshape(-1))
+            ops += "n"
+        problems.append(ScanProblem(s["seg_h2"].reshape(-1), rows, ops, 1))
+        users.append(s)
+    for s, out in zip(users, seg_scan(problems)):
+        s["len_h"] = out[0]
+        s["vand"] = out[1].reshape(s["gy"], s["gx"]) if out.shape[0] > 1 else None
+    for s in st:
+        if s["gx"] == 1:
+            s["len_h"] = torch.ones(s["gy"], dtype=torch.int32, device=s["owned"].device)
+            s["vand"] = None
 
-    # vertical runs of horizontal singletons
+    # stage 2: vertical runs of horizontal singletons, their lengths down
+    # the columns (the ids stay row-major flat indices: a scan only
+    # compares them)
+    problems, users = [], []
+    for s in st:
+        gy, gx = s["gy"], s["gx"]
+        if gy == 1:
+            continue
+        elig2 = (s["owned"] & (s["len_h"] == 1)).reshape(gy, gx)
+        link_up = torch.zeros((gy, gx), dtype=torch.bool, device=elig2.device)
+        link_up[1:] = s["matches"][1] & elig2[1:] & elig2[:-1]
+        link_up &= (torch.arange(gy, device=elig2.device) % s["max_members"] != 0)[:, None]
+        idx2 = torch.arange(gy * gx, dtype=torch.int32, device=elig2.device).reshape(gy, gx)
+        neg = torch.full((), -1, dtype=torch.int32, device=elig2.device)
+        s["seg_v2"] = torch.cummax(torch.where(link_up, neg, idx2), dim=0).values
+        s["elig"] = elig2.reshape(-1)
+        problems.append(ScanProblem(s["seg_v2"], [None], "s", columns=True))
+        users.append(s)
+    for s, out in zip(users, seg_scan(problems)):
+        s["len_v"] = out[0].reshape(-1)
+
+    return [_finish_runs(s) for s in st]
+
+
+def _finish_runs(s: dict):
+    """One level's (seg_id, run_len) from its scanned stages: vertical runs
+    of horizontal singletons, then rectangles of stacked equal-span
+    horizontal runs."""
+    gy, gx, own2 = s["gy"], s["gx"], s["owned"].reshape(s["gy"], s["gx"])
+    seg_h2, len_h = s["seg_h2"], s["len_h"]
+    seg_h = seg_h2.reshape(-1)
+    dev = seg_h.device
     if gy > 1:
-        m_up = matches[1]
-        elig2 = (owned & (len_h == 1)).reshape(gy, gx)
-        link_up = torch.zeros((gy, gx), dtype=torch.bool, device=dev)
-        link_up[1:] = m_up & elig2[1:] & elig2[:-1]
-        link_up &= (torch.arange(gy, device=dev) % max_members != 0)[:, None]
-        seg_v2 = torch.cummax(torch.where(link_up, neg, idx2), dim=0).values
-        # the length scan runs along columns: ids as first positions in
-        # the transposed flat order
-        ids_t = (seg_v2 % gx) * gy + seg_v2 // gx
-        len_v = _axis_run_len(ids_t.t(), 1).t().reshape(-1)
-        elig = elig2.reshape(-1)
-        seg_id = torch.where(elig, seg_v2.reshape(-1), seg_h)
-        run_len = torch.where(elig, len_v, len_h)
+        elig = s["elig"]
+        seg_id = torch.where(elig, s["seg_v2"].reshape(-1), seg_h)
+        run_len = torch.where(elig, s["len_v"], len_h)
     else:
         seg_id, run_len = seg_h, len_h
-
-    # rectangles: vertically aligned equal-span horizontal runs whose
-    # vertical block pairs all match (the AND is a segment min)
     if gy > 1 and gx > 1:
         len_h2 = len_h.reshape(gy, gx)
-        is_hrun = own2 & (len_h2 >= 2) & (len_h2 <= rw_cap)
-        vmatch = torch.zeros((gy, gx), dtype=torch.int32, device=dev)
-        vmatch[1:] = m_up.to(torch.int32)
-        vand = seg_min_all(vmatch.reshape(-1), seg_h, 1).reshape(gy, gx)
+        is_hrun = own2 & (len_h2 >= 2) & (len_h2 <= s["rw_cap"])
         same_span = torch.zeros((gy, gx), dtype=torch.bool, device=dev)
         same_span[1:] = (seg_h2[1:] - gx == seg_h2[:-1]) & (len_h2[1:] == len_h2[:-1])
         hrun_above = torch.zeros_like(is_hrun)
         hrun_above[1:] = is_hrun[:-1]
-        link_rect = (same_span & (vand > 0) & is_hrun & hrun_above
-                     & (torch.arange(gy, device=dev) % rh_cap != 0)[:, None])
+        link_rect = (same_span & (s["vand"] > 0) & is_hrun & hrun_above
+                     & (torch.arange(gy, device=dev) % s["rh_cap"] != 0)[:, None])
         yy = torch.arange(gy, dtype=torch.int32, device=dev)[:, None].expand(gy, gx)
+        neg = torch.full((), -1, dtype=torch.int32, device=dev)
         r0 = torch.cummax(torch.where(link_rect, neg, yy), dim=0).values
         linked_below = torch.zeros_like(link_rect)
         linked_below[:-1] = link_rect[1:]
@@ -343,6 +381,11 @@ def build_runs(owned: torch.Tensor, grid: layout.BlockGrid, max_members: int, ma
         seg_id = torch.where(in_rect, rect_id.reshape(-1), seg_id)
         run_len = torch.where(in_rect, (rows_total * len_h2).reshape(-1), run_len)
     return seg_id.to(torch.int32), run_len.to(torch.int32)
+
+
+def build_runs(owned: torch.Tensor, grid: layout.BlockGrid, max_members: int, matches):
+    """``build_runs_levels`` for one level: (seg_id, run_len)."""
+    return build_runs_levels([(owned, grid, max_members, matches)])[0]
 
 
 def _bcast0(v: torch.Tensor, grid_l: layout.BlockGrid, grid0: layout.BlockGrid, lvl: int):
@@ -377,10 +420,11 @@ def build_runs_multilevel(owner0, avg0, eps0, lead0, grid0: layout.BlockGrid,
         owned.append((owner2[::s, ::s] == lvl).reshape(-1))
         rows.append(plane0[:, ::s, ::s].reshape(n, -1) if lvl else rows0)
     matches = neighbor_pair_matches(rows, grids, channels)
+    runs = build_runs_levels([(owned[lvl], grids[lvl], SEG_CAP >> (2 * lvl), matches[lvl])
+                              for lvl in range(num_levels)])
     seg0 = lead0
     is_run0 = torch.zeros(nb, dtype=torch.bool, device=owner0.device)
-    for lvl in range(num_levels):
-        seg_l, len_l = build_runs(owned[lvl], grids[lvl], SEG_CAP >> (2 * lvl), matches[lvl])
+    for lvl, (seg_l, len_l) in enumerate(runs):
         is_run_l = owned[lvl] & (len_l >= 2)
         if lvl == 0:
             take = is_run_l & (owner0 == 0)
@@ -484,19 +528,22 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
     header = static_block_bits(ch) if header_bits is None else header_bits
     bits_blk = fac_bits_blk + header * is_start.to(torch.int32)
     old_bits_masked = torch.where(sel_is_run, old_bits_sel, 0)
-    sums = seg_mixed_all_kernel(torch.stack([fac_bits_blk, old_bits_masked]), seg_c, 2)
-    bits_mem = sums[0] + header
+    # segment sums of the new and old bits, and under the RD policy of the
+    # new distortion and the old RD cost: one scan launch
+    problems = [ScanProblem(seg_c, (fac_bits_blk, old_bits_masked), "ss")]
+    if merge_policy == "rd":
+        lam = torch.as_tensor(rd_lambda, dtype=torch.float32, device=dev)
+        old_cost = old_bits_sel.to(torch.float32) + lam * lv["dist"][sel]
+        problems.append(ScanProblem(seg_c, (enc.dist_blk, torch.where(sel_is_run, old_cost, 0.0)),
+                                    "ss"))
+    sums = seg_scan(problems)
+    bits_mem = sums[0][0] + header
     bpp_mem = torch.clamp((bits_mem + enc.count_mem // 2) // torch.clamp(enc.count_mem, min=1),
                           max=0xFF)
     if merge_policy == "rd":
-        # segment sums of the new distortion and of the old RD cost
-        lam = torch.as_tensor(rd_lambda, dtype=torch.float32, device=dev)
-        old_cost = old_bits_sel.to(torch.float32) + lam * lv["dist"][sel]
-        sums_f = seg_mixed_all_kernel(
-            torch.stack([enc.dist_blk, torch.where(sel_is_run, old_cost, 0.0)]), seg_c, 2)
-        accept = ok_c & (bits_mem.to(torch.float32) + lam * sums_f[0] <= sums_f[1])
+        accept = ok_c & (bits_mem.to(torch.float32) + lam * sums[1][0] <= sums[1][1])
     else:
-        accept = ok_c & (bits_mem <= sums[1])
+        accept = ok_c & (bits_mem <= sums[0][1])
 
     # write back: every buffer lane to its block, the accepted ones changed
     def put(dst, src):

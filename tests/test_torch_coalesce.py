@@ -143,6 +143,37 @@ def test_build_runs_matches_jax(max_members):
     assert len_t.max() <= max_members and len_t.max() >= 2
 
 
+def test_stagewise_run_building_matches_jax_per_level():
+    """build_runs_levels scans stage by stage across levels (one launch for
+    every level's horizontal stage, one for the vertical): each level's
+    runs equal JAX's build_runs on that level alone, levels one block high
+    or wide among them."""
+    rng = np.random.default_rng(21)
+    levels, want = [], []
+    for gy, gx, max_members in ((37, 300, 256), (19, 150, 64), (9, 75, 16), (1, 40, 64),
+                                (33, 1, 64), (1, 1, 16), (2, 2, 16)):
+        owned = rng.random(gy * gx) < 0.8
+        m_left = rng.random((gy, gx - 1)) < 0.85
+        m_up = rng.random((gy - 1, gx)) < 0.85
+        m_up[:, :min(gx, 20)] = True                # stacked equal spans: rectangles
+        m_left[:min(gy, 6), :20] = True
+        grid_t = layout.BlockGrid(gy * 8, gx * 8, gy, gx)
+        levels.append((torch.from_numpy(owned), grid_t, max_members,
+                       (torch.from_numpy(m_left), torch.from_numpy(m_up))))
+        want.append(jregions.build_runs(None, jnp.asarray(owned), jlayout.grid_for(gy * 8, gx * 8),
+                                        3, max_members=max_members,
+                                        matches=(jnp.asarray(m_left), jnp.asarray(m_up))))
+    got = regions.build_runs_levels(levels)
+    for (seg_t, len_t), (seg_j, len_j), lvl in zip(got, want, levels, strict=True):
+        np.testing.assert_array_equal(seg_t.numpy(), np.asarray(seg_j), err_msg=str(lvl[1]))
+        np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j), err_msg=str(lvl[1]))
+    assert max(int(r[1].max()) for r in got) >= 2
+    # and one level alone is build_runs
+    for lvl, (seg_t, len_t) in zip(levels, got):
+        one = regions.build_runs(*lvl)
+        assert torch.equal(one[0], seg_t) and torch.equal(one[1], len_t)
+
+
 def test_capacity_rules_match_jax():
     for nb in (100, 4096, 4097, 129600):
         for cap_frac in (-300, -1, 0, 1, 8, 4):

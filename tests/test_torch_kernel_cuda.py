@@ -196,6 +196,10 @@ def test_match_kernels_match_plain_versions(device, channels):
     got = kc.match_pairs_kernel(a, b, channels)
     torch.cuda.synchronize(device)
     assert got.is_cuda and torch.equal(got, kc.match_pairs_reference(a, b, channels))
+    for n in (1, 31, 32, 33, 127, 128, 129):   # part-filled warps and CTAs
+        got = kc.match_pairs_kernel(a[:, :n].contiguous(), b[:, :n].contiguous(), channels)
+        torch.cuda.synchronize(device)
+        assert torch.equal(got, kc.match_pairs_reference(a[:, :n], b[:, :n], channels)), n
     for by, bx in ((37, 150), (1, 70), (40, 1), (130, 130)):
         plane = torch.from_numpy(seeded_rows(rng, by * bx, channels)).to(device)
         plane = plane.reshape(7 * channels, by, bx)
@@ -203,7 +207,7 @@ def test_match_kernels_match_plain_versions(device, channels):
         torch.cuda.synchronize(device)
         for g, w in zip(got, kc.match_neighbors_reference(plane, channels)):
             assert torch.equal(g, w), (by, bx)
-    assert kc.launches["match_pairs"] == before["match_pairs"] + 1
+    assert kc.launches["match_pairs"] == before["match_pairs"] + 8
     assert kc.launches["match_neighbors"] == before["match_neighbors"] + 4
 
 
@@ -219,9 +223,53 @@ def test_seg_scan_kernel_matches_plain_version(device, n, dtype, n_sum):
         x = torch.from_numpy(rng.integers(-2**20, 2**20, (3, n)).astype(np.int32)).to(device)
     else:
         x = torch.from_numpy((rng.standard_normal((3, n)) * 100).astype(np.float32)).to(device)
+    before = kc.launches["seg_mixed_all"]
     got = kc.seg_mixed_all_kernel(x, seg, n_sum)
     torch.cuda.synchronize(device)
     assert torch.equal(got, kc.seg_mixed_all_reference(x, seg, n_sum))
+    assert kc.launches["seg_mixed_all"] == before + 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batched_seg_scan_matches_plain_version(device, seed):
+    """Problems of every size around the 2,048-lane tiles, int and float
+    rows of sum, max and min, column problems: one launch a batch of up to
+    16 problems, bit-equal to one plain chain per problem."""
+    from chip_smoke import scan_batches
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    for name, batch in scan_batches(np.random.default_rng(seed), device).items():
+        before = kc.launches["seg_mixed_all"]
+        got = kc.seg_scan(batch)
+        torch.cuda.synchronize(device)
+        for g, w in zip(got, kc.seg_scan_reference(batch), strict=True):
+            assert g.is_cuda and torch.equal(g, w), name
+        assert kc.launches["seg_mixed_all"] == before + -(-len(batch) // kc.SCAN_MAX_PROBLEMS)
+
+
+@pytest.mark.parametrize("policy", ["match", "rd"])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_run_building_scans_launch_once_per_stage(device, channels, policy):
+    """An encode's run building and coalescing take three scan launches:
+    every level's horizontal stage, every level's vertical stage, and the
+    coalesce pass's sums (int and float ones in one launch)."""
+    from chip_smoke import capture_coalesce_calls
+    from limg_tpu_torch import encode_image_merged
+    from limg_tpu_torch.kernels import coalesce as kc
+    from tools.make_test_image import make_4k
+
+    img = make_4k(301, 437)
+    if channels == 4:
+        img = np.dstack([img, np.full(img.shape[:2], 255, np.uint8)])
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, dithering=False)
+    before = kc.launches["seg_mixed_all"]
+    calls = capture_coalesce_calls(lambda: encode_image_merged(
+        img, cfg, merge_policy=policy, rd_lambda=0.01, device=device))["seg_scan"]
+    assert kc.launches["seg_mixed_all"] == before + 3 == before + len(calls)
+    for args, kwargs in calls:
+        for g, w in zip(kc.seg_scan(*args, **kwargs), kc.seg_scan_reference(*args, **kwargs),
+                        strict=True):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dithering", [False, True])

@@ -27,8 +27,14 @@ layout of work over lanes adds floats in the order the plain versions
   keys 8 a lane, peeled by an arg-max over the packed (key, 63 - index),
   the K candidates in batches of 8; a region's dist by xor 8, 16 and the
   warps' pairwise tree;
-- match_neighbors gives each thread one block: its 27 probes fold left in
-  the thread, and are skipped where the bit does not depend on them;
+- match_neighbors gives each thread one block, and match_pairs one pair:
+  its 27 probes fold left in the thread, and are skipped where the bit
+  does not depend on them;
+- seg_scan gives a CTA one row over a 1,536-lane tile of one problem in a
+  2,048-lane window, warp w holding 32-lane chunks framed by one chunk on
+  each side: steps d < 32 rotate a chunk by one shuffle and take a partner
+  across its edge from the neighbouring chunk, d >= 32 go through shared
+  memory: the doubling scan's order, fwd + bwd - x;
 - the region encode gives each of a region's T = P / 8 threads the pixels
   t + T j: its sums are the halving tree's in-thread levels, one exchange
   across the region's warps (P = 1024, 4096), then butterflies (8 lanes a
@@ -50,7 +56,7 @@ from limg_tpu_torch.ops.error import weighted_error
 from limg_tpu_torch.ops.fit import Decomposition, inv_or_zero, tree_sum
 from limg_tpu_torch.ops.match import _COLOR_DIFF_FACTORS, _normals, match_decomps
 from limg_tpu_torch.ops.reduce import OwnerReducer, nat_block_sum, pairwise_tree
-from limg_tpu_torch.ops.segments import seg_mixed_all
+from limg_tpu_torch.ops.segments import scan_steps, seg_mixed_all
 
 torch.set_num_threads(1)
 
@@ -188,6 +194,101 @@ def test_in_warp_segment_scan_is_the_doubling_scan(spans, n_sum):
             out = (f + b) - v if r < n_sum else torch.maximum(f, b)
             got[r, s:s + m] = out[:m]
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# seg_scan: one row over a 1,536-lane tile of one problem a CTA (csrc/coalesce.cu)
+# ---------------------------------------------------------------------------
+
+SCAN_WARPS, SCAN_CHUNKS, SEG_CAP = 16, 4, 256
+SCAN_WINDOW = SCAN_WARPS * SCAN_CHUNKS * 32
+SCAN_TILE = SCAN_WINDOW - 2 * SEG_CAP
+
+
+def _tile_scan(x: torch.Tensor, seg: torch.Tensor, op: str, fill: float) -> torch.Tensor:
+    """seg_scan_kernel's lanes for one row, every tile at once: warp w holds
+    window lanes 128 w + 32 (r - 1) + l in register chunk r = 0..5 (chunks
+    0 and 5 frame the warp's four), lanes outside the problem carry ids -1
+    (left) and -2 (right) and ``fill``. Each step's guard compares the ids
+    (from shared memory), and a partner outside the registers (d < 32) or
+    the window (d >= 32) counts as another segment. Steps d < 32 rotate each
+    chunk by d lanes (one shuffle) and take a lane l < d's partner from the
+    rotated chunk r - 1; d >= 32 read the window's lane j - d in shared
+    memory. Sums finish as fwd + bwd - x, maxima as max(fwd, bwd), a min as
+    -max(-x)."""
+    n = x.shape[0]
+    steps = scan_steps(n)
+    tiles = -(-n // SCAN_TILE)
+    w = torch.arange(SCAN_WARPS)[:, None, None]
+    r = torch.arange(SCAN_CHUNKS + 2)[None, :, None]
+    lane = torch.arange(32)[None, None, :]
+    j = w * SCAN_CHUNKS * 32 + 32 * (r - 1) + lane                  # (16, 6, 32) window lanes
+    g = torch.arange(tiles)[:, None, None, None] * SCAN_TILE - SEG_CAP + j   # (T, 16, 6, 32)
+    inside = (g >= 0) & (g < n)
+    gi = g.clamp(0, max(n - 1, 0))
+    ids = torch.where(inside, seg[gi], torch.where(g < 0, -1, -2))
+    neg = op == "n"
+    xv = torch.where(inside, -x[gi] if neg else x[gi], torch.tensor(fill, dtype=x.dtype))
+    comb = torch.add if op == "s" else torch.maximum
+
+    def rotate(v, d, up):
+        return v[..., (lane[0, 0] - d) % 32] if up else v[..., (lane[0, 0] + d) % 32]
+
+    f, b = xv.clone(), xv.clone()
+    for d in [dd for dd in steps if dd < 32]:
+        uf, ub = rotate(f, d, True), rotate(b, d, False)
+        uid, dnid = rotate(ids, d, True), rotate(ids, d, False)
+        pf = torch.where(lane >= d, uf, torch.roll(uf, 1, dims=2))       # chunk r - 1
+        pfid = torch.where(lane >= d, uid, torch.roll(uid, 1, dims=2))
+        pb = torch.where(lane + d < 32, ub, torch.roll(ub, -1, dims=2))  # chunk r + 1
+        pbid = torch.where(lane + d < 32, dnid, torch.roll(dnid, -1, dims=2))
+        okf = (pfid == ids) & ((lane >= d) | (r > 0))
+        okb = (pbid == ids) & ((lane + d < 32) | (r < SCAN_CHUNKS + 1))
+        f, b = torch.where(okf, comb(f, pf), f), torch.where(okb, comb(b, pb), b)
+    # the shared-memory steps over the window (chunks 1..4 of every warp)
+    centre = slice(1, SCAN_CHUNKS + 1)
+    win = lambda v: v[:, :, centre].reshape(tiles, SCAN_WINDOW)           # noqa: E731
+    f, b, sid, x0, gw = win(f), win(b), win(ids), win(xv), win(g)
+    jj = torch.arange(SCAN_WINDOW)
+    for d in [dd for dd in steps if dd >= 32]:
+        back = (jj - d).clamp(min=0)
+        fwd_ok = (jj >= d) & (sid[:, back] == sid)
+        ahead = (jj + d).clamp(max=SCAN_WINDOW - 1)
+        bwd_ok = (jj + d < SCAN_WINDOW) & (sid[:, ahead] == sid)
+        f, b = (torch.where(fwd_ok, comb(f, f[:, back]), f),
+                torch.where(bwd_ok, comb(b, b[:, ahead]), b))
+    y = (f + b) - x0 if op == "s" else torch.maximum(f, b)
+    if neg:
+        y = -y
+    out = torch.empty_like(x)
+    keep = (jj >= SEG_CAP) & (jj < SEG_CAP + SCAN_TILE) & (gw >= 0) & (gw < n)
+    out[gw[keep]] = y[keep]
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 7, 31, 255, 256, 257, 1535, 1536, 1537, 3073, 6000])
+@pytest.mark.parametrize("op", ["s", "x", "n"])
+def test_tiled_scan_lanes_are_the_doubling_scan(n, op):
+    """The batched scan's lanes on float rows, bit-equal to the plain
+    chain: problems that end inside a tile, segments over SEG_CAP (a lane
+    sees only part), other labels of the runs, repeated and negative ids."""
+    from chip_smoke import run_labels
+
+    rng = np.random.default_rng(n * 3 + len(op))
+    seg = _segments(rng, n, rng.integers(1, 400, n))
+    if n % 2:
+        seg = torch.from_numpy(run_labels(rng, seg.numpy()))
+    seg[torch.from_numpy(rng.random(n) < 0.05)] = -1         # ids the fills also carry
+    x = torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n))
+                         .astype(np.float32))
+    fill = -3.4e38 if op == "x" else (2.5 if op == "n" else 0.0)
+    if op == "n":
+        want = -seg_mixed_all(-x[None], seg, 0, -fill)[0]
+    else:
+        want = seg_mixed_all(x[None], seg, int(op == "s"), fill)[0]
+    got = _tile_scan(x, seg, op, -fill if op == "n" else fill)
+    assert torch.equal(got, want)
+    assert torch.equal(kc.seg_scan([kc.ScanProblem(seg, (x,), op, fill)])[0][0], want)
 
 
 # ---------------------------------------------------------------------------
@@ -707,3 +808,23 @@ def test_one_thread_probe_loop_is_match_decomps(ch):
     assert (ratio[80] == 1.375) and (ratio[81] == np.float32(1.0 / 1.375))
     assert not stats["ratio_reject"][80:82].any()
     assert want[:20].all()                                # flat pairs of two colours match
+
+
+@pytest.mark.parametrize("ch", [3, 4])
+def test_one_thread_pair_match_is_match_pairs_reference(ch):
+    """match_pairs gives each thread one pair of the (7ch, N) stacks, as
+    match_neighbors gives it one block: the one-thread probe fold on the
+    paired columns is the plain version, on the predicate's edges and on
+    seeded pairs (near and unrelated)."""
+    from chip_smoke import seeded_rows
+
+    a, b = _edge_pairs(ch)
+    rng = np.random.default_rng(30 + ch)
+    sa = seeded_rows(rng, 1000, ch)
+    sb = sa + (rng.random(sa.shape) < 0.3) * rng.integers(0, 6, sa.shape).astype(np.float32)
+    sb[:, ::3] = seeded_rows(rng, 334, ch)
+    a = torch.cat([a, torch.from_numpy(sa)], dim=1)
+    b = torch.cat([b, torch.from_numpy(sb)], dim=1)
+    want = kc.match_pairs_reference(a, b, ch)
+    assert torch.equal(_one_thread_match(_decomp(a, ch), _decomp(b, ch), ch), want)
+    assert 0 < int(want.sum()) < want.numel()

@@ -3,7 +3,9 @@ package, on the CPU.
 
 - The doubling-scan chain (ops/segments.py ``seg_mixed_all``) must be
   bit-equal to JAX's ``seg_mixed_all_jnp`` for int32 and float32 rows and
-  any mix of sum and max rows: both add in the same order.
+  any mix of sum and max rows: both add in the same order; and so must the
+  batched scan (kernels/coalesce.py ``seg_scan``) on every problem of a
+  batch, column problems included.
 - The plain segment re-encode (kernels/coalesce.py
   ``segment_encode_reference``) against JAX's jnp composition
   (``fit_segments`` + ``find_shifts_segments`` + decode, contiguous mode,
@@ -98,6 +100,139 @@ def test_segment_reducer_reduces_each_segment():
     assert torch.equal(red.min(x), -segments.seg_mixed_all(-x.amin(dim=-2), seg, 0))
     assert torch.equal(red.max(x), segments.seg_mixed_all(x.amax(dim=-2), seg, 0))
     assert red.chunks == 1 and red.seg_err_shift == segments.SEG_ERR_SHIFT
+
+
+# ---------------------------------------------------------------------------
+# The batched scan (kernels/coalesce.py seg_scan)
+# ---------------------------------------------------------------------------
+
+BATCH_SIZES = (1, 7, 255, 256, 257, 5000)
+
+
+def _batch(rng, dtype: str):
+    """One problem per size: segments up to 400 lanes (over SEG_CAP, where a
+    lane sees only part of its segment), int32 rows with a row of ones or
+    float32 rows over many magnitudes, sum / max / min mixes."""
+    probs = []
+    for i, n in enumerate(BATCH_SIZES):
+        seg = torch.from_numpy(seg_map(rng, n, (400, 16, 256)[i % 3]))
+        if dtype == "int32":
+            rows = [None, torch.from_numpy(rng.integers(-2**20, 2**20, n).astype(np.int32)),
+                    torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))]
+            ops = ("sxn", "nsx", "xns")[i % 3]
+            init = -2**20
+        else:
+            rows = [torch.from_numpy((rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n))
+                                     .astype(np.float32)) for _ in range(3)]
+            ops = ("sxn", "ssn", "xxs")[i % 3]
+            init = -3.4e38
+        probs.append(kc.ScanProblem(seg, rows, ops, init))
+    return probs
+
+
+def _jax_rows(p, rows):
+    """The problem's rows as JAX's seg_mixed_all_jnp computes them, one call
+    per kind of row (sums and maxima; minima as -max(-x))."""
+    seg = jnp.asarray(p.seg.numpy())
+    out = []
+    for row, op in zip(rows, p.ops):
+        x = jnp.asarray(row)[None]
+        if op == "n":
+            out.append(-np.asarray(_J_CHAIN(-x, seg, 0, -p.init))[0])
+        else:
+            out.append(np.asarray(_J_CHAIN(x, seg, int(op == "s"), p.init))[0])
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_batched_scan_is_one_plain_chain_per_problem_and_jax(dtype):
+    rng = np.random.default_rng(len(dtype))
+    probs = _batch(rng, dtype)
+    got = kc.seg_scan(probs)                           # the plain version on the CPU
+    assert len(got) == len(probs)
+    for p, g in zip(probs, got):
+        n = p.seg.numel()
+        rows = [np.ones(n, np.int32) if r is None else r.numpy() for r in p.rows]
+        x = torch.from_numpy(np.stack(rows))
+        # one plain chain on the whole problem: sums and maxima in one call,
+        # minima as -max(-x) in another
+        plain = np.empty_like(rows)
+        sx = [i for i, o in enumerate(p.ops) if o != "n"]
+        n_sum = sum(o == "s" for o in p.ops)
+        order = sorted(sx, key=lambda i: p.ops[i] != "s")
+        if order:
+            plain[order] = segments.seg_mixed_all(x[order], p.seg, n_sum, p.init).numpy()
+        mins = [i for i, o in enumerate(p.ops) if o == "n"]
+        if mins:
+            plain[mins] = (-segments.seg_mixed_all(-x[mins], p.seg, 0, -p.init)).numpy()
+        assert g.dtype == x.dtype and g.shape == (len(rows), n)
+        np.testing.assert_array_equal(g.numpy(), plain)
+        np.testing.assert_array_equal(g.numpy(), _jax_rows(p, rows))
+
+
+def test_batched_scan_columns_are_the_transposed_scan():
+    """A column problem scans a (gy, gx) map down its columns in place: the
+    plain chain over the transposed map, results in the map's layout, and
+    JAX's on the transposed copy; ids are only compared, so row-major
+    indices do as well as positions in the column order."""
+    rng = np.random.default_rng(3)
+    gy, gx = 37, 61
+    seg_t = seg_map(rng, gy * gx, 20).reshape(gx, gy)           # runs down each column
+    ids = (seg_t % gy) * gx + seg_t // gy                       # the same runs, row-major ids
+    x = rng.integers(0, 2, (gy, gx)).astype(np.int32)
+    (got,) = kc.seg_scan([kc.ScanProblem(torch.from_numpy(ids.T.copy()),
+                                         [None, torch.from_numpy(x)], "sn", 1, columns=True)])
+    col_seg = jnp.asarray(seg_t.reshape(-1))
+    ones = jnp.ones((1, gy * gx), jnp.int32)
+    want_len = np.asarray(_J_CHAIN(ones, col_seg, 1, 0))[0].reshape(gx, gy).T
+    want_min = -np.asarray(_J_CHAIN(-jnp.asarray(x.T.reshape(1, -1)), col_seg, 0, -1))[0]
+    np.testing.assert_array_equal(got[0].numpy(), want_len)
+    np.testing.assert_array_equal(got[1].numpy(), want_min.reshape(gx, gy).T)
+
+
+def test_batched_scan_is_exact_for_any_ids():
+    """Lanes outside a problem carry the plain version's fills (id -1 left,
+    -2 right), so ids that equal them, or repeat out of order, scan as in
+    one plain chain; other labels of the same runs scan as their first
+    positions do; and more rows or problems than one launch takes split into
+    more launches with the same results."""
+    from chip_smoke import run_labels
+
+    rng = np.random.default_rng(4)
+    probs = []
+    for n in (1, 3, 40, 600):
+        seg = torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32))
+        rows = [torch.from_numpy(rng.integers(-50, 50, n).astype(np.int32)) for _ in range(6)]
+        probs.append(kc.ScanProblem(seg, rows, "sxnsxn", 5))
+    probs += probs[:1] * (kc.SCAN_MAX_PROBLEMS + 1)
+    for p, g in zip(probs, kc.seg_scan(probs)):
+        for row, op, out in zip(p.rows, p.ops, g):
+            if op == "n":
+                want = -segments.seg_mixed_all(-row[None], p.seg, 0, -5)[0]
+            else:
+                want = segments.seg_mixed_all(row[None], p.seg, int(op == "s"), 5)[0]
+            assert torch.equal(out, want)
+    first = seg_map(rng, 900, 300)
+    x = torch.from_numpy(rng.standard_normal((2, 900)).astype(np.float32))
+    labelled, firsts = (kc.seg_scan([kc.ScanProblem(torch.from_numpy(s), list(x), "sx", -1.0)])[0]
+                        for s in (run_labels(rng, first), first))
+    assert torch.equal(labelled, firsts)
+
+
+def test_seg_scan_checks_its_problems():
+    seg = torch.zeros(5, dtype=torch.int32)
+    x = torch.zeros(5, dtype=torch.int32)
+    bad = [kc.ScanProblem(seg.long(), [x], "s"),                      # int64 ids
+           kc.ScanProblem(seg, [x], "sx"),                             # an op too many
+           kc.ScanProblem(seg, [x], "m"),                              # no such op
+           kc.ScanProblem(seg, [x, x.float()], "ss"),                  # mixed dtypes
+           kc.ScanProblem(seg, [x[:4]], "s"),                          # a short row
+           kc.ScanProblem(seg, [x], "s", columns=True)]                # a column problem needs a map
+    for p in bad:
+        with pytest.raises(ValueError):
+            kc.seg_scan([p])
+    with pytest.raises(RuntimeError, match="no kernel"):
+        kc.seg_scan([kc.ScanProblem(seg.to("meta"), [x.to("meta")], "s")])
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,24 @@
-"""Time the region-encode, quadtree fit, owner-crush, neighbour-match and
-segment-encode kernels of limg_tpu_torch alone at 4K on one CUDA card,
-beside a baseline build of the same kernels.
+"""Time the kernels of limg_tpu_torch alone at 4K on one CUDA card, beside
+a baseline checkout of the same package.
 
     python3 tools/profile_torch_kernels.py [--baseline DIR] [--out FILE] [--lane rgb]
                                            [--kernels-only] [--kernels REGEX]
 
 Builds ``encode_fixed``, ``encode_region``, ``encode_merged``,
-``encode_natural`` and ``coalesce`` from this checkout (and, with ``--baseline``, from the checkout at DIR into DIR's own
-``build/kernels``) and prints what ``ptxas -v`` reports for every kernel:
-registers, spill bytes, stack frame. Then, on the 4K RGB and RGBA test
-images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
+``encode_natural`` and ``coalesce`` from this checkout (and, with
+``--baseline``, the same libraries of the checkout at DIR into DIR's own
+``build/kernels``, by DIR's own package) and prints what ``ptxas -v``
+reports for every kernel: registers, spill bytes, stack frame. Then, on the
+4K RGB and RGBA test images (tools/make_test_image.make_4k, error_factor
+100, ladder K = 8):
 
 - each kernel of this checkout against its plain version on the same
   inputs (bit-equal, as chip_smoke.py holds them);
 - each kernel's time alone, CUDA events (median of 10 single calls after a
   warm-up, and the mean of 10 calls back to back, which hides the host's
   launch overhead) and torch.profiler device time of the kernel itself
-  (mean over 5 calls; beside it the device busy time of the whole wrapper
-  call, whose difference is the wrapper's copies) side by side:
+  (mean over 5 calls; beside it the device busy time of the whole call,
+  whose difference is the wrapper's copies and glue) side by side:
   ``encode_fixed_p64`` on the fixed grid's 129,600 blocks and
   ``encode_region`` on the RD levels' 32,400 / 8,160 / 2,040 regions of
   256 / 1,024 / 4,096 pixels, each also with ``crush_mode="none"`` (which
@@ -26,10 +27,15 @@ images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
   K = 8, and with ``crush_mode="none"``, which prices the search),
   ``owner_crush_natural``, ``match_neighbors`` on the default encode's
   level-0 and level-1 row planes, (7ch, 270, 480) and (7ch, 135, 240),
-  and ``segment_encode`` on the default encode's
-  run buffer, whole and cut to its member lanes (the price of the lanes
-  that hold no run member); with a baseline, the two builds in turns
-  (baseline, this, this, baseline);
+  ``match_pairs`` on level 2's 16,132 neighbour pairs, (7ch, 16,132),
+  ``seg_mixed_all`` on one row of ones at 129,600 / 32,400 / 8,160 lanes
+  (the run lengths of levels 0-2), the segment scans of one default and
+  one RD step (every scan launch of the step, summed: ``seg_scan ...
+  step``), an empty kernel (the device time of a launch that does
+  nothing), and ``segment_encode`` on the default encode's run buffer,
+  whole and cut to its member lanes (the price of the lanes that hold no
+  run member); with a baseline, the two builds in turns (baseline, this,
+  this, baseline);
 - the run buffer's segment lengths (how many segments and 128-lane tiles
   hold more than 32 members), and how many blocks own at each level (the
   fit's ``owner``) and how many 3-level squares hold an owner of level 2;
@@ -45,23 +51,27 @@ images (tools/make_test_image.make_4k, error_factor 100, ladder K = 8):
   JAX package's recorded default encode
   (tests/fixtures/torch_port_coalesce_reference.npz).
 
-The baseline's kernels run through this checkout's wrappers (their C entry
-points are unchanged), so both builds see the same inputs and glue. Writes
-the numbers as JSON to FILE (default build/profile_kernels.json).
-Needs a CUDA card and nvcc; imports no JAX.
+The baseline runs as its own package (its wrappers, glue and kernels,
+imported under another module name), on inputs made by this checkout, so
+a change of a kernel's C interface or of its callers is compared as a
+whole. Writes the numbers as JSON to FILE (default
+build/profile_kernels.json). Needs a CUDA card and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import importlib
+import importlib.util
 import json
-import os
 import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -71,10 +81,37 @@ COALESCE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_coalesce_reference.
 RUNS = 10
 PROFILED = 5
 RD_LAMBDA = 0.01
+# a launch that does nothing: the device time every launch pays
+EMPTY_SOURCE = """
+__global__ void empty_kernel() {}
+extern "C" int limg_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_name(line: str) -> str | None:
+    """name<template arguments> of the kernel whose mangled symbol a ptxas
+    "Compiling entry function" line names (each identifier is its length,
+    then the name)."""
+    m = re.search(r"Compiling entry function '(\w+)'", line)
+    if not m:
+        return None
+    sym = m.group(1)
+    for n in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?_kernel))", sym):
+        size, ident = int(n.group(1)), n.group(2)
+        if len(ident) == size:
+            rest = sym[n.start(2) + size:]
+            t = re.match(r"I((?:L[ib]\d+E|[if])+)E", rest)
+            targs = re.findall(r"L[ib](\d+)E|([if])", t.group(1)) if t else []
+            args = ",".join(v or {"i": "int", "f": "float"}[c] for v, c in targs)
+            return f"{ident}<{args}>"
+    return None
 
 
 def ptxas_lines(text: str) -> list[str]:
@@ -82,11 +119,9 @@ def ptxas_lines(text: str) -> list[str]:
     registers, stack frame, spill stores / loads."""
     out, name = [], None
     for ln in text.splitlines():
-        m = re.search(r"Compiling entry function .*?\d+([a-z][a-z0-9_]*_kernel)I((?:L[ib]\d+E)+)",
-                      ln)
-        if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-            name, frame, spill = f"{m.group(1)}<{args}>", "", ""
+        kernel = kernel_name(ln)
+        if kernel:
+            name, frame, spill = kernel, "", ""
         elif name and "stack frame" in ln:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", ln)
@@ -99,104 +134,53 @@ def ptxas_lines(text: str) -> list[str]:
     return out
 
 
-def build_baseline(checkout: Path) -> dict:
-    """Compile the baseline checkout's libraries with this checkout's nvcc
-    flags; {name: ctypes.CDLL}."""
-    import ctypes
-
-    from limg_tpu_torch.kernels.build import NVCC_FLAGS, find_nvcc, source_digest
-
-    csrc = checkout / "limg_tpu_torch" / "csrc"
-    out_dir = checkout / "build" / "kernels"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-
-    def one(name):
-        # keyed by the baseline's sources, headers and the flags, as
-        # kernels/build.py keys this checkout's libraries
-        out = out_dir / f"lib{name}_baseline_{source_digest(name, csrc)}.so"
-        log_file = out.with_suffix(".log")
-        if not out.exists():
-            src = csrc / f"{name}.cu"
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out), str(src)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-            log_file.write_text(proc.stdout + proc.stderr)
-        return name, ctypes.CDLL(str(out)), log_file.read_text()
-
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        built = list(pool.map(one, LIBRARIES))
-    ptxas = {name: ptxas_lines(text) for name, _, text in built}
-    return {name: lib for name, lib, _ in built}, ptxas
-
-
-def declare(lib, name: str):
-    """Give a baseline library the C signatures the wrappers declare."""
-    import ctypes
-
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "encode_fixed":
-        lib.limg_encode_fixed_p64.argtypes = [ptr, ptr] + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 7
-        fns = (lib.limg_encode_fixed_p64,)
-    elif name == "encode_region":
-        lib.limg_encode_region.argtypes = [ptr, ptr] + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 7
-        fns = (lib.limg_encode_region,)
-    elif name == "encode_merged":
-        lib.limg_fit_levels.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
-        lib.limg_owner_crush.argtypes = [ptr] + [i32] * 10 + [ctypes.c_uint32] + [ptr] * 10
-        fns = (lib.limg_fit_levels, lib.limg_owner_crush)
-    elif name == "encode_natural":
-        lib.limg_fit_levels_natural.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
-        lib.limg_owner_crush_natural.argtypes = ([ptr] + [i32] * 10 + [ctypes.c_uint32]
-                                                 + [ptr] * 10)
-        fns = (lib.limg_fit_levels_natural, lib.limg_owner_crush_natural)
+def load_checkout(checkout: Path | None, alias: str) -> SimpleNamespace:
+    """The limg_tpu_torch package of ``checkout`` (None: this one), imported
+    as ``alias``, with its kernels built: its modules, and ptxas's report
+    of each library."""
+    if checkout is None:
+        pkg = importlib.import_module("limg_tpu_torch")
     else:
-        lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-        lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
-        lib.limg_seg_scan_i32.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
-        lib.limg_seg_scan_f32.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr,
-                                          ptr]
-        lib.limg_segment_encode.argtypes = [ptr] * 4 + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 10
-        fns = (lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan_i32,
-               lib.limg_seg_scan_f32, lib.limg_segment_encode)
-    for fn in fns:
-        fn.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        pkg_dir = checkout / "limg_tpu_torch"
+        spec = importlib.util.spec_from_file_location(alias, pkg_dir / "__init__.py",
+                                                      submodule_search_locations=[str(pkg_dir)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = pkg
+        spec.loader.exec_module(pkg)
+    name = pkg.__name__
+    mods = {short: importlib.import_module(f"{name}.{path}") for short, path in (
+        ("build", "kernels.build"), ("kc", "kernels.coalesce"), ("kf", "kernels.encode_fixed"),
+        ("km", "kernels.encode_merged"), ("kn", "kernels.encode_natural"),
+        ("encoder", "encoder"), ("regions", "regions"))}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(mods["build"].load_library, LIBRARIES))
+    log(f"built {', '.join(LIBRARIES)} of {checkout or ROOT} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {n: ptxas_lines(mods["build"].build_log.get(n, "")) for n in LIBRARIES}
+    return SimpleNamespace(pkg=pkg, ptxas=ptxas, **mods)
 
 
-class Builds:
-    """Switches the wrappers between this checkout's libraries and the
-    baseline's."""
+def empty_launcher(build):
+    """A callable that launches the empty kernel on the current stream."""
+    import torch
 
-    def __init__(self, baseline: dict | None):
-        from limg_tpu_torch.kernels import coalesce, encode_fixed, encode_merged, encode_natural
+    out = build.BUILD_DIR / "libempty_kernel.so"
+    src = out.with_suffix(".cu")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_SOURCE)
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.limg_empty.argtypes = [ctypes.c_void_p]
+    lib.limg_empty.restype = ctypes.c_int
 
-        self.mods = {"encode_merged": encode_merged, "encode_natural": encode_natural,
-                     "coalesce": coalesce}
-        self.fixed = encode_fixed   # one accessor, _library(name), for two libraries
-        self.own = {n: m._library for n, m in self.mods.items()}
-        self.own_fixed = encode_fixed._library
-        self.base = ({n: declare(lib, n) for n, lib in baseline.items()}
-                     if baseline else None)
-
-    def use(self, which: str):
-        for n, m in self.mods.items():
-            if which == "this":
-                m._library = self.own[n]
-            else:
-                lib = self.base[n]
-                m._library = lambda lib=lib: lib
-        if which == "this":
-            self.fixed._library = self.own_fixed
-        else:
-            self.fixed._library = lambda name, libs=self.base: libs[name]
-
-    @property
-    def names(self):
-        return ("baseline", "this", "this", "baseline") if self.base else ("this", "this")
+    def launch():
+        rc = lib.limg_empty(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed ({rc})")
+    return launch
 
 
 def events_ms(fn, device) -> tuple[float, float]:
@@ -276,16 +260,9 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this tool needs a CUDA card")
-    import limg_tpu_torch
-    from chip_smoke import compare_outputs, image_run_buffer, run_text
+    from chip_smoke import compare_outputs, image_run_buffer, run_text, seg_map
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import build
-    from limg_tpu_torch.encoder import _packed_blocks, encode_perf_step
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import encode_fixed as kf
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.encoder import _as_image_tensor, _packed_blocks
     from limg_tpu_torch.ops import layout
     from limg_tpu_torch.regions import _words
     from tools.record_torch_reference import case_images
@@ -293,33 +270,32 @@ def main():
     device = torch.device("cuda", 0)
     smi = run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     log("card:", torch.cuda.get_device_name(0), "|", smi, "| torch", torch.__version__)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(build.load_library, LIBRARIES))
-    log(f"built {', '.join(LIBRARIES)} in {time.perf_counter() - t0:.1f} s")
-    ptxas = {"this": {n: ptxas_lines(build.build_log.get(n, "")) for n in LIBRARIES}}
-    baseline = None
+    builds = {"this": load_checkout(None, "limg_tpu_torch")}
     if args.baseline:
-        baseline, ptxas["baseline"] = build_baseline(args.baseline.resolve())
-    builds = Builds(baseline)
-    for which, libs in ptxas.items():
-        for name, lines in libs.items():
+        builds["baseline"] = load_checkout(args.baseline.resolve(), "baseline_limg_tpu_torch")
+    turns = ("baseline", "this", "this", "baseline") if args.baseline else ("this", "this")
+    this = builds["this"]
+    empty = empty_launcher(this.build)
+    for which, b in builds.items():
+        for name, lines in b.ptxas.items():
             for ln in lines:
-                if re.search(r"encode_|fit_levels|owner_crush|match_", ln):
+                if re.search(r"encode_|fit_levels|owner_crush|match_|seg_scan", ln):
                     log(f"  ptxas {which} {name}: {ln}")
-    result = {"card": smi, "ptxas": ptxas, "kernels": {}, "steps": {}, "encodes": {},
-              "segments": {}, "owners": {}}
+    result = {"card": smi, "ptxas": {w: b.ptxas for w, b in builds.items()}, "kernels": {},
+              "steps": {}, "encodes": {}, "segments": {}, "owners": {}}
     fx = np.load(COALESCE_FIXTURE)
     images = case_images(2160, 3840)
+    nb = 270 * 480
     for lane, img in images.items():
         if args.lane and lane not in args.lane:
             continue
         cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        ch = cfg.channels
         img_d = _as_image_tensor(img, device)
         words = _words(img_d)
-        builds.use("this")
+        km, kc, kf = this.km, this.kc, this.kf
         fit = km.fit_levels_kernel(words, cfg, 3)
-        fit_n = kn.fit_levels_natural_kernel(words, cfg, 3)
+        fit_n = this.kn.fit_levels_natural_kernel(words, cfg, 3)
         crush_args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, 3, 0)
         crush_n_args = (words, fit_n.owner, fit_n.f8_sel, fit_n.eps_sel, cfg, 3, 0)
         cfg_none = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", crush_mode="none")
@@ -334,76 +310,113 @@ def main():
         (packed, mask, seg, blocks), plane = image_run_buffer(
             img, EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False), device)
         planes = [plane.contiguous(), plane[:, ::2, ::2].contiguous()]
+        # level 2's neighbour pairs, as neighbor_pair_matches pairs them
+        p2 = plane[:, ::4, ::4]
+        pairs = (torch.cat([p2[:, :, 1:].reshape(7 * ch, -1), p2[:, 1:].reshape(7 * ch, -1)], 1),
+                 torch.cat([p2[:, :, :-1].reshape(7 * ch, -1), p2[:, :-1].reshape(7 * ch, -1)], 1))
+        # one row of ones over run-like segments at each level's lane count
+        rng = np.random.default_rng(16)
+        scans = {n: (torch.ones((1, n), dtype=torch.int32, device=device),
+                     torch.from_numpy(seg_map(rng, n, 16)).to(device))
+                 for n in (nb, nb // 4, 68 * 120)}
         members = int(mask.any(dim=0).sum())
         cut = tuple(t[..., :members].contiguous() for t in (packed, mask, seg, blocks))
         result["segments"][lane] = {**segment_lengths(seg), "lanes": int(seg.numel()),
                                     "member_lanes": members}
         log(f"  4K {lane} run buffer: {result['segments'][lane]}")
+
+        def step(P, layout="morton"):
+            state = P.pkg.fused_merged_pre(img_d, cfg, 0, 3, need_q=False, device=device,
+                                           fused_layout=layout)
+            cap = P.pkg.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = P.pkg.fused_merged_finish(state, cfg, 0, 3, False, cap, fused_layout=layout)
+            return out["total_err"], out["mean_bpp"]
+
+        def rd_step(P):
+            state = P.pkg.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, 3, need_q=False, device=device)
+            cap = P.pkg.auto_run_capacity(int(state["n_run_blocks"]), nb)
+            out = P.pkg.fused_rd_finish(state, cfg, 0, RD_LAMBDA, 3, False, cap)
+            return out["total_err"], out["mean_bpp"]
+
         # the fixed grid's blocks and the RD levels' regions, as the RD step
         # encodes them (endpoints emitted)
         regions = {64: _packed_blocks(img_d)[:2]}
         for side in (16, 32, 64):
             regions[side * side] = layout.blockify_words(words, side)[:2]
-        region_calls, region_plain = {}, {}
+        # name: (call of a build, kernel name pattern, plain version or None)
+        calls = {}
         for p, (rp, rm) in regions.items():
             name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
             for tag, c in (("", cfg), (" crush none", cfg_none)):
-                region_calls[name + tag] = (
-                    lambda rp=rp, rm=rm, c=c: kf.encode_blocks_kernel(rp, rm, c, 0, True),
-                    r"encode_(fixed_p64|region)_kernel")
-                region_plain[name + tag] = (
+                calls[name + tag] = (
+                    lambda P, rp=rp, rm=rm, c=c: P.kf.encode_blocks_kernel(rp, rm, c, 0, True),
+                    r"encode_(fixed_p64|region)_kernel",
                     lambda rp=rp, rm=rm, c=c: kf.encode_blocks_reference(rp, rm, c, 0, True))
-        calls = {
-            **region_calls,
-            "fit_levels L3": (lambda: km.fit_levels_kernel(words, cfg, 3), r"fit_levels_kernel"),
-            "fit_levels L2": (lambda: km.fit_levels_kernel(words, cfg, 2), r"fit_levels_kernel"),
-            "fit_levels_natural L3": (lambda: kn.fit_levels_natural_kernel(words, cfg, 3),
-                                      r"fit_levels_kernel"),
-            "owner_crush L3": (lambda: km.owner_crush_kernel(*crush_args), r"owner_crush_kernel"),
-            "owner_crush L3 crush none": (lambda: km.owner_crush_kernel(*none_args),
-                                          r"owner_crush_kernel"),
-            "owner_crush_natural L3": (lambda: kn.owner_crush_natural_kernel(*crush_n_args),
-                                       r"owner_crush_kernel"),
-            "match_neighbors level 0": (lambda: kc.match_neighbors_kernel(planes[0], cfg.channels),
-                                        r"match_neighbors_kernel"),
-            "match_neighbors level 1": (lambda: kc.match_neighbors_kernel(planes[1], cfg.channels),
-                                        r"match_neighbors_kernel"),
-            "segment_encode all lanes": (lambda: kc.segment_encode_kernel(packed, mask, seg,
-                                                                          blocks, cfg, 0x5EED),
-                                         r"segment_encode_kernel"),
-            "segment_encode member lanes": (lambda: kc.segment_encode_kernel(*cut, cfg, 0x5EED),
-                                            r"segment_encode_kernel"),
-        }
-        builds.use("this")
-        plain = {
-            **region_plain,
-            "fit_levels L3": lambda: km.fit_levels_reference(words, cfg, 3),
-            "fit_levels L2": lambda: km.fit_levels_reference(words, cfg, 2),
-            "fit_levels_natural L3": lambda: kn.fit_levels_natural_reference(words, cfg, 3),
-            "owner_crush L3": lambda: km.owner_crush_reference(*crush_args),
-            "owner_crush L3 crush none": lambda: km.owner_crush_reference(*none_args),
-            "owner_crush_natural L3": lambda: kn.owner_crush_natural_reference(*crush_n_args),
-            "match_neighbors level 0": lambda: kc.match_neighbors_reference(planes[0],
-                                                                           cfg.channels),
-            "match_neighbors level 1": lambda: kc.match_neighbors_reference(planes[1],
-                                                                           cfg.channels),
-            "segment_encode all lanes": lambda: kc.segment_encode_reference(
-                packed, mask, seg, blocks, cfg, 0x5EED),
-            "segment_encode member lanes": lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED),
-        }
+        calls.update({
+            "fit_levels L3": (lambda P: P.km.fit_levels_kernel(words, cfg, 3),
+                              r"fit_levels_kernel", lambda: km.fit_levels_reference(words, cfg, 3)),
+            "fit_levels L2": (lambda P: P.km.fit_levels_kernel(words, cfg, 2),
+                              r"fit_levels_kernel", lambda: km.fit_levels_reference(words, cfg, 2)),
+            "fit_levels_natural L3": (
+                lambda P: P.kn.fit_levels_natural_kernel(words, cfg, 3), r"fit_levels_kernel",
+                lambda: this.kn.fit_levels_natural_reference(words, cfg, 3)),
+            "owner_crush L3": (lambda P: P.km.owner_crush_kernel(*crush_args),
+                               r"owner_crush_kernel",
+                               lambda: km.owner_crush_reference(*crush_args)),
+            "owner_crush L3 crush none": (lambda P: P.km.owner_crush_kernel(*none_args),
+                                          r"owner_crush_kernel",
+                                          lambda: km.owner_crush_reference(*none_args)),
+            "owner_crush_natural L3": (
+                lambda P: P.kn.owner_crush_natural_kernel(*crush_n_args), r"owner_crush_kernel",
+                lambda: this.kn.owner_crush_natural_reference(*crush_n_args)),
+            "match_neighbors level 0": (
+                lambda P: P.kc.match_neighbors_kernel(planes[0], ch), r"match_neighbors_kernel",
+                lambda: kc.match_neighbors_reference(planes[0], ch)),
+            "match_neighbors level 1": (
+                lambda P: P.kc.match_neighbors_kernel(planes[1], ch), r"match_neighbors_kernel",
+                lambda: kc.match_neighbors_reference(planes[1], ch)),
+            "match_pairs level 2": (lambda P: P.kc.match_pairs_kernel(*pairs, ch),
+                                    r"match_pairs_kernel",
+                                    lambda: kc.match_pairs_reference(*pairs, ch)),
+            **{f"seg_mixed_all {n} lanes": (
+                lambda P, x=x, s=s: P.kc.seg_mixed_all_kernel(x, s, 1), r"seg_scan",
+                lambda x=x, s=s: kc.seg_mixed_all_reference(x, s, 1))
+               for n, (x, s) in scans.items()},
+            "seg_scan default step": (step, r"seg_scan", None),
+            "seg_scan RD step": (rd_step, r"seg_scan", None),
+            "empty kernel": (lambda P: empty(), r"empty_kernel", None),
+            "segment_encode all lanes": (
+                lambda P: P.kc.segment_encode_kernel(packed, mask, seg, blocks, cfg, 0x5EED),
+                r"segment_encode_kernel",
+                lambda: kc.segment_encode_reference(packed, mask, seg, blocks, cfg, 0x5EED)),
+            "segment_encode member lanes": (
+                lambda P: P.kc.segment_encode_kernel(*cut, cfg, 0x5EED), r"segment_encode_kernel",
+                lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED)),
+        })
+        def tensors(out):
+            if isinstance(out, torch.Tensor):
+                return [out]
+            return [v if v is None or isinstance(v, torch.Tensor) else torch.as_tensor(v)
+                    for v in out]
+
         chosen = [name for name in calls if re.search(args.kernels, name)]
         for name in chosen:
-            got = calls[name][0]()
+            fn, _, plain = calls[name]
+            outs = {which: fn(b) for which, b in builds.items()}
             torch.cuda.synchronize(device)
-            compare_outputs(got, plain[name]())
-        log(f"  4K {lane}: {len(chosen)} kernel calls bit-equal to their plain versions")
+            if plain is not None:
+                compare_outputs(tensors(outs["this"]), tensors(plain()))
+            if "baseline" in outs and outs["this"] is not None:
+                compare_outputs(tensors(outs["this"]), tensors(outs["baseline"]))
+        log(f"  4K {lane}: {len(chosen)} kernel calls bit-equal to their plain versions "
+            f"and to the baseline's")
         for name in chosen:
-            fn, pattern = calls[name]
+            fn, pattern, _ = calls[name]
             rows = []
-            for which in builds.names:
-                builds.use(which)
-                ev, batch = events_ms(fn, device)
-                kern, busy = profiled(fn, device, pattern)
+            for which in turns:
+                b = builds[which]
+                ev, batch = events_ms(lambda: fn(b), device)
+                kern, busy = profiled(lambda: fn(b), device, pattern)
                 rows.append({"build": which, "events_ms": ev, "batch_ms": batch,
                              "profiler_ms": kern, "call_busy_ms": busy})
             result["kernels"][f"{lane} {name}"] = rows
@@ -414,33 +427,16 @@ def main():
 
         if args.kernels_only:
             continue
-        nb = 270 * 480
-
-        def step(layout):
-            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, 3, need_q=False, device=device,
-                                                    fused_layout=layout)
-            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, 3, False, cap,
-                                                     fused_layout=layout)
-            return out["total_err"], out["mean_bpp"]
-
-        def rd_step():
-            state = limg_tpu_torch.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, 3, need_q=False,
-                                                device=device)
-            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_rd_finish(state, cfg, 0, RD_LAMBDA, 3, False, cap)
-            return out["total_err"], out["mean_bpp"]
-
-        steps = {"fixed-grid step": lambda: encode_perf_step(img_d, cfg, 0, device),
-                 "default merged step": lambda: step("morton"),
-                 "natural default step": lambda: step("natural"),
+        steps = {"fixed-grid step": lambda P: P.encoder.encode_perf_step(img_d, cfg, 0, device),
+                 "default merged step": step,
+                 "natural default step": lambda P: step(P, "natural"),
                  "RD step": rd_step}
         for name, fn in steps.items():
             rows = []
-            for which in builds.names:
-                builds.use(which)
-                ev, _ = events_ms(fn, device)
-                _, busy = profiled(fn, device, None)
+            for which in turns:
+                b = builds[which]
+                ev, _ = events_ms(lambda: fn(b), device)
+                _, busy = profiled(lambda: fn(b), device, None)
                 rows.append({"build": which, "events_ms": ev, "device_busy_ms": busy})
             result["steps"][f"{lane} {name}"] = rows
             log(f"  4K {lane} {name}: " + ", ".join(
@@ -450,9 +446,8 @@ def main():
         ref_owner = fx[f"4k_{lane}_l3.owner"]
         cfg0 = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
         rows = []
-        for which in dict.fromkeys(builds.names):
-            builds.use(which)
-            out = limg_tpu_torch.encode_image(img, cfg0, device=device)
+        for which in dict.fromkeys(turns):
+            out = builds[which].pkg.encode_image(img, cfg0, device=device)
             rows.append({"build": which, "psnr": out["psnr"], "mean_bpp": out["mean_bpp"],
                          "decoded_sum": int(out["decoded"].astype(np.int64).sum())})
         result["encodes"][f"{lane} fixed grid"] = rows
@@ -468,10 +463,9 @@ def main():
         }
         for path, kw in paths.items():
             rows = []
-            for which in dict.fromkeys(builds.names):
-                builds.use(which)
+            for which in dict.fromkeys(turns):
                 kw = {"num_levels": 3, **kw}
-                out = limg_tpu_torch.encode_image_merged(img, cfg0, device=device, **kw)
+                out = builds[which].pkg.encode_image_merged(img, cfg0, device=device, **kw)
                 owner = out["owner_px"][::8, ::8].reshape(-1)
                 rows.append({"build": which, "psnr": out["psnr"], "mean_bpp": out["mean_bpp"],
                              "n_runs": int(out["n_runs"]),
@@ -482,7 +476,6 @@ def main():
                 f"{r['build']} psnr {r['psnr']!r} bpp {r['mean_bpp']!r} runs {r['n_runs']} "
                 f"owners off JAX {r['owners_off_jax']} decoded sum {r['decoded_sum']}"
                 for r in rows) + f" (JAX runs {int(fx[f'4k_{lane}_l3.n_runs'])})")
-    builds.use("this")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     log(f"wrote {args.out}")

@@ -46,9 +46,12 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
 2e. the same for ``fit_levels_natural`` and ``owner_crush_natural`` (levels
    2 to 4, RGB and RGBA, edge-padded images, the settings of phase 2, q
    emitted and not; the crush also at phase 2b's ragged squares), for
-   ``crush_eval_rows`` (K = 1, 8, 27 and 729, ragged
-   N, RGB and RGBA, P = 64 and 256) and for the composed segment re-encode
-   against the segment kernel on real run buffers;
+   ``crush_eval_rows`` (per-block triples at K = 1, 8, 27 and 729; the
+   search's stride-0 tables: the 27 axis sweeps, an exhaustive chunk, the
+   guess triples, the floors' K = 1; a table with duplicates, K = 19, and
+   one of 200 rows; ragged N with an all-masked block, RGB and RGBA, P = 64
+   and 256) and for the composed segment re-encode against the segment
+   kernel on real run buffers;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -80,8 +83,10 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    breakdown (the fit, owner-crush and segment kernels' device time in the
    step beside their events time alone) and each kernel's launches per
    default and RD step; 4e also times the natural pair against the Morton
-   pair, the natural step against the Morton step and the composed
-   coalesce pass against the segment kernel's.
+   pair, the natural step against the Morton step, both
+   ``crush_eval_rows`` calls of the composed coalesce pass (the sweep
+   table and the verified per-block triples) with their bounds, and the
+   composed pass against the segment kernel's.
 
 Prints the order in which to redesign the kernels (the ms each loses above
 its bound per default step, then per RD step: its profiler device time in
@@ -773,6 +778,7 @@ def phase_compare_natural(device, images=None) -> float:
     from limg_tpu_torch.kernels import coalesce as kc
     from limg_tpu_torch.kernels import crush_eval as kce
     from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.ops.crush import _const_cands
     from limg_tpu_torch.regions import _words
     from tools.make_test_image import make_4k
     from tools.record_torch_natural_reference import crush_eval_inputs
@@ -813,19 +819,31 @@ def phase_compare_natural(device, images=None) -> float:
                                             kn.owner_crush_natural_reference)
     worst, n_cases = max(worst, ragged), n_cases + n_ragged
     log(f"  owner_crush_natural at ragged squares: {n_ragged} cases bit-equal")
-    # crush_eval_rows: every K the search asks for and the exhaustive 729,
-    # ragged N up to the full 4K buffer, both block sizes
+    # crush_eval_rows: per-block triples at every K the search asks for and
+    # the exhaustive 729, and the search's stride-0 tables (crush_eval_tables),
+    # ragged N up to the full 4K buffer with an all-masked block, both block
+    # sizes
+    n_ce = n_cases
     for ch in (3, 4):
         for p in (64, 256):
             for n, k in ((1, 1), (37, 8), (1000, 27), (3001, 729), (129600, 27)):
                 packed, mask, f8p, eps, cands = crush_eval_inputs(ch, n=n, k=k, seed=p + n)
                 if p == 256:
                     packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
+                mask = mask.copy()
+                mask[:, n // 2] = 0
                 ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                       for a in (packed, mask, f8p, eps, cands)]
-                check(f"crush_eval_rows ch={ch} P={p} N={n} K={k}",
-                      kce.crush_eval_rows_kernel(*ins, ch), kce.crush_eval_rows_reference(*ins, ch))
-    log("  crush_eval_rows: 20 cases bit-equal")
+                       for a in (packed, mask, f8p, eps)]
+                per_block = torch.from_numpy(cands).to(device)
+                check(f"crush_eval_rows ch={ch} P={p} N={n} per-block K={k}",
+                      kce.crush_eval_rows_kernel(*ins, per_block, ch),
+                      kce.crush_eval_rows_reference(*ins, per_block, ch))
+                for name, triples in crush_eval_tables(n).items():
+                    table = _const_cands(triples, n, device)
+                    check(f"crush_eval_rows ch={ch} P={p} N={n} {name}",
+                          kce.crush_eval_rows_kernel(*ins, table, ch),
+                          kce.crush_eval_rows_reference(*ins, table, ch))
+    log(f"  crush_eval_rows: {n_cases - n_ce} cases bit-equal")
     # the composed re-encode (seg_mixed_all_kernel + crush_eval_rows_kernel)
     # against the segment kernel on real run buffers
     rgb = make_4k(256, 384)
@@ -1182,6 +1200,31 @@ def phase_main_path_rd(device):
     return launched
 
 
+def crush_eval_tables(n: int) -> dict:
+    """The shift tables crush_eval_rows is held to at N blocks: the
+    search's (the ladder's 27 axis sweeps, an exhaustive chunk of 81, the
+    guess mode's 4 triples, the reduced-factor floors' (0, 0, 0)), a seeded
+    table of 19 rows with duplicates and shifts above 8, and one of 200 rows
+    (two launches; below the full 4K buffer)."""
+    from limg_tpu_torch.ops.crush import GUESS_TRIPLES
+
+    rng = np.random.default_rng(n)
+    every = [(a, b, c) for a in range(9) for b in range(9) for c in range(9)]
+    few = [tuple(int(v) for v in rng.integers(0, 12, 3)) for _ in range(6)]
+    tables = {
+        "sweep table K=27": [tuple(s if ax == a else 0 for ax in range(3))
+                             for a in range(3) for s in range(9)],
+        f"exhaustive chunk {n % 9} K=81": every[81 * (n % 9):81 * (n % 9 + 1)],
+        "guess table K=4": list(GUESS_TRIPLES),
+        "floors table K=1": [(0, 0, 0)],
+        "table with duplicates K=19": [few[i] for i in rng.integers(0, 6, 19)],
+    }
+    if n < 129600:
+        tables["table K=200"] = [tuple(int(v) for v in rng.integers(0, 9, 3))
+                                 for _ in range(200)]
+    return tables
+
+
 def composed_pass(state, cfg, seed: int, use_kernel: bool) -> tuple:
     """One coalesce pass over a ``fused_merged_pre`` state at auto capacity,
     through the segment kernel (``use_kernel``) or the composed re-encode:
@@ -1325,6 +1368,22 @@ def eval_ops(ch: int) -> int:
     return 3 * axis_decode_ops(ch) + pixel_err_ops(ch)
 
 
+def distinct_eval_work(cands) -> tuple:
+    """(axis decodes, triples) that candidate shifts (K, 3, N) need, summed
+    over the blocks: per block one decode per distinct (axis, shift) and one
+    channel sum and error per distinct triple among its K candidates (a
+    shift above 8 decodes as 8)."""
+    import torch
+
+    s = torch.clamp(cands, 0, 8).long()
+    n = s.shape[2]
+    decodes = sum(int(torch.zeros((9, n), dtype=torch.int32, device=s.device)
+                      .scatter_(0, s[:, a], 1).sum()) for a in range(3))
+    code = torch.sort(s[:, 0] * 81 + s[:, 1] * 9 + s[:, 2], dim=0).values
+    triples = n + int((code[1:] != code[:-1]).sum())
+    return decodes, triples
+
+
 def fit_ops(ch: int) -> int:
     """Operations of the 3-axis fit and the u8 factors per pixel: the mean
     (2 per channel), three direction sweeps (centre, length, sign, scaled
@@ -1410,8 +1469,16 @@ def kernel_bound(name: str, args, out) -> tuple:
         words, cfg, levels = args
         ops = levels * words.numel() * fit_ops(cfg.channels)
     elif name == "crush_eval_rows":
-        packed, channels, cands = args[0], args[5], args[4]
-        ops = cands.shape[0] * packed.numel() * eval_ops(channels)
+        # what the candidates need (distinct_eval_work); a stride-0 table
+        # is read as its (K, 3) rows
+        from limg_tpu_torch.kernels.crush_eval import table_of
+
+        packed, cands, ch = args[0], args[4], args[5]
+        decodes, triples = distinct_eval_work(cands)
+        ops = packed.shape[0] * (decodes * axis_decode_ops(ch)
+                                 + triples * (ch + pixel_err_ops(ch)))
+        table = table_of(cands)
+        return call_bound(ops, tensor_bytes(args[:4], out, cands if table is None else table))
     elif name in ("owner_crush", "owner_crush_natural"):
         words, cfg = args[0], args[4]
         ops = encode_ops(words.numel(), words.numel(), cfg) - words.numel() * fit_ops(cfg.channels)
@@ -1838,18 +1905,22 @@ def phase_timing_natural(device, smi: str):
             composed_pass(state, cfg, 0, False)
         finally:
             kce.crush_eval_rows_kernel = saved
-        # the first call: the ladder's 27 axis sweeps over the whole buffer
-        ce_args = calls[0]
-        got = kce.crush_eval_rows_kernel(*ce_args)
-        worst = max(worst, compare_outputs(got, kce.crush_eval_rows_reference(*ce_args)))
-        bound = kernel_bound("crush_eval_rows", ce_args, got)
-        kern = lambda: kce.crush_eval_rows_kernel(*ce_args)
-        plain = lambda: kce.crush_eval_rows_reference(*ce_args)
-        p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-        rows[("crush_eval_rows", lane)] = (min(k1, k2), min(p1, p2), *bound)
-        log(f"  4K {lane} crush_eval_rows ({len(calls)} calls in the composed pass; timed K = "
-            f"{ce_args[4].shape[0]}, N = {ce_args[0].shape[1]}): kernel {k1!r} / {k2!r} ms, "
-            f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
+        # both calls: the ladder's 27 axis sweeps over the whole buffer (a
+        # stride-0 table; its row in the kernels line) and its 8 verified
+        # candidates (one triple a block)
+        for i, ce_args in enumerate(calls):
+            got = kce.crush_eval_rows_kernel(*ce_args)
+            worst = max(worst, compare_outputs(got, kce.crush_eval_rows_reference(*ce_args)))
+            bound = kernel_bound("crush_eval_rows", ce_args, got)
+            kern = lambda: kce.crush_eval_rows_kernel(*ce_args)
+            plain = lambda: kce.crush_eval_rows_reference(*ce_args)
+            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+            if i == 0:
+                rows[("crush_eval_rows", lane)] = (min(k1, k2), min(p1, p2), *bound)
+            form = "table" if kce.table_of(ce_args[4]) is not None else "per-block"
+            log(f"  4K {lane} crush_eval_rows, call {i + 1} of {len(calls)} in the composed pass "
+                f"(K = {ce_args[4].shape[0]}, {form}, N = {ce_args[0].shape[1]}): kernel {k1!r} / "
+                f"{k2!r} ms, plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
         seg_pass = lambda: composed_pass(state, cfg, 0, True)[0]["dist"]
         comp_pass = lambda: composed_pass(state, cfg, 0, False)[0]["dist"]
         s1, c1, c2, s2 = (time_fn(f, device) for f in (seg_pass, comp_pass, comp_pass, seg_pass))

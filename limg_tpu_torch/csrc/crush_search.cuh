@@ -47,6 +47,24 @@ struct LMax {
   __device__ long long operator()(long long a, long long b) const { return a > b ? a : b; }
 };
 
+// limg_common.cuh pixel_err of pixel k of px (one row of pixels a
+// channel), the clamp to [0, 255] by one instruction (__vimin_s32_relu:
+// max(min(x, 255), 0)): the crush search's and crush_eval.cu's error.
+template <int CH, int N>
+__device__ __forceinline__ int clamped_pixel_err(const int (&est)[CH], const int (&px)[CH][N],
+                                                 int k) {
+  int d2[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int d = __vimin_s32_relu(est[c], 255) - px[c][k];
+    d2[c] = d * d;
+  }
+  const bool lo = d2[0] < 0x4000;
+  int e = d2[0] * (lo ? 2 : 3) + d2[1] * 4 + d2[2] * (lo ? 3 : 2);
+  if (CH == 4) e += d2[CH - 1] * 3;
+  return e;
+}
+
 // op over aligned groups of TO lanes by xor butterflies at FROM, 2 FROM,
 // ... < TO: the pairwise-adjacent tree over the groups of FROM lanes, the
 // same bits in every lane for a commutative op.
@@ -120,18 +138,9 @@ struct CrushLane {
   }
   __device__ bool operator()(int pm, int be) const { return admissible(pm, be); }
 
-  // limg_common.cuh pixel_err of pixel k (0 outside the image), the clamp
-  // to [0, 255] by one instruction (__vimin_s32_relu: max(min(x, 255), 0))
+  // clamped_pixel_err of pixel k (0 outside the image)
   __device__ int pixel_err_of(const int (&est)[CH], int k) const {
-    int d2[CH];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      const int d = __vimin_s32_relu(est[c], 255) - px[c][k];
-      d2[c] = d * d;
-    }
-    const bool lo = d2[0] < 0x4000;
-    int e = d2[0] * (lo ? 2 : 3) + d2[1] * 4 + d2[2] * (lo ? 3 : 2);
-    if (CH == 4) e += d2[CH - 1] * 3;
+    const int e = clamped_pixel_err<CH>(est, px, k);
     return ((vmask >> k) & 1) ? e : 0;
   }
 

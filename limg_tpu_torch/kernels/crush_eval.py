@@ -19,6 +19,17 @@ here, through ``ops/crush.find_shifts(use_kernel=True)``; the search asks
 for at most 81 candidates a call (the exhaustive mode's chunk), so the
 (K, N) outputs stay small beside the (P, N) inputs.
 
+Most of the search's calls give every block the same triples: a (K, 3)
+table expanded over the blocks with stride 0 (``ops/crush._const_cands``:
+the ladder's 27 axis sweeps, an exhaustive chunk of 81, the guess mode's 4,
+the floors' (0, 0, 0)). The wrapper reads such a table to the host (324
+bytes for the sweeps; the table was just copied from the host, so the
+stream has little to drain) and hands the kernel an evaluation plan,
+``eval_plan``, instead of a copy of the table per block: each distinct
+triple once, grouped so that a group's triples differ in one axis only,
+whose decode is all the kernel redoes within the group. Per-block triples
+(the ladder's verified candidates) go to the kernel as they are.
+
 On a CUDA tensor the wrapper launches ``csrc/crush_eval.cu`` (built at
 first use) or raises; on a CPU tensor it runs the plain version,
 ``ops/crush.evaluate_batch``, which is bit-exact against the JAX package's
@@ -44,6 +55,65 @@ launches = {"crush_eval_rows": 0}
 # kernel's limit (limg_tpu/ops/segments.py:402-403)
 PIXEL_SIZES = (64, 256)
 MAX_PIXELS = max(PIXEL_SIZES)
+# a plan's table rows per launch (csrc/crush_eval.cu kMaxSteps): a longer
+# table goes in several launches
+MAX_STEPS = 128
+_REBASE = 1 << 14
+
+
+def table_of(cands: torch.Tensor):
+    """The (K, 3) table of ``cands`` (K, 3, N) when it repeats one column over
+    every block with stride 0, as ``ops/crush._const_cands`` expands it; else
+    None."""
+    if cands.shape[2] > 1 and cands.stride(2) == 0:
+        return cands[:, :, 0]
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def eval_plan(rows: tuple) -> tuple[tuple, tuple]:
+    """The kernel's evaluation plan of a table of shift triples.
+
+    ``rows``: K triples (a tuple of 3-tuples of ints >= 0; a shift above 8
+    decodes as 8 and is read as 8). Returns (steps, outs): ``steps`` the
+    distinct triples, each once, as (triple, inner axis, rebase) in
+    evaluation order; ``outs[r]`` the step whose values row r takes.
+
+    The triples go in groups that share the shifts of two axes, the inner
+    axis varying, ascending, within the group; the first step of a group
+    rebases (decodes the two other axes), the others decode the inner axis
+    alone. Groups are taken largest first (ties to the higher inner axis,
+    then the smaller shared shifts): the 27 axis sweeps are three groups
+    (axis 2, 1, then 0; (0, 0, 0) once), an exhaustive chunk of axis 0 at
+    one shift nine groups of 9 along axis 2, in ascending axis-1 shift.
+    """
+    canon = []
+    for t in rows:
+        if len(t) != 3 or min(t) < 0:
+            raise ValueError(f"a table row is 3 shifts >= 0, got {t}")
+        canon.append(tuple(min(int(s), 8) for s in t))
+    left = set(canon)
+    steps = []
+    while left:
+        groups = {}
+        for t in left:
+            for a in range(3):
+                groups.setdefault((a, t[:a] + t[a + 1:]), []).append(t)
+        (a, _), members = max(groups.items(), key=lambda g: (len(g[1]), g[0][0],
+                                                             tuple(-s for s in g[0][1])))
+        for i, t in enumerate(sorted(members, key=lambda t: t[a])):
+            steps.append((t, a, i == 0))
+        left.difference_update(members)
+    index = {t: i for i, (t, _, _) in enumerate(steps)}
+    return tuple(steps), tuple(index[t] for t in canon)
+
+
+def pack_plan(steps, outs) -> list[int]:
+    """A plan as the C entry point reads it: n_steps, n_out, one word per
+    step (s0 | s1 << 4 | s2 << 8 | inner << 12 | rebase << 14), then outs."""
+    words = [t[0] | (t[1] << 4) | (t[2] << 8) | (a << 12) | (_REBASE if rebase else 0)
+             for t, a, rebase in steps]
+    return [len(steps), len(outs), *words, *outs]
 
 
 def pack_words(planes: torch.Tensor) -> torch.Tensor:
@@ -85,7 +155,7 @@ def _library():
 
     lib = load_library("crush_eval")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_crush_eval.argtypes = [ptr] * 5 + [i32] * 4 + [ptr] * 3
+    lib.limg_crush_eval.argtypes = [ptr] * 6 + [i32] * 4 + [ptr] * 3
     lib.limg_crush_eval.restype = i32
     lib.limg_cuda_error_string.argtypes = [i32]
     lib.limg_cuda_error_string.restype = ctypes.c_char_p
@@ -107,14 +177,32 @@ def crush_eval_rows_kernel(packed, mask, f8_packed, eps, cands, channels: int):
     be = torch.empty((k, n), dtype=torch.int32, device=dev)
     if k == 0 or n == 0:
         return pm, be
-    ins = [t.contiguous() for t in (packed, mask, f8_packed, eps, cands)]
-    lib = _library()
     with torch.cuda.device(dev):
-        rc = lib.limg_crush_eval(*(t.data_ptr() for t in ins), p, n, k, channels,
-                                 pm.data_ptr(), be.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"crush_eval_rows kernel launch failed: "
-                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-    launches["crush_eval_rows"] += 1
+        _launch(_library(), packed, mask, f8_packed, eps, cands, channels, pm, be,
+                torch.cuda.current_stream(dev).cuda_stream)
     return pm, be
+
+
+def _launch(lib, packed, mask, f8_packed, eps, cands, channels: int, pm, be, stream) -> None:
+    """Launch the kernel of ``lib`` on ``stream`` into pm, be (K, N): one
+    launch for per-block triples, one per MAX_STEPS rows of a table."""
+    ins = [t.contiguous() for t in (packed, mask, f8_packed, eps)]
+    (p, n), k = packed.shape, cands.shape[0]
+    table = table_of(cands)
+    if table is None:
+        calls = [(cands.contiguous(), None, 0, k)]
+    else:
+        rows = tuple(map(tuple, table.cpu().tolist()))
+        calls = [(None, pack_plan(*eval_plan(rows[r0:r0 + MAX_STEPS])), r0,
+                  min(MAX_STEPS, k - r0)) for r0 in range(0, k, MAX_STEPS)]
+    for per_block, plan, r0, rows_k in calls:
+        words = None if plan is None else (ctypes.c_int32 * len(plan))(*plan)
+        rc = lib.limg_crush_eval(*(t.data_ptr() for t in ins),
+                                 None if per_block is None else per_block.data_ptr(),
+                                 None if words is None else ctypes.addressof(words),
+                                 p, n, rows_k, channels, pm[r0:].data_ptr(), be[r0:].data_ptr(),
+                                 stream)
+        if rc != 0:
+            raise RuntimeError(f"crush_eval_rows kernel launch failed: "
+                               f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
+        launches["crush_eval_rows"] += 1

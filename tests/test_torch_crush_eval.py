@@ -10,6 +10,10 @@ exactly (integer arithmetic) and the recorded interpret-mode output of
 tools/record_torch_natural_reference.py). ``coalesce_segments(use_kernel=
 False)``, the re-encode composed of ops that evaluates its candidates there,
 must equal ``use_kernel=True`` bit for bit.
+
+A stride-0 table of triples goes to the kernel as an evaluation plan
+(``eval_plan``), worked out on the host: each distinct triple once, in
+groups that change one axis; the plan is checked here.
 """
 
 import jax.numpy as jnp
@@ -66,6 +70,78 @@ def test_crush_eval_matches_recorded_pallas_kernel(name):
     np.testing.assert_array_equal(pm.numpy(), fx[f"{name}.pm"])
     np.testing.assert_array_equal(be.numpy(), fx[f"{name}.be"])
     assert int(pm.max()) > 0
+
+
+_SWEEP = tuple(tuple(s if ax == a else 0 for ax in range(3)) for a in range(3) for s in range(9))
+_EVERY = tuple((a, b, c) for a in range(9) for b in range(9) for c in range(9))
+_TABLES = {
+    "sweep": _SWEEP,
+    **{f"exhaustive chunk {i}": _EVERY[81 * i:81 * (i + 1)] for i in range(9)},
+    "guess": tcrush.GUESS_TRIPLES,
+    "duplicates": tuple(tuple(int(v) for v in t) for t in
+                        np.random.default_rng(8).integers(0, 12, (6, 3))[
+                            np.random.default_rng(9).integers(0, 6, 23)]),
+}
+
+
+@pytest.mark.parametrize("name", list(_TABLES))
+def test_eval_plan_takes_each_distinct_triple_once(name):
+    """Every row's triple (a shift above 8 read as 8) is evaluated once, the
+    rows map to their triples, and a step that does not rebase keeps the
+    previous step's inner axis and the other two shifts, with the inner
+    shift ascending."""
+    rows = _TABLES[name]
+    steps, outs = kce.eval_plan(rows)
+    canon = [tuple(min(s, 8) for s in t) for t in rows]
+    triples = [t for t, _, _ in steps]
+    assert sorted(triples) == sorted(set(canon))
+    assert [triples[i] for i in outs] == canon
+    assert steps[0][2]
+    for (prev, a_prev, _), (t, a, rebase) in zip(steps, steps[1:]):
+        if not rebase:
+            assert a == a_prev and t[a] > prev[a]
+            assert [t[k] for k in range(3) if k != a] == [prev[k] for k in range(3) if k != a]
+    words = kce.pack_plan(steps, outs)
+    assert words[:2] == [len(steps), len(rows)] and words[2 + len(steps):] == list(outs)
+    for w, (t, a, rebase) in zip(words[2:], steps):
+        assert (w & 15, (w >> 4) & 15, (w >> 8) & 15, (w >> 12) & 3, w >> 14) == (*t, a, rebase)
+
+
+def test_eval_plan_groups_as_claimed():
+    """The 27 axis sweeps: 25 triples in three groups, (0, 0, 0) once; an
+    exhaustive chunk: axis 0 fixed, nine groups of 9 along axis 2 (axis 1
+    redecoded nine times, axis 2 at every step); the guess triples: four."""
+    rebases = lambda steps: [t for t, _, r in steps if r]
+    steps, outs = kce.eval_plan(_SWEEP)
+    assert len(steps) == 25 and len(rebases(steps)) == 3
+    assert outs[0] == outs[9] == outs[18]
+    for i in range(9):
+        steps, _ = kce.eval_plan(_EVERY[81 * i:81 * (i + 1)])
+        assert {a for _, a, _ in steps} == {2} and {t[0] for t, _, _ in steps} == {i}
+        assert [t[1] for t in rebases(steps)] == list(range(9))
+    assert len(rebases(kce.eval_plan(tcrush.GUESS_TRIPLES)[0])) == 4
+    with pytest.raises(ValueError):
+        kce.eval_plan(((0, -1, 0),))
+
+
+@pytest.mark.parametrize("name", ["sweep", "exhaustive chunk 4", "guess", "duplicates"])
+def test_eval_plan_reproduces_the_table(name):
+    """The plan's distinct triples, evaluated by the plain version and taken
+    by ``outs``, give the whole table's values; the wrapper gives the same
+    values on a stride-0 expand as on its contiguous copy."""
+    rows = _TABLES[name]
+    packed, mask, f8p, eps, _ = _inputs(4, 50, 1, seed=len(rows))
+    steps, outs = kce.eval_plan(rows)
+    table = tcrush._const_cands(rows, 50, "cpu")
+    assert kce.table_of(table) is not None and kce.table_of(table.contiguous()) is None
+    want = kce.crush_eval_rows_kernel(packed, mask, f8p, eps, table, 4)
+    got = kce.crush_eval_rows_reference(
+        packed, mask, f8p, eps, tcrush._const_cands([t for t, _, _ in steps], 50, "cpu"), 4)
+    idx = torch.tensor(outs)
+    assert torch.equal(got[0][idx], want[0]) and torch.equal(got[1][idx], want[1])
+    for a, b in zip(kce.crush_eval_rows_kernel(packed, mask, f8p, eps, table.contiguous(), 4),
+                    want):
+        assert torch.equal(a, b)
 
 
 def test_crush_eval_checks_its_inputs():

@@ -419,6 +419,43 @@ def test_crush_eval_kernel_matches_plain_version(device, channels, p, k):
         assert g.is_cuda and torch.equal(g, w)
 
 
+@pytest.mark.parametrize("table", ["sweep", "exhaustive chunk", "guess", "floors",
+                                   "duplicates", "200 rows"])
+@pytest.mark.parametrize("p", [64, 256])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_crush_eval_kernel_matches_plain_version_on_tables(device, channels, p, table):
+    """The search's stride-0 tables (evaluation plans), one launch per 128
+    rows, on a ragged N with an all-masked block."""
+    from limg_tpu_torch.kernels import crush_eval as kce
+    from limg_tpu_torch.ops.crush import GUESS_TRIPLES, _const_cands
+    from tools.record_torch_natural_reference import crush_eval_inputs
+
+    rng = np.random.default_rng(p + channels)
+    rows = {
+        "sweep": [tuple(s if ax == a else 0 for ax in range(3)) for a in range(3) for s in range(9)],
+        "exhaustive chunk": [(5, b, c) for b in range(9) for c in range(9)],
+        "guess": list(GUESS_TRIPLES),
+        "floors": [(0, 0, 0)],
+        "duplicates": [tuple(int(v) for v in rng.integers(0, 12, 3))] * 3
+                      + [tuple(int(v) for v in t) for t in rng.integers(0, 9, (16, 3))],
+        "200 rows": [tuple(int(v) for v in t) for t in rng.integers(0, 9, (200, 3))],
+    }[table]
+    packed, mask, f8p, eps, _ = crush_eval_inputs(channels, n=333, k=1, seed=p)
+    if p == 256:
+        packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
+    mask = mask.copy()
+    mask[:, 100] = 0
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in (packed, mask, f8p, eps)]
+    cands = _const_cands(rows, 333, device)
+    before = kce.launches["crush_eval_rows"]
+    got = kce.crush_eval_rows_kernel(*ins, cands, channels)
+    torch.cuda.synchronize(device)
+    assert kce.launches["crush_eval_rows"] == before + -(-len(rows) // kce.MAX_STEPS)
+    for g, w in zip(got, kce.crush_eval_rows_reference(*ins, cands, channels)):
+        assert g.is_cuda and torch.equal(g, w)
+
+
 @pytest.mark.parametrize("dithering", [False, True])
 @pytest.mark.parametrize("mode,num_factors", [
     ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),

@@ -5,7 +5,7 @@ a baseline checkout of the same package.
                                            [--kernels-only] [--kernels REGEX]
 
 Builds ``encode_fixed``, ``encode_region``, ``encode_merged``,
-``encode_natural`` and ``coalesce`` from this checkout (and, with
+``encode_natural``, ``coalesce`` and ``crush_eval`` from this checkout (and, with
 ``--baseline``, the same libraries of the checkout at DIR into DIR's own
 ``build/kernels``, by DIR's own package) and prints what ``ptxas -v``
 reports for every kernel: registers, spill bytes, stack frame. Then, on the
@@ -34,7 +34,16 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
   step``), an empty kernel (the device time of a launch that does
   nothing), and ``segment_encode`` on the default encode's run buffer,
   whole and cut to its member lanes (the price of the lanes that hold no
-  run member); with a baseline, the two builds in turns (baseline, this,
+  run member); ``crush_eval_rows`` at the two calls of the composed
+  coalesce pass on the 4K default state (``coalesce_segments(use_kernel=
+  False)``): the ladder's 27 axis sweeps, a stride-0 table over the
+  129,600-lane run buffer (``crush_eval_rows sweep K=27``), and its 8
+  verified candidates, one triple a block (``crush_eval_rows verify K=8``),
+  with the device time of a contiguous copy of the sweep table
+  (``crush_eval_rows sweep cands copy``), and the composed pass as a whole
+  (``composed coalesce pass``: the pass's device busy, and the
+  ``crush_eval`` kernels' time in it; held bit-equal to the segment
+  kernel's pass); with a baseline, the two builds in turns (baseline, this,
   this, baseline);
 - the run buffer's segment lengths (how many segments and 128-lane tiles
   hold more than 32 members), and how many blocks own at each level (the
@@ -76,7 +85,8 @@ from types import SimpleNamespace
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-LIBRARIES = ("encode_fixed", "encode_region", "encode_merged", "encode_natural", "coalesce")
+LIBRARIES = ("encode_fixed", "encode_region", "encode_merged", "encode_natural", "coalesce",
+             "crush_eval")
 COALESCE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_coalesce_reference.npz"
 RUNS = 10
 PROFILED = 5
@@ -151,6 +161,7 @@ def load_checkout(checkout: Path | None, alias: str) -> SimpleNamespace:
     mods = {short: importlib.import_module(f"{name}.{path}") for short, path in (
         ("build", "kernels.build"), ("kc", "kernels.coalesce"), ("kf", "kernels.encode_fixed"),
         ("km", "kernels.encode_merged"), ("kn", "kernels.encode_natural"),
+        ("kce", "kernels.crush_eval"),
         ("encoder", "encoder"), ("regions", "regions"))}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
@@ -264,6 +275,7 @@ def main():
     from limg_tpu_torch import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor, _packed_blocks
     from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.ops.dither import coalesce_key
     from limg_tpu_torch.regions import _words
     from tools.record_torch_reference import case_images
 
@@ -279,7 +291,7 @@ def main():
     for which, b in builds.items():
         for name, lines in b.ptxas.items():
             for ln in lines:
-                if re.search(r"encode_|fit_levels|owner_crush|match_|seg_scan", ln):
+                if re.search(r"encode_|fit_levels|owner_crush|match_|seg_scan|crush_eval", ln):
                     log(f"  ptxas {which} {name}: {ln}")
     result = {"card": smi, "ptxas": {w: b.ptxas for w, b in builds.items()}, "kernels": {},
               "steps": {}, "encodes": {}, "segments": {}, "owners": {}}
@@ -338,6 +350,35 @@ def main():
             out = P.pkg.fused_rd_finish(state, cfg, 0, RD_LAMBDA, 3, False, cap)
             return out["total_err"], out["mean_bpp"]
 
+        # the composed coalesce pass on the default state at auto capacity,
+        # and its crush_eval_rows calls, caught on this build's wrapper
+        state = this.pkg.fused_merged_pre(img_d, cfg, 0, 3, device=device)
+        cap = this.pkg.auto_run_capacity(int(state["n_run_blocks"]), nb)
+
+        def composed(P, use_kernel=False):
+            lv = {k: None if v is None else v.clone() for k, v in state["lv0"].items()}
+            applied, n_runs, _ = P.regions.coalesce_segments(
+                state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
+                coalesce_key(0, cfg.dither_seed), cap, need_planes=lv["q"] is not None,
+                use_kernel=use_kernel)
+            return [*lv.values(), applied, n_runs]
+
+        ce_calls, ce_saved = [], this.kce.crush_eval_rows_kernel
+
+        def ce_spy(*a):
+            ce_calls.append(a)
+            return ce_saved(*a)
+
+        this.kce.crush_eval_rows_kernel = ce_spy
+        try:
+            composed(this)
+        finally:
+            this.kce.crush_eval_rows_kernel = ce_saved
+        sweep, verify = ce_calls[:2]
+        log(f"  4K {lane} composed pass: {len(ce_calls)} crush_eval_rows calls, K = "
+            f"{[a[4].shape[0] for a in ce_calls]}, N = {sweep[0].shape[1]}, sweep cands "
+            f"strides {sweep[4].stride()}")
+
         # the fixed grid's blocks and the RD levels' regions, as the RD step
         # encodes them (endpoints emitted)
         regions = {64: _packed_blocks(img_d)[:2]}
@@ -385,6 +426,14 @@ def main():
             "seg_scan default step": (step, r"seg_scan", None),
             "seg_scan RD step": (rd_step, r"seg_scan", None),
             "empty kernel": (lambda P: empty(), r"empty_kernel", None),
+            "crush_eval_rows sweep K=27": (
+                lambda P: P.kce.crush_eval_rows_kernel(*sweep), r"crush_eval",
+                lambda: this.kce.crush_eval_rows_reference(*sweep)),
+            "crush_eval_rows verify K=8": (
+                lambda P: P.kce.crush_eval_rows_kernel(*verify), r"crush_eval",
+                lambda: this.kce.crush_eval_rows_reference(*verify)),
+            "crush_eval_rows sweep cands copy": (lambda P: sweep[4].contiguous(), r".", None),
+            "composed coalesce pass": (composed, r"crush_eval", lambda: composed(this, True)),
             "segment_encode all lanes": (
                 lambda P: P.kc.segment_encode_kernel(packed, mask, seg, blocks, cfg, 0x5EED),
                 r"segment_encode_kernel",

@@ -7,7 +7,9 @@ the RD merge policy (``encode_image_merged(merge_policy="rd")``, and the
 CLI's ``--rd-merge``), the natural-layout default encode
 (``encode_image_merged(fused_layout="natural", return_state=True)``) and
 the composed coalesce pass (``coalesce_segments(use_kernel=False)``) on 4K
-images through them.
+images through them, and write, read and diagnose LTP1 streams of the
+default encode (``bitstream``, ``utils.diagnostics``, the CLI's
+``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``).
 
     python3 chip_smoke.py
 
@@ -77,6 +79,21 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    then the composed coalesce pass
    on the 4K default state, ``crush_eval_rows`` counted from 0, bit-equal to
    the segment kernel's pass;
+3f. the LTP1 stream and the diagnostics: the default
+   ``encode_image_merged(return_state=True)`` on the 4K RGB and RGBA images
+   (dithering on), its six kernels' launches counted from 0; its stream
+   from ``bitstream.serialize_from_state`` on the native host runtime
+   (g++-built ``limg_tpu_torch/runtime/limg_runtime.cpp``) and on the NumPy
+   factor path, entropy on and off, equal bytes, ``deserialize`` giving the
+   encode's image bit for bit; the host wall times of state fetch plus
+   serialize, deserialize and ``crush_culprits_merged``, with the stream's
+   real bpp beside the encode's estimate; the SHA-256 and length JAX
+   recorded for the fixture states
+   (tests/fixtures/torch_port_ltp1_reference.json), from JAX's state and
+   from the port's encode of each case on the card; an RD stream that
+   round-trips; the CLI's ``--write-ltp1`` + ``--diagnose`` and
+   ``--decode-ltp1`` at 4K and ``--fixed-grid --diagnose`` on a small
+   image, their culprit counts equal to the same functions' on the CPU;
 4. / 4b. / 4c. / 4d. / 4e. kernel and plain times at the 4K shapes of each
    path (each compared once more), and each path's device-resident step,
    CUDA events, median of 10 runs after warm-up, with a torch.profiler
@@ -1329,6 +1346,234 @@ def phase_main_path_natural(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3f: the LTP1 stream and the diagnostics (host code on the encode's
+# state; the encode behind them runs the default path's kernels)
+# ---------------------------------------------------------------------------
+
+HOST_RUNS = 3       # host wall times: median of this many runs
+CULPRIT_KEYS = ("pixel_bound", "block_bound", "saturated", "expandable")
+
+
+def host_ms(fn, runs: int = HOST_RUNS) -> tuple:
+    """(median host wall ms of ``fn()``, its last result)."""
+    times, result = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        result = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), result
+
+
+def numpy_factor_path(fn):
+    """``fn()`` with the serializer's factor sections on their NumPy path."""
+    os.environ["LIMG_TPU_DISABLE_NATIVE_FACTOR"] = "1"
+    try:
+        return fn()
+    finally:
+        del os.environ["LIMG_TPU_DISABLE_NATIVE_FACTOR"]
+
+
+def cli_text(args) -> str:
+    """The CLI's standard output for ``args``."""
+    import contextlib
+    import io
+
+    from limg_tpu_torch import cli
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli.main(args)
+    return text.getvalue()
+
+
+def printed_culprits(text: str) -> dict:
+    """The four counts of the culprit block the CLI printed."""
+    counts = {k: int(m.group(1)) for k in CULPRIT_KEYS
+              for m in [re.search(rf"^{k}\s*:\s*(\d+) \(", text, re.MULTILINE)] if m}
+    if "CULPRIT info:" not in text or len(counts) != len(CULPRIT_KEYS):
+        raise AssertionError(f"no culprit block in the CLI's output: {text!r}")
+    return counts
+
+
+def fixed_grid_culprits(img, cfg, device) -> dict:
+    """The CLI's fixed-grid --diagnose refit and culprits, on ``device``."""
+    import torch
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.ops.crush import find_shifts
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.fit import fit_blocks
+    from limg_tpu_torch.utils.diagnostics import crush_culprits
+
+    px, mask, _ = layout.blockify(torch.from_numpy(img).to(device))
+    d = fit_blocks(px, mask, cfg.channels)
+    f8 = quantize_factors(*extract_factors(px, d, cfg.channels))
+    shifts, _ = find_shifts(px, mask, f8, d, cfg)
+    return crush_culprits(px, mask, f8, d, shifts, cfg)
+
+
+def phase_ltp1(device, smi: str, size=(2160, 3840)):
+    """The LTP1 stream and the diagnostics: the default encode with
+    return_state=True at 4K RGB and RGBA (dithering on), its kernels counted
+    from 0; the stream on the native and the NumPy factor path, entropy on
+    and off, equal bytes, decoding to the encode's image bit for bit; the
+    JAX-recorded streams of the fixture states, from JAX's state and from
+    the port's encode on the card; an RD stream; the CLI's --write-ltp1,
+    --decode-ltp1 and --diagnose (merged and --fixed-grid)."""
+    import tempfile
+
+    import torch
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig, bitstream, native
+    from limg_tpu_torch.utils.diagnostics import crush_culprits_merged
+    from tools import record_torch_ltp1_reference as lrec
+    from tools import record_torch_merged_reference as mrec
+    from tools import record_torch_natural_reference as nrec
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3f: LTP1 stream and diagnostics (encode_image_merged(return_state=True), "
+        "bitstream, utils.diagnostics, the CLI's --write-ltp1 / --decode-ltp1 / --diagnose)")
+    for var in ("LIMG_TPU_DISABLE_NATIVE", "LIMG_TPU_DISABLE_NATIVE_FACTOR"):
+        if os.environ.get(var):
+            raise AssertionError(f"{var} is set: the native runtime must run here")
+    if not (native.available() and native.factor_kernels_available()):
+        raise AssertionError(f"the native host runtime did not build: {native.build_log}")
+    log(f"  native runtime {native.library_path().name} ({run_text(['g++', '--version'])
+                                                         .splitlines()[0]}, "
+        f"{' '.join(native.GXX_FLAGS)})")
+    h, w = size
+    images = case_images(h, w)
+    reset_launches()
+    encodes = {}
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        out, state = limg_tpu_torch.encode_image_merged(img, cfg, return_state=True,
+                                                        device=device)
+        encodes[lane] = (cfg, out, state)
+    launched = {k: v for k, v in read_launches().items()
+                if k in (*MERGED_REPLACES, *COALESCE_REPLACES)}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the encode behind the stream skipped a kernel: {launched}")
+    log(f"  {len(encodes)} encodes (dithering on), launches {launched}")
+
+    streams, culprits_cpu = {}, {}
+    for lane, (cfg, out, state) in encodes.items():
+        img = images[lane]
+        blobs = {}
+        for entropy in (True, False):
+            blob = bitstream.serialize_from_state(state, cfg, entropy=entropy)
+            if numpy_factor_path(lambda: bitstream.serialize_from_state(
+                    state, cfg, entropy=entropy)) != blob:
+                raise AssertionError(f"{lane} entropy={entropy}: the native and NumPy factor "
+                                     f"paths write different streams")
+            dec, info = bitstream.deserialize(blob)
+            if not np.array_equal(dec, out["decoded"]) or info["n_runs"] != out["n_runs"]:
+                raise AssertionError(f"{lane} entropy={entropy}: the stream does not decode "
+                                     f"to the encode ({info})")
+            blobs[entropy] = blob
+        dec_np, _ = numpy_factor_path(lambda: bitstream.deserialize(blobs[True]))
+        if not np.array_equal(dec_np, out["decoded"]):
+            raise AssertionError(f"{lane}: the NumPy factor path decodes another image")
+        streams[lane] = blobs[True]
+        # the state as the device holds it: fetch + serialize, timed
+        pre = limg_tpu_torch.fused_merged_pre(img, cfg, 0, MERGED_LEVELS, device=device)
+        cap = limg_tpu_torch.auto_run_capacity(int(pre["n_run_blocks"]),
+                                               pre["grid"].num_blocks)
+        dev_out = limg_tpu_torch.fused_merged_finish(pre, cfg, 0, MERGED_LEVELS, False, cap,
+                                                     return_state=True)
+        dev_state = dict(height=h, width=w, num_levels=MERGED_LEVELS, channels=cfg.channels,
+                         rows=dev_out["ser_rows"], q=dev_out["ser_q"])
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        fetch_ms, _ = host_ms(lambda: (dev_state["rows"].cpu(), dev_state["q"].cpu()))
+        ser_ms, blob = host_ms(lambda: bitstream.serialize_from_state(dev_state, cfg))
+        ser_np_ms, blob_np = host_ms(lambda: numpy_factor_path(
+            lambda: bitstream.serialize_from_state(dev_state, cfg)))
+        if blob != blobs[True] or blob_np != blob:
+            raise AssertionError(f"{lane}: the device state's stream differs")
+        des_ms, _ = host_ms(lambda: bitstream.deserialize(blob))
+        diag_ms, culprits = host_ms(lambda: crush_culprits_merged(img, state, cfg,
+                                                                  device=device))
+        culprits_cpu[lane] = crush_culprits_merged(img, state, cfg, device="cpu")
+        if culprits_cpu[lane] != culprits:
+            raise AssertionError(f"{lane}: culprits on the card differ from the CPU's")
+        log(f"  4k_{lane} host wall ms (median of {HOST_RUNS}) [{smi}]: state fetch + "
+            f"serialize_from_state {ser_ms:.1f} (NumPy factor path {ser_np_ms:.1f}; the "
+            f"fetch alone {fetch_ms:.1f}), "
+            f"deserialize {des_ms:.1f}, crush_culprits_merged {diag_ms:.1f}")
+        log(f"  4k_{lane} stream {len(blob)} bytes = {len(blob) * 8 / (h * w)!r} real bpp "
+            f"(entropy off {len(blobs[False])} bytes = {len(blobs[False]) * 8 / (h * w)!r}); "
+            f"the encode's estimate mean_bpp {out['mean_bpp']!r}; {out['n_runs']} runs; "
+            f"culprits {culprits}")
+
+    # the streams JAX wrote from its fixture states: from JAX's state and
+    # from the port's encode of each case on the card (dithering off)
+    refs = lrec.reference_streams()
+    fx = np.load(NATURAL_FIXTURE)
+    for name in lrec.STATE_CASES:
+        make, levels, over, coalesce, _ = nrec.CASES[name]
+        cfg = EncodeConfig(**mrec.config_kwargs(over))
+        _, port_state = limg_tpu_torch.encode_image_merged(make(), cfg, num_levels=levels,
+                                                           coalesce=coalesce, return_state=True,
+                                                           device=device)
+        for key, entropy in lrec.ENTROPY.items():
+            for src, state in (("JAX", lrec.state_of(fx, name)), ("port", port_state)):
+                got = lrec.digest(bitstream.serialize_from_state(state, cfg, entropy=entropy))
+                if got != refs[name][key]:
+                    raise AssertionError(f"{name} {key}, {src} state: {got} against JAX's "
+                                         f"{refs[name][key]}")
+    log(f"  {len(lrec.STATE_CASES)} fixture states, entropy on and off: the streams of JAX's "
+        f"state and of the port's encode on the card have JAX's SHA-256 and length")
+
+    # the RD policy's stream, the encode charging the real header cost
+    cfg, _, _ = encodes["rgb"]
+    out, state = limg_tpu_torch.encode_image_merged(
+        images["rgb"], cfg, merge_policy="rd", return_state=True,
+        rd_header_bits=bitstream.region_header_bits(cfg.channels), device=device)
+    blob = bitstream.serialize(images["rgb"], cfg, merge_policy="rd", device=device)
+    dec, info = bitstream.deserialize(blob)
+    if blob != bitstream.serialize_from_state(state, cfg) or not np.array_equal(
+            dec, out["decoded"]):
+        raise AssertionError("the RD stream does not round-trip to its encode")
+    log(f"  4k_rgb RD: stream {len(blob)} bytes = {len(blob) * 8 / (h * w)!r} real bpp, "
+        f"decodes to the encode bit for bit (mean_bpp {out['mean_bpp']!r})")
+
+    # the CLI on the card: one encode writes the stream and the culprits,
+    # then the stream decodes; the fixed grid's culprits on a small image
+    cfg, out, state = encodes["rgb"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            np.save("img4k.npy", images["rgb"])
+            text = cli_text(["img4k.npy", "--no-output", "--write-ltp1", "s.ltp1",
+                             "--diagnose"])
+            with open("s.ltp1", "rb") as f:
+                if f.read() != streams["rgb"]:
+                    raise AssertionError("the CLI's stream differs from the encode's")
+            cli_counts = printed_culprits(text)
+            decode_text = cli_text(["--decode-ltp1", "s.ltp1"])
+            if not np.array_equal(native.read_tga("limg_decoded.tga"), out["decoded"]):
+                raise AssertionError("limg_decoded.tga differs from the encode's image")
+            small = small_image()
+            np.save("small.npy", small)
+            fixed_counts = printed_culprits(cli_text(["small.npy", "--fixed-grid",
+                                                      "--diagnose", "--no-output"]))
+        finally:
+            os.chdir(cwd)
+    want = culprits_cpu["rgb"]
+    if cli_counts != {k: want[k] for k in CULPRIT_KEYS}:
+        raise AssertionError(f"CLI --diagnose: {cli_counts} against {want} on the CPU")
+    want_fixed = fixed_grid_culprits(small, cfg, "cpu")
+    if fixed_counts != {k: want_fixed[k] for k in CULPRIT_KEYS}:
+        raise AssertionError(f"CLI --fixed-grid --diagnose: {fixed_counts} against "
+                             f"{want_fixed} on the CPU")
+    log(f"  cli: {[ln for ln in text.splitlines() if ln.startswith('Wrote')]}; "
+        f"{decode_text.splitlines()[0]}; limg_decoded.tga equals the encode's image; "
+        f"--diagnose {cli_counts}, --fixed-grid --diagnose {fixed_counts} (as on the CPU)")
+    log("phase 3f ok")
+
+
+# ---------------------------------------------------------------------------
 # Bounds: bytes and operations of a call, counted from its inputs and outputs
 # (each tensor read or written once) and from the kernels' code
 # ---------------------------------------------------------------------------
@@ -2019,6 +2264,7 @@ def main():
     launched_c = phase_main_path_coalesce(device)
     launched_r = phase_main_path_rd(device)
     launched_n = phase_main_path_natural(device)
+    phase_ltp1(device, smi)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
     rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)

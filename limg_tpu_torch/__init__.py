@@ -12,9 +12,12 @@ quadtree-merged encode with run coalescing, the codec's default
 (``encode_image_merged``, 2-4 levels), under the match policy (its stages
 ``fused_merged_pre`` / ``fused_merged_finish``) and the RD policy
 (``merge_policy="rd"``; ``fused_rd_pre`` / ``fused_rd_finish``,
-``rd_merge_keep``). See ROADMAP.md for the rest.
+``rd_merge_keep``), and the LTP1 stream of a merged encode
+(``serialize`` / ``deserialize``, ``bitstream.serialize_from_state``, on
+the host runtime of ``native.py``). See ROADMAP.md for the rest.
 """
 
+from .bitstream import deserialize, serialize
 from .config import BLOCK_SIZE, EncodeConfig
 from .encoder import encode_image, encode_image_device, encode_perf_step
 from .ops.error import psnr as compare_psnr
@@ -39,4 +42,6 @@ __all__ = [
     "rd_merge_keep",
     "auto_run_capacity",
     "compare_psnr",
+    "serialize",
+    "deserialize",
 ]

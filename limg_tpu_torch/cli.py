@@ -4,22 +4,30 @@ Usage:
     python -m limg_tpu_torch.cli <image> [--no-output] [--error-factor N]
                                  [--accurate-bit-crushing] [--fast-coalesce]
                                  [--rd-merge] [--fixed-grid] [--factors N]
+                                 [--write-ltp1 FILE] [--diagnose]
                                  [--device cuda|cpu]
+    python -m limg_tpu_torch.cli <stream.ltp1> --decode-ltp1
+    python -m limg_tpu_torch.cli --decode-ltp1 <stream.ltp1>
     python -m limg_tpu_torch.cli -- [--count N] [--error-factor N]
                                  [--device cuda|cpu] -- <files...>
 
-Ported modes: the single-image encode, which runs the merged (blocked)
-encoder with run coalescing (the JAX CLI's default; ``--rd-merge`` takes
-the RD merge policy instead of the match policy; ``--fast-coalesce`` pins
-the run buffer at NB/8, which may truncate runs, instead of the auto
-capacity) or with ``--fixed-grid`` the fixed-grid encoder, prints the
-reference's stats and writes the debug TGA planes unless ``--no-output``;
-and list mode (``--``), the throughput harness over files (``--count N``
-with one file gives the statistical perf report). Images load through
-PIL, or from ``.npy`` arrays of (H, W, 3|4) uint8 where PIL is missing.
-``--device`` defaults to cuda and never falls back to the CPU.
+Single-image mode runs the merged (blocked) encoder with run coalescing
+(the JAX CLI's default; ``--rd-merge`` takes the RD merge policy instead of
+the match policy; ``--fast-coalesce`` pins the run buffer at NB/8, which
+may truncate runs, instead of the auto capacity) or with ``--fixed-grid``
+the fixed-grid encoder, prints the reference's stats and writes the debug
+TGA planes unless ``--no-output``. ``--write-ltp1 FILE`` also writes the
+LTP1 stream of the encode that ran; ``--diagnose`` prints the culprit
+breakdown of that encode (regions of the merged encode, or blocks of a
+fixed-grid refit). ``--decode-ltp1`` decodes a stream on the host into
+``limg_decoded.tga``. List mode (``--``) is the throughput harness over
+files (``--count N`` with one file gives the statistical perf report).
+Images load through PIL, or from ``.npy`` arrays of (H, W, 3|4) uint8
+where PIL is missing. ``--device`` defaults to cuda and never falls back
+to the CPU.
 
-Every other mode exits non-zero naming the ROADMAP.md item that ports it.
+``--fixed-grid --write-ltp1`` (a 1-level merged encode, the dense path)
+exits non-zero naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -29,16 +37,16 @@ import time
 
 import numpy as np
 
-# mode -> (what it is, the ROADMAP.md item that ports it)
+# flag combination -> (what it is, the ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "--write-ltp1": ("LTP1 serialization", "Queue 1 item 10"),
-    "--decode-ltp1": ("LTP1 decoding", "Queue 1 item 10"),
-    "--diagnose": ("crush diagnostics", "Queue 1 item 11"),
+    ("--fixed-grid", "--write-ltp1"): (
+        "LTP1 serialization of the fixed grid (a 1-level merged encode, the dense path)",
+        "Queue 1 item 13"),
 }
 
 
-def _not_ported(mode: str):
-    what, item = _NOT_PORTED[mode]
+def _not_ported(flags: tuple):
+    what, item = _NOT_PORTED[flags]
     print(f"limg_tpu_torch: {what} is not ported yet (ROADMAP.md {item}).")
     sys.exit(2)
 
@@ -46,12 +54,19 @@ def _not_ported(mode: str):
 def _parse_args(argv):
     opts = dict(write_output=True, error_factor=100, accurate=False, fixed_grid=False,
                 count=1, files=[], source=None, list_mode=False, num_factors=3,
-                device="cuda", cap_frac=0, merge_policy="match")
+                device="cuda", cap_frac=0, merge_policy="match", diagnose=False,
+                write_ltp1=None, decode_ltp1=None)
     if not argv:
         print(__doc__)
         sys.exit(0)
     if argv[0] == "--decode-ltp1":
-        _not_ported("--decode-ltp1")
+        # flag-first order: the stream path follows the flag
+        if len(argv) < 2:
+            print("--decode-ltp1 needs a stream path. Aborting.")
+            sys.exit(1)
+        opts["decode_ltp1"] = argv[1]
+        opts["source"] = argv[1]
+        return opts
     opts["source"] = argv[0]
     if argv[0] == "--":
         opts["list_mode"] = True
@@ -76,8 +91,13 @@ def _parse_args(argv):
         elif a in ("--use-pallas", "--no-pallas"):
             print(f"{a}: the port selects its kernels with --device cuda|cpu. Aborting.")
             sys.exit(1)
-        elif a in _NOT_PORTED:
-            _not_ported(a)
+        elif a == "--diagnose":
+            opts["diagnose"] = True
+        elif a == "--write-ltp1":
+            i += 1
+            opts["write_ltp1"] = argv[i]
+        elif a == "--decode-ltp1":
+            opts["decode_ltp1"] = opts["source"]
         elif a == "--error-factor":
             i += 1
             opts["error_factor"] = int(argv[i])
@@ -103,6 +123,8 @@ def _parse_args(argv):
             print(f"Invalid Parameter: '{a}'. Aborting.")
             sys.exit(1)
         i += 1
+    if opts["fixed_grid"] and opts["write_ltp1"] and not opts["decode_ltp1"]:
+        _not_ported(("--fixed-grid", "--write-ltp1"))
     return opts
 
 
@@ -206,6 +228,9 @@ def main(argv=None):
     from .regions import encode_image_merged
 
     opts = _parse_args(argv if argv is not None else sys.argv[1:])
+    if opts["decode_ltp1"]:
+        _decode_ltp1(opts["decode_ltp1"])
+        return
     crush_mode = "exhaustive" if opts["accurate"] else "ladder"
     device = resolve_device(opts["device"])
     if opts["list_mode"]:
@@ -220,9 +245,15 @@ def main(argv=None):
         crush_mode=crush_mode if opts["error_factor"] else "none",
         num_factors=opts["num_factors"],
     )
+    ser_state = None
     before = time.perf_counter()
     if opts["fixed_grid"]:
         out = encode_image(image, cfg, device=device)
+    elif opts["write_ltp1"] or opts["diagnose"]:
+        # one encode serves the stats, the stream and the diagnostics
+        out, ser_state = encode_image_merged(image, cfg, merge_policy=opts["merge_policy"],
+                                             return_state=True, cap_frac=opts["cap_frac"],
+                                             device=device)
     else:
         out = encode_image_merged(image, cfg, merge_policy=opts["merge_policy"],
                                   cap_frac=opts["cap_frac"], device=device)
@@ -236,8 +267,59 @@ def main(argv=None):
     mx = max_possible_error(cfg.channels)
     print("\nImage Perceptual RGB(A) PSNR: %4.2f dB (mean: %5.3f => %7.5f%% | sqrt: %5.3f%%)\n"
           % (out["psnr"], mean, mean / mx * 100.0, np.sqrt(mean) / np.sqrt(mx) * 100.0))
+    if opts["diagnose"]:
+        _diagnose(image, cfg, out, ser_state, device)
+    if opts["write_ltp1"]:
+        from .bitstream import serialize_from_state
+
+        # the stream represents exactly the encode reported above
+        blob = serialize_from_state(ser_state, cfg)
+        with open(opts["write_ltp1"], "wb") as f:
+            f.write(blob)
+        print("Wrote %s: %d bytes = %.4f real bits per pixel (the reference has no "
+              "bitstream; its number above is an estimate)."
+              % (opts["write_ltp1"], len(blob), len(blob) * 8.0 / (w * h)))
     if opts["write_output"]:
         _write_planes(out, h, w, cfg.channels)
+
+
+def _decode_ltp1(path: str):
+    """Decode an LTP1 stream on the host into limg_decoded.tga."""
+    from .bitstream import deserialize
+    from .io import write_tga
+
+    with open(path, "rb") as f:
+        dec, info = deserialize(f.read())
+    print(f"{info['width']} x {info['height']} pixels, "
+          f"{info['levels']} levels, errorFactor {info['error_factor']}, "
+          f"real {info['real_bpp']:.3f} bits per pixel.")
+    write_tga("limg_decoded.tga", dec)
+    print("Wrote limg_decoded.tga.")
+
+
+def _diagnose(image, cfg, out, ser_state, device):
+    """Culprit breakdown of the encode that ran (reference debug builds,
+    src/limg.cpp:2412-2428): per region of the merged encode, from its
+    state, or per block of a fixed-grid refit on ``device``."""
+    from .utils.diagnostics import crush_culprits, crush_culprits_merged, format_culprits
+
+    if ser_state is not None:
+        culprits = crush_culprits_merged(image, ser_state, cfg, device=device)
+        merge_stats = out.get("merge_stats")
+    else:
+        from .encoder import _as_image_tensor
+        from .ops import layout
+        from .ops.crush import find_shifts
+        from .ops.factors import extract_factors, quantize_factors
+        from .ops.fit import fit_blocks
+
+        px, mask, _ = layout.blockify(_as_image_tensor(image, device))
+        d = fit_blocks(px, mask, cfg.channels)
+        f8 = quantize_factors(*extract_factors(px, d, cfg.channels))
+        shifts, _ = find_shifts(px, mask, f8, d, cfg)
+        culprits = crush_culprits(px, mask, f8, d, shifts, cfg)
+        merge_stats = None
+    print(format_culprits(culprits, merge_stats, out.get("coalesce_stats")))
 
 
 def _run_list_mode(opts, crush_mode, device):

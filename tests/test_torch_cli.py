@@ -1,5 +1,6 @@
-"""limg_tpu_torch.cli on the CPU: the ported modes run, the others exit
-naming their ROADMAP.md item; the fixed-grid stats match limg_tpu.cli's."""
+"""limg_tpu_torch.cli on the CPU: the ported modes run, ``--fixed-grid
+--write-ltp1`` exits naming its ROADMAP.md item; the fixed-grid stats match
+limg_tpu.cli's, the LTP1 stream JAX's bytes and the culprit block JAX's."""
 
 import re
 
@@ -108,21 +109,98 @@ def test_rd_merge_mode_runs(image_files, capsys, monkeypatch):
     assert not list(image_files.glob("*.tga"))
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--write-ltp1", "out.ltp1"], "Queue 1 item 10"),
-    (["--diagnose"], "Queue 1 item 11"),
-])
-def test_unported_modes_exit_naming_roadmap_item(image_files, capsys, args, item):
+def _merged_encode(npy):
+    """The CLI's default merged encode of ``npy`` and its state, on the CPU."""
+    from limg_tpu_torch import EncodeConfig, encode_image_merged
+
+    image, has_alpha = tcli.load_any(npy)
+    return image, encode_image_merged(image, EncodeConfig(has_alpha=has_alpha),
+                                      return_state=True, device="cpu")
+
+
+def test_write_ltp1_writes_jax_bytes_from_the_port_state(image_files, capsys, monkeypatch):
+    from limg_tpu import bitstream
+    from limg_tpu.config import EncodeConfig as JConfig
+
+    monkeypatch.chdir(image_files)
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--write-ltp1", "out.ltp1", "--no-output", "--device", "cpu"])
+    text = capsys.readouterr().out
+    blob = (image_files / "out.ltp1").read_bytes()
+    _, (out, state) = _merged_encode(npy)
+    assert blob == bitstream.serialize_from_state(state, JConfig())
+    assert f"Wrote out.ltp1: {len(blob)} bytes = " in text and "real bits per pixel" in text
+    assert f"{out['mean_bpp']:7.4f}" in _stats(text)[0][1]
+    assert not list(image_files.glob("*.tga"))
+
+
+@pytest.mark.parametrize("flag_first", [True, False])
+def test_decode_ltp1_writes_the_decoded_tga(image_files, capsys, monkeypatch, flag_first):
+    from limg_tpu_torch import native
+
+    monkeypatch.chdir(image_files)
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--write-ltp1", "s.ltp1", "--no-output", "--device", "cpu"])
+    capsys.readouterr()
+    tcli.main(["--decode-ltp1", "s.ltp1"] if flag_first else ["s.ltp1", "--decode-ltp1"])
+    text = capsys.readouterr().out
+    assert "56 x 40 pixels, 3 levels, errorFactor 100, real " in text
+    assert "Wrote limg_decoded.tga." in text
+    _, (out, _) = _merged_encode(npy)
+    np.testing.assert_array_equal(native.read_tga(str(image_files / "limg_decoded.tga")),
+                                  out["decoded"])
+
+
+@pytest.mark.parametrize("fixed_grid", [False, True])
+def test_diagnose_prints_jax_culprit_block(image_files, capsys, monkeypatch, fixed_grid):
+    """The culprit block is JAX's ``format_culprits`` of the port's counts:
+    the merged encode's regions from its state, or a fixed-grid refit's
+    blocks."""
+    from limg_tpu.utils.diagnostics import format_culprits
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.ops.crush import find_shifts
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.fit import fit_blocks
+    from limg_tpu_torch.utils import diagnostics
+
+    monkeypatch.chdir(image_files)
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--diagnose", "--no-output", "--device", "cpu",
+               *(["--fixed-grid"] if fixed_grid else [])])
+    text = capsys.readouterr().out
+    image, (out, state) = _merged_encode(npy)
+    cfg = EncodeConfig()
+    if fixed_grid:
+        px, mask, _ = layout.blockify(torch.from_numpy(image))
+        d = fit_blocks(px, mask, cfg.channels)
+        f8 = quantize_factors(*extract_factors(px, d, cfg.channels))
+        shifts, _ = find_shifts(px, mask, f8, d, cfg)
+        block = format_culprits(diagnostics.crush_culprits(px, mask, f8, d, shifts, cfg))
+        assert block.count("\n") == 5
+    else:
+        culprits = diagnostics.crush_culprits_merged(image, state, cfg, device="cpu")
+        block = format_culprits(culprits, out["merge_stats"], out["coalesce_stats"])
+        assert "-- Block Merge" in block and "-- Coalescing" in block
+    assert block in text
+    assert text.index("PSNR") < text.index("CULPRIT info:")
+
+
+def test_fixed_grid_write_ltp1_exits_naming_item_13(image_files, capsys, monkeypatch):
+    monkeypatch.chdir(image_files)
     with pytest.raises(SystemExit) as e:
-        tcli.main([str(image_files / "img.npy"), *args, "--device", "cpu"])
+        tcli.main([str(image_files / "img.npy"), "--fixed-grid", "--write-ltp1", "f.ltp1",
+                   "--device", "cpu"])
     assert e.value.code != 0
-    assert f"ROADMAP.md {item}" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert "ROADMAP.md Queue 1 item 13" in text and "pixels" not in text
+    assert not (image_files / "f.ltp1").exists()
 
 
 def test_decode_ltp1_and_bad_flags_exit(capsys):
     with pytest.raises(SystemExit) as e:
-        tcli.main(["--decode-ltp1", "x.ltp1"])
-    assert e.value.code != 0 and "ROADMAP.md Queue 1 item 10" in capsys.readouterr().out
+        tcli.main(["--decode-ltp1"])
+    assert e.value.code == 1 and "needs a stream path" in capsys.readouterr().out
     for bad in (["img.npy", "--use-pallas"], ["img.npy", "--device", "tpu"], ["img.npy", "--bogus"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(bad)

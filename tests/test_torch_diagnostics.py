@@ -1,0 +1,130 @@
+"""limg_tpu_torch.utils.diagnostics against limg_tpu.utils.diagnostics (CPU).
+
+The culprit counts are integer decodes and errors of the same inputs, so
+both packages give the same dicts exactly: ``crush_culprits_merged`` on the
+serializer states of tests/fixtures/torch_port_natural_reference.npz (JAX's)
+and on the port's own encodes, and ``crush_culprits`` on a JAX fixed-grid
+fit carried to torch, at 8x8 blocks and at 64x64-pixel regions, whose
+block error is pre-scaled (``err_scale_shift``, regions of 2048 pixels or
+more).
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from limg_tpu.config import EncodeConfig as JConfig
+from limg_tpu.ops import layout as jlayout
+from limg_tpu.ops.crush import find_shifts as jfind_shifts
+from limg_tpu.ops.factors import extract_factors as jextract, quantize_factors as jquantize
+from limg_tpu.ops.fit import fit_blocks as jfit_blocks
+from limg_tpu.utils import diagnostics as jd
+
+import limg_tpu_torch
+from limg_tpu_torch.config import EncodeConfig
+from limg_tpu_torch.ops.crush import err_scale_shift
+from limg_tpu_torch.ops.fit import Decomposition
+from limg_tpu_torch.utils import diagnostics as td
+from tests.conftest import make_test_image
+from tools import record_torch_ltp1_reference as lrec
+from tools import record_torch_merged_reference as mrec
+from tools import record_torch_natural_reference as nrec
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def fixture():
+    return np.load(nrec.OUT)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("name", lrec.STATE_CASES)
+def test_merged_culprits_equal_jax_on_fixture_states(fixture, name):
+    make, levels, over, coalesce, _ = nrec.CASES[name]
+    kw = mrec.config_kwargs(over)
+    cfg, jcfg = EncodeConfig(**kw), JConfig(**kw)
+    img = make()
+    state = lrec.state_of(fixture, name)
+    want = jd.crush_culprits_merged(img, state, jcfg)
+    assert td.crush_culprits_merged(img, state, cfg, device="cpu") == want
+    # the image as a tensor: its device is the one used
+    assert td.crush_culprits_merged(torch.from_numpy(img), state, cfg) == want
+    _, port_state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels,
+                                                       coalesce=coalesce, return_state=True,
+                                                       device="cpu")
+    assert td.crush_culprits_merged(img, port_state, cfg, device="cpu") == \
+        jd.crush_culprits_merged(img, port_state, jcfg)
+
+
+@pytest.mark.parametrize("levels,policy,has_alpha", [(4, "match", False), (4, "rd", True),
+                                                     (3, "rd", False)])
+def test_merged_culprits_equal_jax_on_port_states(levels, policy, has_alpha):
+    """Port encodes whose regions reach 64x64 pixels (4 levels) and the RD
+    policy's state, with dithering on."""
+    img = make_test_image(np.random.default_rng(40), 128, 200)
+    img[:128, :128, :3] = (90, 140, 60)       # four flat 64x64 squares
+    if not has_alpha:
+        img = img[..., :3].copy()
+    cfg, jcfg = EncodeConfig(has_alpha=has_alpha), JConfig(has_alpha=has_alpha)
+    out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels,
+                                                    merge_policy=policy, return_state=True,
+                                                    device="cpu")
+    if levels == 4:
+        assert (state["rows"][0] == 3).any()
+    got = td.crush_culprits_merged(img, state, cfg, device="cpu")
+    assert got == jd.crush_culprits_merged(img, state, jcfg)
+    assert got["blocks"] > 0 and sum(got[k] for k in ("pixel_bound", "block_bound",
+                                                       "saturated", "expandable")) > 0
+
+
+@pytest.mark.parametrize("block,mode,has_alpha,seeded", [
+    (8, "ladder", False, False), (8, "exhaustive", True, False), (8, "guess", False, False),
+    (64, "ladder", False, False), (64, "ladder", True, False), (64, "ladder", False, True),
+    (64, "ladder", True, True)])
+def test_fixed_grid_culprits_equal_jax(block, mode, has_alpha, seeded):
+    """JAX's fit, factors and shifts carried to torch: the same dict. At
+    64x64-pixel regions the block error is pre-scaled by 16; seeded shift
+    triples in place of the search's reach the regions where that moves a
+    count (RGBA here: one region expandable with the pre-scale, pixel
+    bound without)."""
+    h, w = (40, 72) if block == 8 else (128, 192)
+    img = make_test_image(np.random.default_rng(block + has_alpha), h, w)
+    jcfg = JConfig(has_alpha=has_alpha, crush_mode=mode)
+    cfg = EncodeConfig(has_alpha=has_alpha, crush_mode=mode)
+    px, mask, _ = jlayout.blockify(jnp.asarray(img), block)
+    d = jfit_blocks(px, mask, cfg.channels)
+    f8 = jquantize(*jextract(px, d, cfg.channels))
+    shifts, _ = jfind_shifts(px, mask, f8, d, jcfg)
+    if seeded:
+        shifts = jnp.asarray(np.random.default_rng(5).integers(0, 9, shifts.shape), jnp.int32)
+    want = jd.crush_culprits(px, mask, f8, d, shifts, jcfg)
+    td_d = Decomposition(*(_t(v) for v in d))
+    got = td.crush_culprits(_t(px), _t(mask), [_t(f) for f in f8], td_d, _t(shifts), cfg)
+    assert got == want
+    assert err_scale_shift(block * block) == (4 if block == 64 else 0)
+    assert got["blocks"] == px.shape[-1]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_format_culprits_equals_jax(with_stats):
+    crush = {"blocks": 1234, "pixel_bound": 17, "block_bound": 900, "saturated": 3,
+             "expandable": 314}
+    merge = [{"fast_accept": 3.0, "avg_diff_reject": 12.0}, {"ratio_reject": 0.5}]
+    coalesce = {"dropped_runs_at_capacity": 0, "rejected_runs": 41}
+    args = (crush, merge, coalesce) if with_stats else (crush,)
+    assert td.format_culprits(*args) == jd.format_culprits(*args)
+    assert td.format_culprits({**crush, "blocks": 0}) == jd.format_culprits({**crush, "blocks": 0})
+
+
+def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    with td.profile_trace(str(tmp_path / "trace")) as log_dir:
+        torch.ones(64).sum()
+    path = os.path.join(log_dir, "trace.json")
+    assert os.path.getsize(path) > 0

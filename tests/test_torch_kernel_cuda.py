@@ -16,9 +16,13 @@ import torch
 
 from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, region_edge_buffers,
                         seeded_rows, seeded_run_buffer, seg_map)
-from limg_tpu_torch import EncodeConfig
+import limg_tpu_torch
+from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
 from limg_tpu_torch.ops import layout
+from tools import record_torch_ltp1_reference as lrec
+from tools import record_torch_merged_reference as mrec
+from tools import record_torch_natural_reference as nrec
 
 pytestmark = pytest.mark.cuda
 
@@ -475,3 +479,24 @@ def test_composed_segment_encode_matches_segment_kernel(device, channels, mode, 
     torch.cuda.synchronize(device)
     assert (kce.launches["crush_eval_rows"] > before) == (mode != "none")
     _assert_same(got, kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD))
+
+
+@pytest.mark.parametrize("name", lrec.STATE_CASES)
+def test_ltp1_stream_of_the_card_encode_is_jaxs(device, name):
+    """The port's encode of a fixture case on the card serializes to the
+    stream JAX recorded from its own state
+    (tests/fixtures/torch_port_ltp1_reference.json), entropy on and off,
+    from the NumPy state and from the state left on the card."""
+    make, levels, over, coalesce, _ = nrec.CASES[name]
+    cfg = EncodeConfig(**mrec.config_kwargs(over))
+    img = make()
+    out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels,
+                                                    coalesce=coalesce, return_state=True,
+                                                    device=device)
+    on_card = {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray) else v
+               for k, v in state.items()}
+    for key, entropy in lrec.ENTROPY.items():
+        blob = bitstream.serialize_from_state(state, cfg, entropy=entropy)
+        assert lrec.digest(blob) == lrec.reference_streams()[name][key]
+        assert bitstream.serialize_from_state(on_card, cfg, entropy=entropy) == blob
+        np.testing.assert_array_equal(bitstream.deserialize(blob)[0], out["decoded"])

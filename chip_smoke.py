@@ -6,10 +6,12 @@ with run coalescing (``encode_image_merged()``, and the CLI's merged mode),
 the RD merge policy (``encode_image_merged(merge_policy="rd")``, and the
 CLI's ``--rd-merge``), the natural-layout default encode
 (``encode_image_merged(fused_layout="natural", return_state=True)``) and
-the composed coalesce pass (``coalesce_segments(use_kernel=False)``) on 4K
-images through them, and write, read and diagnose LTP1 streams of the
+the composed coalesce pass (``coalesce_segments(use_kernel=False)``) and
+the dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels)
+on 4K images through them, write, read and diagnose LTP1 streams of the
 default encode (``bitstream``, ``utils.diagnostics``, the CLI's
-``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``).
+``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``, and ``--fixed-grid
+--write-ltp1``), and run the legacy encoder (``encode_legacy``).
 
     python3 chip_smoke.py
 
@@ -54,6 +56,12 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    one of 200 rows; ragged N with an all-masked block, RGB and RGBA, P = 64
    and 256) and for the composed segment re-encode against the segment
    kernel on real run buffers;
+2f. the same for ``segment_encode`` at P = 256, 1024 and 4096 (the dense
+   path's 16x16, 32x32 and 64x64 pixel regions): seeded buffers over
+   several CTAs, segments of 1 and SEG_CAP regions, a tail of lanes with
+   no member, no member at all, a saturated 64x64 region whose unscaled
+   error sum passes 2^31; RGB and RGBA, every crush mode, num_factors 1-3,
+   dithering off and on;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -94,7 +102,17 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    round-trips; the CLI's ``--write-ltp1`` + ``--diagnose`` and
    ``--decode-ltp1`` at 4K and ``--fixed-grid --diagnose`` on a small
    image, their culprit counts equal to the same functions' on the CPU;
-4. / 4b. / 4c. / 4d. / 4e. kernel and plain times at the 4K shapes of each
+3g. the dense path: ``encode_image_merged(fused=False)`` on the 4K RGB and
+   RGBA images at 1 and 3 levels (match) against the JAX dense encode
+   (tests/fixtures/torch_port_dense_reference.npz: stats, owners, run
+   flags; where the state is JAX's, its stream's SHA-256), at 3 levels RD
+   against the JAX dense RD encode (torch_port_rd_reference.npz), and one
+   4-level encode, the launches of its eleven kernels counted from 0
+   (``segment_encode`` at P = 64, 256, 1024 and 4096); the CLI's
+   ``--fixed-grid --write-ltp1`` then ``--decode-ltp1``, giving the
+   1-level encode's image bit for bit; ``encode_legacy`` at 4K, and on a
+   small image equal to its CPU run;
+4. / 4b. / 4c. / 4d. / 4e. / 4f. kernel and plain times at the 4K shapes of each
    path (each compared once more), and each path's device-resident step,
    CUDA events, median of 10 runs after warm-up, with a torch.profiler
    breakdown (the fit, owner-crush and segment kernels' device time in the
@@ -103,7 +121,9 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    pair, the natural step against the Morton step, both
    ``crush_eval_rows`` calls of the composed coalesce pass (the sweep
    table and the verified per-block triples) with their bounds, and the
-   composed pass against the segment kernel's.
+   composed pass against the segment kernel's; 4f times ``segment_encode``
+   at the dense levels' 4K buffers (P = 256, 1024, 4096) and the dense
+   3-level step.
 
 Prints the order in which to redesign the kernels (the ms each loses above
 its bound per default step, then per RD step: its profiler device time in
@@ -132,8 +152,9 @@ MERGED_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_merged_refe
 COALESCE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coalesce_reference.npz")
 RD_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_rd_reference.npz")
 NATURAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_natural_reference.npz")
-LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "encode_region", "encode_natural",
-             "crush_eval")
+DENSE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_dense_reference.npz")
+LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "segment_region", "encode_region",
+             "encode_natural", "crush_eval")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
@@ -163,6 +184,10 @@ RD_LAMBDA = 0.01
 RD_KERNELS = ("encode_fixed_p64", "encode_region_p256", "encode_region_p1024",
               "encode_region_p4096", "match_neighbors", "match_pairs", "seg_mixed_all",
               "segment_encode")
+# the segment encode's region sizes on the dense path's levels 1-3, and the
+# dense path's kernels (at 1-4 levels)
+SEGMENT_SIZES = (256, 1024, 4096)
+DENSE_KERNELS = RD_KERNELS + tuple(f"segment_encode_p{p}" for p in SEGMENT_SIZES)
 MERGED_LEVELS = 3
 DIST_RTOL = 1e-6
 # main-path tolerances against the JAX fixture
@@ -1574,6 +1599,264 @@ def phase_ltp1(device, smi: str, size=(2160, 3840)):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2f: the segment encode at P = 256 / 1024 / 4096 (the dense path's
+# levels 1-3)
+# ---------------------------------------------------------------------------
+
+# lanes of the seeded buffers at each P: several CTAs of each P's tile
+SEGMENT_LANES = {256: 300, 1024: 100, 4096: 40}
+
+
+def region_run_buffer(rng, p: int, n: int, ch: int, device, spans=None, empty_tail: int = 0,
+                      saturate: bool = False):
+    """A run buffer of n regions of p pixels (segment_encode's inputs): half
+    smooth, some regions with no and some with half their pixels members,
+    segments of 1-8 regions (or of ``spans``), the last ``empty_tail``
+    lanes with no member; ``saturate`` makes lane 0 a single-region segment
+    of 15/16 white and 1/16 black pixels, whose unscaled error sum at axis
+    A's shift 8 passes 2^31."""
+    import torch
+
+    px = rng.integers(0, 256, (4, p, n), np.int64)
+    px[:, :, : n // 2] = (px[:, :, : n // 2] // 32) * 32
+    if ch == 3:
+        px[3] = 0
+    mask = np.ones((p, n), bool)
+    mask[:, rng.integers(1, n, max(1, n // 10))] = False
+    mask[p // 2:, rng.integers(1, n, max(1, n // 10))] = False
+    if spans is None:
+        seg = seg_map(rng, n, 8)
+    else:
+        seg = np.concatenate([np.full(k, s, np.int32) for k, s in
+                              zip(spans, np.cumsum([0] + list(spans))[:-1])])
+    if saturate:
+        px[:, :, 0] = 255
+        px[:, : p // 16, 0] = 0
+        if ch == 3:
+            px[3, :, 0] = 0
+        mask[:, 0] = True
+        seg[1:][seg[1:] == 0] = 1
+    if empty_tail:
+        mask[:, n - empty_tail:] = False
+    words = px[0] | (px[1] << 8) | (px[2] << 16) | (px[3] << 24)
+    words = np.where(words >= 2**31, words - 2**32, words).astype(np.int32)
+    blocks = rng.permutation(4 * n)[:n].astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (words, mask, seg, blocks))
+
+
+def phase_compare_segment_regions(device) -> float:
+    """segment_encode at P = 256, 1024 and 4096 vs its plain version on the
+    card, bit-equal: seeded buffers over several CTAs, RGB and RGBA, every
+    crush mode, num_factors 1-3, dithering off and on; at its edges
+    (segments of 1 and SEG_CAP regions, a tail of lanes with no member, no
+    member at all, a saturated 64x64 region); max abs diff."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    log("== phase 2f: segment_encode at P = 256 / 1024 / 4096 vs its plain version on the card")
+    rng = np.random.default_rng(2026)
+    worst, n_cases = 0.0, 0
+
+    def check(case, buf, cfg):
+        nonlocal worst, n_cases
+        got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+        want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        try:
+            worst = max(worst, compare_outputs(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"{case}: {e}")
+        n_cases += 1
+
+    for p in SEGMENT_SIZES:
+        for ch in (3, 4):
+            n = SEGMENT_LANES[p]
+            bufs = {"seeded": region_run_buffer(rng, p, n, ch, device, empty_tail=n // 6,
+                                                saturate=p == 4096)}
+            spans = [1, 256, 1, 3, 31, 33, 1]
+            edge = region_run_buffer(rng, p, sum(spans) + 9, ch, device, spans=spans + [9],
+                                     empty_tail=9, saturate=p == 4096)
+            bufs["edges (1, SEG_CAP members, empty tail)"] = edge
+            bufs["no member"] = (edge[0], torch.zeros_like(edge[1]), *edge[2:])
+            for name, buf in bufs.items():
+                for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    check(f"segment_encode P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
+                          buf, cfg)
+        log(f"  P={p}: {n_cases} cases so far bit-equal")
+    log(f"phase 2f ok: {n_cases} cases, max abs diff {worst}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the dense path, --fixed-grid --write-ltp1, the legacy encoder
+# ---------------------------------------------------------------------------
+
+def check_dense_against_fixture(name: str, out: dict, state: dict, fx, n_px: int):
+    """One 4K dense match encode against the JAX dense encode's record
+    (tests/fixtures/torch_port_dense_reference.npz): stats, owner map and
+    run flags; and where the state is JAX's (its SHA-256), the stream's
+    SHA-256 and length."""
+    from tools import record_torch_dense_reference as drec
+
+    hist_l1 = int(np.abs(out["bits_histogram"] - fx[f"{name}.bits_histogram"]).sum())
+    ref_alive = fx[f"{name}.alive_counts"]
+    alive_rel = np.abs(out["alive_counts"] - ref_alive) / np.maximum(ref_alive, 1)
+    owner = out["owner_px"][::8, ::8].reshape(-1)
+    agree = float((owner == fx[f"{name}.owner"]).mean())
+    nb = owner.size
+    runs_agree = float((state["rows"][-1].astype(bool)
+                        == np.unpackbits(fx[f"{name}.run_applied"])[:nb].astype(bool)).mean())
+    d_psnr = out["psnr"] - float(fx[f"{name}.psnr"])
+    d_bpp = out["mean_bpp"] - float(fx[f"{name}.mean_bpp"])
+    ref_runs = int(fx[f"{name}.n_runs"])
+    same_state = drec.state_digest(state) == str(fx[f"{name}.state_sha256"])
+    log(f"  {name}: psnr {out['psnr']!r} (JAX {float(fx[f'{name}.psnr'])!r}, diff {d_psnr:+.5f} "
+        f"dB) bpp {out['mean_bpp']!r} (diff {d_bpp:+.5f}) alive {out['alive_counts'].tolist()} "
+        f"(JAX {ref_alive.tolist()}) runs {out['n_runs']} (JAX {ref_runs}) hist L1 {hist_l1} px "
+        f"owner agreement {agree!r} run-flag agreement {runs_agree!r}, state "
+        f"{'equal to' if same_state else 'differs from'} JAX's")
+    if not (abs(d_psnr) <= NODITHER_PSNR_DB and abs(d_bpp) <= NODITHER_BPP
+            and hist_l1 <= HIST_L1_FRAC * n_px and (alive_rel <= ALIVE_FRAC).all()
+            and agree >= OWNER_AGREE and runs_agree >= OWNER_AGREE
+            and abs(out["n_runs"] - ref_runs) <= RUNS_FRAC * ref_runs):
+        raise AssertionError(f"{name}: outside the tolerance of the JAX dense encode")
+    return same_state
+
+
+def phase_main_path_dense(device):
+    """encode_image_merged(fused=False) at 4K RGB and RGBA, 1 and 3 levels
+    (match) and 3 (RD), and one 4-level encode, its kernels' launches
+    counted from 0 (segment_encode at every P of the levels); the CLI's
+    --fixed-grid --write-ltp1 and --decode-ltp1; encode_legacy at 4K."""
+    import tempfile
+
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig, LegacyConfig, bitstream, native
+    from limg_tpu_torch import cli
+    from tools import record_torch_dense_reference as drec
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3g: dense path (encode_image_merged(fused=False)), --fixed-grid "
+        "--write-ltp1, encode_legacy")
+    fx, rdfx = np.load(DENSE_FIXTURE), np.load(RD_FIXTURE)
+    images = case_images(2160, 3840)
+    h, w = images["rgb"].shape[:2]
+    reset_launches()
+    n_encodes, outs = 0, {}
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
+        for levels in (1, MERGED_LEVELS):
+            name = f"4k_{lane}_l{levels}"
+            t0 = time.perf_counter()
+            out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels,
+                                                            fused=False, return_state=True,
+                                                            device=device)
+            secs = time.perf_counter() - t0
+            n_encodes += 1
+            if out["decoded"].shape != (h, w, 4) or not np.isfinite(out["psnr"]):
+                raise AssertionError(f"{name}: decoded {out['decoded'].shape}, psnr {out['psnr']}")
+            log(f"  {name} dense: encode_image_merged {secs * 1e3:.1f} ms wall (host copies "
+                f"and the state's fetch included)")
+            same = check_dense_against_fixture(name, out, state, fx, h * w)
+            blob = bitstream.serialize_from_state(state, cfg)
+            dec, _ = bitstream.deserialize(blob)
+            if not np.array_equal(dec, out["decoded"]):
+                raise AssertionError(f"{name}: the stream does not decode to the encode")
+            if same and (drec.stream_digest(blob) != str(fx[f"{name}.stream_sha256"])
+                         or len(blob) != int(fx[f"{name}.stream_len"])):
+                raise AssertionError(f"{name}: the state is JAX's but the stream is not")
+            log(f"    stream {len(blob)} bytes (JAX {int(fx[f'{name}.stream_len'])}), "
+                f"{'JAX' + chr(39) + 's SHA-256' if same else 'another state'}; decodes to the "
+                f"encode")
+            outs[(lane, levels)] = out
+        # the RD policy, against JAX's dense RD encode (torch_port_rd_reference.npz)
+        name = f"4k_{lane}_l{MERGED_LEVELS}"
+        out = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=MERGED_LEVELS,
+                                                 merge_policy="rd", rd_lambda=RD_LAMBDA,
+                                                 fused=False, device=device)
+        n_encodes += 1
+        ref = {k: rdfx[f"{name}_dense.{k}"] for k in ("psnr", "mean_bpp", "alive_counts",
+                                                      "n_runs")}
+        d_psnr, d_bpp = out["psnr"] - float(ref["psnr"]), out["mean_bpp"] - float(ref["mean_bpp"])
+        alive_rel = (np.abs(out["alive_counts"] - ref["alive_counts"])
+                     / np.maximum(ref["alive_counts"], 1))
+        log(f"  {name} dense RD: psnr {out['psnr']!r} (JAX {float(ref['psnr'])!r}, diff "
+            f"{d_psnr:+.5f} dB) bpp {out['mean_bpp']!r} (diff {d_bpp:+.5f}) kept "
+            f"{out['alive_counts'].tolist()} (JAX {ref['alive_counts'].tolist()}) runs "
+            f"{out['n_runs']} (JAX {int(ref['n_runs'])})")
+        if not (abs(d_psnr) <= NODITHER_PSNR_DB and abs(d_bpp) <= NODITHER_BPP
+                and (alive_rel <= ALIVE_FRAC).all()
+                and abs(out["n_runs"] - int(ref["n_runs"])) <= RUNS_FRAC * int(ref["n_runs"])):
+            raise AssertionError(f"{name} dense RD: outside the tolerance of the JAX encode")
+    # 4 levels: level 3's 64x64 px regions through encode_region_p4096 and
+    # segment_encode at P = 4096
+    cfg = EncodeConfig(error_factor=100, dithering=False)
+    out = limg_tpu_torch.encode_image_merged(images["rgb"], cfg, num_levels=4, fused=False,
+                                             device=device)
+    n_encodes += 1
+    ref = outs[("rgb", MERGED_LEVELS)]
+    log(f"  4k_rgb_l4 dense: psnr {out['psnr']!r} bpp {out['mean_bpp']!r} alive "
+        f"{out['alive_counts'].tolist()} runs {out['n_runs']} (3 levels: psnr {ref['psnr']!r} "
+        f"bpp {ref['mean_bpp']!r})")
+    if (len(out["alive_counts"]) != 4 or abs(out["psnr"] - ref["psnr"]) > LEVELS4_PSNR_DB
+            or abs(out["mean_bpp"] - ref["mean_bpp"]) > LEVELS4_BPP):
+        raise AssertionError("the 4-level dense encode is off the 3-level one")
+    launched = {k: v for k, v in read_launches().items() if k in DENSE_KERNELS}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the dense path skipped a kernel: launches {launched}")
+    log(f"  {n_encodes} encodes, launches {launched}")
+
+    # the CLI: --fixed-grid --write-ltp1 writes a 1-level merged encode's
+    # stream, --decode-ltp1 gives that encode's image bit for bit
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            np.save("img4k.npy", images["rgb"])
+            text = cli_text(["img4k.npy", "--fixed-grid", "--no-output", "--write-ltp1",
+                             "f.ltp1"])
+            decode_text = cli_text(["--decode-ltp1", "f.ltp1"])
+            decoded = native.read_tga("limg_decoded.tga")
+        finally:
+            os.chdir(cwd)
+    want = limg_tpu_torch.encode_image_merged(images["rgb"], EncodeConfig(), num_levels=1,
+                                              device=device)["decoded"]
+    if not np.array_equal(decoded, want):
+        raise AssertionError("--fixed-grid --write-ltp1: the stream does not decode to the "
+                             "1-level encode's image")
+    log(f"  cli --fixed-grid --write-ltp1: {[ln for ln in text.splitlines() if 'Wrote' in ln]}; "
+        f"{decode_text.splitlines()[0]}; limg_decoded.tga equals the 1-level encode's image")
+
+    # the legacy encoder: on the card at 4K; on a small image equal to its
+    # run on the CPU (plain PyTorch on both, dithering on)
+    t0 = time.perf_counter()
+    leg = limg_tpu_torch.encode_legacy(images["rgb"], LegacyConfig(), device=device)
+    secs = time.perf_counter() - t0
+    if leg["decoded"].shape != (h, w, 4) or not 0 < leg["coverage"] <= 100 \
+            or not np.isfinite(leg["psnr"]):
+        raise AssertionError(f"encode_legacy at 4K: {leg['decoded'].shape}, coverage "
+                             f"{leg['coverage']}, psnr {leg['psnr']}")
+    small = images["rgba"][:256, :384]
+    on_card = limg_tpu_torch.encode_legacy(small, LegacyConfig(has_alpha=True), device=device)
+    on_cpu = limg_tpu_torch.encode_legacy(small, LegacyConfig(has_alpha=True), device="cpu")
+    differ = [k for k in ("decoded", "factors", "shift", "covered")
+              if not np.array_equal(on_card[k], on_cpu[k])]
+    if differ:
+        raise AssertionError(f"encode_legacy 256x384 RGBA on the card differs from the CPU in "
+                             f"{differ}")
+    log(f"  encode_legacy 4K RGB on the card: {secs * 1e3:.1f} ms wall, coverage "
+        f"{leg['coverage']!r}%, grown {leg['grown_px']} px, avg bits {leg['avg_bits']!r}, psnr "
+        f"{leg['psnr']!r}; 256x384 RGBA equal to its CPU run")
+    log("phase 3g ok")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # Bounds: bytes and operations of a call, counted from its inputs and outputs
 # (each tensor read or written once) and from the kernels' code
 # ---------------------------------------------------------------------------
@@ -1877,10 +2160,13 @@ def step_bounds(fn) -> dict:
         def call(*args, **kwargs):
             out = saved[fname](*args, **kwargs)
             name = COALESCE_WRAPPERS.get(fname, fname[:-len("_kernel")])
+            if fname == "segment_encode_kernel":
+                name = kc.segment_kernel_name(args[0].shape[0])
             if fname == "encode_blocks_kernel":
                 p = args[0].shape[0]
                 name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
-            kind = "encode_region" if name.startswith("encode_region") else name
+            kind = ("encode_region" if name.startswith("encode_region")
+                    else "segment_encode" if name.startswith("segment_encode") else name)
             totals[name] = totals.get(name, 0.0) + kernel_bound(kind, args, out)[0]
             return out
         return call
@@ -1913,6 +2199,8 @@ def profiled_kernel_name(key: str):
         return name + ("_natural" if targs[-1] == "true" else "")
     if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
         return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
+    if name == "segment_encode" and len(targs) > 1 and targs[1] != "0":
+        return f"segment_encode_p{64 << int(targs[1])}"   # <CH, log2 of P / 64>
     return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
 
 
@@ -2196,6 +2484,62 @@ def phase_timing_natural(device, smi: str):
     return rows, worst
 
 
+def phase_timing_dense(device, smi: str):
+    """segment_encode at P = 256, 1024 and 4096 vs plain at the 4K shapes of
+    the dense levels (also compared; captured from a 4-level dense encode),
+    and the dense 3-level step's device time."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import coalesce as kc
+    from tools.record_torch_reference import case_images
+
+    log("== phase 4f: segment_encode at P = 256 / 1024 / 4096 and the dense step at 4K "
+        "(CUDA events, median of", TIMED_RUNS, "runs)")
+    images = case_images(2160, 3840)
+    rows, worst, losses = {}, 0.0, {}
+    for lane, img in images.items():
+        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
+        img_d = _as_image_tensor(img, device)
+        calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
+            img_d, cfg, num_levels=4, fused=False, fetch_planes=False, device=device))
+        for args, kwargs in calls["segment_encode_kernel"]:
+            p = args[0].shape[0]
+            if p not in SEGMENT_SIZES:
+                continue
+            got = kc.segment_encode_kernel(*args, **kwargs)
+            worst = max(worst, compare_outputs(got, kc.segment_encode_reference(*args, **kwargs)))
+            bound = kernel_bound("segment_encode", args, got)
+            kern = lambda: kc.segment_encode_kernel(*args, **kwargs)
+            plain = lambda: kc.segment_encode_reference(*args, **kwargs)
+            # plain, kernel, kernel, plain: both see the same card state
+            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+            members = int(args[1].any(dim=0).sum())
+            rows[(p, lane)] = (min(k1, k2), min(p1, p2), *bound)
+            log(f"  4K {lane} segment_encode P={p} ({args[0].shape[1]} lanes, {members} with a "
+                f"member pixel): kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, bound "
+                f"{bound[0]!r} ms ({bound[1]}) [{smi}]")
+        mpx = img.shape[0] * img.shape[1] * 1e-6
+
+        def step():
+            out = limg_tpu_torch.encode_image_merged_device(img_d, cfg, num_levels=MERGED_LEVELS,
+                                                            emit_planes=False, cap_frac=1,
+                                                            device=device)
+            return out["total_err"], out["mean_bpp"]
+
+        step_ms = time_fn(step, device)
+        log(f"  4K {lane} dense step (encode_image_merged_device, 3 levels, full run capacity, "
+            f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
+        prof = profile_step(step, device, f"{lane} dense")
+        if lane == "rgb":
+            log(f"  kernel launches per dense step: {launches_per_step(step)}")
+            losses = step_losses(prof, step_bounds(step))
+            log(f"  ms lost above the bound per dense step: {losses}")
+    log(f"phase 4f ok: 4K segment_encode outputs at P = 256 / 1024 / 4096 equal the plain "
+        f"version's (max abs diff {worst})")
+    return rows, worst, losses
+
+
 def launches_per_step(fn) -> dict:
     """Each kernel's launches in one call of the step ``fn``."""
     reset_launches()
@@ -2259,17 +2603,20 @@ def main():
     worst_c = phase_compare_coalesce(device)
     worst_r = phase_compare_region(device)
     worst_n = phase_compare_natural(device)
+    worst_s = phase_compare_segment_regions(device)
     launched = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
     launched_c = phase_main_path_coalesce(device)
     launched_r = phase_main_path_rd(device)
     launched_n = phase_main_path_natural(device)
     phase_ltp1(device, smi)
+    launched_d = phase_main_path_dense(device)
     rows, worst4k = phase_timing(device, smi)
     rows_m, worst4k_m = phase_timing_merged(device, smi)
     rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)
     rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
     rows_n, worst4k_n = phase_timing_natural(device, smi)
+    rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
                           max(worst, worst4k), rows["rgb"])]
@@ -2289,6 +2636,10 @@ def main():
     kernels.append(kernel_row("crush_eval_rows", CRUSH_EVAL_SOURCE, CRUSH_EVAL_REPLACES,
                               launched_n["crush_eval_rows"], max(worst_n, worst4k_n),
                               rows_n[("crush_eval_rows", "rgb")]))
+    for p in SEGMENT_SIZES:
+        name = f"segment_encode_p{p}"
+        kernels.append(kernel_row(name, COALESCE_SOURCE, COALESCE_REPLACES["segment_encode"],
+                                  launched_d[name], max(worst_s, worst4k_d), rows_d[(p, "rgb")]))
     # the order in which to redesign the kernels: first any slower than a
     # PyTorch call, then by the time they lose above the bound in one
     # default merged step, then in one RD step (each kernel's profiler
@@ -2302,6 +2653,8 @@ def main():
     log("redesign order (ms lost above the bound per default step / per RD step: device time "
         "in the step less the launches' bounds, 4K RGB): " + ", ".join(
             f"{k['name']} {lost(k, lost_default):.3f} / {lost(k, lost_rd):.3f}" for k in behind))
+    log("ms lost above the bound per dense step (3 levels, 4K RGB): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(lost_dense.items(), key=lambda kv: -kv[1])))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,19 +9,23 @@ the kernels, "cpu" their plain PyTorch versions.
 
 Ported so far: the fixed-grid encode (``encode_image``) and the
 quadtree-merged encode with run coalescing, the codec's default
-(``encode_image_merged``, 2-4 levels), under the match policy (its stages
+(``encode_image_merged``), on the fused path at 2-4 levels (the default)
+and on the dense path (``fused=False``, and every 1-level encode;
+``encode_image_merged_device``), under the match policy (the fused stages
 ``fused_merged_pre`` / ``fused_merged_finish``) and the RD policy
 (``merge_policy="rd"``; ``fused_rd_pre`` / ``fused_rd_finish``,
-``rd_merge_keep``), and the LTP1 stream of a merged encode
-(``serialize`` / ``deserialize``, ``bitstream.serialize_from_state``, on
-the host runtime of ``native.py``). See ROADMAP.md for the rest.
+``rd_merge_keep``), the LTP1 stream of a merged encode (``serialize`` /
+``deserialize``, ``bitstream.serialize_from_state``, on the host runtime
+of ``native.py``), and the legacy 1-factor encoder (``encode_legacy``).
+See ROADMAP.md for the rest.
 """
 
 from .bitstream import deserialize, serialize
 from .config import BLOCK_SIZE, EncodeConfig
 from .encoder import encode_image, encode_image_device, encode_perf_step
+from .legacy import LegacyConfig, encode_legacy
 from .ops.error import psnr as compare_psnr
-from .regions import (auto_run_capacity, encode_image_merged,
+from .regions import (auto_run_capacity, encode_image_merged, encode_image_merged_device,
                       encode_image_merged_fused_device, encode_image_merged_rd_device,
                       fused_merged_finish, fused_merged_pre, fused_rd_finish, fused_rd_pre,
                       rd_merge_keep)
@@ -33,6 +37,7 @@ __all__ = [
     "encode_image_device",
     "encode_perf_step",
     "encode_image_merged",
+    "encode_image_merged_device",
     "encode_image_merged_fused_device",
     "fused_merged_pre",
     "fused_merged_finish",
@@ -44,4 +49,6 @@ __all__ = [
     "compare_psnr",
     "serialize",
     "deserialize",
+    "LegacyConfig",
+    "encode_legacy",
 ]

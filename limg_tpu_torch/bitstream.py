@@ -346,14 +346,15 @@ def serialize_from_state(state, cfg: EncodeConfig, entropy: bool = True) -> byte
 
 def serialize(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
               merge_policy: str = "match", rd_lambda: float = 0.01, entropy: bool = True,
-              coalesce: bool = True, device="cuda") -> bytes:
+              coalesce: bool = True, fused: bool | None = None, device="cuda") -> bytes:
     """Encode an (H, W, 3|4) uint8 image into an LTP1 blob.
 
-    Runs the port's merged encode on ``device`` and packs its state; the
-    stream always represents exactly the encode that ran. The RD policy
-    optimizes the real serialized header cost. ``entropy=False`` skips the
-    rANS mode entirely. ``num_levels`` outside 2-4 (the dense path) raises
-    NotImplementedError."""
+    Runs the port's merged encode on ``device`` (``fused`` picks its path
+    as in ``regions.encode_image_merged``: ``num_levels=1``, the fixed grid,
+    and ``fused=False`` take the dense path) and packs its state; the stream
+    always represents exactly the encode that ran. The RD policy optimizes
+    the real serialized header cost. ``entropy=False`` skips the rANS mode
+    entirely. ``num_levels`` of 5 or more raises NotImplementedError."""
     from .regions import encode_image_merged
 
     _, state = encode_image_merged(
@@ -361,7 +362,7 @@ def serialize(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
         fetch_decoded=False, merge_policy=merge_policy, rd_lambda=rd_lambda,
         coalesce=coalesce, return_state=True,
         rd_header_bits=region_header_bits(cfg.channels)
-        if merge_policy == "rd" else None, device=device,
+        if merge_policy == "rd" else None, fused=fused, device=device,
     )
     return serialize_from_state(state, cfg, entropy=entropy)
 

@@ -26,8 +26,9 @@ Images load through PIL, or from ``.npy`` arrays of (H, W, 3|4) uint8
 where PIL is missing. ``--device`` defaults to cuda and never falls back
 to the CPU.
 
-``--fixed-grid --write-ltp1`` (a 1-level merged encode, the dense path)
-exits non-zero naming the ROADMAP.md item that ports it.
+``--fixed-grid --write-ltp1`` writes the stream of a 1-level merged encode
+(the dense path, with run coalescing), as ``limg_tpu.cli`` does: the
+fixed grid is the one encode an LTP1 stream of one level holds.
 """
 
 from __future__ import annotations
@@ -36,20 +37,6 @@ import sys
 import time
 
 import numpy as np
-
-# flag combination -> (what it is, the ROADMAP.md item that ports it)
-_NOT_PORTED = {
-    ("--fixed-grid", "--write-ltp1"): (
-        "LTP1 serialization of the fixed grid (a 1-level merged encode, the dense path)",
-        "Queue 1 item 13"),
-}
-
-
-def _not_ported(flags: tuple):
-    what, item = _NOT_PORTED[flags]
-    print(f"limg_tpu_torch: {what} is not ported yet (ROADMAP.md {item}).")
-    sys.exit(2)
-
 
 def _parse_args(argv):
     opts = dict(write_output=True, error_factor=100, accurate=False, fixed_grid=False,
@@ -123,8 +110,6 @@ def _parse_args(argv):
             print(f"Invalid Parameter: '{a}'. Aborting.")
             sys.exit(1)
         i += 1
-    if opts["fixed_grid"] and opts["write_ltp1"] and not opts["decode_ltp1"]:
-        _not_ported(("--fixed-grid", "--write-ltp1"))
     return opts
 
 
@@ -270,10 +255,15 @@ def main(argv=None):
     if opts["diagnose"]:
         _diagnose(image, cfg, out, ser_state, device)
     if opts["write_ltp1"]:
-        from .bitstream import serialize_from_state
+        from .bitstream import serialize, serialize_from_state
 
-        # the stream represents exactly the encode reported above
-        blob = serialize_from_state(ser_state, cfg)
+        if ser_state is not None:
+            # the stream represents exactly the encode reported above
+            blob = serialize_from_state(ser_state, cfg)
+        else:
+            # the fixed grid: a 1-level merged encode (limg_tpu/cli.py:243-247)
+            blob = serialize(image, cfg, num_levels=1, merge_policy=opts["merge_policy"],
+                             device=device)
         with open(opts["write_ltp1"], "wb") as f:
             f.write(blob)
         print("Wrote %s: %d bytes = %.4f real bits per pixel (the reference has no "

@@ -21,15 +21,19 @@ versions.
   (limg_tpu/pallas_kernels/encode_segments.py:188): refit, factors, crush
   search, dither and decode of the contiguous segments (at most SEG_CAP
   members each) of the compacted run buffer, every per-segment value
-  broadcast to its members. ``segment_encode_composed`` computes the same
+  broadcast to its members. A lane of the buffer is a region of P = 64
+  (an 8x8 block), 256, 1024 or 4096 pixels (the dense path's levels 1-3),
+  the error of a region of 2048 pixels or more pre-scaled as in
+  ``ops/crush.py err_scale_shift``. ``segment_encode_composed`` computes the same
   from plain ops, the JAX package's jnp branch of ``coalesce_segments``
   (limg_tpu/regions.py:737-772), with its segment scans and the crush
   search's candidate evaluations on the kernels of ``seg_mixed_all_kernel``
   and ``kernels/crush_eval.py``.
 
-On a CUDA tensor each wrapper launches ``csrc/coalesce.cu`` (built at first
-use) or raises; on a CPU tensor it runs the plain version. The two agree
-bit for bit on the card.
+On a CUDA tensor each wrapper launches ``csrc/coalesce.cu`` (the segment
+encode at P > 64: ``csrc/segment_region.cu``; each built at first use) or
+raises; on a CPU tensor it runs the plain version. The two agree bit for
+bit on the card.
 """
 
 from __future__ import annotations
@@ -52,10 +56,12 @@ from ..ops.layout import unpack_plane
 from ..ops.match import match_decomps
 from ..ops.reduce import SegmentReducer
 from ..ops.segments import scan_steps, seg_mixed_all
-from .encode_fixed import _CRUSH_MODES, _pack_decoded
+from .encode_fixed import _CRUSH_MODES, REGION_SIZES, _pack_decoded
 
-# kernel launches since the last reset (read and reset by callers)
-launches = {"match_neighbors": 0, "match_pairs": 0, "seg_mixed_all": 0, "segment_encode": 0}
+# kernel launches since the last reset (read and reset by callers); the
+# segment encode's per region size, "segment_encode" its 8x8 blocks
+launches = {"match_neighbors": 0, "match_pairs": 0, "seg_mixed_all": 0, "segment_encode": 0,
+            "segment_encode_p256": 0, "segment_encode_p1024": 0, "segment_encode_p4096": 0}
 
 # the most ladder verifications segment_encode_kernel keeps per block
 MAX_LADDER_K = 16
@@ -130,28 +136,35 @@ def _device_route(*tensors: torch.Tensor) -> bool:
 
 
 @functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
+def _library(name: str = "coalesce"):
+    """A built kernel library, with its C signatures declared: "coalesce"
+    (csrc/coalesce.cu, the four kernels, the segment encode at P = 64) or
+    "segment_region" (csrc/segment_region.cu, the segment encode at P =
+    256, 1024 and 4096)."""
     from .build import load_library
 
-    lib = load_library("coalesce")
+    lib = load_library(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-    lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
-    lib.limg_seg_scan.argtypes = [ptr, i32, ptr]
-    lib.limg_segment_encode.argtypes = ([ptr] * 4 + [i32] * 8 + [ctypes.c_uint32]
-                                        + [ptr] * 10)
-    for fn in (lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan,
-               lib.limg_segment_encode):
+    if name == "coalesce":
+        lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+        lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
+        lib.limg_seg_scan.argtypes = [ptr, i32, ptr]
+        segment = lib.limg_segment_encode
+        fns = [lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan, segment]
+    else:
+        segment = lib.limg_segment_encode_region
+        fns = [segment]
+    segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 10
+    for fn in fns:
         fn.restype = i32
     lib.limg_cuda_error_string.argtypes = [i32]
     lib.limg_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, fn_name: str, dev: torch.device, *args) -> None:
-    """Call ``fn_name`` of the library on the current stream; raise on error."""
-    lib = _library()
+def _launch(name: str, fn_name: str, dev: torch.device, *args, library: str = "coalesce") -> None:
+    """Call ``fn_name`` of a library on the current stream; raise on error."""
+    lib = _library(library)
     with torch.cuda.device(dev):
         rc = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -369,9 +382,15 @@ def seg_min_all(x: torch.Tensor, seg_c: torch.Tensor, init=0) -> torch.Tensor:
 # segment_encode
 # ---------------------------------------------------------------------------
 
+def segment_kernel_name(pixels: int) -> str:
+    """The launch count's name of the segment encode at P = ``pixels``."""
+    return "segment_encode" if pixels == BLOCK_AREA else f"segment_encode_p{pixels}"
+
+
 def _check_segment_inputs(packed_c, mask_c, seg_c, blocks):
-    if packed_c.ndim != 2 or packed_c.shape[0] != BLOCK_AREA or packed_c.dtype != torch.int32:
-        raise ValueError(f"packed_c must be ({BLOCK_AREA}, N) int32, got "
+    if (packed_c.ndim != 2 or packed_c.shape[0] not in REGION_SIZES
+            or packed_c.dtype != torch.int32):
+        raise ValueError(f"packed_c must be (P, N) int32 with P one of {REGION_SIZES}, got "
                          f"{tuple(packed_c.shape)} {packed_c.dtype}")
     n = packed_c.shape[1]
     if mask_c.shape != packed_c.shape or mask_c.dtype != torch.bool:
@@ -438,10 +457,11 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
                           cfg: EncodeConfig, key: int, emit_q: bool = True) -> SegmentEncode:
     """Re-encode of the contiguous segments of a compacted run buffer.
 
-    ``packed_c`` (64, N) int32 words, ``mask_c`` (64, N) bool member pixels,
-    ``seg_c`` (N,) int32 segment ids (the first member's position; members
-    contiguous, at most SEG_CAP of them), ``blocks`` (N,) int32 the row-major
-    image block index of each lane (the dither counter), ``key`` the 32-bit
+    ``packed_c`` (P, N) int32 words of N regions of P = 64, 256, 1024 or
+    4096 pixels, ``mask_c`` (P, N) bool member pixels, ``seg_c`` (N,) int32
+    segment ids (the first member's position; members contiguous, at most
+    SEG_CAP of them), ``blocks`` (N,) int32 the row-major index of each
+    lane's region in its grid (the dither counter), ``key`` the 32-bit
     dither key. A CPU tensor goes to the plain version; a CUDA tensor
     launches the kernel on the current stream or raises.
     """
@@ -451,28 +471,32 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
     if cfg.crush_mode == "ladder" and not 1 <= cfg.ladder_k <= MAX_LADDER_K:
         raise ValueError(f"segment_encode_kernel takes ladder_k 1-{MAX_LADDER_K}, "
                          f"got {cfg.ladder_k}")
-    dev, ch, n = packed_c.device, cfg.channels, packed_c.shape[1]
+    dev, ch = packed_c.device, cfg.channels
+    p, n = packed_c.shape
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    # block-major copies: one warp reads one block's 64 contiguous words
+    # block-major copies: a warp reads a region's words 64 contiguous at a time
     packed_bm = packed_c.t().contiguous()
     mask_bm = mask_c.t().contiguous()
-    f8_bm = empty(n, BLOCK_AREA)                       # the fit's factors, for the crush
-    out = SegmentEncode(shifts=empty(3, n), q=empty(n, BLOCK_AREA) if emit_q else None,
-                        dec=empty(n, BLOCK_AREA), dist_blk=empty(n, dtype=torch.float32),
+    f8_bm = empty(n, p)                                # the fit's factors, for the crush
+    out = SegmentEncode(shifts=empty(3, n), q=empty(n, p) if emit_q else None,
+                        dec=empty(n, p), dist_blk=empty(n, dtype=torch.float32),
                         count_blk=empty(n), count_mem=empty(n), eps=empty(6, ch, n),
                         avg=empty(ch, n, dtype=torch.float32))
     if n:
-        _launch("segment_encode", "limg_segment_encode", dev,
+        region = p != BLOCK_AREA
+        _launch(segment_kernel_name(p),
+                "limg_segment_encode_region" if region else "limg_segment_encode", dev,
                 packed_bm.data_ptr(), mask_bm.data_ptr(), seg_c.contiguous().data_ptr(),
-                blocks.contiguous().data_ptr(), n, ch,
+                blocks.contiguous().data_ptr(), n, p, ch,
                 _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
                 int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
                 cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error, key,
                 f8_bm.data_ptr(), out.shifts.data_ptr(),
                 None if out.q is None else out.q.data_ptr(), out.dec.data_ptr(),
                 out.dist_blk.data_ptr(), out.count_blk.data_ptr(), out.count_mem.data_ptr(),
-                out.eps.data_ptr(), out.avg.data_ptr())
+                out.eps.data_ptr(), out.avg.data_ptr(),
+                library="segment_region" if region else "coalesce")
     return out._replace(q=None if out.q is None else out.q.t(), dec=out.dec.t())

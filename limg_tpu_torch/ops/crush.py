@@ -23,8 +23,8 @@ pixel max and block error are reduced per block, then across the region's
 blocks, and admissibility is tested on the region values. Regions of 2048
 pixels or more pre-scale the block error (``err_scale_shift``); segments
 of the run-coalescing buffer shift each block's error sum right by
-SEG_ERR_SHIFT instead (``SegmentReducer.seg_err_shift``), and both compare
-in float32 (the JAX package's ``find_shifts_segments``,
+SEG_ERR_SHIFT less that pre-scale (``SegmentReducer.seg_err_shift``), and
+both compare in float32 (the JAX package's ``find_shifts_segments``,
 limg_tpu/ops/segments.py:368).
 
 Everything here is integer arithmetic with int32 wrap-around, except the
@@ -294,7 +294,10 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
         return (torch.zeros((3, n), dtype=torch.int32, device=px.device),
                 torch.zeros((n,), dtype=torch.int32, device=px.device))
     es = err_scale_shift(px.shape[1] * red.chunks)
-    ss = red.seg_err_shift
+    # a segment's block errors, pre-scaled by es, shift right by the rest
+    # of its seg_err_shift before the cross-block sum, so admissibility
+    # scales by seg_err_shift whatever P (limg_tpu/ops/segments.py:397, :416)
+    ss = red.seg_err_shift - es if red.seg_err_shift else 0
 
     if use_kernel:
         from ..kernels.crush_eval import MAX_PIXELS, crush_eval_rows_kernel, pack_words

@@ -45,18 +45,21 @@ def dither_key(seed: int, dither_seed: int) -> int:
 
 
 # folded into the encode's key for the run-coalescing pass, as the JAX
-# package folds it into its PRNG key (limg_tpu/regions.py:1433)
+# package folds it into its PRNG key (limg_tpu/regions.py:1433), plus the
+# level on the dense path (:956)
 COALESCE_SALT = 0x0C0A1E5C
 
 
-def coalesce_key(seed: int, dither_seed: int) -> int:
-    """The 32-bit dither key of the run-coalescing re-encode."""
-    return fmix32(dither_key(seed, dither_seed) ^ COALESCE_SALT)
+def coalesce_key(seed: int, dither_seed: int, level: int = 0) -> int:
+    """The 32-bit dither key of the run-coalescing re-encode: of the fused
+    paths' level-0 buffer, or of the dense path's level ``level``."""
+    return fmix32(dither_key(seed, dither_seed) ^ (COALESCE_SALT + level))
 
 
 # folded into the encode's key for the RD policy's per-level encodes at
 # levels >= 1, the counterpart of the JAX package's per-level key split
-# (limg_tpu/regions.py:1657); SALT + level never equals COALESCE_SALT
+# (limg_tpu/regions.py:1657); SALT + level never equals COALESCE_SALT +
+# a level
 LEVEL_SALT = 0x1E7E1000
 
 

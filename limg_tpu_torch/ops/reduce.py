@@ -160,9 +160,10 @@ class OwnerReducer(_QuadReducer):
 class SegmentReducer(_Reducer):
     """Regions are contiguous segments of the last axis, ``seg_c`` (N,) the
     segment id of each block (limg_tpu/pallas_kernels/encode_segments.py:63
-    ``_SegReducer``). Per-block error sums carry no pre-scale and are
-    shifted right by SEG_ERR_SHIFT before the cross-block sum. ``scan`` is
-    the scan chain, ``seg_mixed_all`` or its kernel's wrapper
+    ``_SegReducer``). Per-block error sums of regions of 2048 pixels or
+    more carry the pre-scale of ops/crush.py ``err_scale_shift``; each is
+    shifted right by SEG_ERR_SHIFT less it before the cross-block sum.
+    ``scan`` is the scan chain, ``seg_mixed_all`` or its kernel's wrapper
     (kernels/coalesce.py ``seg_mixed_all_kernel``)."""
 
     seg_err_shift = SEG_ERR_SHIFT

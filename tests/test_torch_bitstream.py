@@ -10,6 +10,8 @@ encodes of the same cases and of the RD policy. A stream decodes to the
 encode's decoded image bit for bit, in both packages.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ import limg_tpu_torch
 from limg_tpu_torch import bitstream as tb
 from limg_tpu_torch.config import EncodeConfig
 from tests.conftest import make_test_image
+from tools import record_torch_dense_reference as drec
 from tools import record_torch_ltp1_reference as lrec
 from tools import record_torch_merged_reference as mrec
 from tools import record_torch_natural_reference as nrec
@@ -45,6 +48,12 @@ def factor_path(request, monkeypatch):
 @pytest.fixture(scope="module")
 def fixture():
     return np.load(nrec.OUT)
+
+
+@pytest.fixture(scope="module")
+def dense_fixture():
+    fx = np.load(drec.OUT)
+    return fx, json.loads(str(fx["meta"]))
 
 
 @pytest.fixture(scope="module")
@@ -151,10 +160,35 @@ def test_serialize_equals_serialize_from_state_and_round_trips():
 
 
 @pytest.mark.parametrize("num_levels", [1, 5])
-def test_serialize_outside_2_to_4_levels_names_item_13(num_levels):
-    img = make_test_image(np.random.default_rng(3), H, W)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        tb.serialize(img, CFG, num_levels=num_levels, device="cpu")
+def test_serialize_outside_2_to_4_levels_names_item_13(num_levels, dense_fixture):
+    """num_levels=1 (the dense path, ROADMAP.md Queue 1 item 13, landed)
+    writes JAX's bytes: the port's state of the recorded 1-level encode is
+    JAX's (tests/fixtures/torch_port_dense_reference.npz), and so are its
+    streams, entropy on and off; ``serialize`` is that encode's stream.
+    num_levels=5 raises naming its own item (Queue 1 item 16)."""
+    if num_levels == 5:
+        img = make_test_image(np.random.default_rng(3), H, W)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+            tb.serialize(img, CFG, num_levels=num_levels, device="cpu")
+        return
+    fx, meta = dense_fixture
+    name = "band70x90_rgb_l1"
+    img = drec.SMALL_CASES[name][0]()
+    cfg = EncodeConfig(**meta["cases"][name]["config"])
+    jcfg = JConfig(**meta["cases"][name]["config"])
+    out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=1, return_state=True,
+                                                    device="cpu")
+    np.testing.assert_array_equal(state["rows"], fx[f"{name}.state_rows"])
+    np.testing.assert_array_equal(state["q"], fx[f"{name}.state_q"])
+    jstate = dict(state, rows=fx[f"{name}.state_rows"], q=fx[f"{name}.state_q"])
+    for entropy in (True, False):
+        blob = tb.serialize_from_state(state, cfg, entropy=entropy)
+        assert blob == jb.serialize_from_state(jstate, jcfg, entropy=entropy)
+    blob = tb.serialize(img, cfg, num_levels=1, device="cpu")
+    assert blob == tb.serialize_from_state(state, cfg)
+    dec, info = tb.deserialize(blob)
+    np.testing.assert_array_equal(dec, out["decoded"])
+    assert info["levels"] == 1 and info["n_runs"] == out["n_runs"] > 0
 
 
 def test_helpers_equal_jax(rng):

@@ -187,14 +187,25 @@ def test_diagnose_prints_jax_culprit_block(image_files, capsys, monkeypatch, fix
 
 
 def test_fixed_grid_write_ltp1_exits_naming_item_13(image_files, capsys, monkeypatch):
+    """``--fixed-grid --write-ltp1`` (refused naming ROADMAP.md Queue 1 item
+    13 until the dense path landed) writes the stream of a 1-level merged
+    encode, as limg_tpu.cli does, and ``--decode-ltp1`` decodes it to that
+    encode's image bit for bit."""
+    from limg_tpu_torch import EncodeConfig, bitstream, encode_image_merged, native
+
     monkeypatch.chdir(image_files)
-    with pytest.raises(SystemExit) as e:
-        tcli.main([str(image_files / "img.npy"), "--fixed-grid", "--write-ltp1", "f.ltp1",
-                   "--device", "cpu"])
-    assert e.value.code != 0
+    npy = str(image_files / "img.npy")
+    tcli.main([npy, "--fixed-grid", "--write-ltp1", "f.ltp1", "--no-output", "--device", "cpu"])
     text = capsys.readouterr().out
-    assert "ROADMAP.md Queue 1 item 13" in text and "pixels" not in text
-    assert not (image_files / "f.ltp1").exists()
+    assert "Wrote f.ltp1" in text and "ROADMAP" not in text
+    image, has_alpha = tcli.load_any(npy)
+    cfg = EncodeConfig(has_alpha=has_alpha)
+    blob = (image_files / "f.ltp1").read_bytes()
+    assert blob == bitstream.serialize(image, cfg, num_levels=1, device="cpu")
+    tcli.main(["--decode-ltp1", "f.ltp1"])
+    assert "1 levels" in capsys.readouterr().out
+    want = encode_image_merged(image, cfg, num_levels=1, device="cpu")["decoded"]
+    np.testing.assert_array_equal(native.read_tga("limg_decoded.tga"), want)
 
 
 def test_decode_ltp1_and_bad_flags_exit(capsys):

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, region_edge_buffers,
-                        seeded_rows, seeded_run_buffer, seg_map)
+from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, SEGMENT_LANES,
+                        region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
+                        seg_map)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
@@ -500,3 +501,64 @@ def test_ltp1_stream_of_the_card_encode_is_jaxs(device, name):
         assert lrec.digest(blob) == lrec.reference_streams()[name][key]
         assert bitstream.serialize_from_state(on_card, cfg, entropy=entropy) == blob
         np.testing.assert_array_equal(bitstream.deserialize(blob)[0], out["decoded"])
+
+
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("mode,num_factors", [
+    ("ladder", 3), ("ladder", 2), ("exhaustive", 1), ("guess", 3), ("none", 3),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("p", [256, 1024, 4096])
+def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_factors,
+                                                dithering):
+    """The segment encode at the dense levels' region sizes, bit-equal to its
+    plain version; at P = 4096 lane 0 is a saturated region whose unscaled
+    error sum passes 2^31."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(p + channels)
+    n = SEGMENT_LANES[p]
+    buf = region_run_buffer(rng, p, n, channels, device, empty_tail=n // 6, saturate=p == 4096)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    name = kc.segment_kernel_name(p)
+    before = kc.launches[name]
+    got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+    want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
+    torch.cuda.synchronize(device)
+    assert kc.launches[name] == before + 1
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
+
+
+@pytest.mark.parametrize("levels,policy", [(1, "match"), (3, "match"), (4, "rd")])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_dense_encode_on_card_equals_cpu(device, channels, levels, policy):
+    """The dense path on the card (its kernels) equals its run on the CPU
+    (their plain versions) bit for bit: image, planes, stats, state and
+    stream."""
+    img = mrec.make_4k_lane(*mrec.SMALL, "rgba" if channels == 4 else "rgb")
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4)
+    runs = [limg_tpu_torch.encode_image_merged(img, cfg, num_levels=levels, merge_policy=policy,
+                                               fused=False, return_state=True, device=dev)
+            for dev in (device, "cpu")]
+    (card, card_state), (cpu, cpu_state) = runs
+    for key in ("decoded", "factors", "shift", "bpp", "region_id", "owner_px", "endpoint_rows",
+                "alive_counts", "bits_histogram"):
+        np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
+    for key in ("psnr", "mean_bpp", "n_runs", "coalesce_stats"):
+        assert card[key] == cpu[key], key
+    for key in ("rows", "q"):
+        np.testing.assert_array_equal(card_state[key], cpu_state[key])
+    assert bitstream.serialize_from_state(card_state, cfg) == \
+        bitstream.serialize_from_state(cpu_state, cfg)
+
+
+def test_legacy_encode_on_card_equals_cpu(device):
+    img = mrec.make_4k_lane(*mrec.SMALL, "rgba")
+    cfg = limg_tpu_torch.LegacyConfig(has_alpha=True)
+    card = limg_tpu_torch.encode_legacy(img, cfg, device=device)
+    cpu = limg_tpu_torch.encode_legacy(img, cfg, device="cpu")
+    for key in ("decoded", "factors", "col_a", "col_b", "shift", "covered"):
+        np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
+    assert card["psnr"] == cpu["psnr"] and card["grown_px"] == cpu["grown_px"]

@@ -285,14 +285,28 @@ def test_4k_fixture_is_complete(fixture):
 # Entry points: what is not ported raises, and nothing falls back
 # ---------------------------------------------------------------------------
 
+# the ids are the names these cases had while both were refused naming
+# ROADMAP.md Queue 1 item 13 (the dense path, now landed)
 @pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(coalesce=False, num_levels=1), "Queue 1 item 13",
+    pytest.param(dict(coalesce=False, num_levels=1), None,
                  id="kwargs1-Queue 1 item 13"),
-    pytest.param(dict(coalesce=False, num_levels=5), "Queue 1 item 13",
+    pytest.param(dict(coalesce=False, num_levels=5), "Queue 1 item 16",
                  id="kwargs2-Queue 1 item 13"),
 ])
 def test_unported_arguments_raise(kwargs, item):
+    """num_levels=1 now encodes, on the dense path (the fused device entry
+    point takes 2-4 levels and names that path); num_levels=5 raises on
+    both entry points naming its own item (regions larger than the region
+    encode's 64x64 px)."""
     img = np.zeros((16, 16, 3), np.uint8)
+    if item is None:
+        out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(), device="cpu", **kwargs)
+        np.testing.assert_array_equal(out["decoded"][..., :3], img)
+        np.testing.assert_array_equal(out["alive_counts"], [4])
+        with pytest.raises(ValueError, match="dense path"):
+            limg_tpu_torch.encode_image_merged_fused_device(img, EncodeConfig(), device="cpu",
+                                                            **kwargs)
+        return
     for fn in (limg_tpu_torch.encode_image_merged,
                limg_tpu_torch.encode_image_merged_fused_device):
         with pytest.raises(NotImplementedError, match=item):

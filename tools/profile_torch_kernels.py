@@ -5,7 +5,8 @@ a baseline checkout of the same package.
                                            [--kernels-only] [--kernels REGEX]
 
 Builds ``encode_fixed``, ``encode_region``, ``encode_merged``,
-``encode_natural``, ``coalesce`` and ``crush_eval`` from this checkout (and, with
+``encode_natural``, ``coalesce``, ``segment_region`` and ``crush_eval``
+from this checkout (and, with
 ``--baseline``, the same libraries of the checkout at DIR into DIR's own
 ``build/kernels``, by DIR's own package) and prints what ``ptxas -v``
 reports for every kernel: registers, spill bytes, stack frame. Then, on the
@@ -86,7 +87,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 LIBRARIES = ("encode_fixed", "encode_region", "encode_merged", "encode_natural", "coalesce",
-             "crush_eval")
+             "segment_region", "crush_eval")
 COALESCE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_coalesce_reference.npz"
 RUNS = 10
 PROFILED = 5
@@ -163,11 +164,13 @@ def load_checkout(checkout: Path | None, alias: str) -> SimpleNamespace:
         ("km", "kernels.encode_merged"), ("kn", "kernels.encode_natural"),
         ("kce", "kernels.crush_eval"),
         ("encoder", "encoder"), ("regions", "regions"))}
+    # a checkout from before a library existed builds the others
+    libs = [n for n in LIBRARIES if (mods["build"].CSRC / f"{n}.cu").exists()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(mods["build"].load_library, LIBRARIES))
-    log(f"built {', '.join(LIBRARIES)} of {checkout or ROOT} in {time.perf_counter() - t0:.1f} s")
-    ptxas = {n: ptxas_lines(mods["build"].build_log.get(n, "")) for n in LIBRARIES}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(mods["build"].load_library, libs))
+    log(f"built {', '.join(libs)} of {checkout or ROOT} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {n: ptxas_lines(mods["build"].build_log.get(n, "")) for n in libs}
     return SimpleNamespace(pkg=pkg, ptxas=ptxas, **mods)
 
 

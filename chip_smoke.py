@@ -11,7 +11,10 @@ the dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels)
 on 4K images through them, write, read and diagnose LTP1 streams of the
 default encode (``bitstream``, ``utils.diagnostics``, the CLI's
 ``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``, and ``--fixed-grid
---write-ltp1``), and run the legacy encoder (``encode_legacy``).
+--write-ltp1``), run the legacy encoder (``encode_legacy``), and encode
+corpora of 1080p images over a one-card mesh (``limg_tpu_torch.parallel``:
+the fixed-grid, merged and mixed-size corpora, the block-sharded image, the
+streaming corpus on the native staging pool).
 
     python3 chip_smoke.py
 
@@ -112,6 +115,25 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    ``--fixed-grid --write-ltp1`` then ``--decode-ltp1``, giving the
    1-level encode's image bit for bit; ``encode_legacy`` at 4K, and on a
    small image equal to its CPU run;
+3h. corpus and multi-device encode (``limg_tpu_torch.parallel``): the
+   mesh (``make_mesh(1)`` is ``(cuda:0,)``, one past the card count
+   raises); ``encode_corpus_sharded`` on 8 x 1080p (dithering off) in one
+   ``encode_fixed_p64`` launch, each image's bpp equal to ``encode_image``'s
+   and PSNR within 1e-4 dB, and again from the card-resident batch under
+   ``torch.cuda.set_sync_debug_mode("error")`` up to its fetch; the same
+   batch as 8 shard bodies on one card, equal; ``encode_image_blocks_sharded``
+   on the 4K RGB image (dithering on, one shard) decoding to
+   ``encode_image``'s bit for bit, also under the "error" mode;
+   ``encode_corpus_sharded_merged`` (fused, 3 levels, dithering on) on the
+   8 images, each bit-equal to its own ``encode_image_merged_fused_device``
+   with ``image_seed(0, i)``, its host syncs counted under the "warn" mode;
+   ``__graft_entry__.dryrun_multichip``'s three paths against
+   MULTICHIP_EXPECTED.json at one card; ``encode_corpus_streaming`` on 32
+   TGA files of 1080p on the native pool (each image equal to
+   ``encode_image``'s; a missing file lands in ``failed``);
+   ``encode_corpus_sharded_mixed`` on 5 x 1080p and 3 x 720p, some as TGA
+   paths, equal to the direct encodes; every kernel's launches counted from
+   0 over these calls;
 4. / 4b. / 4c. / 4d. / 4e. / 4f. kernel and plain times at the 4K shapes of each
    path (each compared once more), and each path's device-resident step,
    CUDA events, median of 10 runs after warm-up, with a torch.profiler
@@ -123,7 +145,13 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    table and the verified per-block triples) with their bounds, and the
    composed pass against the segment kernel's; 4f times ``segment_encode``
    at the dense levels' 4K buffers (P = 256, 1024, 4096) and the dense
-   3-level step.
+   3-level step;
+4g. the 8 x 1080p fixed-grid corpus (one launch) against 8
+   ``encode_perf_step`` calls, its device memory and device time per
+   image, its kernel on the shard against its plain version and bound, the
+   8 x 1080p merged corpus, and four host walls of the 32-file streaming
+   corpus: staging alone, encode alone, ``encode_corpus_streaming``, and the
+   same loop with the JAX package's ``await_all`` wait.
 
 Prints the order in which to redesign the kernels (the ms each loses above
 its bound per default step, then per RD step: its profiler device time in
@@ -136,11 +164,13 @@ last ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2583,6 +2613,384 @@ def log_profiled(profile: dict, kernel: str, events_ms: float, lane: str, smi: s
         f"{us / 1e3!r} ms per step [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3h: corpus and multi-device encode (limg_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+MULTICHIP_EXPECTED = os.path.join(ROOT, "MULTICHIP_EXPECTED.json")
+
+
+def dryrun_image(h: int = 256, w: int = 256) -> np.ndarray:
+    """The multichip dry run's synthetic image: a copy of
+    ``__graft_entry__._test_image``, which imports nothing of JAX but is
+    the JAX package's (a tier-1 test holds the two equal)."""
+    rng = np.random.default_rng(7)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack(
+        [
+            40 + 150 * x / w,
+            30 + 180 * y / h,
+            128 + 90 * np.sin(x / 7.0) * np.cos(y / 5.0),
+            np.full((h, w), 255.0),
+        ],
+        axis=-1,
+    )
+    img[:h // 4, :w // 4, :3] += rng.normal(0, 12, (h // 4, w // 4, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def multichip_gate(n_devices: int, device) -> dict:
+    """``__graft_entry__.dryrun_multichip``'s three paths on the port's mesh
+    (8 images of 64x64 sharded, one 64x128 image block-sharded, the dense
+    merged corpus at 3 levels with dithering on), each (psnr, bpp) held to
+    MULTICHIP_EXPECTED.json within its tolerance."""
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.parallel import mesh
+
+    with open(MULTICHIP_EXPECTED) as f:
+        rec = json.load(f)
+    cfg = EncodeConfig(error_factor=100, crush_mode="guess")
+    images = np.stack([dryrun_image(64, 64) for _ in range(rec["n_devices"])])
+    out = mesh.encode_corpus_sharded(images, cfg, n_devices=n_devices, device=device)
+    img, psnr, bpp = mesh.encode_image_blocks_sharded(dryrun_image(64, 128), cfg,
+                                                      n_devices=n_devices, device=device)
+    if img.shape != (64, 128, 3):
+        raise AssertionError(f"blocks-sharded decode {img.shape}")
+    merged = mesh.encode_corpus_sharded_merged(images, EncodeConfig(error_factor=100),
+                                               n_devices=n_devices, num_levels=3, fused=False,
+                                               device=device)
+    got = {"corpus": (out["mean_psnr"], float(out["bpp"].mean())), "blocks": (psnr, bpp),
+           "merged": (merged["mean_psnr"], float(merged["bpp"].mean()))}
+    tol = rec["tolerance"]
+    failures = []
+    for name, (g_psnr, g_bpp) in got.items():
+        want = rec["paths"][name]
+        log(f"  multichip {name} ({n_devices}-device {device} mesh): psnr {g_psnr!r} dB "
+            f"(expected {want['psnr']}), bpp {g_bpp!r} (expected {want['bpp']})")
+        if abs(g_psnr - want["psnr"]) > tol["psnr_db"] or abs(g_bpp - want["bpp"]) > tol["bpp"]:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"multichip paths outside MULTICHIP_EXPECTED.json: {failures}")
+    return got
+
+
+CORPUS_N, STREAM_N = 8, 32        # images of the fixed-grid / merged corpus, files streamed
+CORPUS_HW, MIXED_HW = (1080, 1920), (720, 1280)
+PSNR_DB_EXACT = 1e-4              # a corpus's float32 PSNR against encode_image's float64
+
+
+def corpus_images(n: int, hw=None, first: int = 0) -> np.ndarray:
+    """(n, H, W, 3) uint8: tools/make_test_image.make_4k at seeds first,
+    first + 1, ..., one thread each; ``hw`` defaults to CORPUS_HW."""
+    from tools.make_test_image import make_4k
+
+    hw = hw or CORPUS_HW
+    with ThreadPoolExecutor(8) as pool:
+        return np.stack(list(pool.map(lambda i: make_4k(*hw, seed=i), range(first, first + n))))
+
+
+def opaque(img: np.ndarray) -> np.ndarray:
+    """RGB -> RGBA with alpha 0xFF: what a TGA file of it reads back as."""
+    return np.concatenate([img, np.full((*img.shape[:2], 1), 0xFF, np.uint8)], axis=-1)
+
+
+@contextlib.contextmanager
+def sync_debug(mode: str):
+    """``torch.cuda.set_sync_debug_mode(mode)`` while the block runs."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def counted_syncs(fn):
+    """(``fn()``, the host syncs it made: sync debug warnings, counted)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with sync_debug("warn"):
+            out = fn()
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def fixed_grid_stats(img, cfg, device) -> tuple:
+    """(psnr, bpp) of ``encode_image`` on ``img``: its PSNR, and the exact
+    bpp of its factor bits and every block's header by the corpus's float32
+    formula (limg_tpu/parallel/mesh.py:113-116)."""
+    import limg_tpu_torch
+    from limg_tpu_torch.config import static_block_bits
+
+    out = limg_tpu_torch.encode_image(img, cfg, seed=0, device=device)
+    h, w = img.shape[:2]
+    bits = round(out["avg_block_bits"] * h * w)
+    nb = -(-h // 8) * -(-w // 8)
+    total = np.float32(bits + static_block_bits(cfg.channels) * nb)
+    return out["psnr"], total * (np.float32(1) / np.float32(h * w))
+
+
+def check_corpus_stats(name: str, got: dict, want: list, idx=None):
+    """Per-image corpus stats against the direct encodes': bpp equal, PSNR
+    within PSNR_DB_EXACT."""
+    idx = range(len(want)) if idx is None else idx
+    d_psnr = max(abs(float(got["psnr"][i]) - want[j][0]) for j, i in enumerate(idx))
+    bpp_equal = all(np.float32(got["bpp"][i]) == want[j][1] for j, i in enumerate(idx))
+    log(f"  {name}: {len(want)} images, max PSNR diff {d_psnr!r} dB, bpp "
+        f"{'equal' if bpp_equal else 'NOT equal'}")
+    if d_psnr > PSNR_DB_EXACT or not bpp_equal:
+        raise AssertionError(f"{name}: per-image stats differ from encode_image's")
+
+
+def streaming_await_all(paths, h: int, w: int, cfg, device, seed: int = 0):
+    """encode_corpus_streaming's loop as the JAX package writes it
+    (limg_tpu/parallel/corpus.py:74-88): every file staged up front, and
+    each wait on the whole pool (``await_all``). Returns (psnr, bpp)."""
+    import torch
+    from limg_tpu_torch import native
+    from limg_tpu_torch.ops.dither import image_seed
+    from limg_tpu_torch.parallel import corpus
+
+    pool = native.StagingPool()
+    try:
+        slots = [pool.stage(p, h, w) for p in paths]
+        stats = []
+        for i, (packed, mask, status) in enumerate(slots):
+            while status[0] == 0:
+                pool.await_all()
+            if status[0] == 1:
+                stats.append(torch.stack(corpus._encode_packed_stats(
+                    *corpus._upload(packed, mask, device), cfg, image_seed(seed, i))))
+        return torch.stack(stats).cpu().numpy().T
+    finally:
+        pool.close()
+
+
+def phase_main_path_corpus(device, tmp: str) -> dict:
+    """limg_tpu_torch.parallel on the card: the mesh, the fixed-grid corpus
+    (one launch, no host sync), shard bodies on one card, the block-sharded
+    4K image, the merged corpus, the multichip gate, the streaming corpus
+    and the mixed-size corpus; every kernel's launches counted from 0 over
+    the entry points' calls. TGA files go to ``tmp``."""
+    import torch
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig, native
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.ops.dither import image_seed
+    from limg_tpu_torch.parallel import corpus, mesh
+    from limg_tpu_torch.regions import encode_image_merged_fused_device
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3h: corpus and multi-device encode (limg_tpu_torch.parallel)")
+    if not native.available():
+        raise AssertionError(f"the native runtime did not build: {native.build_log}")
+    h, w = CORPUS_HW
+    images = corpus_images(STREAM_N)
+    paths = [os.path.join(tmp, f"corpus{i:02d}.tga") for i in range(STREAM_N)]
+    for path, img in zip(paths, images):
+        native.write_tga(path, opaque(img))
+    mixed = [opaque(im) for im in corpus_images(3, MIXED_HW, first=100)]
+    img4k = case_images(2160, 3840)["rgb"]
+    nodither = EncodeConfig(error_factor=100, dithering=False)
+    dither = EncodeConfig(error_factor=100)
+
+    # the direct encodes each path is held against (not counted)
+    want = [fixed_grid_stats(img, nodither, device) for img in images]
+    want_mixed = [fixed_grid_stats(img, nodither, device) for img in mixed]
+    want_merged = []
+    for i, img in enumerate(images[:CORPUS_N]):
+        out = encode_image_merged_fused_device(img, dither, image_seed(0, i), MERGED_LEVELS,
+                                               emit_planes=False, device=device)
+        want_merged.append((mesh._psnr(out["total_err"], h * w, 3).item(),
+                            out["mean_bpp"].to(torch.float32).item()))
+    want_4k = limg_tpu_torch.encode_image(img4k, dither, seed=0, device=device)["decoded"][..., :3]
+    batch = images[:CORPUS_N]
+    batch_d = torch.from_numpy(batch).to(device)
+    img4k_d = torch.from_numpy(img4k).to(device)
+    torch.cuda.synchronize(device)
+
+    reset_launches()
+    # 1. the mesh: one entry per card, never more than there are
+    mesh1 = mesh.make_mesh(1, device=device.type)
+    if mesh1 != (device,):
+        raise AssertionError(f"make_mesh(1) gave {mesh1}")
+    try:
+        mesh.make_mesh(torch.cuda.device_count() + 1, device="cuda")
+        raise AssertionError("make_mesh past the card count did not raise")
+    except RuntimeError as e:
+        log(f"  make_mesh(1) = {mesh1}; make_mesh({torch.cuda.device_count() + 1}) raised: {e}")
+    # 2. the fixed-grid corpus: one launch for the shard, no host sync
+    before = kmod.launches
+    out = mesh.encode_corpus_sharded(batch, nodither, n_devices=1, device=device)
+    if kmod.launches != before + 1:
+        raise AssertionError(f"{CORPUS_N}-image shard: {kmod.launches - before} launches, not 1")
+    check_corpus_stats(f"fixed-grid corpus ({CORPUS_N} x 1080p, 1 launch)", out,
+                       want[:CORPUS_N])
+    with sync_debug("error"):
+        stats = mesh._corpus_sharded(batch_d, nodither, mesh1, 0)
+    again = mesh._fetch(*stats)
+    for key in ("psnr", "bpp", "mean_psnr"):
+        if not np.array_equal(again[key], out[key]):
+            raise AssertionError(f"device-resident corpus: {key} differs")
+    log("  the device-resident corpus ran under set_sync_debug_mode('error') up to its "
+        "fetch: no host sync")
+    # 3. eight shard bodies on one card, the same batch split 8 ways
+    before = kmod.launches
+    split = mesh._fetch(*mesh._corpus_sharded(batch_d, nodither, (device,) * CORPUS_N, 0))
+    for key in ("psnr", "bpp"):
+        if not np.array_equal(split[key], out[key]):
+            raise AssertionError(f"8 shard bodies on one card: {key} differs from one shard")
+    log(f"  {CORPUS_N} shard bodies on {device} ({kmod.launches - before} launches): per-image "
+        f"stats equal the one-shard run's; mean {split['mean_psnr']!r} vs {out['mean_psnr']!r}")
+    # 4. the block-sharded 4K image: one shard is encode_image, dithering on
+    dec, psnr, bpp = mesh.encode_image_blocks_sharded(img4k, dither, n_devices=1, device=device)
+    with sync_debug("error"):
+        stats = mesh._blocks_sharded(img4k_d, dither, mesh1, 0)
+    again = mesh._blocks_fetch(*stats, dither)
+    if not (np.array_equal(again[0], dec) and again[1:] == (psnr, bpp)):
+        raise AssertionError("device-resident block-sharded image differs")
+    if not np.array_equal(dec, want_4k):
+        raise AssertionError("block-sharded 4K image: decode differs from encode_image's")
+    log(f"  block-sharded 4K RGB (dithering on, 1 shard): decode equal to encode_image's bit "
+        f"for bit; psnr {psnr!r} bpp {bpp!r}; ran under set_sync_debug_mode('error')")
+    # 5. the merged corpus, fused, dithering on: each image its own encode
+    merged, syncs = counted_syncs(lambda: mesh.encode_corpus_sharded_merged(
+        batch, dither, n_devices=1, num_levels=MERGED_LEVELS, device=device))
+    _, syncs_one = counted_syncs(lambda: encode_image_merged_fused_device(
+        batch_d[0], dither, image_seed(0, 0), MERGED_LEVELS, emit_planes=False, device=device))
+    for i, (p, b) in enumerate(want_merged):
+        if merged["psnr"][i] != np.float32(p) or merged["bpp"][i] != np.float32(b):
+            raise AssertionError(f"merged corpus image {i}: ({merged['psnr'][i]}, "
+                                 f"{merged['bpp'][i]}) vs its own encode ({p}, {b})")
+    log(f"  merged corpus ({CORPUS_N} x 1080p, fused, {MERGED_LEVELS} levels, dithering on): "
+        f"each image bit-equal to encode_image_merged_fused_device(image_seed(0, i)); mean "
+        f"psnr {merged['mean_psnr']!r}, mean bpp {float(merged['bpp'].mean())!r}; host syncs "
+        f"{syncs} for the corpus with its fetch, {syncs_one} per image encode")
+    # 6. the multichip gate at one card
+    multichip_gate(1, device)
+    # 7. the streaming corpus on the native pool
+    stream = corpus.encode_corpus_streaming(paths, h, w, nodither, device=device)
+    if stream["failed"]:
+        raise AssertionError(f"streaming: files failed {stream['failed']}")
+    check_corpus_stats(f"streaming corpus ({STREAM_N} TGA files of 1080p)", stream, want)
+    holed = corpus.encode_corpus_streaming(paths[:3] + [os.path.join(tmp, "missing.tga")]
+                                           + paths[3:4], h, w, nodither, device=device)
+    if holed["failed"] != [3]:
+        raise AssertionError(f"streaming with a missing file: failed {holed['failed']}, not [3]")
+    check_corpus_stats("streaming with a missing file", holed, want[:4], idx=[0, 1, 2, 4])
+    log("  streaming: a missing file lands in failed ([3])")
+    # 8. the mixed-size corpus: 5 x 1080p and 3 x 720p, some as TGA paths
+    items = [paths[0], opaque(images[1]), mixed[0], opaque(images[2]), paths[3], mixed[1],
+             opaque(images[4]), mixed[2]]
+    mix = mesh.encode_corpus_sharded_mixed(items, nodither, n_devices=1, device=device)
+    log(f"  mixed corpus buckets {mix['buckets']}")
+    check_corpus_stats("mixed corpus, 1080p bucket", mix, [want[i] for i in (0, 1, 2, 3, 4)],
+                       idx=[0, 1, 3, 4, 6])
+    check_corpus_stats("mixed corpus, 720p bucket", mix, want_mixed, idx=[2, 5, 7])
+    launched = read_launches()
+    ran = {k: v for k, v in launched.items() if v}
+    log(f"phase 3h ok: kernel launches over the corpus calls {ran}")
+    return launched
+
+
+def phase_timing_corpus(device, smi: str, tmp: str):
+    """The corpus paths' times: the 8 x 1080p fixed-grid corpus in one
+    launch against 8 encode_perf_step calls (and its kernel alone against
+    its plain version and bound), the 8 x 1080p merged corpus (CUDA events,
+    median of TIMED_RUNS), and four host walls of the 32-file streaming
+    corpus (median of HOST_RUNS): staging alone, encode alone, the
+    streaming loop, and the same loop with the JAX package's await_all."""
+    import torch
+    from limg_tpu_torch import EncodeConfig, encode_perf_step, native
+    from limg_tpu_torch.kernels.encode_fixed import encode_blocks_kernel, encode_blocks_reference
+    from limg_tpu_torch.ops.dither import image_seed
+    from limg_tpu_torch.parallel import corpus, mesh
+
+    log("== phase 4g: corpus paths at 1080p (CUDA events, median of", TIMED_RUNS,
+        "runs; host walls, median of", HOST_RUNS, "runs)")
+    h, w = CORPUS_HW
+    cfg = EncodeConfig(error_factor=100)
+    paths = sorted(os.path.join(tmp, f) for f in os.listdir(tmp) if f.startswith("corpus"))
+    batch = np.stack([native.read_tga(p)[..., :3] for p in paths[:CORPUS_N]])
+    batch_d = torch.from_numpy(batch).to(device)
+    mesh1 = mesh.make_mesh(1, device=device.type)
+    mpx = CORPUS_N * h * w * 1e-6
+
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    mesh._fetch(*mesh._corpus_sharded(batch_d, cfg, mesh1, 0))
+    peak = torch.cuda.max_memory_allocated(device) - base
+    corpus_ms = time_fn(lambda: mesh._corpus_sharded(batch_d, cfg, mesh1, 0), device)
+    steps_ms = time_fn(lambda: [encode_perf_step(im, cfg, 0, device) for im in batch_d], device)
+    log(f"  fixed-grid corpus {CORPUS_N} x 1080p, one launch: {corpus_ms!r} ms = "
+        f"{mpx / corpus_ms * 1e3!r} Mpx/s; {CORPUS_N} encode_perf_step calls {steps_ms!r} ms = "
+        f"{mpx / steps_ms * 1e3!r} Mpx/s; the shard's device memory above its images "
+        f"{peak / 2**20!r} MiB [{smi}]")
+    prof = profile_step(lambda: mesh._corpus_sharded(batch_d, cfg, mesh1, 0), device,
+                        f"corpus {CORPUS_N}x1080p")
+    busy_ms = sum(prof.values()) / 1e3
+    log(f"  fixed-grid corpus: device busy {busy_ms / CORPUS_N!r} ms per image, events "
+        f"{corpus_ms / CORPUS_N!r} ms per image [{smi}]")
+    blocks = [mesh._packed_blocks(im) for im in batch_d]
+    packed = torch.cat([b[0] for b in blocks], dim=1)
+    mask = torch.cat([b[1] for b in blocks], dim=1)
+    worst = compare_outputs(encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True),
+                            encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True))
+    bound = kernel_bound("encode_fixed_p64", (packed, mask, cfg),
+                         encode_blocks_kernel(packed, mask, cfg, 0))
+    kern = lambda: encode_blocks_kernel(packed, mask, cfg, 0)
+    plain = lambda: encode_blocks_reference(packed, mask, cfg, 0)
+    p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+    log(f"  encode_fixed_p64 on the shard ({packed.shape[1]} blocks): kernel {k1!r} / {k2!r} ms, "
+        f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}); max abs diff {worst} "
+        f"[{smi}]")
+
+    merged_ms = time_fn(lambda: mesh.encode_corpus_sharded_merged(
+        batch_d, cfg, n_devices=1, num_levels=MERGED_LEVELS, device=device), device)
+    log(f"  merged corpus {CORPUS_N} x 1080p (fused, {MERGED_LEVELS} levels, with its fetch): "
+        f"{merged_ms!r} ms = {mpx / merged_ms * 1e3!r} Mpx/s [{smi}]")
+
+    smpx = len(paths) * h * w * 1e-6
+
+    def staging_alone():
+        pool = native.StagingPool()
+        try:
+            slots = [pool.stage(p, h, w) for p in paths]
+            pool.await_all()
+        finally:
+            pool.close()
+        return slots, pool.threads
+
+    def encode_alone(slots):
+        stats = [torch.stack(corpus._encode_packed_stats(*corpus._upload(p, m, device), cfg,
+                                                         image_seed(0, i)))
+                 for i, (p, m, _) in enumerate(slots)]
+        return torch.stack(stats).cpu()
+
+    stage_ms, (slots, threads) = host_ms(staging_alone)
+    encode_ms, _ = host_ms(lambda: encode_alone(slots))
+    walls = {"streaming": [], "await_all": []}
+    for r in range(HOST_RUNS):      # the two loops in turns, each first in turn
+        for name in (("streaming", "await_all") if r % 2 == 0 else ("await_all", "streaming")):
+            t0 = time.perf_counter()
+            if name == "streaming":
+                corpus.encode_corpus_streaming(paths, h, w, cfg, device=device)
+            else:
+                streaming_await_all(paths, h, w, cfg, device)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    stream_ms, await_ms = (float(np.median(walls[k])) for k in ("streaming", "await_all"))
+    log(f"  streaming corpus, {len(paths)} TGA files of 1080p, {threads} pool "
+        f"threads (host wall ms, median of {HOST_RUNS}): staging alone {stage_ms!r}, "
+        f"encode alone (pre-staged) {encode_ms!r}, encode_corpus_streaming {stream_ms!r} "
+        f"({walls['streaming']}; {smpx / stream_ms * 1e3!r} Mpx/s), the await_all loop "
+        f"{await_ms!r} ({walls['await_all']}; {smpx / await_ms * 1e3!r} Mpx/s) [{smi}]")
+    log(f"phase 4g ok: the shard's kernel outputs equal the plain version's (max abs diff "
+        f"{worst})")
+    return worst
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, timing) -> dict:
     k_ms, p_ms, bound_ms, bound_by = timing
     # no single PyTorch call computes any of these functions: no library time
@@ -2611,15 +3019,19 @@ def main():
     launched_n = phase_main_path_natural(device)
     phase_ltp1(device, smi)
     launched_d = phase_main_path_dense(device)
-    rows, worst4k = phase_timing(device, smi)
-    rows_m, worst4k_m = phase_timing_merged(device, smi)
-    rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)
-    rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
-    rows_n, worst4k_n = phase_timing_natural(device, smi)
-    rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
+    with tempfile.TemporaryDirectory() as tmp:      # the streamed corpus's TGA files
+        launched_h = phase_main_path_corpus(device, tmp)
+        rows, worst4k = phase_timing(device, smi)
+        rows_m, worst4k_m = phase_timing_merged(device, smi)
+        rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)
+        rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
+        rows_n, worst4k_n = phase_timing_natural(device, smi)
+        rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
+        worst_g = phase_timing_corpus(device, smi, tmp)
     # the 4K RGB lane; RGBA is printed above
-    kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES, launched,
-                          max(worst, worst4k), rows["rgb"])]
+    kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES,
+                          launched + launched_h["encode_fixed_p64"],
+                          max(worst, worst4k, worst_g), rows["rgb"])]
     for name, replaces in MERGED_REPLACES.items():
         kernels.append(kernel_row(name, MERGED_SOURCE, replaces, launched_m[name],
                                   max(worst_m, worst4k_m), rows_m[(name, "rgb")]))

@@ -16,8 +16,12 @@ and on the dense path (``fused=False``, and every 1-level encode;
 (``merge_policy="rd"``; ``fused_rd_pre`` / ``fused_rd_finish``,
 ``rd_merge_keep``), the LTP1 stream of a merged encode (``serialize`` /
 ``deserialize``, ``bitstream.serialize_from_state``, on the host runtime
-of ``native.py``), and the legacy 1-factor encoder (``encode_legacy``).
-See ROADMAP.md for the rest.
+of ``native.py``), the legacy 1-factor encoder (``encode_legacy``), and
+corpus and multi-device encode over a mesh of devices driven by one
+process (``parallel.mesh``: ``encode_corpus_sharded``, ``_merged``,
+``_mixed``, ``encode_image_blocks_sharded``; ``parallel.corpus``:
+``encode_corpus_streaming`` on the native staging pool). See ROADMAP.md
+for the rest.
 """
 
 from .bitstream import deserialize, serialize

@@ -84,6 +84,8 @@ def _load(path: Path):
         ctypes.c_char_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
     lib.limg_rt_read_tga.restype = ctypes.c_int
+    lib.limg_rt_read_ppm.argtypes = lib.limg_rt_read_tga.argtypes
+    lib.limg_rt_read_ppm.restype = ctypes.c_int
     lib.limg_rt_pool_new.argtypes = [ctypes.c_int]
     lib.limg_rt_pool_new.restype = ctypes.c_void_p
     lib.limg_rt_pool_destroy.argtypes = [ctypes.c_void_p]
@@ -242,19 +244,42 @@ def read_tga(path: str) -> np.ndarray:
     return out.view(np.uint8).reshape(h.value, w.value, 4)
 
 
+# the status of a slot whose file's header gives another size than the
+# slot's; the pool's readers would write the file's own height x width
+# pixels into a buffer of the slot's size
+STATUS_SIZE_MISMATCH = -11
+
+
 class StagingPool:
     """Native worker pool that decodes and blockifies a corpus of same-size
     TGA / PPM images into preallocated slots, overlapping host IO with the
-    device's encode (the JAX package's corpus staging, native.py:218)."""
+    device's encode (the JAX package's corpus staging, native.py:218).
+
+    Each file's header is read before it is queued: a file of another size
+    than the slot's is not staged, and its status is STATUS_SIZE_MISMATCH.
+    """
 
     def __init__(self, threads: int | None = None):
         lib = _lib()
         if lib is None:
             raise RuntimeError(f"native runtime not available; g++ said: {build_log}")
         self._lib = lib
-        n = threads or max(1, lib.limg_rt_max_threads())
-        self._pool = lib.limg_rt_pool_new(int(n))
+        self.threads = int(threads or max(1, lib.limg_rt_max_threads()))
+        self._pool = lib.limg_rt_pool_new(self.threads)
         self._keepalive = []
+
+    def _probe(self, path: str):
+        """(rc, h, w) from ``path``'s header by the reader its worker would
+        run: rc 0, or the status the worker would give (-10: neither .tga
+        nor .ppm)."""
+        h, w = ctypes.c_int64(), ctypes.c_int64()
+        if len(path) > 4 and path.endswith(".tga"):
+            read = self._lib.limg_rt_read_tga
+        elif len(path) > 4 and path.endswith(".ppm"):
+            read = self._lib.limg_rt_read_ppm
+        else:
+            return -10, 0, 0
+        return read(path.encode(), None, ctypes.byref(h), ctypes.byref(w)), h.value, w.value
 
     def stage(self, path: str, h: int, w: int):
         """Queue a file; returns (packed, mask, status) arrays filled
@@ -263,6 +288,15 @@ class StagingPool:
         packed = np.empty((64, nb), np.uint32)
         mask = np.empty((64, nb), np.uint8)
         status = np.zeros(1, np.int32)
+        rc, file_h, file_w = self._probe(path)
+        if rc == 0 and (file_h, file_w) != (h, w):
+            rc = STATUS_SIZE_MISMATCH
+        if rc != 0:
+            status[0] = rc
+            return packed, mask, status
+        # a worker writes a slot's status cell last: slots whose cell is set
+        # are the caller's alone
+        self._keepalive = [s for s in self._keepalive if s[2][0] == 0]
         self._keepalive.append((packed, mask, status))
         self._lib.limg_rt_pool_stage_file(self._pool, path.encode(), packed.ctypes.data,
                                           mask.ctypes.data, h, w, status.ctypes.data)

@@ -71,6 +71,17 @@ def level_key(seed: int, dither_seed: int, level: int) -> int:
     return key if level == 0 else fmix32(key ^ (LEVEL_SALT + level))
 
 
+# folded with an image's index into a corpus encode's seed, the counterpart
+# of the JAX package's per-image key split (limg_tpu/parallel/mesh.py:74,
+# limg_tpu/parallel/corpus.py:71)
+IMAGE_SALT = 0x1A6E5EED
+
+
+def image_seed(seed: int, index: int) -> int:
+    """The 32-bit seed of image ``index`` of a corpus encoded with ``seed``."""
+    return fmix32(fmix32((int(seed) & _M32) ^ IMAGE_SALT) ^ (int(index) & _M32))
+
+
 def dither_bits(key: int, nb: int, device, blocks: torch.Tensor | None = None,
                 pixels: int = _P) -> torch.Tensor:
     """(3, pixels, nb) int64 in [0, 2^32): the hash of each (axis, pixel,

@@ -18,7 +18,7 @@ from limg_tpu.ops.fit import fit_blocks as j_fit
 
 from limg_tpu_torch.ops import layout as tlayout
 from limg_tpu_torch.ops.factors import extract_factors as t_extract, quantize_factors as t_quant
-from limg_tpu_torch.ops.fit import ENDPOINT_FIELDS, Decomposition, fit_blocks as t_fit, tree_sum
+from limg_tpu_torch.ops.fit import ENDPOINT_FIELDS, Decomposition, _sqrt, fit_blocks as t_fit, tree_sum
 from tests.conftest import make_test_image
 
 torch.set_num_threads(1)
@@ -90,3 +90,11 @@ def test_tree_sum_is_halving_order():
     assert torch.equal(tree_sum(x, 1), want[:, 0])
     with pytest.raises(ValueError):
         tree_sum(x[:, :48], 1)
+
+
+def test_sqrt_is_correctly_rounded():
+    """The fit's sqrt is the kernels' sqrtf: the float64 root rounded to
+    float32 (PyTorch's CPU float32 sqrt is an ulp off on some inputs)."""
+    x = np.random.default_rng(5).uniform(1e-3, 800, 71680).astype(np.float32)
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(_sqrt(torch.from_numpy(x)).numpy(), want)

@@ -16,7 +16,7 @@ import torch
 
 from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, SEGMENT_LANES,
                         region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
-                        seg_map)
+                        seg_map, small_image, with_alpha)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
@@ -562,3 +562,27 @@ def test_legacy_encode_on_card_equals_cpu(device):
     for key in ("decoded", "factors", "col_a", "col_b", "shift", "covered"):
         np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
     assert card["psnr"] == cpu["psnr"] and card["grown_px"] == cpu["grown_px"]
+
+
+@pytest.mark.parametrize("dithering", [False, True])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_sharded_corpus_and_blocks_on_card_equal_cpu(device, channels, dithering):
+    """The fixed-grid corpus (8 small images, one kernel launch) and the
+    block-sharded image on a one-card mesh equal the same calls on the CPU
+    (the plain version) bit for bit."""
+    from limg_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(61)
+    images = np.stack([small_image(37, 61, seed=int(s)) for s in rng.integers(1000, size=8)])
+    images = images if channels == 3 else np.stack([with_alpha(im) for im in images])
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, dithering=dithering)
+    before = kmod.launches
+    card = mesh.encode_corpus_sharded(images, cfg, n_devices=1, seed=4, device="cuda")
+    assert kmod.launches == before + 1
+    cpu = mesh.encode_corpus_sharded(images, cfg, n_devices=1, seed=4, device="cpu")
+    for key in ("psnr", "bpp", "mean_psnr"):
+        np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
+    card = mesh.encode_image_blocks_sharded(images[0], cfg, n_devices=1, seed=4, device="cuda")
+    cpu = mesh.encode_image_blocks_sharded(images[0], cfg, n_devices=1, seed=4, device="cpu")
+    np.testing.assert_array_equal(card[0], cpu[0])
+    assert card[1:] == cpu[1:]

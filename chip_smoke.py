@@ -7,8 +7,9 @@ the RD merge policy (``encode_image_merged(merge_policy="rd")``, and the
 CLI's ``--rd-merge``), the natural-layout default encode
 (``encode_image_merged(fused_layout="natural", return_state=True)``) and
 the composed coalesce pass (``coalesce_segments(use_kernel=False)``) and
-the dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels)
-on 4K images through them, write, read and diagnose LTP1 streams of the
+the dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels,
+and ``encode_image_merged(num_levels=5 | 6)``, which only it runs) on 4K
+images through them, write, read and diagnose LTP1 streams of the
 default encode (``bitstream``, ``utils.diagnostics``, the CLI's
 ``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``, and ``--fixed-grid
 --write-ltp1``), run the legacy encoder (``encode_legacy``), and encode
@@ -65,6 +66,14 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    no member, no member at all, a saturated 64x64 region whose unscaled
    error sum passes 2^31; RGB and RGBA, every crush mode, num_factors 1-3,
    dithering off and on;
+2g. the same for the region encode and the segment encode at P = 16,384,
+   65,536 and 262,144 (the dense path's 128x128, 256x256 and 512x512 px
+   regions: the chunked and the spread kernels): seeded buffers with all-
+   and half-masked regions and a saturated region whose pre-scaled error
+   sum wraps int32, a ragged image's grid and that grid with an all-masked
+   row and column, segments of one and several regions with an empty tail,
+   no member at all; RGB and RGBA, ladder, exhaustive, guess and no crush,
+   num_factors 1-3, dithering off and on;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -115,6 +124,14 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    ``--fixed-grid --write-ltp1`` then ``--decode-ltp1``, giving the
    1-level encode's image bit for bit; ``encode_legacy`` at 4K, and on a
    small image equal to its CPU run;
+3i. 5 and 6 levels: ``encode_image_merged(num_levels=5)`` on the 4K RGB and
+   RGBA images and ``num_levels=6`` on the RGB one (the dense path), the
+   launches of their fifteen kernels counted from 0 (the region and segment
+   encodes at P = 16,384 and 65,536 among them), against the JAX dense
+   encodes (tests/fixtures/torch_port_levels_reference.npz: owners and run
+   flags on 99.9% of the blocks, stats within the dense tolerances); each
+   stream written (JAX's SHA-256 where the state is JAX's) and refused by
+   ``deserialize``, as the JAX package's reader refuses 5 levels;
 3h. corpus and multi-device encode (``limg_tpu_torch.parallel``): the
    mesh (``make_mesh(1)`` is ``(cuda:0,)``, one past the card count
    raises); ``encode_corpus_sharded`` on 8 x 1080p (dithering off) in one
@@ -145,7 +162,9 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    table and the verified per-block triples) with their bounds, and the
    composed pass against the segment kernel's; 4f times ``segment_encode``
    at the dense levels' 4K buffers (P = 256, 1024, 4096) and the dense
-   3-level step;
+   3-level step; 4h the region encode at the 4K image's level-4 and level-5
+   regions, the segment encode on a 6-level encode's level-4 and level-5
+   buffers, and the dense 5-level step (4K RGB);
 4g. the 8 x 1080p fixed-grid corpus (one launch) against 8
    ``encode_perf_step`` calls, its device memory and device time per
    image, its kernel on the shard against its plain version and bound, the
@@ -183,6 +202,7 @@ COALESCE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_coalesce_
 RD_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_rd_reference.npz")
 NATURAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_natural_reference.npz")
 DENSE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_dense_reference.npz")
+LEVELS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_levels_reference.npz")
 LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "segment_region", "encode_region",
              "encode_natural", "crush_eval")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
@@ -198,6 +218,7 @@ COALESCE_REPLACES = {
     "segment_encode": "limg_tpu/pallas_kernels/encode_segments.py:188",
 }
 REGION_SOURCE = "limg_tpu_torch/csrc/encode_region.cu"
+SEGMENT_REGION_SOURCE = "limg_tpu_torch/csrc/segment_region.cu"
 NATURAL_SOURCE = "limg_tpu_torch/csrc/encode_natural.cu"
 NATURAL_REPLACES = {
     "fit_levels_natural": "limg_tpu/pallas_kernels/encode_natural.py:421",
@@ -218,6 +239,14 @@ RD_KERNELS = ("encode_fixed_p64", "encode_region_p256", "encode_region_p1024",
 # dense path's kernels (at 1-4 levels)
 SEGMENT_SIZES = (256, 1024, 4096)
 DENSE_KERNELS = RD_KERNELS + tuple(f"segment_encode_p{p}" for p in SEGMENT_SIZES)
+# the dense path's levels 4 and 5 at 4K (128x128 and 256x256 px regions, P =
+# 16,384 and 65,536): the region and segment encodes of a 6-level encode
+LEVEL_SIZES = (16384, 65536)
+LEVELS_KERNELS = DENSE_KERNELS + tuple(f"{k}_p{p}" for k in ("encode_region", "segment_encode")
+                                       for p in LEVEL_SIZES)
+# 4K encodes at 5 and 6 levels against the JAX fixture: per-block owners and
+# run flags
+LEVELS_AGREE = 0.999
 MERGED_LEVELS = 3
 DIST_RTOL = 1e-6
 # main-path tolerances against the JAX fixture
@@ -1722,15 +1751,96 @@ def phase_compare_segment_regions(device) -> float:
     return worst
 
 
+# the dense path's levels 4-6 (128x128, 256x256 and 512x512 px regions):
+# the region encode's chunked kernel and the segment encode's spread one
+LARGE_SIZES = (16384, 65536, 262144)
+LARGE_REGION_LANES = {16384: 10, 65536: 5, 262144: 3}
+# a segment of one region, one of several, and a tail of lanes with no member
+LARGE_SEGMENT_SPANS = {16384: [1, 5, 1, 2, 1], 65536: [1, 3, 1, 1], 262144: [1, 2, 1]}
+LARGE_SETTINGS = [("ladder", 3, False), ("ladder", 3, True), ("ladder", 1, True),
+                  ("exhaustive", 2, False), ("guess", 3, True), ("none", 3, False)]
+# a ragged image: at each size a grid cut by both edges (300 x 700 px)
+LARGE_IMAGE = (300, 700)
+
+
+def phase_compare_large(device) -> float:
+    """The region encode (encode_region_p16384 ...) and the segment encode
+    (segment_encode_p16384 ...) at P = 16,384, 65,536 and 262,144 vs their
+    plain versions on the card, bit-equal: RGB and RGBA, ladder, exhaustive,
+    guess and no crush, num_factors 1-3, dithering off and on; on seeded
+    buffers (all-masked and half-masked regions, lane 0 a saturated region
+    whose block-error sum wraps int32 at P >= 65,536), on a ragged image's
+    grid and on that grid with an all-masked row and column; the segment
+    encode on segments of one and of several regions with a tail of lanes
+    with no member, and with no member at all. Max abs diff."""
+    import torch
+    from limg_tpu_torch.config import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.regions import _words
+    from tools.make_test_image import make_4k
+
+    log("== phase 2g: region encode and segment encode at P = 16,384 / 65,536 / 262,144 vs "
+        "their plain versions on the card")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2027)
+    rgb = make_4k(*LARGE_IMAGE)
+    worst, n_region, n_segment = 0.0, 0, 0
+
+    def check(case, got, want):
+        nonlocal worst
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        try:
+            worst = max(worst, compare_outputs(got, want))
+        except AssertionError as e:
+            raise AssertionError(f"{case}: {e}")
+
+    for p in LARGE_SIZES:
+        for ch in (3, 4):
+            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
+            seeded = region_run_buffer(rng, p, LARGE_REGION_LANES[p], ch, device, saturate=True)
+            bufs = {"seeded": seeded[:2], **region_edge_buffers(words, p)}
+            for name, (packed, mask) in bufs.items():
+                for mode, nf, dith in LARGE_SETTINGS:
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    check(f"encode_region P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
+                          kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True),
+                          kmod.encode_blocks_reference(packed, mask, cfg, 7,
+                                                       emit_endpoints=True))
+                    n_region += 1
+            spans = LARGE_SEGMENT_SPANS[p]
+            seg_buf = region_run_buffer(rng, p, sum(spans), ch, device, spans=spans,
+                                        empty_tail=spans[-1], saturate=True)
+            seg_bufs = {"segments of 1 and several, empty tail": seg_buf,
+                        "no member": (seg_buf[0], torch.zeros_like(seg_buf[1]), *seg_buf[2:])}
+            for name, buf in seg_bufs.items():
+                for mode, nf, dith in LARGE_SETTINGS:
+                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                       dithering=dith, num_factors=nf)
+                    check(f"segment_encode P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
+                          kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                          kc.segment_encode_reference(*buf, cfg, 0x5EED))
+                    n_segment += 1
+        log(f"  P={p}: {n_region} region and {n_segment} segment cases so far bit-equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 2g ok: {n_region} + {n_segment} cases, max abs diff {worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3g: the dense path, --fixed-grid --write-ltp1, the legacy encoder
 # ---------------------------------------------------------------------------
 
-def check_dense_against_fixture(name: str, out: dict, state: dict, fx, n_px: int):
+def check_dense_against_fixture(name: str, out: dict, state: dict, fx, n_px: int,
+                                agree_min: float = OWNER_AGREE):
     """One 4K dense match encode against the JAX dense encode's record
-    (tests/fixtures/torch_port_dense_reference.npz): stats, owner map and
-    run flags; and where the state is JAX's (its SHA-256), the stream's
-    SHA-256 and length."""
+    (tests/fixtures/torch_port_dense_reference.npz, or
+    torch_port_levels_reference.npz): stats, owner map and run flags (equal
+    on at least ``agree_min`` of the blocks); returns whether the state is
+    JAX's (its SHA-256)."""
     from tools import record_torch_dense_reference as drec
 
     hist_l1 = int(np.abs(out["bits_histogram"] - fx[f"{name}.bits_histogram"]).sum())
@@ -1752,7 +1862,7 @@ def check_dense_against_fixture(name: str, out: dict, state: dict, fx, n_px: int
         f"{'equal to' if same_state else 'differs from'} JAX's")
     if not (abs(d_psnr) <= NODITHER_PSNR_DB and abs(d_bpp) <= NODITHER_BPP
             and hist_l1 <= HIST_L1_FRAC * n_px and (alive_rel <= ALIVE_FRAC).all()
-            and agree >= OWNER_AGREE and runs_agree >= OWNER_AGREE
+            and agree >= agree_min and runs_agree >= agree_min
             and abs(out["n_runs"] - ref_runs) <= RUNS_FRAC * ref_runs):
         raise AssertionError(f"{name}: outside the tolerance of the JAX dense encode")
     return same_state
@@ -1883,6 +1993,63 @@ def phase_main_path_dense(device):
         f"{leg['coverage']!r}%, grown {leg['grown_px']} px, avg bits {leg['avg_bits']!r}, psnr "
         f"{leg['psnr']!r}; 256x384 RGBA equal to its CPU run")
     log("phase 3g ok")
+    return launched
+
+
+def phase_main_path_levels(device):
+    """encode_image_merged(num_levels=5) at 4K RGB and RGBA and
+    num_levels=6 at 4K RGB (5 levels and more take the dense path), their
+    kernels' launches counted from 0 (the region and segment encodes at P =
+    16,384 and 65,536 among them), against the JAX dense encodes of
+    tests/fixtures/torch_port_levels_reference.npz: owners and run flags
+    equal on 99.9% of the blocks, PSNR, bpp, histogram, level counts and
+    n_runs within the dense phase's tolerances; each state's stream is
+    written (JAX's SHA-256 where the state is JAX's) and refused by
+    deserialize, as the JAX package's reader refuses 5 levels."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig, bitstream
+    from tools import record_torch_dense_reference as drec
+    from tools import record_torch_levels_reference as lrec
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3i: 5- and 6-level encodes at 4K (the dense path's 128x128 and 256x256 px "
+        "regions)")
+    fx = np.load(LEVELS_FIXTURE)
+    meta = json.loads(str(fx["meta"]))
+    images = case_images(2160, 3840)
+    h, w = images["rgb"].shape[:2]
+    reset_launches()
+    for name, (lane, levels, _) in lrec.FULL_CASES.items():
+        cfg = EncodeConfig(**meta["cases"][name]["config"])
+        t0 = time.perf_counter()
+        out, state = limg_tpu_torch.encode_image_merged(images[lane], cfg, num_levels=levels,
+                                                        return_state=True, device=device)
+        secs = time.perf_counter() - t0
+        if out["decoded"].shape != (h, w, 4) or not np.isfinite(out["psnr"]):
+            raise AssertionError(f"{name}: decoded {out['decoded'].shape}, psnr {out['psnr']}")
+        log(f"  {name}: encode_image_merged {secs * 1e3:.1f} ms wall (host copies and the "
+            f"state's fetch included)")
+        same = check_dense_against_fixture(name, out, state, fx, h * w, LEVELS_AGREE)
+        blob = bitstream.serialize_from_state(state, cfg)
+        if same and (drec.stream_digest(blob) != str(fx[f"{name}.stream_sha256"])
+                     or len(blob) != int(fx[f"{name}.stream_len"])):
+            raise AssertionError(f"{name}: the state is JAX's but the stream is not")
+        try:
+            bitstream.deserialize(blob)
+        except ValueError as e:
+            if "bad dimensions/levels" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: deserialize took a {levels}-level stream, which the "
+                                 f"JAX package's reader refuses")
+        log(f"    stream {len(blob)} bytes (JAX {int(fx[f'{name}.stream_len'])}), "
+            f"{'JAX' + chr(39) + 's SHA-256' if same else 'another state'}; deserialize refuses "
+            f"it as JAX's does")
+    launched = {k: v for k, v in read_launches().items() if k in LEVELS_KERNELS}
+    if min(launched.values()) == 0:
+        raise AssertionError(f"the 5- and 6-level encodes skipped a kernel: launches {launched}")
+    log(f"  {len(lrec.FULL_CASES)} encodes, launches {launched}")
+    log("phase 3i ok")
     return launched
 
 
@@ -2229,6 +2396,10 @@ def profiled_kernel_name(key: str):
         return name + ("_natural" if targs[-1] == "true" else "")
     if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
         return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
+    # the chunked region encode and the spread segment encode (<CH, 8>) run
+    # every P above 4096; the steps profiled run them at P = 16,384 alone
+    if name == "encode_region_chunked":
+        return "encode_region_p16384"
     if name == "segment_encode" and len(targs) > 1 and targs[1] != "0":
         return f"segment_encode_p{64 << int(targs[1])}"   # <CH, log2 of P / 64>
     return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
@@ -2567,6 +2738,76 @@ def phase_timing_dense(device, smi: str):
             log(f"  ms lost above the bound per dense step: {losses}")
     log(f"phase 4f ok: 4K segment_encode outputs at P = 256 / 1024 / 4096 equal the plain "
         f"version's (max abs diff {worst})")
+    return rows, worst, losses
+
+
+def phase_timing_levels(device, smi: str):
+    """The region encode (encode_region_p16384 / _p65536) on the 4K image's
+    level-4 and level-5 regions and the segment encode at P = 16,384 and
+    65,536 on the buffers of a 6-level dense encode (captured), each
+    against its plain version (also compared) and its bound; the dense
+    5-level step's events time, device busy and kernel launches (4K RGB)."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.regions import _words
+    from tools.record_torch_reference import case_images
+
+    log("== phase 4h: region and segment encodes at P = 16,384 / 65,536 and the 5-level dense "
+        "step at 4K RGB (CUDA events, median of", TIMED_RUNS, "runs)")
+    img = case_images(2160, 3840)["rgb"]
+    cfg = EncodeConfig(error_factor=100)
+    img_d = _as_image_tensor(img, device)
+    rows, worst = {}, 0.0
+
+    def timed(name, kern, plain, got, bound, shape):
+        nonlocal worst
+        worst = max(worst, compare_outputs(got, plain()))
+        # plain, kernel, kernel, plain: both see the same card state
+        p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
+        rows[name] = (min(k1, k2), min(p1, p2), *bound)
+        log(f"  4K rgb {name} ({shape}): kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
+            f"bound {bound[0]!r} ms ({bound[1]}), {bound[0] / min(k1, k2):.4f} of it [{smi}]")
+
+    words = _words(img_d)
+    for p in LEVEL_SIZES:
+        packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
+        args = (packed, mask, cfg, 0)
+        got = kmod.encode_blocks_kernel(*args, emit_endpoints=True)
+        timed(f"encode_region_p{p}", lambda: kmod.encode_blocks_kernel(*args, emit_endpoints=True),
+              lambda: kmod.encode_blocks_reference(*args, emit_endpoints=True), got,
+              kernel_bound("encode_region", args, got), f"{packed.shape[1]} regions")
+    calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
+        img_d, cfg, num_levels=6, fused=False, fetch_planes=False, device=device))
+    for args, kwargs in calls["segment_encode_kernel"]:
+        p = args[0].shape[0]
+        if p not in LEVEL_SIZES:
+            continue
+        got = kc.segment_encode_kernel(*args, **kwargs)
+        members = int(args[1].any(dim=0).sum())
+        timed(f"segment_encode_p{p}", lambda: kc.segment_encode_kernel(*args, **kwargs),
+              lambda: kc.segment_encode_reference(*args, **kwargs), got,
+              kernel_bound("segment_encode", args, got),
+              f"{args[0].shape[1]} lanes, {members} with a member pixel")
+    mpx = img.shape[0] * img.shape[1] * 1e-6
+
+    def step():
+        out = limg_tpu_torch.encode_image_merged_device(img_d, cfg, num_levels=5,
+                                                        emit_planes=False, cap_frac=1,
+                                                        device=device)
+        return out["total_err"], out["mean_bpp"]
+
+    step_ms = time_fn(step, device)
+    log(f"  4K rgb dense step at 5 levels (encode_image_merged_device, full run capacity, "
+        f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
+    prof = profile_step(step, device, "rgb dense 5-level")
+    log(f"  kernel launches per 5-level dense step: {launches_per_step(step)}")
+    losses = step_losses(prof, step_bounds(step))
+    log(f"  ms lost above the bound per 5-level dense step: {losses}")
+    log(f"phase 4h ok: the kernels' 4K outputs equal the plain versions' (max abs diff {worst})")
     return rows, worst, losses
 
 
@@ -3012,6 +3253,7 @@ def main():
     worst_r = phase_compare_region(device)
     worst_n = phase_compare_natural(device)
     worst_s = phase_compare_segment_regions(device)
+    worst_l = phase_compare_large(device)
     launched = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
     launched_c = phase_main_path_coalesce(device)
@@ -3019,6 +3261,7 @@ def main():
     launched_n = phase_main_path_natural(device)
     phase_ltp1(device, smi)
     launched_d = phase_main_path_dense(device)
+    launched_l = phase_main_path_levels(device)
     with tempfile.TemporaryDirectory() as tmp:      # the streamed corpus's TGA files
         launched_h = phase_main_path_corpus(device, tmp)
         rows, worst4k = phase_timing(device, smi)
@@ -3027,6 +3270,7 @@ def main():
         rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
         rows_n, worst4k_n = phase_timing_natural(device, smi)
         rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
+        rows_l, worst4k_l, lost_levels = phase_timing_levels(device, smi)
         worst_g = phase_timing_corpus(device, smi, tmp)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES,
@@ -3050,8 +3294,19 @@ def main():
                               rows_n[("crush_eval_rows", "rgb")]))
     for p in SEGMENT_SIZES:
         name = f"segment_encode_p{p}"
-        kernels.append(kernel_row(name, COALESCE_SOURCE, COALESCE_REPLACES["segment_encode"],
+        kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE, COALESCE_REPLACES["segment_encode"],
                                   launched_d[name], max(worst_s, worst4k_d), rows_d[(p, "rgb")]))
+    # the dense path's levels 4 and 5 (launches: phase 3i's 5- and 6-level
+    # encodes)
+    for p in LEVEL_SIZES:
+        name = f"encode_region_p{p}"
+        kernels.append(kernel_row(name, REGION_SOURCE, REPLACES, launched_l[name],
+                                  max(worst_l, worst4k_l), rows_l[name]))
+    for p in LEVEL_SIZES:
+        name = f"segment_encode_p{p}"
+        kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE,
+                                  "limg_tpu/pallas_kernels/encode_segments.py:205",
+                                  launched_l[name], max(worst_l, worst4k_l), rows_l[name]))
     # the order in which to redesign the kernels: first any slower than a
     # PyTorch call, then by the time they lose above the bound in one
     # default merged step, then in one RD step (each kernel's profiler
@@ -3067,6 +3322,8 @@ def main():
             f"{k['name']} {lost(k, lost_default):.3f} / {lost(k, lost_rd):.3f}" for k in behind))
     log("ms lost above the bound per dense step (3 levels, 4K RGB): " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(lost_dense.items(), key=lambda kv: -kv[1])))
+    log("ms lost above the bound per dense step (5 levels, 4K RGB): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(lost_levels.items(), key=lambda kv: -kv[1])))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

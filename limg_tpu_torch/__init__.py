@@ -10,8 +10,9 @@ the kernels, "cpu" their plain PyTorch versions.
 Ported so far: the fixed-grid encode (``encode_image``) and the
 quadtree-merged encode with run coalescing, the codec's default
 (``encode_image_merged``), on the fused path at 2-4 levels (the default)
-and on the dense path (``fused=False``, and every 1-level encode;
-``encode_image_merged_device``), under the match policy (the fused stages
+and on the dense path (``fused=False``, every 1-level encode and every
+encode of 5 levels or more; ``encode_image_merged_device``), under the
+match policy (the fused stages
 ``fused_merged_pre`` / ``fused_merged_finish``) and the RD policy
 (``merge_policy="rd"``; ``fused_rd_pre`` / ``fused_rd_finish``,
 ``rd_merge_keep``), the LTP1 stream of a merged encode (``serialize`` /

@@ -351,10 +351,13 @@ def serialize(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
 
     Runs the port's merged encode on ``device`` (``fused`` picks its path
     as in ``regions.encode_image_merged``: ``num_levels=1``, the fixed grid,
-    and ``fused=False`` take the dense path) and packs its state; the stream
-    always represents exactly the encode that ran. The RD policy optimizes
-    the real serialized header cost. ``entropy=False`` skips the rANS mode
-    entirely. ``num_levels`` of 5 or more raises NotImplementedError."""
+    and ``fused=False`` take the dense path, and so do 5 levels or more) and
+    packs its state; the stream always represents exactly the encode that
+    ran. The RD policy optimizes the real serialized header cost.
+    ``entropy=False`` skips the rANS mode entirely. At 5 levels or more the
+    stream is written as the JAX package writes it, and ``deserialize``
+    refuses it, as the JAX package's does (its header check takes 1-4
+    levels)."""
     from .regions import encode_image_merged
 
     _, state = encode_image_merged(

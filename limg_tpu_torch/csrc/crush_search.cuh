@@ -342,6 +342,29 @@ struct CrushLane {
     s[2] = max(base[2] - idx % 4, 0);
   }
 
+  // After the batch of the 27 sweeps: the region's count and floors, and
+  // from the sweeps' values the ladder box's base and its 64 lattice keys,
+  // 8 a lane (key j of this lane is index sub + 8 j).
+  __device__ __forceinline__ void ladder_setup(int num_factors, int (&key)[8], int (&base)[3]) {
+    count = my_row()[2 * kMaxCands + 1];
+    set_floors(num_factors, pm_at(0), be_at(0));
+    LadderBox box;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      int pm_ax[9], be_ax[9];
+#pragma unroll
+      for (int s = 0; s < 9; ++s) {
+        pm_ax[s] = pm_at(s == 0 ? 0 : 9 * a + s);
+        be_ax[s] = be_at(s == 0 ? 0 : 9 * a + s);
+      }
+      ladder_axis(box, a, pm_ax, be_ax, *this);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) key[j] = ladder_key(box, *this, sub + 8 * j);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) base[a] = box.base[a];
+  }
+
   // The shift triple of this block's region (ops/crush.py find_shifts, its
   // candidates reduced in batches); statically dropped axes get 8. cnt is
   // the lane's count of pixels inside the image; the region's lands in
@@ -358,23 +381,8 @@ struct CrushLane {
       sweep_axis<1>();
       sweep_axis<2>();
       end_batch(kMaxCands, cnt);
-      count = my_row()[2 * kMaxCands + 1];
-      set_floors(num_factors, pm_at(0), be_at(0));
-      LadderBox box;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        int pm_ax[9], be_ax[9];
-#pragma unroll
-        for (int s = 0; s < 9; ++s) {
-          pm_ax[s] = pm_at(s == 0 ? 0 : 9 * a + s);
-          be_ax[s] = be_at(s == 0 ? 0 : 9 * a + s);
-        }
-        ladder_axis(box, a, pm_ax, be_ax, *this);
-      }
-      int key[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) key[j] = ladder_key(box, *this, sub + 8 * j);
-      const int base[3] = {box.base[0], box.base[1], box.base[2]};
+      int key[8], base[3];
+      ladder_setup(num_factors, key, base);
       // verify the K best-ranked candidates, best first, kCandBatch a batch
       int* trips = sh->trips + blk * kCandBatch;
       int b_tot = -1, b_err = 2147483647;

@@ -1,6 +1,9 @@
 // Region encode for NVIDIA Hopper (sm_90a) at P = 256, 1024 and 4096
 // (16x16, 32x32 and 64x64 pixels): the kernel template of
-// region_encode.cuh, a region over one warp, 4 warps or 16.
+// region_encode.cuh, a region over one warp, 4 warps or 16; and at every
+// larger P = 4096 * 4^m (128x128 pixels and up, the dense path's levels 4
+// and up), one CTA a region walking it chunk by chunk
+// (encode_region_chunked_kernel).
 //
 // Replaces the TPU kernel limg_tpu/pallas_kernels/encode_fixed.py:
 // encode_blocks_pallas (:808) at P > 64: the mono kernel _make_mono_kernel
@@ -8,20 +11,24 @@
 // :76) and, at P = 4096, both halves of its split (_make_fit_kernel :764
 // and _make_crush_kernel :781, split at _SPLIT_THRESHOLD_P :78 only for the
 // TPU's VMEM), here one pass. These are the per-level encodes of the RD
-// merge policy (limg_tpu_torch/regions.py _encode_level). region_encode.cuh
-// says what bounds them, what the design does about that, and what
-// bit-exactness with the plain PyTorch version rests on.
+// merge policy (limg_tpu_torch/regions.py _encode_level). Above P = 4096
+// the TPU kernel has no geometry (_GEOM_FOR_P :76-77, looked up at :848):
+// the JAX package encodes those levels in jnp (limg_tpu/regions.py:191,
+// encode_blocks), whose function the chunked kernel computes.
+// region_encode.cuh says what bounds them, what the design does about that,
+// and what bit-exactness with the plain PyTorch version rests on.
 
 #include "region_encode.cuh"
 
 extern "C" {
 
-// Launches the encode of nb regions of p pixels (256, 1024 or 4096) on
+// Launches the encode of nb regions of p = 64 * 4^l pixels (l = 1 .. 12) on
 // `stream`. packed / mask are block-major (nb, p): int32 RGBA words and 0/1
 // bytes. Outputs: shifts (3, nb), q and dec block-major (nb, p) packed
 // words, dist (nb,), and, when eps is not null, eps (6, channels, nb) and
-// avg (channels, nb). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for another p).
+// avg (channels, nb); above p = 4096, q first holds the fit's factors.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// another p).
 int limg_encode_region(const int32_t* packed, const uint8_t* mask, int nb, int p, int channels,
                        int crush_mode, int dither, int ladder_k, int num_factors, int max_pix,
                        int max_blk, uint32_t key, int32_t* shifts, int32_t* q, int32_t* dec,
@@ -34,7 +41,13 @@ int limg_encode_region(const int32_t* packed, const uint8_t* mask, int nb, int p
     case 256: return launch_region<256>(a, channels, st);
     case 1024: return launch_region<1024>(a, channels, st);
     case 4096: return launch_region<4096>(a, channels, st);
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      int logc = 0;
+      while (logc < kMaxLogChunks && (kChunkPixels << logc) < p) logc += 2;
+      if ((kChunkPixels << logc) != p) return (int)cudaErrorInvalidValue;
+      return channels == 4 ? launch_region_chunked<4>(a, logc, st)
+                           : launch_region_chunked<3>(a, logc, st);
+    }
   }
 }
 

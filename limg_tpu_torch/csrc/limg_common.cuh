@@ -94,11 +94,12 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// ops/dither.py dither_bits: counter = region * 3P + axis * P + pixel, with
-// region the row-major index of the P-pixel region in its level's grid.
+// ops/dither.py dither_bits: counter = region * 3P + axis * P + pixel mod
+// 2^32, with region the row-major index of the P-pixel region in its
+// level's grid.
 __device__ __forceinline__ uint32_t dither_bits_p(uint32_t key, uint32_t region, int axis,
                                                   int pixel, int p) {
-  uint32_t ctr = region * (3u * (uint32_t)p) + (uint32_t)(axis * p + pixel);
+  uint32_t ctr = region * (3u * (uint32_t)p) + (uint32_t)axis * (uint32_t)p + (uint32_t)pixel;
   return fmix32(fmix32(ctr ^ key) + key);
 }
 

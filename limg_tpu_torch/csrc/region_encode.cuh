@@ -1,8 +1,9 @@
 // Region encode for NVIDIA Hopper (sm_90a): the kernel template of
 // encode_fixed.cu (P = 64: the fixed grid's 8x8 blocks, and the RD policy's
-// level 0) and encode_region.cu (P = 256, 1024 and 4096: the RD policy's
-// 16x16, 32x32 and 64x64 pixel regions, limg_tpu_torch/regions.py
-// _encode_level).
+// level 0) and encode_region.cu (P = 256, 1024 and 4096: the RD and dense
+// levels' 16x16, 32x32 and 64x64 pixel regions, limg_tpu_torch/regions.py
+// _encode_level; and every larger P = 4096 * 4^m, the dense path's levels 4
+// and up, by encode_region_chunked_kernel at the end of this file).
 //
 // Replaces the TPU kernel limg_tpu/pallas_kernels/encode_fixed.py:
 // encode_blocks_pallas (:808) at every P: the mono kernel _make_mono_kernel
@@ -458,6 +459,435 @@ int launch_region(const Args& a, int channels, cudaStream_t st) {
   } else {
     encode_region_kernel<P, 3><<<grid, G::kWarps * 32, 0, st>>>(a);
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Regions of more than 4096 pixels (the dense path's levels 4 and up: 128x128
+// pixels and larger, P = 4096 * C, C = 4^m chunks)
+// ---------------------------------------------------------------------------
+//
+// 8 pixels a thread would need P / 8 threads, more than a CTA has from P =
+// 16,384 on. So one CTA of the P = 4096 layout (16 warps) takes a whole
+// region and walks it as C chunks of 4096 pixels: thread t holds position q
+// = t + 512 j (j < 8) of every chunk, pixel k * 4096 + q of chunk k. Nothing
+// stays in registers between passes: each pass (the fit's sums, the factor
+// extremes, the factors, each candidate batch of the crush search, the
+// decode) reads the region's words again (from L2 while the level fits
+// there), the fit's factors going to the q output as scratch, which the
+// decode pass then overwrites pixel by pixel in the same thread.
+//
+// The halving tree over P pixels pairs pixel p with p + P / 2, that is chunk
+// k with chunk k + C / 2 at the same position: each thread folds the C
+// chunks of each of its positions in that order (chunk_fold: the chunks
+// visited in bit-reversed order and folded as a binary counter, as
+// segment_encode.cuh's ChunkTree does, with a runtime depth), and the 4096
+// position sums then take the P = 4096 region's tree (lane_tree, one
+// exchange, butterflies). Integer totals and extremes are order-free. The
+// crush search is CrushLane's at level 3 (a region of 16 warps), each batch
+// of candidates evaluated on every chunk as it is read, each candidate's
+// lane maxima and wrapping error sums kept until the last chunk; the ladder's
+// box and keys, the peel and the choice are CrushLane's own.
+//
+// One CTA a region: a 4K level 4 is 510 CTAs, level 5 135, level 6 12; from
+// level 6 on most SMs idle (PERF.md).
+
+constexpr int kChunkPixels = 4096;
+constexpr int kMaxLogChunks = 18;   // C <= 2^18: P <= 2^30, pixel indices in int32
+
+// The halving tree's levels over the C chunks at one position: f(k, v)
+// gives chunk k's N values there; out their tree sum.
+template <int N, class F>
+__device__ __forceinline__ void chunk_fold(int logc, F f, float (&out)[N]) {
+  float part[kMaxLogChunks + 1][N];   // indexed at run time: local memory
+#pragma unroll 1
+  for (int t = 0; t < (1 << logc); ++t) {
+    f((int)(__brev((unsigned)t) >> (32 - logc)), out);
+    int l = 0;
+#pragma unroll 1
+    for (; (t >> l) & 1; ++l) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = part[l][i] + out[i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) part[l][i] = out[i];
+  }
+}
+
+// The region's pixels in device memory, as thread t reads them.
+struct ChunkedRegion {
+  const int32_t* packed;
+  const uint8_t* mask;
+  int32_t* f8;        // the fit's packed u8 factors (the q output as scratch)
+  size_t base;        // the region's first word
+  int t, logc;
+
+  __device__ __forceinline__ size_t at(int k, int j) const {
+    return base + (size_t)k * kChunkPixels + (size_t)(t + 512 * j);
+  }
+  template <int CH>
+  __device__ __forceinline__ void pixel(int k, int j, float (&f)[CH], float& m) const {
+    const size_t i = at(k, j);
+    const uint32_t word = (uint32_t)packed[i];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) f[c] = (float)((word >> (8 * c)) & 0xFFu);
+    m = mask[i] != 0 ? 1.0f : 0.0f;
+  }
+  // chunk k's 8 pixels of this thread into the search's lane state
+  template <int CH, class Lane>
+  __device__ __forceinline__ void load(Lane& cl, int k) const {
+    int vm = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const size_t i = at(k, j);
+      const uint32_t word = (uint32_t)packed[i];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) cl.px[c][j] = (int)((word >> (8 * c)) & 0xFFu);
+      cl.f8w[j] = f8[i];
+      vm |= (mask[i] != 0 ? 1 : 0) << j;
+    }
+    cl.vmask = vm;
+  }
+};
+
+template <int CH>
+using ChunkLane = CrushLane<CH, 16, 3>;
+
+// The values of a batch of n candidates (cand(i, s)) of the region: each
+// chunk read once, each candidate's lane maximum and wrapping error sum
+// kept over the chunks, then put as CrushLane's value pair i.
+template <int CH, int NMAX, class Cand>
+__device__ void chunked_batch(ChunkLane<CH>& cl, const ChunkedRegion& reg, int n, Cand cand) {
+  int pm[NMAX], be[NMAX];
+#pragma unroll
+  for (int i = 0; i < NMAX; ++i) pm[i] = be[i] = 0;
+#pragma unroll 1
+  for (int k = 0; k < (1 << reg.logc); ++k) {
+    reg.load<CH>(cl, k);
+#pragma unroll
+    for (int i = 0; i < NMAX; ++i) {
+      if (i < n) {
+        int s[3], p, e;
+        cand(i, s);
+        cl.eval(s, p, e);
+        pm[i] = max(pm[i], p);
+        be[i] = add_wrap(be[i], e);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NMAX; ++i)
+    if (i < n) cl.put(i, pm[i], be[i]);
+}
+
+// The sweeps of axis A (pairs 9 A + s, (A, 0) only as pair 0), on each
+// chunk's sweep_base.
+template <int CH, int A>
+__device__ void chunked_sweep(ChunkLane<CH>& cl, const ChunkedRegion& reg) {
+  int pm[9], be[9];
+#pragma unroll
+  for (int s = 0; s < 9; ++s) pm[s] = be[s] = 0;
+#pragma unroll 1
+  for (int k = 0; k < (1 << reg.logc); ++k) {
+    reg.load<CH>(cl, k);
+    int base[CH][8];
+    cl.template sweep_base<A>(base);
+#pragma unroll
+    for (int s = A == 0 ? 0 : 1; s < 9; ++s) {
+      int p, e;
+      cl.template eval_sweep<A>(base, s, p, e);
+      pm[s] = max(pm[s], p);
+      be[s] = add_wrap(be[s], e);
+    }
+  }
+#pragma unroll
+  for (int s = A == 0 ? 0 : 1; s < 9; ++s) cl.put(9 * A + s, pm[s], be[s]);
+}
+
+// CrushLane::search over the chunks (the same batches, candidates and
+// choice); cnt is the thread's count of member pixels.
+template <int CH>
+__device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int crush_mode,
+                               int ladder_k, int num_factors, int cnt, int (&best)[3]) {
+  best[0] = best[1] = best[2] = 0;
+  cl.floors = false;
+  cl.floor_pix = cl.floor_blk = 0;
+  if (crush_mode == kLadder) {
+    chunked_sweep<CH, 0>(cl, reg);
+    chunked_sweep<CH, 1>(cl, reg);
+    chunked_sweep<CH, 2>(cl, reg);
+    cl.end_batch(kMaxCands, cnt);
+    int key[8], base[3];
+    cl.ladder_setup(num_factors, key, base);
+    int* trips = cl.sh->trips + cl.blk * kCandBatch;
+    int b_tot = -1, b_err = 2147483647;
+#pragma unroll 1
+    for (int r0 = 0; r0 < ladder_k; r0 += kCandBatch) {
+      const int n = min(kCandBatch, ladder_k - r0);
+      int sv[kCandBatch];
+#pragma unroll
+      for (int i = 0; i < kCandBatch; ++i) {
+        int s[3] = {0, 0, 0};
+        if (i < n) cl.peel(key, base, s);
+        sv[i] = s[0] | (s[1] << 4) | (s[2] << 8);
+        if (cl.sub == 0 && i < n) trips[i] = sv[i];
+      }
+      chunked_batch<CH, kCandBatch>(cl, reg, n, [&](int i, int (&s)[3]) {
+        s[0] = sv[i] & 15;
+        s[1] = (sv[i] >> 4) & 15;
+        s[2] = sv[i] >> 8;
+      });
+      cl.end_batch(n, cnt);
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        const int tr = trips[i];
+        const int s[3] = {tr & 15, (tr >> 4) & 15, tr >> 8};
+        take_if_better(cl, s, cl.pm_at(i), cl.be_at(i), false, best, b_tot, b_err);
+      }
+    }
+  } else if (crush_mode == kExhaustive) {
+    int b_tot = -1, b_err = 2147483647;
+#pragma unroll 1
+    for (int i0 = 0; i0 < 729; i0 += 9) {
+      const auto triple = [i0](int i, int (&s)[3]) {
+        s[0] = (i0 + i) / 81;
+        s[1] = ((i0 + i) / 9) % 9;
+        s[2] = i;
+      };
+      chunked_batch<CH, 9>(cl, reg, 9, triple);
+      cl.end_batch(9, cnt);
+      if (i0 == 0) {
+        cl.count = cl.my_row()[2 * 9 + 1];
+        cl.set_floors(num_factors, cl.pm_at(0), cl.be_at(0));
+      }
+#pragma unroll 1
+      for (int i = 0; i < 9; ++i) {
+        int s[3];
+        triple(i, s);
+        take_if_better(cl, s, cl.pm_at(i), cl.be_at(i), true, best, b_tot, b_err);
+      }
+    }
+  } else if (crush_mode == kGuess) {
+    chunked_batch<CH, 5>(cl, reg, 5, [](int i, int (&s)[3]) {
+      s[0] = s[1] = s[2] = 0;
+      if (i > 0) guess_triple(i - 1, s);
+    });
+    cl.end_batch(5, cnt);
+    cl.count = cl.my_row()[2 * 5 + 1];
+    cl.set_floors(num_factors, cl.pm_at(0), cl.be_at(0));
+    bool ok[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ok[i] = cl.admissible(cl.pm_at(1 + i), cl.be_at(1 + i));
+    const int pick = guess_pick(ok);
+    if (pick >= 0) guess_triple(pick, best);
+  } else {
+    cl.end_batch(0, cnt);
+    cl.count = cl.my_row()[1];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (k >= num_factors) best[k] = max(best[k], 8);
+}
+
+template <int CH>
+__global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Args a, int logc) {
+  using G = RegionGeo<kChunkPixels>;
+  __shared__ CrushShared<CH, G::kWarps, G::kLevel> shared;
+  __shared__ float xbuf[2 * G::kXSet];
+  const int warp = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
+  const int t = (int)threadIdx.x;
+  const int r = (int)blockIdx.x;      // one region a CTA
+  const int p_all = kChunkPixels << logc;
+  const ChunkedRegion reg{a.packed, a.mask, a.q, (size_t)r * p_all, t, logc};
+  RegionExchange<kChunkPixels> ex{xbuf, warp, lane, 0};
+
+  // ---- fit (the plain version's steps, each pass over every chunk) ----------
+  RegionFit<CH> fit;
+  int count = 0;
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+      float f[CH], m;
+      reg.pixel<CH>(k, j, f, m);
+      count += (int)m;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) v[c] = f[c] * m;
+    }, o);
+  }, fit.avg);
+  int cnt = count;
+  ex.sum(fit.avg, &count);
+  const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.avg[c] = fit.avg[c] * inv_count;
+
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+      float f[CH], m;
+      reg.pixel<CH>(k, j, f, m);
+      fit.corrected(f, m, v);
+      const float il = signed_inv_len<CH>(v, m);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) v[c] = v[c] * il;
+    }, o);
+  }, fit.dir_a);
+  ex.sum(fit.dir_a);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.dir_a[c] = fit.dir_a[c] * inv_count;
+  fit.inv_a = inv_or_zero(dot_self<CH>(fit.dir_a));
+
+  lane_tree<CH>([&](int j, float (&o)[CH]) {
+    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+      float f[CH], m, fa, est[CH], ra[CH];
+      reg.pixel<CH>(k, j, f, m);
+      fit.step_a(f, m, fa, est, ra);
+      const float il = signed_inv_len<CH>(ra, m);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) v[c] = ra[c] * il;
+    }, o);
+  }, fit.dir_b);
+  ex.sum(fit.dir_b);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) fit.dir_b[c] = fit.dir_b[c] * inv_count;
+  fit.inv_b = inv_or_zero(dot_self<CH>(fit.dir_b));
+
+  if constexpr (CH == 3) {
+    FitSteps<CH>::cross(fit.dir_a, fit.dir_b, fit.dir_c);
+  } else {
+    lane_tree<CH>([&](int j, float (&o)[CH]) {
+      chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+        float f[CH], m, fa, fb, rab[CH];
+        reg.pixel<CH>(k, j, f, m);
+        fit.step_b(f, m, fa, fb, rab);
+        const float il = signed_inv_len<CH>(rab, m);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) v[c] = rab[c] * il;
+      }, o);
+    }, fit.dir_c);
+    ex.sum(fit.dir_c);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) fit.dir_c[c] = fit.dir_c[c] * inv_count;
+  }
+  fit.inv_c = inv_or_zero(dot_self<CH>(fit.dir_c));
+
+  float mn[3] = {kBig, kBig, kBig}, mx[3] = {-kBig, -kBig, -kBig};
+#pragma unroll 1
+  for (int k = 0; k < (1 << logc); ++k) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float f[CH], m, fac[3], rab[CH];
+      reg.pixel<CH>(k, j, f, m);
+      fit.step_b(f, m, fac[0], fac[1], rab);
+      fac[2] = RegionFit<CH>::project(rab, fit.dir_c, fit.inv_c) * m;
+      const bool in = m != 0.0f;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        mn[e] = fminf(mn[e], in ? fac[e] : kBig);
+        mx[e] = fmaxf(mx[e], in ? fac[e] : -kBig);
+      }
+    }
+  }
+  ex.fold(mn, mx);
+  int ep[6][CH];
+  round_endpoints<CH>(count, fit.avg, fit.dir_a, fit.dir_b, fit.dir_c, mn, mx, ep);
+
+  // ---- the u8 factors (to the scratch), the drops, the outputs ----------------
+  {
+    FactorFrame<CH> fr;
+    fr.set(ep);
+#pragma unroll 1
+    for (int k = 0; k < (1 << logc); ++k) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float f[CH], m;
+        int f8[3];
+        reg.pixel<CH>(k, j, f, m);
+        fr.f8_of(f, f8);
+        reg.f8[reg.at(k, j)] = f8[0] | (f8[1] << 8) | (f8[2] << 16);
+      }
+    }
+  }
+  drop_axes<CH>(ep, a.num_factors);
+  if (t == 0 && a.eps != nullptr) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+#pragma unroll
+      for (int e = 0; e < 6; ++e) a.eps[((size_t)e * CH + c) * a.nb + r] = ep[e][c];
+      a.avg[(size_t)c * a.nb + r] = fit.avg[c];
+    }
+  }
+
+  // ---- the crush search ----------------------------------------------------
+  ChunkLane<CH> cl;
+  cl.sub = lane & 7;
+  cl.lane = lane;
+  cl.warp = warp;
+  cl.blk = warp * 4 + (lane >> 3);
+  cl.owner = G::kLevel;
+  cl.xchg = true;
+  cl.set = 0;
+  cl.sh = &shared;
+  cl.max_pix = a.max_pix;
+  cl.max_blk = a.max_blk;
+  cl.es = G::kEs;
+  cl.set_frame(ep);
+  __syncwarp();
+  int best[3];
+  chunked_search<CH>(cl, reg, a.crush_mode, a.ladder_k, a.num_factors, cnt, best);
+
+  // ---- dither, decode, weighted error ---------------------------------------
+  int n_int[3][CH], m_int[3][CH];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      n_int[k][c] = cl.n_at(k, c);
+      m_int[k][c] = cl.m_at(k, c);
+    }
+  }
+  const bool dither = a.dither != 0;
+  float dist[1];
+  lane_tree<1>([&](int j, float (&o)[1]) {
+    chunk_fold<1>(logc, [&](int k, float (&v)[1]) {
+      const size_t i = reg.at(k, j);
+      const int p = k * kChunkPixels + t + 512 * j;
+      const uint32_t word = (uint32_t)a.packed[i];
+      const int f8w = a.q[i];
+      int q[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const int s = best[e];
+        int val = (f8w >> (8 * e)) & 0xFF;
+        if (dither && s > 0 && s < 8)
+          val = min(max(val + dither_noise(dither_bits_p(a.key, (uint32_t)r, e, p, p_all), s),
+                        0), 255);
+        q[e] = val >> min(s, 8);
+      }
+      int est[CH], px[CH][1];
+      decode_est<CH>(q, best, n_int, m_int, est);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) px[c][0] = (int)((word >> (8 * c)) & 0xFFu);
+      v[0] = a.mask[i] != 0 ? (float)clamped_pixel_err<CH>(est, px, 0) : 0.0f;
+      uint32_t w = CH == 4 ? 0u : 0xFF000000u;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) w |= (uint32_t)__vimin_s32_relu(est[c], 255) << (8 * c);
+      a.q[i] = q[0] | (q[1] << 8) | (q[2] << 16);
+      a.dec[i] = (int32_t)w;
+    }, o);
+  }, dist);
+  ex.sum(dist);
+
+  if (t == 0) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) a.shifts[(size_t)k * a.nb + r] = best[k];
+    a.dist[r] = dist[0];
+  }
+}
+
+// Launches encode_region_chunked_kernel<CH> for regions of 4096 << logc
+// pixels on `st`; returns cudaGetLastError().
+template <int CH>
+int launch_region_chunked(const Args& a, int logc, cudaStream_t st) {
+  if (logc < 1 || logc > kMaxLogChunks) return (int)cudaErrorInvalidValue;
+  encode_region_chunked_kernel<CH><<<a.nb, 512, 0, st>>>(a, logc);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,10 @@
 // segment_encode at P = 256, 1024 and 4096 for NVIDIA Hopper (sm_90a): the
 // dense merged path's run buffers of levels 1-3, whose lanes are 16x16,
-// 32x32 and 64x64 pixel regions. The template and its design are
+// 32x32 and 64x64 pixel regions, one warp a region; and at every larger P =
+// 64 * 4^l (levels 4 and up, 128x128 pixels and larger: the TPU kernel's
+// any-P buffer, limg_tpu/pallas_kernels/encode_segments.py:205) one
+// instantiation whose chunk count is a run-time value and whose regions
+// are spread over the CTA's warps. The template and its design are
 // csrc/segment_encode.cuh (coalesce.cu instantiates it at P = 64); a
 // library of its own, so that nvcc builds it beside coalesce.cu.
 
@@ -9,8 +13,8 @@
 extern "C" {
 
 // limg_segment_encode (coalesce.cu) for a run buffer of regions of `pixels`
-// = 256, 1024 or 4096 pixels: packed / mask / f8 / q / dec are (n, pixels)
-// block-major.
+// = 64 * 4^l pixels (l = 1 .. 12): packed / mask / f8 / q / dec are (n,
+// pixels) block-major.
 int limg_segment_encode_region(const int32_t* packed, const uint8_t* mask, const int32_t* seg,
                                const int32_t* blocks, int n, int pixels, int channels,
                                int crush_mode, int dither, int ladder_k, int num_factors,
@@ -20,12 +24,17 @@ int limg_segment_encode_region(const int32_t* packed, const uint8_t* mask, const
                                void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (crush_mode == kLadder && (ladder_k < 1 || ladder_k > kMaxK)) return (int)cudaErrorInvalidValue;
+  int logc = 2;
+  while (logc < kMaxSpreadLogc && (kP << logc) < pixels) logc += 2;
+  if ((channels != 3 && channels != 4) || (kP << logc) != pixels) return (int)cudaErrorInvalidValue;
   const SegParams P{packed, mask, seg, blocks, n, crush_mode, dither, ladder_k, num_factors,
                     max_pix, max_blk, key, f8, shifts, q, dec, dist_blk, count_blk, count_mem,
-                    eps, avg};
+                    eps, avg, logc};
   cudaStream_t st = (cudaStream_t)stream;
-  const int logc = pixels == 256 ? 2 : pixels == 1024 ? 4 : pixels == 4096 ? 6 : -1;
-  if ((channels != 3 && channels != 4) || logc < 0) return (int)cudaErrorInvalidValue;
+  if (logc >= kSpreadLogc) {
+    return channels == 3 ? launch_segment_encode<3, kSpreadLogc>(P, st)
+                         : launch_segment_encode<4, kSpreadLogc>(P, st);
+  }
   switch (logc * 8 + channels) {
     case 2 * 8 + 3: return launch_segment_encode<3, 2>(P, st);
     case 2 * 8 + 4: return launch_segment_encode<4, 2>(P, st);

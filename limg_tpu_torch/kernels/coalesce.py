@@ -22,7 +22,7 @@ versions.
   search, dither and decode of the contiguous segments (at most SEG_CAP
   members each) of the compacted run buffer, every per-segment value
   broadcast to its members. A lane of the buffer is a region of P = 64
-  (an 8x8 block), 256, 1024 or 4096 pixels (the dense path's levels 1-3),
+  (an 8x8 block) or P = 64 * 4^l pixels (the dense path's level l >= 1),
   the error of a region of 2048 pixels or more pre-scaled as in
   ``ops/crush.py err_scale_shift``. ``segment_encode_composed`` computes the same
   from plain ops, the JAX package's jnp branch of ``coalesce_segments``
@@ -31,7 +31,8 @@ versions.
   and ``kernels/crush_eval.py``.
 
 On a CUDA tensor each wrapper launches ``csrc/coalesce.cu`` (the segment
-encode at P > 64: ``csrc/segment_region.cu``; each built at first use) or
+encode at P > 64: ``csrc/segment_region.cu``, a region over one warp up to
+P = 4096 and over the CTA's warps above; each built at first use) or
 raises; on a CPU tensor it runs the plain version. The two agree bit for
 bit on the card.
 """
@@ -56,12 +57,14 @@ from ..ops.layout import unpack_plane
 from ..ops.match import match_decomps
 from ..ops.reduce import SegmentReducer
 from ..ops.segments import scan_steps, seg_mixed_all
-from .encode_fixed import _CRUSH_MODES, REGION_SIZES, _pack_decoded
+from .encode_fixed import _CRUSH_MODES, _pack_decoded, launches_region, region_level
 
 # kernel launches since the last reset (read and reset by callers); the
-# segment encode's per region size, "segment_encode" its 8x8 blocks
+# segment encode's per region size ("segment_encode" its 8x8 blocks; the
+# dense levels 1-9 listed from the start, a larger P added at its first
+# launch)
 launches = {"match_neighbors": 0, "match_pairs": 0, "seg_mixed_all": 0, "segment_encode": 0,
-            "segment_encode_p256": 0, "segment_encode_p1024": 0, "segment_encode_p4096": 0}
+            **{f"segment_encode_p{p}": 0 for p in launches_region}}
 
 # the most ladder verifications segment_encode_kernel keeps per block
 MAX_LADDER_K = 16
@@ -139,8 +142,8 @@ def _device_route(*tensors: torch.Tensor) -> bool:
 def _library(name: str = "coalesce"):
     """A built kernel library, with its C signatures declared: "coalesce"
     (csrc/coalesce.cu, the four kernels, the segment encode at P = 64) or
-    "segment_region" (csrc/segment_region.cu, the segment encode at P =
-    256, 1024 and 4096)."""
+    "segment_region" (csrc/segment_region.cu, the segment encode at every
+    P = 64 * 4^l > 64)."""
     from .build import load_library
 
     lib = load_library(name)
@@ -170,7 +173,7 @@ def _launch(name: str, fn_name: str, dev: torch.device, *args, library: str = "c
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-    launches[name] += 1
+    launches[name] = launches.get(name, 0) + 1
 
 
 def _check_rows(rows: torch.Tensor, ch: int, name: str) -> None:
@@ -388,10 +391,10 @@ def segment_kernel_name(pixels: int) -> str:
 
 
 def _check_segment_inputs(packed_c, mask_c, seg_c, blocks):
-    if (packed_c.ndim != 2 or packed_c.shape[0] not in REGION_SIZES
-            or packed_c.dtype != torch.int32):
-        raise ValueError(f"packed_c must be (P, N) int32 with P one of {REGION_SIZES}, got "
+    if packed_c.ndim != 2 or packed_c.dtype != torch.int32:
+        raise ValueError(f"packed_c must be (P, N) int32 with P = 64 * 4^l, got "
                          f"{tuple(packed_c.shape)} {packed_c.dtype}")
+    region_level(packed_c.shape[0])
     n = packed_c.shape[1]
     if mask_c.shape != packed_c.shape or mask_c.dtype != torch.bool:
         raise ValueError(f"mask_c must be {tuple(packed_c.shape)} bool, got "
@@ -457,8 +460,7 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
                           cfg: EncodeConfig, key: int, emit_q: bool = True) -> SegmentEncode:
     """Re-encode of the contiguous segments of a compacted run buffer.
 
-    ``packed_c`` (P, N) int32 words of N regions of P = 64, 256, 1024 or
-    4096 pixels, ``mask_c`` (P, N) bool member pixels, ``seg_c`` (N,) int32
+    ``packed_c`` (P, N) int32 words of N regions of P = 64 * 4^l pixels, ``mask_c`` (P, N) bool member pixels, ``seg_c`` (N,) int32
     segment ids (the first member's position; members contiguous, at most
     SEG_CAP of them), ``blocks`` (N,) int32 the row-major index of each
     lane's region in its grid (the dither counter), ``key`` the 32-bit

@@ -2,9 +2,12 @@
 
 ``encode_blocks_kernel`` takes the arguments of the JAX package's
 ``encode_blocks_pallas`` (limg_tpu/pallas_kernels/encode_fixed.py:808) at
-P = 64 (8x8 blocks: the fixed grid, the RD policy's level 0) and at P =
-256, 1024 and 4096 (16x16, 32x32 and 64x64 pixel regions: the RD policy's
-levels 1-3), and returns its outputs in its layouts:
+every P = 64 * 4^l: 8x8 blocks (P = 64: the fixed grid, level 0 of the RD
+and dense paths) and the 2^l x 2^l-block regions of the quadtree levels
+l >= 1 (16x16, 32x32, 64x64 pixels, and from level 4 on 128x128 pixels and
+larger: the dense path's levels 4 and up, which the JAX package encodes in
+jnp, limg_tpu/regions.py:191, since its Pallas kernel has no geometry above
+P = 4096, encode_fixed.py:76-77), and returns its outputs in its layouts:
 
     shifts (3, NB) i32, q_packed (P, NB) i32, dec_packed (P, NB) i32,
     dist (1, NB) f32 [, dirA_min, dirA_max, dirB_offset, dirB_mag,
@@ -13,12 +16,14 @@ levels 1-3), and returns its outputs in its layouts:
 On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (P = 64) or
 ``csrc/encode_region.cu`` (P > 64), each built at first use from one
 template, ``csrc/region_encode.cuh`` (a region's pixels 8 a thread over
-P / 8 threads, the owner crush's crush search), and raises if the launch
-fails; on a CPU tensor it runs ``encode_blocks_reference``, which composes
-the plain ops of ``limg_tpu_torch.ops`` in the kernels' arithmetic order:
-every float sum over a region's P pixels is one halving tree. The two
-agree bit for bit on the card. The JAX kernel sums 256-pixel chunks and then folds the chunks,
-so a rounded endpoint can differ from it by 1 at P >= 1024.
+P / 8 threads up to P = 4096; a larger region one CTA that walks it as
+P / 4096 chunks of 4096; the owner crush's crush search), and raises if
+the launch fails; on a CPU tensor it runs ``encode_blocks_reference``,
+which composes the plain ops of ``limg_tpu_torch.ops`` in the kernels'
+arithmetic order: every float sum over a region's P pixels is one halving
+tree. The two agree bit for bit on the card. The JAX kernel sums 256-pixel
+chunks and then folds the chunks, so a rounded endpoint can differ from
+it by 1 at P >= 1024.
 
 The dither key of a region of P = 64 * 4^l pixels is ``level_key(seed,
 cfg.dither_seed, l)``: at P = 64 the fixed grid's own key.
@@ -41,27 +46,33 @@ from ..ops.fit import (ENDPOINT_FIELDS, drop_decomposition_axes, fit_blocks,
                        tree_sum)
 from ..ops.layout import to_int32_bits, unpack_plane
 
-# kernel launches since the last reset (read and reset by callers): the
-# 8x8-block kernel, and the region kernel per region size
-launches = 0
-launches_region = {256: 0, 1024: 0, 4096: 0}
+# the largest region the kernels take: a 32768 x 32768 pixel square (level
+# 12), whose words fill 4 GiB; pixel indices stay within int32
+MAX_REGION_PIXELS = BLOCK_AREA << 24
 
-# region pixel counts the encode takes: 8x8 blocks and 2^l-block squares
-REGION_SIZES = (BLOCK_AREA, *launches_region)
+# kernel launches since the last reset (read and reset by callers): the
+# 8x8-block kernel, and the region kernel per region size (levels 1-9 are
+# listed from the start: a 4K image's level 9 is one 4096 x 4096 px region;
+# a larger P adds its key at its first launch)
+launches = 0
+launches_region = {BLOCK_AREA << 2 * lvl: 0 for lvl in range(1, 10)}
 
 _CRUSH_MODES = {"none": 0, "ladder": 1, "exhaustive": 2, "guess": 3}
 
 
 def region_level(pixels: int) -> int:
-    """The quadtree level l of a region of pixels = 64 * 4^l."""
-    return REGION_SIZES.index(pixels)
+    """The quadtree level l of a region of pixels = 64 * 4^l; raises
+    ValueError for another count, or one above MAX_REGION_PIXELS."""
+    lvl = max(0, (int(pixels).bit_length() - BLOCK_AREA.bit_length()) // 2)
+    if BLOCK_AREA << 2 * lvl != pixels or pixels > MAX_REGION_PIXELS:
+        raise ValueError(f"P must be 64 * 4^l, at most {MAX_REGION_PIXELS}, got P = {pixels}")
+    return lvl
 
 
 def _check_inputs(packed: torch.Tensor, mask: torch.Tensor) -> None:
     if packed.ndim != 2 or packed.dtype != torch.int32:
         raise ValueError(f"packed must be (P, NB) int32, got {tuple(packed.shape)} {packed.dtype}")
-    if packed.shape[0] not in REGION_SIZES:
-        raise ValueError(f"P must be one of {REGION_SIZES}, got P = {packed.shape[0]}")
+    region_level(packed.shape[0])
     if mask.shape != packed.shape or mask.dtype != torch.bool:
         raise ValueError(f"mask must be {tuple(packed.shape)} bool, got {tuple(mask.shape)} {mask.dtype}")
     if mask.device != packed.device:
@@ -169,7 +180,7 @@ def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
     if p == BLOCK_AREA:
         launches += 1
     else:
-        launches_region[p] += 1
+        launches_region[p] = launches_region.get(p, 0) + 1
     outs = (shifts, q_bm.t(), dec_bm.t(), dist)
     if emit_endpoints:
         outs += tuple(eps.unbind(0)) + (avg,)

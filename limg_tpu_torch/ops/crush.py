@@ -92,8 +92,12 @@ def evaluate_batch(px, mask_i, f8, d: Decomposition, cands, channels: int,
 
 
 def evaluate_shifts(px, mask_i, f8, d: Decomposition, shifts, channels: int):
-    """Errors for per-block shifts (3, N). Returns (pix_max, block_err)."""
-    pm, be = evaluate_batch(px, mask_i, f8, d, shifts[None], channels)
+    """Errors for per-block shifts (3, N). Returns (pix_max, block_err), the
+    block error pre-scaled by ``err_scale_shift(P)`` as the JAX package's
+    ``evaluate_shifts`` does (limg_tpu/ops/crush.py:70), its int32 sum
+    wrapping as there."""
+    pm, be = evaluate_batch(px, mask_i, f8, d, shifts[None], channels,
+                            err_scale_shift(px.shape[1]))
     return pm[0], be[0]
 
 

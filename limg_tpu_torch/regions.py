@@ -53,12 +53,11 @@ rows and planes: a parent merges when its four children are alive and
 match its first child (match policy, ``merge_levels_alive``) or by the RD
 cut; each level's regions that own their pixels coalesce into runs on the
 level's own grid (``coalesce_level_bands``: the match kernels, run
-building, the segment kernel at the level's P = 64, 256, 1024 or 4096);
-each pixel takes its owner level's decode.
-
-Not ported here, and raising NotImplementedError on every device:
-``num_levels`` of 5 or more, whose regions are larger than the region
-encode's 64x64 pixels.
+building, the segment kernel at the level's P = 64 * 4^l); each pixel
+takes its owner level's decode. It takes any ``num_levels >= 1``, and is
+the one path at 5 levels or more (128x128 pixel regions and larger), as in
+the JAX package, whose fused path stops at 4 (``MAX_FUSED_LEVELS``); a
+level whose regions are larger than the image is a grid of one or two.
 """
 
 from __future__ import annotations
@@ -82,16 +81,6 @@ from .ops.fit import Decomposition
 from .ops.match import MATCH_REASON_BITS, match_decomps
 from .ops.segments import SEG_CAP
 
-# argument -> the ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "num_levels": "Queue 1 item 16",
-}
-
-# the most quadtree levels either path encodes: level 3's regions are 64x64
-# pixels (P = 4096), the largest the region encode takes (the JAX kernel's
-# _GEOM_FOR_P, limg_tpu/pallas_kernels/encode_fixed.py:76-77)
-MAX_DENSE_LEVELS = 4
-
 MERGE_POLICIES = ("match", "rd")
 FUSED_LAYOUTS = ("morton", "natural")
 
@@ -103,9 +92,6 @@ NEIGHBOR_KERNEL_MIN_BLOCKS = 16384
 def _check_levels(num_levels: int, merge_policy: str) -> None:
     if merge_policy not in MERGE_POLICIES:
         raise ValueError(f"merge_policy must be one of {MERGE_POLICIES}, got {merge_policy!r}")
-    if num_levels > MAX_DENSE_LEVELS:
-        raise NotImplementedError(f"num_levels={num_levels} (regions larger than 64x64 px) is "
-                                  f"not ported yet (ROADMAP.md {_NOT_PORTED['num_levels']})")
     if num_levels < 1:
         raise ValueError(f"num_levels must be at least 1, got {num_levels}")
 
@@ -558,7 +544,7 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
 
     ``px_plane`` / ``mask_plane``: (P, NB) int32 words / bool of every
     block, a block an 8x8 block (P = 64) or a dense level's region of P =
-    256, 1024 or 4096 pixels; ``lv``: the per-block rows of the encode
+    64 * 4^l pixels; ``lv``: the per-block rows of the encode
     (``shifts`` (3, NB), ``bits``, ``bpp``, ``dist`` (a region's on its
     leader under the fused RD policy), ``eps`` (6, ch, NB), ``avg`` (ch,
     NB), ``dec`` and ``q`` (P, NB) planes), updated in place.
@@ -999,8 +985,8 @@ def encode_image_merged_device(image, cfg: EncodeConfig, seed: int = 0, num_leve
                                rd_lambda: float = 0.01, coalesce: bool = True,
                                return_state: bool = False, rd_header_bits: int | None = None,
                                cap_frac: int = 8, device="cuda"):
-    """Dense merged encode (limg_tpu/regions.py:903), 1-4 levels, either
-    policy, with every output left on ``device``.
+    """Dense merged encode (limg_tpu/regions.py:903), any number of levels,
+    either policy, with every output left on ``device``.
 
     Every level is encoded on its own (``encode_levels``); the match policy
     merges by ``merge_levels_alive``, the RD policy by ``rd_merge_keep``
@@ -1134,9 +1120,10 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
     ``fused_layout`` ("morton" or "natural") picks the match policy's
     kernels; the RD policy ignores it, as the JAX package does.
     ``fused`` picks the path: None (the default) the fused path at 2-4
-    levels, on every device; False, and any ``num_levels=1``, the dense
-    path (``encode_image_merged_device``); 5 levels or more raise
-    NotImplementedError. On the fused path ``cap_frac=0`` (the default) is
+    levels, on every device; False, and any ``num_levels`` of 1 or of 5
+    or more, the dense path (``encode_image_merged_device``; with
+    ``fused=True`` 5 levels or more raise ValueError, as the fused entry
+    points do). On the fused path ``cap_frac=0`` (the default) is
     auto run capacity: the pre stage runs, the host reads the run-block
     count (one sync), and the coalesce stage runs once at
     ``auto_run_capacity``, so no run is dropped; the dense path takes it as
@@ -1150,7 +1137,7 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
     """
     _check_levels(num_levels, merge_policy)
     rd = merge_policy == "rd"
-    if fused is False or num_levels == 1:
+    if fused is False or num_levels == 1 or (fused is None and num_levels > MAX_LEVELS):
         out = encode_image_merged_device(image, cfg, seed, num_levels, fetch_planes,
                                          merge_policy, rd_lambda, coalesce, return_state,
                                          rd_header_bits, 1 if cap_frac == 0 else cap_frac,

@@ -162,30 +162,44 @@ def test_serialize_equals_serialize_from_state_and_round_trips():
 @pytest.mark.parametrize("num_levels", [1, 5])
 def test_serialize_outside_2_to_4_levels_names_item_13(num_levels, dense_fixture):
     """num_levels=1 (the dense path, ROADMAP.md Queue 1 item 13, landed)
-    writes JAX's bytes: the port's state of the recorded 1-level encode is
-    JAX's (tests/fixtures/torch_port_dense_reference.npz), and so are its
-    streams, entropy on and off; ``serialize`` is that encode's stream.
-    num_levels=5 raises naming its own item (Queue 1 item 16)."""
+    and num_levels=5 (Queue 1 item 16, landed) write JAX's bytes: the
+    port's state of the recorded encode is JAX's
+    (tests/fixtures/torch_port_dense_reference.npz,
+    torch_port_levels_reference.npz), and so are its streams, entropy on and
+    off; ``serialize`` is that encode's stream. The 1-level stream decodes
+    to the encode; the 5-level one is refused by ``deserialize`` with JAX's
+    ValueError, as the JAX package's own reader refuses it (ROADMAP.md
+    Queue 3)."""
     if num_levels == 5:
-        img = make_test_image(np.random.default_rng(3), H, W)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
-            tb.serialize(img, CFG, num_levels=num_levels, device="cpu")
-        return
-    fx, meta = dense_fixture
-    name = "band70x90_rgb_l1"
-    img = drec.SMALL_CASES[name][0]()
+        from tools import record_torch_levels_reference as lrec
+
+        fx = np.load(lrec.OUT)
+        meta = json.loads(str(fx["meta"]))
+        name = "band70x90_rgb_l5"
+        img = lrec.SMALL_CASES[name][0]()
+    else:
+        fx, meta = dense_fixture
+        name = "band70x90_rgb_l1"
+        img = drec.SMALL_CASES[name][0]()
     cfg = EncodeConfig(**meta["cases"][name]["config"])
     jcfg = JConfig(**meta["cases"][name]["config"])
-    out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=1, return_state=True,
-                                                    device="cpu")
+    out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=num_levels,
+                                                    return_state=True, device="cpu")
     np.testing.assert_array_equal(state["rows"], fx[f"{name}.state_rows"])
     np.testing.assert_array_equal(state["q"], fx[f"{name}.state_q"])
     jstate = dict(state, rows=fx[f"{name}.state_rows"], q=fx[f"{name}.state_q"])
     for entropy in (True, False):
         blob = tb.serialize_from_state(state, cfg, entropy=entropy)
         assert blob == jb.serialize_from_state(jstate, jcfg, entropy=entropy)
-    blob = tb.serialize(img, cfg, num_levels=1, device="cpu")
+    assert drec.stream_digest(blob) == str(fx[f"{name}.stream_raw_sha256"])
+    blob = tb.serialize(img, cfg, num_levels=num_levels, device="cpu")
     assert blob == tb.serialize_from_state(state, cfg)
+    assert drec.stream_digest(blob) == str(fx[f"{name}.stream_sha256"])
+    if num_levels == 5:
+        for reader in (tb.deserialize, jb.deserialize):
+            with pytest.raises(ValueError, match="corrupt LTP1 stream: bad dimensions/levels"):
+                reader(blob)
+        return
     dec, info = tb.deserialize(blob)
     np.testing.assert_array_equal(dec, out["decoded"])
     assert info["levels"] == 1 and info["n_runs"] == out["n_runs"] > 0

@@ -83,10 +83,10 @@ SEGMENT_FLIPS = 1
 
 def _run_buffer(p: int, n: int, ch: int, seed: int):
     """chip_smoke.py's seeded run buffer of n regions of p pixels (a tail of
-    lanes with no member; at p = 4096 lane 0 a saturated region, 15/16
+    lanes with no member; at p >= 4096 lane 0 a saturated region, 15/16
     white and 1/16 black) as NumPy arrays (words, mask, seg, blocks)."""
     buf = region_run_buffer(np.random.default_rng(seed), p, n, ch, "cpu", empty_tail=2,
-                            saturate=p == 4096)
+                            saturate=p >= 4096)
     return tuple(t.numpy() for t in buf)
 
 
@@ -120,6 +120,13 @@ SEGMENT_SETTINGS = [("ladder", 3), ("ladder", 2), ("exhaustive", 1), ("guess", 3
 @pytest.mark.parametrize("ch", [3, 4])
 @pytest.mark.parametrize("mode,nf", SEGMENT_SETTINGS)
 def test_segment_encode_large_regions_equal_jax(p, n, ch, mode, nf):
+    check_segment_encode_against_jax(p, n, ch, mode, nf)
+
+
+def check_segment_encode_against_jax(p, n, ch, mode, nf):
+    """The plain segment encode on ``_run_buffer(p, n, ch)`` against JAX's
+    jnp composition: at most SEGMENT_FLIPS segments with an endpoint one
+    apart, every other output equal."""
     words, mask, seg, blocks = _run_buffer(p, n, ch, seed=p + ch)
     jcfg = JConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode, num_factors=nf,
                    dithering=False)
@@ -327,11 +334,27 @@ def test_fused_default_keeps_its_path_and_one_level_is_dense():
 
 
 def test_num_levels_five_raises_naming_its_item():
-    img = np.zeros((16, 16, 3), np.uint8)
+    """5 levels (ROADMAP.md Queue 1 item 16, landed) no longer raise: with
+    fused None and False, and through the dense device entry point, the
+    70x90 image's 5-level encode is the JAX package's recorded one
+    (tests/fixtures/torch_port_levels_reference.npz: its serializer state
+    bit for bit, its PSNR and bpp); the fused entry point still refuses 5
+    levels, naming the dense path."""
+    from tools import record_torch_levels_reference as lrec
+
+    fx = np.load(lrec.OUT)
+    name = "band70x90_rgb_l5"
+    img = lrec.SMALL_CASES[name][0]()
+    cfg = EncodeConfig(error_factor=100, dithering=False)
     for fused in (None, False):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            limg_tpu_torch.encode_image_merged(img, EncodeConfig(), num_levels=5, fused=fused,
-                                               device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        limg_tpu_torch.encode_image_merged_device(img, EncodeConfig(), num_levels=5,
-                                                  device="cpu")
+        out, state = limg_tpu_torch.encode_image_merged(img, cfg, num_levels=5, fused=fused,
+                                                        return_state=True, device="cpu")
+        np.testing.assert_array_equal(state["rows"], fx[f"{name}.state_rows"])
+        np.testing.assert_array_equal(state["q"], fx[f"{name}.state_q"])
+        assert abs(out["psnr"] - float(fx[f"{name}.psnr"])) <= PSNR_DB
+        assert abs(out["mean_bpp"] - float(fx[f"{name}.mean_bpp"])) <= BPP
+    dev = limg_tpu_torch.encode_image_merged_device(img, cfg, num_levels=5, device="cpu")
+    np.testing.assert_array_equal(dev["decoded"].numpy(), out["decoded"])
+    assert dev["alive_counts"].tolist() == fx[f"{name}.alive_counts"].tolist()
+    with pytest.raises(ValueError, match="dense path"):
+        limg_tpu_torch.encode_image_merged_fused_device(img, cfg, num_levels=5, device="cpu")

@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, RAGGED_SIZES, SEGMENT_LANES,
-                        region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
-                        seg_map, small_image, with_alpha)
+from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, LARGE_REGION_LANES, LARGE_SEGMENT_SPANS,
+                        LARGE_SETTINGS, RAGGED_SIZES, SEGMENT_LANES, region_edge_buffers,
+                        region_run_buffer, seeded_rows, seeded_run_buffer, seg_map, small_image,
+                        with_alpha)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
@@ -531,7 +532,65 @@ def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_f
         assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
 
 
-@pytest.mark.parametrize("levels,policy", [(1, "match"), (3, "match"), (4, "rd")])
+@pytest.mark.parametrize("p", [16384, 65536])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_large_region_kernel_matches_plain_version(device, p, channels):
+    """The region encode's chunked kernel (csrc/region_encode.cuh, one CTA a
+    region of P / 4096 chunks) on seeded buffers (all- and half-masked
+    regions, a saturated region whose block-error sum wraps int32 at P =
+    65,536) and on a ragged image's grid with an all-masked row and column,
+    in every crush mode."""
+    rng = np.random.default_rng(p + channels)
+    words = _words(300, 700, channels, 29, device)
+    bufs = {"seeded": region_run_buffer(rng, p, LARGE_REGION_LANES[p], channels, device,
+                                        saturate=True)[:2],
+            **region_edge_buffers(words, p)}
+    for name, (packed, mask) in bufs.items():
+        for mode, num_factors, dithering in LARGE_SETTINGS:
+            cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                               dithering=dithering, num_factors=num_factors)
+            before = kmod.launches_region[p]
+            got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
+            torch.cuda.synchronize(device)
+            assert kmod.launches_region[p] == before + 1
+            want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, (name, mode, i)
+                if g.dtype.is_floating_point:
+                    torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+                else:
+                    assert torch.equal(g, w), (name, mode, i)
+
+
+@pytest.mark.parametrize("p", [16384, 65536])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_large_segment_kernel_matches_plain_version(device, p, channels):
+    """The segment encode's spread kernel (a region over the CTA's 8 warps)
+    on segments of one and of several regions, a tail of lanes with no
+    member and a saturated region, and with no member at all."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(p + channels)
+    spans = LARGE_SEGMENT_SPANS[p]
+    buf = region_run_buffer(rng, p, sum(spans), channels, device, spans=spans,
+                            empty_tail=spans[-1], saturate=True)
+    name = kc.segment_kernel_name(p)
+    for b in (buf, (buf[0], torch.zeros_like(buf[1]), *buf[2:])):
+        for mode, num_factors, dithering in LARGE_SETTINGS:
+            cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                               dithering=dithering, num_factors=num_factors)
+            before = kc.launches[name]
+            got = kc.segment_encode_kernel(*b, cfg, 0x5EED)
+            want = kc.segment_encode_reference(*b, cfg, 0x5EED)
+            torch.cuda.synchronize(device)
+            assert kc.launches[name] == before + 1
+            for f in got._fields:
+                assert torch.equal(getattr(got, f).contiguous(),
+                                   getattr(want, f).contiguous()), (mode, f)
+
+
+@pytest.mark.parametrize("levels,policy", [(1, "match"), (3, "match"), (4, "rd"), (5, "match"),
+                                           (6, "rd")])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_dense_encode_on_card_equals_cpu(device, channels, levels, policy):
     """The dense path on the card (its kernels) equals its run on the CPU

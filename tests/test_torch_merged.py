@@ -290,27 +290,41 @@ def test_4k_fixture_is_complete(fixture):
 @pytest.mark.parametrize("kwargs,item", [
     pytest.param(dict(coalesce=False, num_levels=1), None,
                  id="kwargs1-Queue 1 item 13"),
-    pytest.param(dict(coalesce=False, num_levels=5), "Queue 1 item 16",
+    pytest.param(dict(coalesce=False, num_levels=5), "small_rgb_l5_nocoalesce",
                  id="kwargs2-Queue 1 item 13"),
 ])
 def test_unported_arguments_raise(kwargs, item):
     """num_levels=1 now encodes, on the dense path (the fused device entry
-    point takes 2-4 levels and names that path); num_levels=5 raises on
-    both entry points naming its own item (regions larger than the region
-    encode's 64x64 px)."""
-    img = np.zeros((16, 16, 3), np.uint8)
-    if item is None:
-        out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(), device="cpu", **kwargs)
-        np.testing.assert_array_equal(out["decoded"][..., :3], img)
-        np.testing.assert_array_equal(out["alive_counts"], [4])
+    point takes 2-4 levels and names that path); so does num_levels=5
+    (Queue 1 item 16, landed), as the JAX package's recorded encode of the
+    fixture case ``item`` (tests/fixtures/torch_port_levels_reference.npz:
+    the owners of all but the 4 blocks of the one level-1 merge a float
+    flip turns, PSNR and bpp within tests/test_torch_levels.py's tolerance
+    for that flip), while the fused device entry point still refuses it,
+    naming the dense path."""
+    if item is not None:
+        from tests import test_torch_dense as dense
+        from tools import record_torch_levels_reference as lrec
+
+        fx = np.load(lrec.OUT)
+        img = lrec.SMALL_CASES[item][0]()
+        cfg = EncodeConfig(error_factor=100, dithering=False)
+        out = limg_tpu_torch.encode_image_merged(img, cfg, device="cpu", **kwargs)
+        owner = rec.per_block(out["owner_px"])
+        assert int((owner != fx[f"{item}.owner"]).sum()) <= 4
+        assert abs(out["psnr"] - float(fx[f"{item}.psnr"])) <= dense.MERGE_FLIP_PSNR_DB
+        assert abs(out["mean_bpp"] - float(fx[f"{item}.mean_bpp"])) <= dense.MERGE_FLIP_BPP
+        np.testing.assert_allclose(out["alive_counts"], fx[f"{item}.alive_counts"], atol=1)
         with pytest.raises(ValueError, match="dense path"):
-            limg_tpu_torch.encode_image_merged_fused_device(img, EncodeConfig(), device="cpu",
-                                                            **kwargs)
+            limg_tpu_torch.encode_image_merged_fused_device(img, cfg, device="cpu", **kwargs)
         return
-    for fn in (limg_tpu_torch.encode_image_merged,
-               limg_tpu_torch.encode_image_merged_fused_device):
-        with pytest.raises(NotImplementedError, match=item):
-            fn(img, EncodeConfig(), device="cpu", **kwargs)
+    img = np.zeros((16, 16, 3), np.uint8)
+    out = limg_tpu_torch.encode_image_merged(img, EncodeConfig(), device="cpu", **kwargs)
+    np.testing.assert_array_equal(out["decoded"][..., :3], img)
+    np.testing.assert_array_equal(out["alive_counts"], [4])
+    with pytest.raises(ValueError, match="dense path"):
+        limg_tpu_torch.encode_image_merged_fused_device(img, EncodeConfig(), device="cpu",
+                                                        **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [dict(coalesce=False, return_state=True),

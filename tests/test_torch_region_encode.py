@@ -101,18 +101,22 @@ def test_err_scale_shift_at_4096_pixels():
 
 
 def test_wrapper_sizes_and_keys():
-    """The wrapper takes P = 64 * 4^l for l < 4 and nothing else, runs the
-    plain version on the CPU without counting a launch, and gives each
-    level its own dither key, level 0 the fixed grid's."""
+    """The wrapper takes P = 64 * 4^l (levels 4 and up too: 128x128 px
+    regions and larger) and nothing else, runs the plain version on the
+    CPU without counting a launch, and gives each level its own dither key,
+    level 0 the fixed grid's."""
     img = _image(1024, 4)
     cfg = config_from_jax(JConfig(error_factor=100, has_alpha=True, dithering=True))
     before = (kmod.launches, dict(kmod.launches_region))
-    for p in kmod.REGION_SIZES:
+    for p in (64, 256, 1024, 4096, 16384):
         packed, mask, grid = layout.blockify_packed(torch.from_numpy(img), int(p ** 0.5))
         shifts, q, dec, dist = kmod.encode_blocks_kernel(packed, mask, cfg, 3)
         assert q.shape == dec.shape == (p, grid.num_blocks) and dist.shape == (1, grid.num_blocks)
     assert (kmod.launches, kmod.launches_region) == before
-    for bad in (16, 128, 2048, 16384):
+    assert [kmod.region_level(64 << 2 * lvl) for lvl in range(13)] == list(range(13))
+    with pytest.raises(ValueError, match="P must be"):
+        kmod.region_level(kmod.MAX_REGION_PIXELS * 4)
+    for bad in (16, 128, 2048, 32768):
         with pytest.raises(ValueError, match="P must be"):
             kmod.encode_blocks_kernel(torch.zeros((bad, 4), dtype=torch.int32),
                                       torch.ones((bad, 4), dtype=torch.bool), cfg, 0)

@@ -99,16 +99,19 @@ def stream_digest(blob: bytes) -> str:
     return hashlib.sha256(blob).hexdigest()
 
 
-def record_case(name: str) -> tuple[dict, dict]:
-    """Run one case; returns (arrays keyed "<name>.<field>", its meta)."""
+def record_case(name: str, small_cases=None, full_cases=None) -> tuple[dict, dict]:
+    """Run one case of ``small_cases`` / ``full_cases`` (default this
+    file's tables); returns (arrays keyed "<name>.<field>", its meta)."""
     from limg_tpu import bitstream
     from limg_tpu.config import EncodeConfig
     from limg_tpu.regions import encode_image_merged
 
-    if name in SMALL_CASES:
-        make, levels, over, policy, coalesce, cap_frac, hdr, keep_state = SMALL_CASES[name]
+    small_cases = SMALL_CASES if small_cases is None else small_cases
+    full_cases = FULL_CASES if full_cases is None else full_cases
+    if name in small_cases:
+        make, levels, over, policy, coalesce, cap_frac, hdr, keep_state = small_cases[name]
     else:
-        lane, levels, over = FULL_CASES[name]
+        lane, levels, over = full_cases[name]
         make, policy, coalesce, cap_frac, hdr, keep_state = (
             lambda: make_4k_lane(*FULL, lane), "match", True, 0, False, False)
     img = make()
@@ -140,7 +143,7 @@ def record_case(name: str) -> tuple[dict, dict]:
         blob = bitstream.serialize_from_state(state, cfg, entropy=entropy)
         rec[f"{tag}_sha256"] = np.asarray(stream_digest(blob))
         rec[f"{tag}_len"] = np.int64(len(blob))
-    if name in SMALL_CASES:
+    if name in small_cases:
         rec.update(
             shifts=per_block(out["shift"]).astype(np.uint8),
             bpp=per_block(out["bpp"]).astype(np.uint8),
@@ -161,32 +164,35 @@ def record_case(name: str) -> tuple[dict, dict]:
     return {f"{name}.{k}": v for k, v in rec.items()}, meta
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def run_cases(argv, script: str, out_path: str, command: str, small_cases: dict,
+              full_cases: dict, description: str = __doc__) -> None:
+    """The command line of a recorder of ``small_cases`` and ``full_cases``:
+    each case in a process of its own (``script --case NAME --part
+    FILE``), ``--jobs`` at once, all into ``out_path``."""
+    ap = argparse.ArgumentParser(description=description.splitlines()[0])
     ap.add_argument("--skip-4k", action="store_true")
     ap.add_argument("--jobs", type=int, default=1)
     ap.add_argument("--case", help="record this case only, into --part")
     ap.add_argument("--part", help="output .npz of --case")
     args = ap.parse_args(argv)
     if args.case:
-        arrays, meta = record_case(args.case)
+        arrays, meta = record_case(args.case, small_cases, full_cases)
         np.savez(args.part, meta=np.asarray(json.dumps(meta)), **arrays)
         return
 
     meta = dict(
-        command="JAX_PLATFORMS=cpu python tools/record_torch_dense_reference.py",
+        command=command,
         jax_path="limg_tpu.regions.encode_image_merged(use_pallas=False, fused=False, "
                  "fetch_planes=True, return_state=True, seed=0) on the CPU: the dense jnp "
                  "path; streams from limg_tpu.bitstream.serialize_from_state",
         dithering="off for every case", stat_keys=list(STAT_KEYS), cases={},
     )
-    names = list(SMALL_CASES) + ([] if args.skip_4k else list(FULL_CASES))
+    names = list(small_cases) + ([] if args.skip_4k else list(full_cases))
     arrays = {}
     with tempfile.TemporaryDirectory() as tmp:
         def run(name):
             part = os.path.join(tmp, f"{name}.npz")
-            subprocess.run([sys.executable, os.path.abspath(__file__), "--case", name,
-                            "--part", part], check=True)
+            subprocess.run([sys.executable, script, "--case", name, "--part", part], check=True)
             return name, part
 
         with ThreadPoolExecutor(max(1, args.jobs)) as pool:
@@ -195,9 +201,15 @@ def main(argv=None):
                     meta["cases"][name] = json.loads(str(f["meta"]))
                     arrays.update({k: f[k] for k in f.files if k != "meta"})
     arrays["meta"] = np.asarray(json.dumps(meta, sort_keys=True))
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, **arrays)
-    print("wrote", OUT, f"({os.path.getsize(OUT)} bytes)")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    np.savez_compressed(out_path, **arrays)
+    print("wrote", out_path, f"({os.path.getsize(out_path)} bytes)")
+
+
+def main(argv=None):
+    run_cases(argv, os.path.abspath(__file__), OUT,
+              "JAX_PLATFORMS=cpu python tools/record_torch_dense_reference.py",
+              SMALL_CASES, FULL_CASES)
 
 
 if __name__ == "__main__":

@@ -61,19 +61,26 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    and 256) and for the composed segment re-encode against the segment
    kernel on real run buffers;
 2f. the same for ``segment_encode`` at P = 256, 1024 and 4096 (the dense
-   path's 16x16, 32x32 and 64x64 pixel regions): seeded buffers over
-   several CTAs, segments of 1 and SEG_CAP regions, a tail of lanes with
-   no member, no member at all, a saturated 64x64 region whose unscaled
-   error sum passes 2^31; RGB and RGBA, every crush mode, num_factors 1-3,
+   path's 16x16, 32x32 and 64x64 pixel regions; a thread-block cluster a
+   segment): seeded buffers, segments of 1 and SEG_CAP regions (at P =
+   4096 a warp streams its share through its stage), a tail of lanes with
+   no member, no member at all, every lane a member and a segment (the
+   most segments listed), a saturated 64x64 region whose unscaled error
+   sum passes 2^31; RGB and RGBA, every crush mode, num_factors 1-3,
    dithering off and on;
 2g. the same for the region encode and the segment encode at P = 16,384,
    65,536 and 262,144 (the dense path's 128x128, 256x256 and 512x512 px
-   regions: the chunked and the spread kernels): seeded buffers with all-
-   and half-masked regions and a saturated region whose pre-scaled error
-   sum wraps int32, a ragged image's grid and that grid with an all-masked
-   row and column, segments of one and several regions with an empty tail,
-   no member at all; RGB and RGBA, ladder, exhaustive, guess and no crush,
-   num_factors 1-3, dithering off and on;
+   regions: the chunked region encode, the segment encode's 16-CTA
+   clusters): seeded buffers with all- and half-masked regions and a
+   saturated region whose pre-scaled error sum wraps int32, a ragged
+   image's grid and that grid with an all-masked row and column, segments
+   of one and several regions with an empty tail, no member at all,
+   single-region segments whose every pixel is a member (a region over
+   every warp of a cluster); RGB and RGBA, ladder, exhaustive, guess and no
+   crush, num_factors 1-3, dithering off and on; and the segment encode at
+   level 9 (P = 16,777,216), whose regions take several rounds of a
+   cluster's warps: a saturated single-region segment and one of two
+   regions, ladder, guess and no crush;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -1704,6 +1711,15 @@ def region_run_buffer(rng, p: int, n: int, ch: int, device, spans=None, empty_ta
                  for a in (words, mask, seg, blocks))
 
 
+def every_lane_a_member(rng, p: int, n: int, ch: int, device):
+    """A run buffer of n single-region segments whose pixels are all
+    members: the most segments the segment encode lists (a cluster each)."""
+    import torch
+
+    words, mask, seg, blocks = region_run_buffer(rng, p, n, ch, device, spans=[1] * n)
+    return words, torch.ones_like(mask), seg, blocks
+
+
 def phase_compare_segment_regions(device) -> float:
     """segment_encode at P = 256, 1024 and 4096 vs its plain version on the
     card, bit-equal: seeded buffers over several CTAs, RGB and RGBA, every
@@ -1740,6 +1756,7 @@ def phase_compare_segment_regions(device) -> float:
                                      empty_tail=9, saturate=p == 4096)
             bufs["edges (1, SEG_CAP members, empty tail)"] = edge
             bufs["no member"] = (edge[0], torch.zeros_like(edge[1]), *edge[2:])
+            bufs["every lane a member, one a segment"] = every_lane_a_member(rng, p, n, ch, device)
             for name, buf in bufs.items():
                 for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
                     cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
@@ -1752,7 +1769,7 @@ def phase_compare_segment_regions(device) -> float:
 
 
 # the dense path's levels 4-6 (128x128, 256x256 and 512x512 px regions):
-# the region encode's chunked kernel and the segment encode's spread one
+# the region encode's chunked kernel and the segment encode's <CH, 8> ones
 LARGE_SIZES = (16384, 65536, 262144)
 LARGE_REGION_LANES = {16384: 10, 65536: 5, 262144: 3}
 # a segment of one region, one of several, and a tail of lanes with no member
@@ -1761,6 +1778,11 @@ LARGE_SETTINGS = [("ladder", 3, False), ("ladder", 3, True), ("ladder", 1, True)
                   ("exhaustive", 2, False), ("guess", 3, True), ("none", 3, False)]
 # a ragged image: at each size a grid cut by both edges (300 x 700 px)
 LARGE_IMAGE = (300, 700)
+# level 9's regions, each more items than a 16-CTA cluster has warps (the
+# segment encode takes them in rounds), and the settings held there
+ROUNDS_PIXELS = 64 << 18
+ROUNDS_SETTINGS = [("ladder", 3, True), ("ladder", 1, False), ("guess", 3, False),
+                   ("none", 3, True)]
 
 
 def phase_compare_large(device) -> float:
@@ -1772,7 +1794,8 @@ def phase_compare_large(device) -> float:
     whose block-error sum wraps int32 at P >= 65,536), on a ragged image's
     grid and on that grid with an all-masked row and column; the segment
     encode on segments of one and of several regions with a tail of lanes
-    with no member, and with no member at all. Max abs diff."""
+    with no member, and with no member at all; the segment encode at P =
+    16,777,216 (several rounds of items a region). Max abs diff."""
     import torch
     from limg_tpu_torch.config import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor
@@ -1815,7 +1838,9 @@ def phase_compare_large(device) -> float:
             seg_buf = region_run_buffer(rng, p, sum(spans), ch, device, spans=spans,
                                         empty_tail=spans[-1], saturate=True)
             seg_bufs = {"segments of 1 and several, empty tail": seg_buf,
-                        "no member": (seg_buf[0], torch.zeros_like(seg_buf[1]), *seg_buf[2:])}
+                        "no member": (seg_buf[0], torch.zeros_like(seg_buf[1]), *seg_buf[2:]),
+                        "single regions, every lane a member": every_lane_a_member(
+                            rng, p, len(spans), ch, device)}
             for name, buf in seg_bufs.items():
                 for mode, nf, dith in LARGE_SETTINGS:
                     cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
@@ -1826,6 +1851,20 @@ def phase_compare_large(device) -> float:
                     n_segment += 1
         log(f"  P={p}: {n_region} region and {n_segment} segment cases so far bit-equal "
             f"({time.perf_counter() - t0:.1f} s)")
+    for ch in (3, 4):
+        # a saturated single-region segment (its error sum wraps) and a
+        # segment of two regions, each region over several rounds of items
+        buf = region_run_buffer(rng, ROUNDS_PIXELS, 3, ch, device, spans=[1, 2], saturate=True)
+        for mode, nf, dith in ROUNDS_SETTINGS:
+            cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                               dithering=dith, num_factors=nf)
+            check(f"segment_encode P={ROUNDS_PIXELS} over rounds ch={ch} {mode} nf={nf} "
+                  f"dither={dith}", kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                  kc.segment_encode_reference(*buf, cfg, 0x5EED))
+            n_segment += 1
+        del buf
+    log(f"  P={ROUNDS_PIXELS}: {n_segment} segment cases so far bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
     log(f"phase 2g ok: {n_region} + {n_segment} cases, max abs diff {worst}")
     return worst
 
@@ -2396,12 +2435,15 @@ def profiled_kernel_name(key: str):
         return name + ("_natural" if targs[-1] == "true" else "")
     if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
         return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
-    # the chunked region encode and the spread segment encode (<CH, 8>) run
-    # every P above 4096; the steps profiled run them at P = 16,384 alone
+    # the chunked region encode and the segment encode's <CH, 8> instances
+    # run every P above 4096; the steps profiled run them at P = 16,384 alone
     if name == "encode_region_chunked":
         return "encode_region_p16384"
-    if name == "segment_encode" and len(targs) > 1 and targs[1] != "0":
-        return f"segment_encode_p{64 << int(targs[1])}"   # <CH, log2 of P / 64>
+    # <CH, log2 of P / 64>: P = 256 on the one-warp template, P >= 1024 on
+    # the cluster design's two kernels
+    if name in ("segment_cluster", "segment_prep") or (name == "segment_encode"
+                                                       and targs[1:2] != ["0"]):
+        return f"segment_encode_p{64 << int(targs[1])}"
     return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
 
 
@@ -2731,7 +2773,7 @@ def phase_timing_dense(device, smi: str):
         step_ms = time_fn(step, device)
         log(f"  4K {lane} dense step (encode_image_merged_device, 3 levels, full run capacity, "
             f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        prof = profile_step(step, device, f"{lane} dense")
+        prof = profile_step(step, device, f"{lane} dense", by_op=lane == "rgb")
         if lane == "rgb":
             log(f"  kernel launches per dense step: {launches_per_step(step)}")
             losses = step_losses(prof, step_bounds(step))
@@ -2818,9 +2860,12 @@ def launches_per_step(fn) -> dict:
     return {k: v for k, v in read_launches().items() if v}
 
 
-def profile_step(fn, device, lane: str, iters: int = 5):
+def profile_step(fn, device, lane: str, iters: int = 5, by_op: bool = False):
     """Device time by operation over ``iters`` perf steps (torch.profiler),
-    and the device-busy share of the profiled window."""
+    and the device-busy share of the profiled window; ``by_op`` also logs
+    the device time of the kernels each PyTorch operation launched itself,
+    by the operation's name (the plain-torch glue; the port's own kernels
+    are launched by no operation)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2843,6 +2888,14 @@ def profile_step(fn, device, lane: str, iters: int = 5):
         f"per step, idle share {1 - busy / wall_us!r} (profiler on)")
     for key, us in rows[:8]:
         log(f"    {us!r:>22} us  {key[:90]}")
+    if by_op:
+        ops = sorted(((e.key, e.self_device_time_total / iters) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+        log(f"  profile 4K {lane} step by PyTorch operation: {sum(us for _, us in ops)!r} us "
+            f"of device time in {len(ops)} operations")
+        for key, us in ops[:20]:
+            log(f"    {us!r:>22} us  {key[:90]}")
     return dict(rows)
 
 

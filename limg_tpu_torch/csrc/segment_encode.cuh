@@ -1,8 +1,9 @@
 // segment_encode for NVIDIA Hopper (sm_90a): the template of the run
-// buffer's re-encode, instantiated by coalesce.cu at P = 64 (8x8 blocks,
-// the fused paths' level-0 buffer) and by segment_region.cu at P = 256,
-// 1024 and 4096 (the dense path's levels 1-3) and, once, for every larger
-// P (levels 4 and up: the spread instantiation below). It replaces
+// buffer's re-encode, one warp a lane, instantiated by coalesce.cu at P = 64
+// (8x8 blocks, the fused paths' level-0 buffer) and by segment_region.cu at
+// P = 256 (16x16 px regions, the dense path's level 1); from P = 1024 on
+// segment_region.cu runs the cluster design of segment_cluster.cuh, which
+// shares this file's per-block pieces. It replaces
 // limg_tpu/pallas_kernels/encode_segments.py: segment_encode_pallas (:188,
 // kernel :114), which takes any P (:205): refit, factors, crush search,
 // dither and decode of the contiguous segments of the run buffer.
@@ -15,28 +16,23 @@
 //
 // segment_encode's design: segment ids are the first member's position,
 // members are contiguous and a segment has at most SEG_CAP of them. A lane
-// is an 8x8 block (P = 64, the fused paths' level-0 buffer) or a region of
-// P = 64 * 4^l pixels (the dense path's level l, the JAX kernel's any-P
-// buffer, encode_segments.py:205), one instantiation per P up to 4096 and
-// one for all larger P, whose region is spread over the CTA's warps.
+// is an 8x8 block (P = 64) or a region of P = 256 pixels (4 chunks of 64).
 // CTA k takes the whole segments that start in its tile of lanes (128 at P
-// = 64, 32 at 256, 8 at 1024 and 4096, so that fewer, larger lanes still
-// fill the card), at most 383 lanes, so every reduction stays inside the
-// CTA. It first counts each
-// segment's member pixels: the lanes of a segment with none (the buffer's
-// tail of non-run lanes, 27% of the lanes at 4K) get the plain version's
-// outputs for an empty region at once (write_empty), and every later loop
-// walks only the other lanes (S.act); a CTA of such lanes alone stops
-// there. A warp works on one block at a time and loops over the CTA's
-// active blocks: 64 pixels in registers at a time (two a lane, as in
+// = 64, 32 at 256, so that fewer, larger lanes still fill the card), at
+// most 383 lanes, so every reduction stays inside the CTA. It first counts
+// each segment's member pixels: the lanes of a segment with none (the
+// buffer's tail of non-run lanes, 27% of the lanes at 4K) get the plain
+// version's outputs for an empty region at once (write_empty), and every
+// later loop walks only the other lanes (S.act); a CTA of such lanes alone
+// stops there. A warp works on one block at a time and loops over the
+// CTA's active blocks: 64 pixels in registers at a time (two a lane, as in
 // encode_fixed), a larger region chunk by chunk, each float sum over its
 // pixels kept lane by lane in the plain version's halving-tree order
 // (ChunkTree) and the crush's 9 candidates of a batch evaluated on each
 // chunk as it is read (the chunk and candidate loops are not unrolled:
-// unrolled, the P > 64 instantiations spilled 2-3 KB a thread, took 1.6x
-// the time and twice the build); between the
-// steps of the fit and between candidate batches the blocks' partial values
-// meet in shared memory:
+// unrolled, they spilled 2-3 KB a thread, took 1.6x the time and twice the
+// build); between the steps of the fit and between candidate batches the
+// blocks' partial values meet in shared memory:
 // - float sums (counts, channel sums, unit-vector sums) and the factor
 //   extremes go through the doubling scan of ops/segments.py in the plain
 //   version's order, fwd + bwd - x, which is not the exact segment sum and
@@ -51,10 +47,9 @@
 //   crush, and per-block state (region values, ladder boxes, candidates,
 //   the running best) lives in shared memory, one column per block.
 // One warp per segment, with no CTA barrier after the counts, computed the
-// same bits but took 3x the time at 4K (PERF.md). From P = 16,384 on the
-// CTA's 8 warps take one region at a time (the spread instantiation, "A
-// region spread over the CTA" below): a CTA walks its active regions one
-// after another, each pass's partial values meeting in shared memory.
+// same bits but took 3x the time at 4K (PERF.md). At P = 256 this design
+// measured 3.5x faster than the cluster design on the 4K dense buffer
+// (PERF.md): 12,341 member lanes fill the card one warp each.
 
 #pragma once
 
@@ -72,9 +67,9 @@ constexpr int kSegErrShift = 8;    // ops/segments.py SEG_ERR_SHIFT
 // ---------------------------------------------------------------------------
 
 // A lane of the run buffer is a region of kP << LOGC pixels (an 8x8 block
-// at LOGC = 0; 16x16, 32x32 and 64x64 pixel regions of the dense levels 1-3
-// at LOGC = 2, 4, 6), read as 2^LOGC chunks of 64: chunk k holds pixels
-// 64k .. 64k + 63, and lane l of the warp pixels 64k + l and 64k + l + 32.
+// at LOGC = 0; a 16x16 pixel region of the dense level 1 at LOGC = 2), read
+// as 2^LOGC chunks of 64: chunk k holds pixels 64k .. 64k + 63, and lane l
+// of the warp pixels 64k + l and 64k + l + 32.
 constexpr int kSegLanes = 128 + kSegCap - 1;  // the most lanes a CTA covers
 constexpr int kSegWarps = 8;
 constexpr int kSegThreads = kSegWarps * 32;
@@ -82,12 +77,12 @@ constexpr int kScanRows = 6;                     // float rows scanned at once
 constexpr int kBatch = 9;                        // candidates per reduction
 constexpr int kMaxK = 16;                        // kernels/coalesce.py MAX_LADDER_K
 
-// Segment starts per CTA: 128 for 8x8 blocks; fewer for larger regions,
-// whose buffers hold fewer lanes, so that the card still gets a few
-// hundred CTAs (at least 8 starts: a warp each when segments are single).
+// Segment starts per CTA: 128 for 8x8 blocks; 32 for 16x16 px regions,
+// whose buffers hold a quarter of the lanes, so that the card still gets a
+// few hundred CTAs.
 template <int LOGC>
 __host__ __device__ constexpr int seg_tile() {
-  return LOGC == 0 ? 128 : (LOGC == 2 ? 32 : 8);
+  return LOGC == 0 ? 128 : 32;
 }
 
 // Per-block state rows (ints; floats by bit pattern). The crush's rows reuse
@@ -129,7 +124,7 @@ struct SegParams {
   int32_t* count_mem;     // (n,)
   int32_t* eps;           // (6, CH, n)
   float* avg;             // (CH, n)
-  int logc;               // spread instantiation: log2 of the chunks a region
+  int logc;               // log2 of the chunks a region (segment_cluster.cuh)
 };
 
 __device__ __forceinline__ float getf(const SegShared& S, int row, int i) {
@@ -150,11 +145,10 @@ __device__ __forceinline__ void unpack3(int v, int (&s)[3]) {
   s[2] = (v >> 8) & 15;
 }
 
-// Index of the word of pixel 64k + lane + 32j of lane b's region (of
-// 2^logc chunks: LOGC, or at run time in the spread instantiation).
+// Index of the word of pixel 64k + lane + 32j of lane b's region.
 template <int LOGC>
-__device__ __forceinline__ size_t pixel_at(size_t b, int k, int lane, int j, int logc = LOGC) {
-  return (b << logc) * kP + (size_t)(kP * k + lane + 32 * j);
+__device__ __forceinline__ size_t pixel_at(size_t b, int k, int lane, int j) {
+  return (b << LOGC) * kP + (size_t)(kP * k + lane + 32 * j);
 }
 
 // The chunk visited t-th by a region sum: t's LOGC bits reversed.
@@ -203,112 +197,15 @@ struct ChunkTree {
   }
 };
 
-// ---------------------------------------------------------------------------
-// A region spread over the CTA (P >= 16,384: the dense path's levels 4 and up)
-// ---------------------------------------------------------------------------
-//
-// From 256 chunks a region on, one warp a region would read each region alone
-// pass after pass while the CTA's other warps idle (the buffers hold few
-// regions: 510 lanes at 4K level 4, 135 at level 5). The spread
-// instantiation (LOGC = kSpreadLogc, the chunk count 2^P.logc at run time)
-// puts all 8 warps of the CTA on one region at a time: warp w takes the w-th
-// eighth of the chunks' visit order (bit-reversed, as ChunkTree visits
-// them), a contiguous range of it and so a whole subtree of the halving
-// tree, folds it as ChunkTree does, and the eight subtrees meet in order
-// through shared memory, ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7)),
-// the binary counter's last three levels; integer totals and extremes
-// combine across the warps in any order.
-
-constexpr int kSpreadLogc = 8;        // P = 16,384 and up
-constexpr int kMaxSpreadLogc = 24;    // P <= 2^30: pixel indices in int32
-
-template <int LOGC>
-__host__ __device__ constexpr bool spread() {
-  return LOGC >= kSpreadLogc;
-}
-
-struct SpreadShared {
-  float v[kSegWarps][4][2][32];   // each warp's subtree sums: value, pixel pair, lane
-  float ext[kSegWarps][6];        // each warp's factor extremes (-min, max)
-  int be[kBatch];                 // the region's error sums of a candidate batch
-  int cnt;                        // the region's member pixels
-};
-
-__device__ __forceinline__ int chunk_at_r(int t, int logc) {
-  return (int)(__brev((unsigned)t) >> (32 - logc));
-}
-
-// ChunkTree's fold over one warp's subtree of chunks, its depth at run time:
-// u is the chunk's index within the subtree.
-template <int N>
-struct SubtreeFold {
-  float part[kMaxSpreadLogc - 2][N][2];   // indexed at run time: local memory
-
-  __device__ __forceinline__ void fold(int u, float (&v)[N][2]) {
-    int l = 0;
-#pragma unroll 1
-    for (; (u >> l) & 1; ++l) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) v[n][j] = part[l][n][j] + v[n][j];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) part[l][n][j] = v[n][j];
-    }
-  }
-};
-
-// The chunks of one warp's eighth of a spread region of 2^logc chunks.
-__device__ __forceinline__ int spread_per(int logc) { return 1 << (logc - 3); }
-
-// A spread region's sums of N per-pixel values in the plain version's
-// halving-tree order: f(k, v) gives this lane's two pixels' values of chunk
-// k (called once per chunk, by one warp); every thread gets the sums.
-template <int N, class F>
-__device__ void spread_sum(SpreadShared& X, int logc, F f, float (&sum)[N]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per = spread_per(logc);
-  SubtreeFold<N> tree;
-  float v[N][2];
-#pragma unroll 1
-  for (int u = 0; u < per; ++u) {
-    f(chunk_at_r(warp * per + u, logc), v);
-    tree.fold(u, v);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) X.v[warp][n][j][lane] = v[n][j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    float y[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float x[kSegWarps];
-#pragma unroll
-      for (int w = 0; w < kSegWarps; ++w) x[w] = X.v[w][n][j][lane];
-      y[j] = ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
-    }
-    sum[n] = tree_sum(y[0], y[1]);
-  }
-  __syncthreads();  // X.v is written again by the next call
-}
-
 // Chunk k of lane b's region. Pixels outside the member mask keep their
 // values: they count in no sum, and the factors and decode cover every
 // pixel of the buffer, as in the plain version.
 template <int CH, int LOGC>
 __device__ __forceinline__ void load_pixels(const SegParams& P, size_t b, int k, int lane,
-                                            Pixels<CH>& p, int logc = LOGC) {
+                                            Pixels<CH>& p) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const size_t at = pixel_at<LOGC>(b, k, lane, j, logc);
+    const size_t at = pixel_at<LOGC>(b, k, lane, j);
     p.set(j, (uint32_t)P.packed[at], true);
     p.mask[j] = P.mask[at] != 0 ? 1 : 0;
     p.mf[j] = (float)p.mask[j];
@@ -423,13 +320,12 @@ __device__ __forceinline__ void unit_vector_terms(const float (&v)[CH][2], const
 // region means to the state rows at `out_row`.
 template <int CH, int LOGC>
 __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, int step,
-                              int out_row, SpreadShared* X = nullptr) {
+                              int out_row) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // the per-pixel terms of chunk k of lane b's region under region i's values
-  const auto terms_of = [&](const FitRegion<CH>& r, size_t b, int k, int logc,
-                            float (&terms)[CH][2]) {
+  const auto terms_of = [&](const FitRegion<CH>& r, size_t b, int k, float (&terms)[CH][2]) {
     Pixels<CH> p;
-    load_pixels<CH, LOGC>(P, b, k, lane, p, logc);
+    load_pixels<CH, LOGC>(P, b, k, lane, p);
     FitSteps<CH> fs;
     fs.center(p, r.avg);
     if (step == 1) {
@@ -444,39 +340,23 @@ __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, i
       }
     }
   };
-  if constexpr (spread<LOGC>()) {
-    for (int ai = 0; ai < S.n_act; ++ai) {
-      const int i = S.act[ai];
-      FitRegion<CH> r;
-      r.load(S, i, step - 1);
-      float part[CH];
-      spread_sum<CH>(*X, P.logc, [&](int k, float (&v)[CH][2]) {
-        terms_of(r, (size_t)(a + i), k, P.logc, v);
-      }, part);
-      if (threadIdx.x == 0) {
-#pragma unroll
-        for (int c = 0; c < CH; ++c) S.sx[c][i] = part[c];
-      }
-    }
-  } else {
-    for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
-      const int i = S.act[ai];
-      FitRegion<CH> r;
-      r.load(S, i, step - 1);
-      ChunkTree<LOGC, CH> tree;
-      float terms[CH][2];
+  for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
+    const int i = S.act[ai];
+    FitRegion<CH> r;
+    r.load(S, i, step - 1);
+    ChunkTree<LOGC, CH> tree;
+    float terms[CH][2];
 #pragma unroll 1
-      for (int t = 0; t < (1 << LOGC); ++t) {
-        terms_of(r, (size_t)(a + i), chunk_at<LOGC>(t), LOGC, terms);
-        tree.fold(t, terms);
-      }
-      float part[CH];
+    for (int t = 0; t < (1 << LOGC); ++t) {
+      terms_of(r, (size_t)(a + i), chunk_at<LOGC>(t), terms);
+      tree.fold(t, terms);
+    }
+    float part[CH];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) part[c] = tree_sum(terms[c][0], terms[c][1]);
-      if (lane == 0) {
+    for (int c = 0; c < CH; ++c) part[c] = tree_sum(terms[c][0], terms[c][1]);
+    if (lane == 0) {
 #pragma unroll
-        for (int c = 0; c < CH; ++c) S.sx[c][i] = part[c];
-      }
+      for (int c = 0; c < CH; ++c) S.sx[c][i] = part[c];
     }
   }
   __syncthreads();
@@ -523,15 +403,15 @@ __device__ void setup_crush_block(const SegParams& P, const SegShared& S, size_t
 
 template <int CH, int LOGC>
 __device__ __forceinline__ void load_crush_chunk(const SegParams& P, size_t b, int k, int lane,
-                                                 Block<CH>& blk, int logc = LOGC) {
+                                                 Block<CH>& blk) {
   Pixels<CH> p;
-  load_pixels<CH, LOGC>(P, b, k, lane, p, logc);
+  load_pixels<CH, LOGC>(P, b, k, lane, p);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     blk.mask[j] = p.mask[j];
 #pragma unroll
     for (int c = 0; c < CH; ++c) blk.px[c][j] = p.px[c][j];
-    const int w = P.f8[pixel_at<LOGC>(b, k, lane, j, logc)];
+    const int w = P.f8[pixel_at<LOGC>(b, k, lane, j)];
 #pragma unroll
     for (int k3 = 0; k3 < 3; ++k3) blk.f8[k3][j] = (w >> (8 * k3)) & 0xFF;
   }
@@ -559,12 +439,10 @@ __device__ __forceinline__ void eval_lane(const Block<CH>& blk, const int (&s)[3
 // candidate c (the same for every member of a segment). An 8x8 block is
 // read once per batch and each candidate reduced over the warp at once; a
 // larger region is read chunk by chunk once per batch, each candidate's
-// lane maxima and sums kept until the last chunk; a spread region (X) by
-// all warps, each its eighth of the chunks, the warps' wrapping error sums
-// meeting in X before the region's sum is shifted into its segment's.
+// lane maxima and sums kept until the last chunk.
 template <int CH, int LOGC, class Cand>
-__device__ void eval_batch(const SegParams& P, SegShared& S, SpreadShared* X, int a, int nl,
-                           int ncand, const Cand& cand) {
+__device__ void eval_batch(const SegParams& P, SegShared& S, int a, int nl, int ncand,
+                           const Cand& cand) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int kBlkShift = kSegErrShift - block_err_scale<LOGC>();
   for (int e = tid; e < 2 * kBatch * kSegLanes; e += kSegThreads) {
@@ -572,106 +450,58 @@ __device__ void eval_batch(const SegParams& P, SegShared& S, SpreadShared* X, in
     if (i < nl) S.acc[r][i] = r < kBatch ? (-2147483647 - 1) : 0;
   }
   __syncthreads();
-  if constexpr (spread<LOGC>()) {
-    const int per = spread_per(P.logc);
-    for (int ai = 0; ai < S.n_act; ++ai) {
-      const int i = S.act[ai];
-      const size_t b = (size_t)(a + i);
-      Block<CH> blk;
-      setup_crush_block<CH, LOGC>(P, S, b, i, blk);
-      const int at = S.seg[i];
-      int sv[kBatch], pm[kBatch], be[kBatch];
-#pragma unroll 1
-      for (int c = 0; c < kBatch; ++c) {
-        int s[3] = {0, 0, 0};
-        if (c < ncand) cand(i, c, s);
-        sv[c] = pack3(s);
-        pm[c] = be[c] = 0;
-      }
-#pragma unroll 1
-      for (int k = warp * per; k < (warp + 1) * per; ++k) {
-        load_crush_chunk<CH, LOGC>(P, b, k, lane, blk, P.logc);
-#pragma unroll 1
-        for (int c = 0; c < kBatch; ++c) {
-          if (c < ncand) {
+      for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
+        const int i = S.act[ai];
+        const size_t b = (size_t)(a + i);
+        Block<CH> blk;
+        setup_crush_block<CH, LOGC>(P, S, b, i, blk);
+        const int at = S.seg[i];
+        if constexpr (LOGC == 0) {
+          load_crush_chunk<CH, LOGC>(P, b, 0, lane, blk);
+          for (int c = 0; c < ncand; ++c) {
             int s[3];
-            unpack3(sv[c], s);
-            eval_lane<CH>(blk, s, pm[c], be[c]);
+            cand(i, c, s);
+            int pm, be;
+            blk.eval(s, pm, be);
+            if (lane == 0) {
+              atomicMax(&S.acc[c][at], pm);
+              atomicAdd(&S.acc[kBatch + c][at], be >> kBlkShift);
+            }
           }
-        }
-      }
-#pragma unroll 1
-      for (int c = 0; c < kBatch; ++c) {
-        if (c < ncand) {
-          const int pmw = __reduce_max_sync(kFull, pm[c]);
-          const int bew = __reduce_add_sync(kFull, be[c]);
-          if (lane == 0) {
-            atomicMax(&S.acc[c][at], pmw);
-            atomicAdd(&X->be[c], bew);
+        } else {
+          int sv[kBatch], pm[kBatch], be[kBatch];
+  #pragma unroll 1
+          for (int c = 0; c < kBatch; ++c) {
+            int s[3] = {0, 0, 0};
+            if (c < ncand) cand(i, c, s);
+            sv[c] = pack3(s);
+            pm[c] = be[c] = 0;
           }
-        }
-      }
-      __syncthreads();
-      if (tid < ncand) {
-        atomicAdd(&S.acc[kBatch + tid][at], X->be[tid] >> kBlkShift);
-        X->be[tid] = 0;
-      }
-      __syncthreads();
-    }
-  } else {
-    for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
-      const int i = S.act[ai];
-      const size_t b = (size_t)(a + i);
-      Block<CH> blk;
-      setup_crush_block<CH, LOGC>(P, S, b, i, blk);
-      const int at = S.seg[i];
-      if constexpr (LOGC == 0) {
-        load_crush_chunk<CH, LOGC>(P, b, 0, lane, blk);
-        for (int c = 0; c < ncand; ++c) {
-          int s[3];
-          cand(i, c, s);
-          int pm, be;
-          blk.eval(s, pm, be);
-          if (lane == 0) {
-            atomicMax(&S.acc[c][at], pm);
-            atomicAdd(&S.acc[kBatch + c][at], be >> kBlkShift);
+  #pragma unroll 1
+          for (int k = 0; k < (1 << LOGC); ++k) {
+            load_crush_chunk<CH, LOGC>(P, b, k, lane, blk);
+  #pragma unroll 1
+            for (int c = 0; c < kBatch; ++c) {
+              if (c < ncand) {
+                int s[3];
+                unpack3(sv[c], s);
+                eval_lane<CH>(blk, s, pm[c], be[c]);
+              }
+            }
           }
-        }
-      } else {
-        int sv[kBatch], pm[kBatch], be[kBatch];
-#pragma unroll 1
-        for (int c = 0; c < kBatch; ++c) {
-          int s[3] = {0, 0, 0};
-          if (c < ncand) cand(i, c, s);
-          sv[c] = pack3(s);
-          pm[c] = be[c] = 0;
-        }
-#pragma unroll 1
-        for (int k = 0; k < (1 << LOGC); ++k) {
-          load_crush_chunk<CH, LOGC>(P, b, k, lane, blk);
-#pragma unroll 1
+  #pragma unroll 1
           for (int c = 0; c < kBatch; ++c) {
             if (c < ncand) {
-              int s[3];
-              unpack3(sv[c], s);
-              eval_lane<CH>(blk, s, pm[c], be[c]);
-            }
-          }
-        }
-#pragma unroll 1
-        for (int c = 0; c < kBatch; ++c) {
-          if (c < ncand) {
-            const int pmw = __reduce_max_sync(kFull, pm[c]);
-            const int bew = __reduce_add_sync(kFull, be[c]);
-            if (lane == 0) {
-              atomicMax(&S.acc[c][at], pmw);
-              atomicAdd(&S.acc[kBatch + c][at], bew >> kBlkShift);
+              const int pmw = __reduce_max_sync(kFull, pm[c]);
+              const int bew = __reduce_add_sync(kFull, be[c]);
+              if (lane == 0) {
+                atomicMax(&S.acc[c][at], pmw);
+                atomicAdd(&S.acc[kBatch + c][at], bew >> kBlkShift);
+              }
             }
           }
         }
       }
-    }
-  }
   __syncthreads();
 }
 
@@ -740,13 +570,13 @@ __device__ void dither_decode_chunk(const Block<CH>& blk, const int (&best)[3], 
 // written without the work (tests/test_torch_kernel_orders.py holds the
 // plain version to them).
 template <int CH, int LOGC>
-__device__ void write_empty(const SegParams& P, size_t b, int lane, int logc = LOGC) {
+__device__ void write_empty(const SegParams& P, size_t b, int lane) {
   const int zero[CH][2] = {};
 #pragma unroll 1
-  for (int k = 0; k < (1 << logc); ++k) {
+  for (int k = 0; k < (1 << LOGC); ++k) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const size_t at = pixel_at<LOGC>(b, k, lane, j, logc);
+      const size_t at = pixel_at<LOGC>(b, k, lane, j);
       if (P.q != nullptr) P.q[at] = 0;
       P.dec[at] = pack_decoded<CH>(zero, 0);
     }
@@ -765,12 +595,8 @@ template <int CH, int LOGC>
 __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const SegParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SegShared& S = *reinterpret_cast<SegShared*>(smem_raw);
-  // the spread instantiation's exchange, after S
-  SpreadShared* X = spread<LOGC>() ? reinterpret_cast<SpreadShared*>(smem_raw + sizeof(SegShared))
-                                   : nullptr;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int kChunks = 1 << LOGC;
-  const int logc = spread<LOGC>() ? P.logc : LOGC;   // the chunks of a region: 2^logc
 
   // the CTA's blocks: the segments starting in [lo, hi), up to the next start
   const int lo = blockIdx.x * seg_tile<LOGC>(), hi = min(lo + seg_tile<LOGC>(), P.n);
@@ -790,22 +616,16 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     S.seg[i] = (s < 0 || s > i) ? i : s;
     S.acc[0][i] = 0;
   }
-  if (spread<LOGC>() && tid < kBatch) X->be[tid] = 0;
-  if (spread<LOGC>() && tid == 0) X->cnt = 0;
   __syncthreads();
 
   // ---- segment pixel counts; the lanes of segments with no member pixel
   // (the buffer's tail of non-run lanes) take the short path, the others go
-  // on the active list that every per-block loop below walks (a spread
-  // region's counts: each warp its eighth of the chunks)
-  const int count_step = spread<LOGC>() ? 1 : kSegWarps;
-  const int per = spread<LOGC>() ? spread_per(logc) : kChunks;   // a warp's chunks
-  const int k_lo = spread<LOGC>() ? warp * per : 0, k_hi = k_lo + per;
-  for (int i = spread<LOGC>() ? 0 : warp; i < nl; i += count_step) {
+  // on the active list that every per-block loop below walks
+  for (int i = warp; i < nl; i += kSegWarps) {
     int m = 0;
 #pragma unroll 1
-    for (int k = k_lo; k < k_hi; ++k) {
-      const size_t at = pixel_at<LOGC>((size_t)(a + i), k, lane, 0, logc);
+    for (int k = 0; k < kChunks; ++k) {
+      const size_t at = pixel_at<LOGC>((size_t)(a + i), k, lane, 0);
       m += (P.mask[at] != 0 ? 1 : 0) + (P.mask[at + 32] != 0 ? 1 : 0);
     }
     const int cnt = __reduce_add_sync(kFull, m);
@@ -820,51 +640,31 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();
   const int na = S.n_act;
   for (int i = warp; i < nl; i += kSegWarps)
-    if (S.st[S_COUNT][i] == 0) write_empty<CH, LOGC>(P, (size_t)(a + i), lane, logc);
+    if (S.st[S_COUNT][i] == 0) write_empty<CH, LOGC>(P, (size_t)(a + i), lane);
   if (na == 0) return;  // uniform: no member pixel in the CTA
 
   // ---- fit: channel sums -> avg
-  if constexpr (spread<LOGC>()) {
-    for (int ai = 0; ai < na; ++ai) {
-      const int i = S.act[ai];
-      float sums[CH];
-      spread_sum<CH>(*X, logc, [&](int k, float (&v)[CH][2]) {
-        Pixels<CH> p;
-        load_pixels<CH, LOGC>(P, (size_t)(a + i), k, lane, p, logc);
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) v[c][j] = p.pxf[c][j] * p.mf[j];
-        }
-      }, sums);
-      if (tid == 0) {
-#pragma unroll
-        for (int c = 0; c < CH; ++c) S.sx[c][i] = sums[c];
-      }
-    }
-  } else {
-    for (int ai = warp; ai < na; ai += kSegWarps) {
-      const int i = S.act[ai];
-      ChunkTree<LOGC, CH> tree;
-      float v[CH][2];
+  for (int ai = warp; ai < na; ai += kSegWarps) {
+    const int i = S.act[ai];
+    ChunkTree<LOGC, CH> tree;
+    float v[CH][2];
 #pragma unroll 1
-      for (int t = 0; t < kChunks; ++t) {
-        Pixels<CH> p;
-        load_pixels<CH, LOGC>(P, (size_t)(a + i), chunk_at<LOGC>(t), lane, p);
+    for (int t = 0; t < kChunks; ++t) {
+      Pixels<CH> p;
+      load_pixels<CH, LOGC>(P, (size_t)(a + i), chunk_at<LOGC>(t), lane, p);
 #pragma unroll
-        for (int c = 0; c < CH; ++c) {
+      for (int c = 0; c < CH; ++c) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) v[c][j] = p.pxf[c][j] * p.mf[j];
-        }
-        tree.fold(t, v);
+        for (int j = 0; j < 2; ++j) v[c][j] = p.pxf[c][j] * p.mf[j];
       }
-      float sums[CH];
+      tree.fold(t, v);
+    }
+    float sums[CH];
 #pragma unroll
-      for (int c = 0; c < CH; ++c) sums[c] = tree_sum(v[c][0], v[c][1]);
-      if (lane == 0) {
+    for (int c = 0; c < CH; ++c) sums[c] = tree_sum(v[c][0], v[c][1]);
+    if (lane == 0) {
 #pragma unroll
-        for (int c = 0; c < CH; ++c) S.sx[c][i] = sums[c];
-      }
+      for (int c = 0; c < CH; ++c) S.sx[c][i] = sums[c];
     }
   }
   __syncthreads();
@@ -877,14 +677,13 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();
 
   // ---- fit: the three directions
-  fit_direction<CH, LOGC>(P, S, a, nl, 1, S_DIRA, X);
-  fit_direction<CH, LOGC>(P, S, a, nl, 2, S_DIRB, X);
-  if (CH == 4) fit_direction<CH, LOGC>(P, S, a, nl, 3, S_DIRC, X);
+  fit_direction<CH, LOGC>(P, S, a, nl, 1, S_DIRA);
+  fit_direction<CH, LOGC>(P, S, a, nl, 2, S_DIRB);
+  if (CH == 4) fit_direction<CH, LOGC>(P, S, a, nl, 3, S_DIRC);
 
   // ---- fit: factor extremes (min as -max(-x)); order-free, so each lane
-  // folds its chunks before one warp reduction (a spread region: each warp
-  // its eighth of the chunks, the warps' extremes then folded in X)
-  for (int ai = spread<LOGC>() ? 0 : warp; ai < na; ai += count_step) {
+  // folds its chunks before one warp reduction
+  for (int ai = warp; ai < na; ai += kSegWarps) {
     const int i = S.act[ai];
     FitRegion<CH> r;
     r.load(S, i, CH == 4 ? 3 : 2);
@@ -897,9 +696,9 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     }
     const float inv_c = inv_or_zero(dot_self<CH>(r.dir_c));
 #pragma unroll 1
-    for (int k = k_lo; k < k_hi; ++k) {
+    for (int k = 0; k < kChunks; ++k) {
       Pixels<CH> p;
-      load_pixels<CH, LOGC>(P, (size_t)(a + i), k, lane, p, logc);
+      load_pixels<CH, LOGC>(P, (size_t)(a + i), k, lane, p);
       FitSteps<CH> fs;
       fs.center(p, r.avg);
       fs.axis_a(p, r.avg, r.dir_a);
@@ -920,27 +719,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
       mn[e] = warp_min(mn[e]);
       mx[e] = warp_max(mx[e]);
     }
-    if constexpr (spread<LOGC>()) {
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          X->ext[warp][k] = -mn[k];
-          X->ext[warp][3 + k] = mx[k];
-        }
-      }
-      __syncthreads();
-      if (tid < 6) {
-        float x = X->ext[0][tid];
-#pragma unroll
-        for (int w = 1; w < kSegWarps; ++w) x = fmaxf(x, X->ext[w][tid]);
-        S.sx[tid][i] = x;
-      }
-      if (CH == 3 && tid == 0) {
-#pragma unroll
-        for (int c = 0; c < CH; ++c) putf(S, S_DIRC + c, i, r.dir_c[c]);
-      }
-      __syncthreads();
-    } else if (lane == 0) {
+    if (lane == 0) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         S.sx[k][i] = -mn[k];
@@ -964,7 +743,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();
 
   // ---- fit: endpoints, factors (to the scratch plane), endpoint and avg rows
-  for (int ai = spread<LOGC>() ? 0 : warp; ai < na; ai += count_step) {
+  for (int ai = warp; ai < na; ai += kSegWarps) {
     const int i = S.act[ai];
     const size_t b = (size_t)(a + i);
     FitRegion<CH> r;
@@ -975,17 +754,17 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     int ep[6][CH];
     round_endpoints<CH>(S.st[S_COUNT][i], r.avg, r.dir_a, r.dir_b, r.dir_c, mn, mx, ep);
 #pragma unroll 1
-    for (int k = k_lo; k < k_hi; ++k) {
+    for (int k = 0; k < kChunks; ++k) {
       Pixels<CH> p;
-      load_pixels<CH, LOGC>(P, b, k, lane, p, logc);
+      load_pixels<CH, LOGC>(P, b, k, lane, p);
       int f8[3][2];
       extract_factors<CH>(p, ep, f8);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        P.f8[pixel_at<LOGC>(b, k, lane, j, logc)] = f8[0][j] | (f8[1][j] << 8) | (f8[2][j] << 16);
+        P.f8[pixel_at<LOGC>(b, k, lane, j)] = f8[0][j] | (f8[1][j] << 8) | (f8[2][j] << 16);
     }
     drop_axes<CH>(ep, P.num_factors);
-    if (lane < CH && (!spread<LOGC>() || warp == 0)) {
+    if (lane < CH) {
       // lane c writes channel c of the six endpoint rows and avg
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
@@ -1008,7 +787,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();
   const bool floors = P.crush_mode != kNone && P.num_factors < 3;
   if (floors) {
-    eval_batch<CH, LOGC>(P, S, X, a, nl, 1, [](int, int, int (&s)[3]) { s[0] = s[1] = s[2] = 0; });
+    eval_batch<CH, LOGC>(P, S, a, nl, 1, [](int, int, int (&s)[3]) { s[0] = s[1] = s[2] = 0; });
     for (int i = tid; i < nl; i += kSegThreads) {
       S.st[S_FPIX][i] = S.acc[0][S.seg[i]];
       S.st[S_FBLK][i] = S.acc[kBatch][S.seg[i]];
@@ -1024,7 +803,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
         s[1] = ((i0 + c) / 9) % 9;
         s[2] = (i0 + c) % 9;
       };
-      eval_batch<CH, LOGC>(P, S, X, a, nl, kBatch, triple);
+      eval_batch<CH, LOGC>(P, S, a, nl, kBatch, triple);
       for (int i = tid; i < nl; i += kSegThreads) {
         const SegAdm adm = seg_adm(P, S, i, floors);
         for (int c = 0; c < kBatch; ++c) {
@@ -1036,7 +815,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
       __syncthreads();
     }
   } else if (P.crush_mode == kGuess) {
-    eval_batch<CH, LOGC>(P, S, X, a, nl, 4, [](int, int c, int (&s)[3]) { guess_triple(c, s); });
+    eval_batch<CH, LOGC>(P, S, a, nl, 4, [](int, int c, int (&s)[3]) { guess_triple(c, s); });
     for (int i = tid; i < nl; i += kSegThreads) {
       const SegAdm adm = seg_adm(P, S, i, floors);
       bool ok[4];
@@ -1051,7 +830,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   } else if (P.crush_mode == kLadder) {
     // 27 per-axis sweeps, one axis per batch -> the ladder box
     for (int ax = 0; ax < 3; ++ax) {
-      eval_batch<CH, LOGC>(P, S, X, a, nl, kBatch, [ax](int, int c, int (&s)[3]) {
+      eval_batch<CH, LOGC>(P, S, a, nl, kBatch, [ax](int, int c, int (&s)[3]) {
         s[0] = s[1] = s[2] = 0;
         s[ax] = c;
       });
@@ -1108,7 +887,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     for (int r0 = 0; r0 < P.ladder_k; r0 += kBatch) {
       const int nc = min(kBatch, P.ladder_k - r0);
       const auto cand = [&S, r0](int i, int c, int (&s)[3]) { unpack3(S.st[S_CAND + r0 + c][i], s); };
-      eval_batch<CH, LOGC>(P, S, X, a, nl, nc, cand);
+      eval_batch<CH, LOGC>(P, S, a, nl, nc, cand);
       for (int i = tid; i < nl; i += kSegThreads) {
         const SegAdm adm = seg_adm(P, S, i, floors);
         for (int c = 0; c < nc; ++c) {
@@ -1122,7 +901,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   }
 
   // ---- dither, decode and the outputs
-  for (int ai = spread<LOGC>() ? 0 : warp; ai < na; ai += count_step) {
+  for (int ai = warp; ai < na; ai += kSegWarps) {
     const int i = S.act[ai];
     const size_t b = (size_t)(a + i);
     Block<CH> blk;
@@ -1135,57 +914,40 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     int cnt = 0;
     // chunk k's outputs; its pixels' errors in err
     const auto decode_chunk = [&](int k, float (&err)[2]) {
-      load_crush_chunk<CH, LOGC>(P, b, k, lane, blk, logc);
+      load_crush_chunk<CH, LOGC>(P, b, k, lane, blk);
       int q[3][2], dec[CH][2];
       dither_decode_chunk<CH>(blk, best, P.dither != 0, P.key, (uint32_t)P.blocks[b], k,
-                              kP << logc, lane, q, dec, err);
+                              kP << LOGC, lane, q, dec, err);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const size_t at = pixel_at<LOGC>(b, k, lane, j, logc);
+        const size_t at = pixel_at<LOGC>(b, k, lane, j);
         if (P.q != nullptr) P.q[at] = q[0][j] | (q[1][j] << 8) | (q[2][j] << 16);
         P.dec[at] = pack_decoded<CH>(dec, j);
       }
       cnt += blk.mask[0] + blk.mask[1];
     };
-    if constexpr (spread<LOGC>()) {
-      float dist[1];
-      spread_sum<1>(*X, logc, [&](int k, float (&v)[1][2]) { decode_chunk(k, v[0]); }, dist);
-      cnt = __reduce_add_sync(kFull, cnt);
-      if (lane == 0) atomicAdd(&X->cnt, cnt);
-      __syncthreads();
-      if (tid == 0) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) P.shifts[(size_t)k * P.n + b] = best[k];
-        P.dist_blk[b] = dist[0];
-        P.count_blk[b] = X->cnt;
-        P.count_mem[b] = blk.count;
-        X->cnt = 0;
-      }
-      __syncthreads();
-    } else {
-      ChunkTree<LOGC, 1> tree;
-      float err_v[1][2];
+    ChunkTree<LOGC, 1> tree;
+    float err_v[1][2];
 #pragma unroll 1
-      for (int t = 0; t < kChunks; ++t) {
-        decode_chunk(chunk_at<LOGC>(t), err_v[0]);
-        tree.fold(t, err_v);
-      }
-      const float dist = tree_sum(err_v[0][0], err_v[0][1]);
-      cnt = __reduce_add_sync(kFull, cnt);
-      if (lane == 0) {
+    for (int t = 0; t < kChunks; ++t) {
+      decode_chunk(chunk_at<LOGC>(t), err_v[0]);
+      tree.fold(t, err_v);
+    }
+    const float dist = tree_sum(err_v[0][0], err_v[0][1]);
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (lane == 0) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) P.shifts[(size_t)k * P.n + b] = best[k];
-        P.dist_blk[b] = dist;
-        P.count_blk[b] = cnt;
-        P.count_mem[b] = blk.count;
-      }
+      for (int k = 0; k < 3; ++k) P.shifts[(size_t)k * P.n + b] = best[k];
+      P.dist_blk[b] = dist;
+      P.count_blk[b] = cnt;
+      P.count_mem[b] = blk.count;
     }
   }
 }
 
 template <int CH, int LOGC>
 int launch_segment_encode(const SegParams& P, cudaStream_t st) {
-  const size_t smem = sizeof(SegShared) + (spread<LOGC>() ? sizeof(SpreadShared) : 0);
+  const size_t smem = sizeof(SegShared);
   cudaError_t err = cudaFuncSetAttribute(segment_encode_kernel<CH, LOGC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

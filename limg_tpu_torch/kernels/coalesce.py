@@ -31,10 +31,10 @@ versions.
   and ``kernels/crush_eval.py``.
 
 On a CUDA tensor each wrapper launches ``csrc/coalesce.cu`` (the segment
-encode at P > 64: ``csrc/segment_region.cu``, a region over one warp up to
-P = 4096 and over the CTA's warps above; each built at first use) or
-raises; on a CPU tensor it runs the plain version. The two agree bit for
-bit on the card.
+encode at P > 64: ``csrc/segment_region.cu``, from P = 1024 on a
+thread-block cluster a segment; each built at first use) or raises; on a
+CPU tensor it runs the plain version. The two agree bit for bit on the
+card.
 """
 
 from __future__ import annotations
@@ -154,10 +154,11 @@ def _library(name: str = "coalesce"):
         lib.limg_seg_scan.argtypes = [ptr, i32, ptr]
         segment = lib.limg_segment_encode
         fns = [lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan, segment]
+        segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 10
     else:
         segment = lib.limg_segment_encode_region
+        segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 11
         fns = [segment]
-    segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 10
     for fn in fns:
         fn.restype = i32
     lib.limg_cuda_error_string.argtypes = [i32]
@@ -488,10 +489,7 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
                         count_blk=empty(n), count_mem=empty(n), eps=empty(6, ch, n),
                         avg=empty(ch, n, dtype=torch.float32))
     if n:
-        region = p != BLOCK_AREA
-        _launch(segment_kernel_name(p),
-                "limg_segment_encode_region" if region else "limg_segment_encode", dev,
-                packed_bm.data_ptr(), mask_bm.data_ptr(), seg_c.contiguous().data_ptr(),
+        args = (packed_bm.data_ptr(), mask_bm.data_ptr(), seg_c.contiguous().data_ptr(),
                 blocks.contiguous().data_ptr(), n, p, ch,
                 _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
                 int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
@@ -499,6 +497,13 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
                 f8_bm.data_ptr(), out.shifts.data_ptr(),
                 None if out.q is None else out.q.data_ptr(), out.dec.data_ptr(),
                 out.dist_blk.data_ptr(), out.count_blk.data_ptr(), out.count_mem.data_ptr(),
-                out.eps.data_ptr(), out.avg.data_ptr(),
-                library="segment_region" if region else "coalesce")
+                out.eps.data_ptr(), out.avg.data_ptr())
+        if p == BLOCK_AREA:
+            _launch(segment_kernel_name(p), "limg_segment_encode", dev, *args)
+        else:
+            # from P = 1024 on: the segments with a member pixel, listed on
+            # the card, and two counters
+            scratch = empty(4 * n + 2)
+            _launch(segment_kernel_name(p), "limg_segment_encode_region", dev, *args,
+                    scratch.data_ptr(), library="segment_region")
     return out._replace(q=None if out.q is None else out.q.t(), dec=out.dec.t())

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, LARGE_REGION_LANES, LARGE_SEGMENT_SPANS,
-                        LARGE_SETTINGS, RAGGED_SIZES, SEGMENT_LANES, region_edge_buffers,
-                        region_run_buffer, seeded_rows, seeded_run_buffer, seg_map, small_image,
-                        with_alpha)
+                        LARGE_SETTINGS, RAGGED_SIZES, ROUNDS_PIXELS, ROUNDS_SETTINGS,
+                        SEGMENT_LANES, every_lane_a_member,
+                        region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
+                        seg_map, small_image, with_alpha)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
@@ -532,6 +533,92 @@ def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_f
         assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
 
 
+def _cluster_edge_buffer(case, channels, device):
+    """(P, buffer) of a case at the cluster design's edges."""
+    rng = np.random.default_rng(len(case) + channels)
+    if case == "every lane a member, one a segment":
+        return 1024, every_lane_a_member(rng, 1024, 48, channels, device)
+    if case == "a SEG_CAP-region segment at P = 4096":
+        return 4096, region_run_buffer(rng, 4096, 259, channels, device, spans=[1, 256, 2],
+                                       empty_tail=2, saturate=True)
+    if case == "single regions at P = 65,536":
+        return 65536, every_lane_a_member(rng, 65536, 3, channels, device)
+    if case == "single regions at P = 262,144":
+        return 262144, every_lane_a_member(rng, 262144, 2, channels, device)
+    assert case == "a saturated region, its error sum wrapping"
+    return 65536, region_run_buffer(rng, 65536, 4, channels, device, spans=[1, 3],
+                                    saturate=True)
+
+
+@pytest.mark.parametrize("mode,num_factors,dithering", [
+    ("ladder", 3, True), ("ladder", 1, False), ("exhaustive", 2, True), ("guess", 3, False),
+    ("none", 3, True),
+])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("case", [
+    "every lane a member, one a segment", "a SEG_CAP-region segment at P = 4096",
+    "single regions at P = 65,536", "single regions at P = 262,144",
+    "a saturated region, its error sum wrapping",
+])
+def test_segment_encode_kernel_at_cluster_edges(device, case, channels, mode, num_factors,
+                                                dithering):
+    """The cluster design (csrc/segment_cluster.cuh) where its plan changes:
+    the most listed segments, a segment whose regions a warp streams
+    through its stage, a region over every warp of a 16-CTA cluster, and a
+    saturated region whose int32 block-error sum wraps."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    p, buf = _cluster_edge_buffer(case, channels, device)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    name = kc.segment_kernel_name(p)
+    before = kc.launches[name]
+    got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+    want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
+    torch.cuda.synchronize(device)
+    assert kc.launches[name] == before + 1
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
+
+
+@pytest.mark.parametrize("mode,num_factors,dithering", ROUNDS_SETTINGS)
+@pytest.mark.parametrize("channels", [3, 4])
+def test_segment_encode_kernel_over_rounds_of_items(device, channels, mode, num_factors,
+                                                    dithering):
+    """The cluster design at level 9 (P = 16,777,216), where a region has
+    more items than a 16-CTA cluster has warps and its items take several
+    rounds: a saturated single-region segment whose int32 error sum wraps,
+    and a segment of two regions."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    buf = region_run_buffer(np.random.default_rng(channels), ROUNDS_PIXELS, 3, channels, device,
+                            spans=[1, 2], saturate=True)
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    name = kc.segment_kernel_name(ROUNDS_PIXELS)
+    before = kc.launches[name]
+    got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+    want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
+    torch.cuda.synchronize(device)
+    assert kc.launches[name] == before + 1
+    for f in got._fields:
+        assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
+
+
+def test_ten_level_dense_encode_on_card_equals_cpu(device):
+    """No cap on P: a 10-level dense encode (levels 4-9 a 1x1 grid, the
+    segment encode up to P = 16,777,216) on the card equals its run on the
+    CPU bit for bit."""
+    img = mrec.fused_band_image()
+    cfg = EncodeConfig(error_factor=100)
+    card, cpu = (limg_tpu_torch.encode_image_merged(img, cfg, num_levels=10, fused=False,
+                                                    device=dev) for dev in (device, "cpu"))
+    assert len(card["alive_counts"]) == 10
+    for key in ("decoded", "factors", "shift", "bpp", "region_id", "owner_px", "alive_counts"):
+        np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
+    assert card["psnr"] == cpu["psnr"] and card["n_runs"] == cpu["n_runs"]
+
+
 @pytest.mark.parametrize("p", [16384, 65536])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_large_region_kernel_matches_plain_version(device, p, channels):
@@ -565,9 +652,9 @@ def test_large_region_kernel_matches_plain_version(device, p, channels):
 @pytest.mark.parametrize("p", [16384, 65536])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_large_segment_kernel_matches_plain_version(device, p, channels):
-    """The segment encode's spread kernel (a region over the CTA's 8 warps)
-    on segments of one and of several regions, a tail of lanes with no
-    member and a saturated region, and with no member at all."""
+    """The segment encode at P = 16,384 and 65,536 (a cluster of 16 CTAs a
+    segment) on segments of one and of several regions, a tail of lanes
+    with no member and a saturated region, and with no member at all."""
     from limg_tpu_torch.kernels import coalesce as kc
 
     rng = np.random.default_rng(p + channels)

@@ -22,7 +22,8 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
   whose difference is the wrapper's copies and glue) side by side:
   ``encode_fixed_p64`` on the fixed grid's 129,600 blocks and
   ``encode_region`` on the RD levels' 32,400 / 8,160 / 2,040 regions of
-  256 / 1,024 / 4,096 pixels, each also with ``crush_mode="none"`` (which
+  256 / 1,024 / 4,096 pixels and the dense levels' 510 / 135 of 16,384 /
+  65,536, each also with ``crush_mode="none"`` (which
   prices the search against the fit); ``fit_levels`` at 3 levels and at 2
   (the price of a level), ``fit_levels_natural``, ``owner_crush`` (ladder
   K = 8, and with ``crush_mode="none"``, which prices the search),
@@ -44,19 +45,24 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
   (``crush_eval_rows sweep cands copy``), and the composed pass as a whole
   (``composed coalesce pass``: the pass's device busy, and the
   ``crush_eval`` kernels' time in it; held bit-equal to the segment
-  kernel's pass); with a baseline, the two builds in turns (baseline, this,
-  this, baseline);
+  kernel's pass); ``segment_encode`` on the dense path's own buffers
+  (``segment_encode P=... dense``: P = 256 / 1024 / 4096 captured from a
+  4-level ``encode_image_merged(fused=False)``, P = 16,384 / 65,536 from a
+  6-level one; its bound, chip_smoke.py ``kernel_bound``, beside it); with
+  a baseline, the two builds in turns (baseline, this, this, baseline);
 - the run buffer's segment lengths (how many segments and 128-lane tiles
   hold more than 32 members), and how many blocks own at each level (the
   fit's ``owner``) and how many 3-level squares hold an owner of level 2;
 - the fixed-grid step (``encode_perf_step``), the default merged step, the
   natural default step (``fused_merged_pre``, the capacity read,
   ``fused_merged_finish``) and the RD step (``fused_rd_pre``, the capacity
-  read, ``fused_rd_finish``) by events and by the profiler's device busy
-  time, with each build;
+  read, ``fused_rd_finish``) and the dense 3- and 5-level steps
+  (``encode_image_merged_device``, full run capacity, as chip_smoke.py
+  phases 4f / 4h) by events and by the profiler's device busy time, with
+  each build;
 - the 4K encodes of the fixed grid and of every merged path (Morton with
-  and without coalescing, natural, RD at 3 and 4 levels) with dithering
-  off, with each build: PSNR, bpp, the decoded image's sum, and for the
+  and without coalescing, natural, RD at 3 and 4 levels, the dense path at
+  4 and 6 levels) with dithering off, with each build: PSNR, bpp, the decoded image's sum, and for the
   merged paths the runs and the blocks whose owner level differs from the
   JAX package's recorded default encode
   (tests/fixtures/torch_port_coalesce_reference.npz).
@@ -64,7 +70,9 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
 The baseline runs as its own package (its wrappers, glue and kernels,
 imported under another module name), on inputs made by this checkout, so
 a change of a kernel's C interface or of its callers is compared as a
-whole. Writes the numbers as JSON to FILE (default
+whole; with a baseline, the SASS (``cuobjdump -sass``) of the segment
+encode at P = 64 (``coalesce.cu``) of each build, compared instruction by
+instruction. Writes the numbers as JSON to FILE (default
 build/profile_kernels.json). Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -243,6 +251,47 @@ def profiled(fn, device, pattern: str | None) -> tuple[float, float]:
     return kern / PROFILED / 1e3, busy / PROFILED / 1e3
 
 
+def sass_functions(build, library: str, pattern: str) -> dict:
+    """{mangled name: its SASS instructions, addresses and encodings dropped}
+    of the functions of a built library whose name matches ``pattern``."""
+    so = build.BUILD_DIR / f"lib{library}_{build.source_digest(library)}.so"
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            if name:
+                out[name] = []
+            continue
+        ins = re.sub(r"/\*.*?\*/", "", ln).strip()
+        if name and ins and not ins.startswith("."):
+            out[name].append(ins)
+    return out
+
+
+def compare_sass(builds) -> dict:
+    """The segment encode at P = 64 of each build: instructions, and the
+    lines that differ between the two."""
+    pattern = r"segment_encode_kernelILi[34]ELi0E"
+    # the anonymous namespace's mangled name carries a hash of the source's path
+    sass = {w: {re.search(pattern + r".*", fn).group(0): ins
+                for fn, ins in sass_functions(b.build, "coalesce", pattern).items()}
+            for w, b in builds.items()}
+    out = {}
+    for fn, ins in sass["this"].items():
+        base = sass.get("baseline", {}).get(fn)
+        diff = None if base is None else (sum(a != b for a, b in zip(ins, base))
+                                          + abs(len(ins) - len(base)))
+        out[fn] = {"this": len(ins), "baseline": None if base is None else len(base),
+                   "differing_lines": diff}
+        log(f"  SASS {fn}: {len(ins)} instructions, baseline "
+            f"{'-' if base is None else len(base)}, differing lines {diff}")
+    return out
+
+
 def segment_lengths(seg) -> dict:
     seg = seg.cpu().numpy()
     starts = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1]])
@@ -274,7 +323,8 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this tool needs a CUDA card")
-    from chip_smoke import compare_outputs, image_run_buffer, run_text, seg_map
+    from chip_smoke import (capture_coalesce_calls, compare_outputs, image_run_buffer,
+                            kernel_bound, run_text, seg_map)
     from limg_tpu_torch import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor, _packed_blocks
     from limg_tpu_torch.ops import layout
@@ -294,10 +344,13 @@ def main():
     for which, b in builds.items():
         for name, lines in b.ptxas.items():
             for ln in lines:
-                if re.search(r"encode_|fit_levels|owner_crush|match_|seg_scan|crush_eval", ln):
+                if re.search(r"encode_|fit_levels|owner_crush|match_|seg_scan|crush_eval|segment_",
+                             ln):
                     log(f"  ptxas {which} {name}: {ln}")
     result = {"card": smi, "ptxas": {w: b.ptxas for w, b in builds.items()}, "kernels": {},
-              "steps": {}, "encodes": {}, "segments": {}, "owners": {}}
+              "steps": {}, "encodes": {}, "segments": {}, "owners": {}, "bounds": {}}
+    if args.baseline:
+        result["sass"] = compare_sass(builds)
     fx = np.load(COALESCE_FIXTURE)
     images = case_images(2160, 3840)
     nb = 270 * 480
@@ -347,6 +400,12 @@ def main():
             out = P.pkg.fused_merged_finish(state, cfg, 0, 3, False, cap, fused_layout=layout)
             return out["total_err"], out["mean_bpp"]
 
+        def dense_step(P, levels):
+            # as chip_smoke.py phases 4f / 4h time it
+            out = P.pkg.encode_image_merged_device(img_d, cfg, num_levels=levels,
+                                                   emit_planes=False, cap_frac=1, device=device)
+            return out["total_err"], out["mean_bpp"]
+
         def rd_step(P):
             state = P.pkg.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, 3, need_q=False, device=device)
             cap = P.pkg.auto_run_capacity(int(state["n_run_blocks"]), nb)
@@ -382,10 +441,10 @@ def main():
             f"{[a[4].shape[0] for a in ce_calls]}, N = {sweep[0].shape[1]}, sweep cands "
             f"strides {sweep[4].stride()}")
 
-        # the fixed grid's blocks and the RD levels' regions, as the RD step
-        # encodes them (endpoints emitted)
+        # the fixed grid's blocks, the RD levels' regions, as the RD step
+        # encodes them (endpoints emitted), and the dense path's levels 4 and 5
         regions = {64: _packed_blocks(img_d)[:2]}
-        for side in (16, 32, 64):
+        for side in (16, 32, 64, 128, 256):
             regions[side * side] = layout.blockify_words(words, side)[:2]
         # name: (call of a build, kernel name pattern, plain version or None)
         calls = {}
@@ -394,7 +453,7 @@ def main():
             for tag, c in (("", cfg), (" crush none", cfg_none)):
                 calls[name + tag] = (
                     lambda P, rp=rp, rm=rm, c=c: P.kf.encode_blocks_kernel(rp, rm, c, 0, True),
-                    r"encode_(fixed_p64|region)_kernel",
+                    r"encode_(fixed_p64|region|region_chunked)_kernel",
                     lambda rp=rp, rm=rm, c=c: kf.encode_blocks_reference(rp, rm, c, 0, True))
         calls.update({
             "fit_levels L3": (lambda P: P.km.fit_levels_kernel(words, cfg, 3),
@@ -445,6 +504,27 @@ def main():
                 lambda P: P.kc.segment_encode_kernel(*cut, cfg, 0x5EED), r"segment_encode_kernel",
                 lambda: kc.segment_encode_reference(*cut, cfg, 0x5EED)),
         })
+        # the segment encode on the dense path's level buffers at P > 64
+        for levels, sizes in ((4, (256, 1024, 4096)), (6, (16384, 65536))):
+            captured = capture_coalesce_calls(lambda: this.pkg.encode_image_merged(
+                img_d, cfg, num_levels=levels, fused=False, fetch_planes=False, device=device))
+            for a, kw in captured["segment_encode_kernel"]:
+                p = a[0].shape[0]
+                name = f"segment_encode P={p} dense"
+                if p not in sizes or name in calls:
+                    continue
+                calls[name] = (lambda P, a=a, kw=kw: P.kc.segment_encode_kernel(*a, **kw),
+                               r"segment_(encode|cluster|prep)_kernel",
+                               lambda a=a, kw=kw: kc.segment_encode_reference(*a, **kw))
+                got = kc.segment_encode_kernel(*a, **kw)
+                members = int(a[1].any(dim=0).sum())
+                bound = kernel_bound("segment_encode", a, got)
+                result["bounds"][f"{lane} {name}"] = {"lanes": int(a[0].shape[1]),
+                                                      "member_lanes": members,
+                                                      "bound_ms": bound[0], "bound_by": bound[1]}
+                log(f"  4K {lane} {name}: {a[0].shape[1]} lanes, {members} with a member pixel, "
+                    f"bound {bound[0]!r} ms ({bound[1]})")
+
         def tensors(out):
             if isinstance(out, torch.Tensor):
                 return [out]
@@ -482,7 +562,9 @@ def main():
         steps = {"fixed-grid step": lambda P: P.encoder.encode_perf_step(img_d, cfg, 0, device),
                  "default merged step": step,
                  "natural default step": lambda P: step(P, "natural"),
-                 "RD step": rd_step}
+                 "RD step": rd_step,
+                 "dense 3-level step": lambda P: dense_step(P, 3),
+                 "dense 5-level step": lambda P: dense_step(P, 5)}
         for name, fn in steps.items():
             rows = []
             for which in turns:
@@ -512,6 +594,8 @@ def main():
             "natural default": dict(fused_layout="natural"),
             "rd": dict(merge_policy="rd", rd_lambda=RD_LAMBDA),
             "rd 4 levels": dict(merge_policy="rd", rd_lambda=RD_LAMBDA, num_levels=4),
+            "dense 4 levels": dict(fused=False, num_levels=4),
+            "dense 6 levels": dict(fused=False, num_levels=6),
         }
         for path, kw in paths.items():
             rows = []

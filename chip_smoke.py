@@ -70,17 +70,19 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    dithering off and on;
 2g. the same for the region encode and the segment encode at P = 16,384,
    65,536 and 262,144 (the dense path's 128x128, 256x256 and 512x512 px
-   regions: the chunked region encode, the segment encode's 16-CTA
-   clusters): seeded buffers with all- and half-masked regions and a
-   saturated region whose pre-scaled error sum wraps int32, a ragged
-   image's grid and that grid with an all-masked row and column, segments
-   of one and several regions with an empty tail, no member at all,
-   single-region segments whose every pixel is a member (a region over
-   every warp of a cluster); RGB and RGBA, ladder, exhaustive, guess and no
-   crush, num_factors 1-3, dithering off and on; and the segment encode at
-   level 9 (P = 16,777,216), whose regions take several rounds of a
-   cluster's warps: a saturated single-region segment and one of two
-   regions, ladder, guess and no crush;
+   regions: the region encode's clusters of 1, 4 and 16 CTAs, the
+   segment encode's 16-CTA clusters): seeded buffers with all- and
+   half-masked regions and a saturated region whose pre-scaled error sum
+   wraps int32, a ragged image's grid and that grid with an all-masked
+   row and column, a buffer of one region at P = 65,536 (one cluster),
+   segments of one and several regions with an empty tail, no member at
+   all, single-region segments whose every pixel is a member (a region
+   over every warp of a cluster); RGB and RGBA, ladder, exhaustive, guess
+   and no crush, num_factors 1-3, dithering off and on; and both encodes
+   at level 9 (P = 16,777,216: the segment encode's regions take several
+   rounds of a cluster's warps, the region encode's CTAs read their shares
+   from device memory pass by pass): a saturated single-region segment and
+   one of two regions, ladder, guess and no crush;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
@@ -169,9 +171,9 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    table and the verified per-block triples) with their bounds, and the
    composed pass against the segment kernel's; 4f times ``segment_encode``
    at the dense levels' 4K buffers (P = 256, 1024, 4096) and the dense
-   3-level step; 4h the region encode at the 4K image's level-4 and level-5
-   regions, the segment encode on a 6-level encode's level-4 and level-5
-   buffers, and the dense 5-level step (4K RGB);
+   3-level step; 4h the region encode at the 4K image's level-4, level-5
+   and level-6 regions, the segment encode on a 6-level encode's level-4
+   and level-5 buffers, and the dense 5-level step (4K RGB);
 4g. the 8 x 1080p fixed-grid corpus (one launch) against 8
    ``encode_perf_step`` calls, its device memory and device time per
    image, its kernel on the shard against its plain version and bound, the
@@ -251,6 +253,9 @@ DENSE_KERNELS = RD_KERNELS + tuple(f"segment_encode_p{p}" for p in SEGMENT_SIZES
 LEVEL_SIZES = (16384, 65536)
 LEVELS_KERNELS = DENSE_KERNELS + tuple(f"{k}_p{p}" for k in ("encode_region", "segment_encode")
                                        for p in LEVEL_SIZES)
+# phase 4h times the region encode also at level 6 (512x512 px, P = 262,144:
+# 40 regions at 4K), which no encode of phase 3i reaches
+TIMED_REGION_SIZES = LEVEL_SIZES + (262144,)
 # 4K encodes at 5 and 6 levels against the JAX fixture: per-block owners and
 # run flags
 LEVELS_AGREE = 0.999
@@ -1769,7 +1774,7 @@ def phase_compare_segment_regions(device) -> float:
 
 
 # the dense path's levels 4-6 (128x128, 256x256 and 512x512 px regions):
-# the region encode's chunked kernel and the segment encode's <CH, 8> ones
+# the region encode's cluster kernel and the segment encode's <CH, 8> ones
 LARGE_SIZES = (16384, 65536, 262144)
 LARGE_REGION_LANES = {16384: 10, 65536: 5, 262144: 3}
 # a segment of one region, one of several, and a tail of lanes with no member
@@ -1779,7 +1784,9 @@ LARGE_SETTINGS = [("ladder", 3, False), ("ladder", 3, True), ("ladder", 1, True)
 # a ragged image: at each size a grid cut by both edges (300 x 700 px)
 LARGE_IMAGE = (300, 700)
 # level 9's regions, each more items than a 16-CTA cluster has warps (the
-# segment encode takes them in rounds), and the settings held there
+# segment encode takes them in rounds; the region encode's CTAs read their
+# shares of 256 chunks from device memory pass by pass), and the settings
+# held there
 ROUNDS_PIXELS = 64 << 18
 ROUNDS_SETTINGS = [("ladder", 3, True), ("ladder", 1, False), ("guess", 3, False),
                    ("none", 3, True)]
@@ -1794,8 +1801,11 @@ def phase_compare_large(device) -> float:
     whose block-error sum wraps int32 at P >= 65,536), on a ragged image's
     grid and on that grid with an all-masked row and column; the segment
     encode on segments of one and of several regions with a tail of lanes
-    with no member, and with no member at all; the segment encode at P =
-    16,777,216 (several rounds of items a region). Max abs diff."""
+    with no member, and with no member at all; the region encode on a
+    buffer of one region at P = 65,536 (a single cluster); both encodes at
+    P = 16,777,216 (the segment encode's regions over several rounds of
+    items, the region encode's shares read from device memory). Max abs
+    diff."""
     import torch
     from limg_tpu_torch.config import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor
@@ -1825,6 +1835,9 @@ def phase_compare_large(device) -> float:
             words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
             seeded = region_run_buffer(rng, p, LARGE_REGION_LANES[p], ch, device, saturate=True)
             bufs = {"seeded": seeded[:2], **region_edge_buffers(words, p)}
+            if p == 65536:   # the seeded buffer's saturated lane 0 alone
+                bufs["one region, one cluster"] = tuple(t[:, :1].contiguous()
+                                                        for t in seeded[:2])
             for name, (packed, mask) in bufs.items():
                 for mode, nf, dith in LARGE_SETTINGS:
                     cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
@@ -1853,7 +1866,8 @@ def phase_compare_large(device) -> float:
             f"({time.perf_counter() - t0:.1f} s)")
     for ch in (3, 4):
         # a saturated single-region segment (its error sum wraps) and a
-        # segment of two regions, each region over several rounds of items
+        # segment of two regions, each region over several rounds of items;
+        # the region encode on the same three regions
         buf = region_run_buffer(rng, ROUNDS_PIXELS, 3, ch, device, spans=[1, 2], saturate=True)
         for mode, nf, dith in ROUNDS_SETTINGS:
             cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
@@ -1862,9 +1876,13 @@ def phase_compare_large(device) -> float:
                   f"dither={dith}", kc.segment_encode_kernel(*buf, cfg, 0x5EED),
                   kc.segment_encode_reference(*buf, cfg, 0x5EED))
             n_segment += 1
+            check(f"encode_region P={ROUNDS_PIXELS} ch={ch} {mode} nf={nf} dither={dith}",
+                  kmod.encode_blocks_kernel(*buf[:2], cfg, 7, emit_endpoints=True),
+                  kmod.encode_blocks_reference(*buf[:2], cfg, 7, emit_endpoints=True))
+            n_region += 1
         del buf
-    log(f"  P={ROUNDS_PIXELS}: {n_segment} segment cases so far bit-equal "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"  P={ROUNDS_PIXELS}: {n_region} region and {n_segment} segment cases so far "
+        f"bit-equal ({time.perf_counter() - t0:.1f} s)")
     log(f"phase 2g ok: {n_region} + {n_segment} cases, max abs diff {worst}")
     return worst
 
@@ -2435,9 +2453,10 @@ def profiled_kernel_name(key: str):
         return name + ("_natural" if targs[-1] == "true" else "")
     if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
         return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
-    # the chunked region encode and the segment encode's <CH, 8> instances
-    # run every P above 4096; the steps profiled run them at P = 16,384 alone
-    if name == "encode_region_chunked":
+    # the region encode's cluster kernel and the segment encode's <CH, 8>
+    # instances run every P above 4096; the steps profiled run them at P =
+    # 16,384 alone
+    if name == "encode_region_cluster":
         return "encode_region_p16384"
     # <CH, log2 of P / 64>: P = 256 on the one-warp template, P >= 1024 on
     # the cluster design's two kernels
@@ -2784,11 +2803,12 @@ def phase_timing_dense(device, smi: str):
 
 
 def phase_timing_levels(device, smi: str):
-    """The region encode (encode_region_p16384 / _p65536) on the 4K image's
-    level-4 and level-5 regions and the segment encode at P = 16,384 and
-    65,536 on the buffers of a 6-level dense encode (captured), each
-    against its plain version (also compared) and its bound; the dense
-    5-level step's events time, device busy and kernel launches (4K RGB)."""
+    """The region encode (encode_region_p16384 / _p65536 / _p262144) on the
+    4K image's level-4, level-5 and level-6 regions and the segment encode
+    at P = 16,384 and 65,536 on the buffers of a 6-level dense encode
+    (captured), each against its plain version (also compared) and its
+    bound; the dense 5-level step's events time, device busy and kernel
+    launches (4K RGB)."""
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
     from limg_tpu_torch.encoder import _as_image_tensor
@@ -2798,8 +2818,9 @@ def phase_timing_levels(device, smi: str):
     from limg_tpu_torch.regions import _words
     from tools.record_torch_reference import case_images
 
-    log("== phase 4h: region and segment encodes at P = 16,384 / 65,536 and the 5-level dense "
-        "step at 4K RGB (CUDA events, median of", TIMED_RUNS, "runs)")
+    log("== phase 4h: region encodes at P = 16,384 / 65,536 / 262,144, segment encodes at P = "
+        "16,384 / 65,536 and the 5-level dense step at 4K RGB (CUDA events, median of",
+        TIMED_RUNS, "runs)")
     img = case_images(2160, 3840)["rgb"]
     cfg = EncodeConfig(error_factor=100)
     img_d = _as_image_tensor(img, device)
@@ -2815,7 +2836,7 @@ def phase_timing_levels(device, smi: str):
             f"bound {bound[0]!r} ms ({bound[1]}), {bound[0] / min(k1, k2):.4f} of it [{smi}]")
 
     words = _words(img_d)
-    for p in LEVEL_SIZES:
+    for p in TIMED_REGION_SIZES:
         packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
         args = (packed, mask, cfg, 0)
         got = kmod.encode_blocks_kernel(*args, emit_endpoints=True)

@@ -2,8 +2,8 @@
 // (16x16, 32x32 and 64x64 pixels): the kernel template of
 // region_encode.cuh, a region over one warp, 4 warps or 16; and at every
 // larger P = 4096 * 4^m (128x128 pixels and up, the dense path's levels 4
-// and up), one CTA a region walking it chunk by chunk
-// (encode_region_chunked_kernel).
+// and up), a thread-block cluster of 1 to 16 CTAs a region, each CTA a
+// share of 4 chunks of 4096 (encode_region_cluster_kernel).
 //
 // Replaces the TPU kernel limg_tpu/pallas_kernels/encode_fixed.py:
 // encode_blocks_pallas (:808) at P > 64: the mono kernel _make_mono_kernel
@@ -14,7 +14,7 @@
 // merge policy (limg_tpu_torch/regions.py _encode_level). Above P = 4096
 // the TPU kernel has no geometry (_GEOM_FOR_P :76-77, looked up at :848):
 // the JAX package encodes those levels in jnp (limg_tpu/regions.py:191,
-// encode_blocks), whose function the chunked kernel computes.
+// encode_blocks), whose function the cluster kernel computes.
 // region_encode.cuh says what bounds them, what the design does about that,
 // and what bit-exactness with the plain PyTorch version rests on.
 
@@ -26,7 +26,9 @@ extern "C" {
 // `stream`. packed / mask are block-major (nb, p): int32 RGBA words and 0/1
 // bytes. Outputs: shifts (3, nb), q and dec block-major (nb, p) packed
 // words, dist (nb,), and, when eps is not null, eps (6, channels, nb) and
-// avg (channels, nb); above p = 4096, q first holds the fit's factors.
+// avg (channels, nb); above p = 262,144 (a CTA's share of more than 4
+// chunks, read from device memory pass by pass) q first holds the fit's
+// factors.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // another p).
 int limg_encode_region(const int32_t* packed, const uint8_t* mask, int nb, int p, int channels,
@@ -45,8 +47,8 @@ int limg_encode_region(const int32_t* packed, const uint8_t* mask, int nb, int p
       int logc = 0;
       while (logc < kMaxLogChunks && (kChunkPixels << logc) < p) logc += 2;
       if ((kChunkPixels << logc) != p) return (int)cudaErrorInvalidValue;
-      return channels == 4 ? launch_region_chunked<4>(a, logc, st)
-                           : launch_region_chunked<3>(a, logc, st);
+      return channels == 4 ? launch_region_large<4>(a, logc, st)
+                           : launch_region_large<3>(a, logc, st);
     }
   }
 }

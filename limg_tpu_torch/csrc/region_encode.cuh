@@ -3,7 +3,7 @@
 // level 0) and encode_region.cu (P = 256, 1024 and 4096: the RD and dense
 // levels' 16x16, 32x32 and 64x64 pixel regions, limg_tpu_torch/regions.py
 // _encode_level; and every larger P = 4096 * 4^m, the dense path's levels 4
-// and up, by encode_region_chunked_kernel at the end of this file).
+// and up, by encode_region_cluster_kernel at the end of this file).
 //
 // Replaces the TPU kernel limg_tpu/pallas_kernels/encode_fixed.py:
 // encode_blocks_pallas (:808) at every P: the mono kernel _make_mono_kernel
@@ -53,6 +53,7 @@
 
 #pragma once
 
+#include "cluster.cuh"
 #include "crush_search.cuh"
 
 namespace {
@@ -464,132 +465,309 @@ int launch_region(const Args& a, int channels, cudaStream_t st) {
 
 // ---------------------------------------------------------------------------
 // Regions of more than 4096 pixels (the dense path's levels 4 and up: 128x128
-// pixels and larger, P = 4096 * C, C = 4^m chunks)
+// pixels and larger, P = 4096 * C, C = 4^m chunks, m >= 1)
 // ---------------------------------------------------------------------------
 //
 // 8 pixels a thread would need P / 8 threads, more than a CTA has from P =
-// 16,384 on. So one CTA of the P = 4096 layout (16 warps) takes a whole
-// region and walks it as C chunks of 4096 pixels: thread t holds position q
-// = t + 512 j (j < 8) of every chunk, pixel k * 4096 + q of chunk k. Nothing
-// stays in registers between passes: each pass (the fit's sums, the factor
-// extremes, the factors, each candidate batch of the crush search, the
-// decode) reads the region's words again (from L2 while the level fits
-// there), the fit's factors going to the q output as scratch, which the
-// decode pass then overwrites pixel by pixel in the same thread.
+// 16,384 on. So a thread-block cluster of cs CTAs takes one region, each
+// CTA of the P = 4096 layout (16 warps, one CTA an SM), and CTA rank i
+// takes the pixels p with p mod cs = i: a subtree of the plain version's
+// halving tree x[:n/2] + x[n/2:], whose first log2(P / cs) levels pair p
+// with p + P / 2, ..., p + cs, inside the subtree. The CTA sees its subtree
+// (its share) as a region of P' = P / cs pixels, pixel p' = p / cs, walked
+// as C' = P' / 4096 chunks: thread t holds pixels p' = k * 4096 + t + 512 j
+// (j < 8) of chunk k. Each float sum keeps the subtree's tree: the chunks
+// of a position folded in bit-reversed order as a binary counter
+// (chunk_fold, as segment_encode.cuh's ChunkTree does; the partials in
+// registers), then the P = 4096 region's tree over the 4096 positions
+// (lane_tree, one exchange across the warps, butterflies). The tree's last
+// log2(cs) levels pair the CTAs' sums, rank i with i + cs / 2 first: each
+// CTA writes its sums into a slot of every CTA of the cluster (distributed
+// shared memory), and after one cluster barrier each folds the cs slots in
+// that order itself (ClusterExchange), so every CTA holds the region's
+// values and takes the same decisions. Integer totals (counts, the crush
+// search's pixel maxima and wrapping error sums) and the factor extremes go
+// the same way, in any order. The crush search is CrushLane's at level 3 (a
+// region of 16 warps): an axis's nine sweeps chunk by chunk (each chunk's
+// sweep_base made once), the other candidates one at a time over the
+// share's chunks; the ladder's box and keys, the peel and the choice are
+// CrushLane's own.
 //
-// The halving tree over P pixels pairs pixel p with p + P / 2, that is chunk
-// k with chunk k + C / 2 at the same position: each thread folds the C
-// chunks of each of its positions in that order (chunk_fold: the chunks
-// visited in bit-reversed order and folded as a binary counter, as
-// segment_encode.cuh's ChunkTree does, with a runtime depth), and the 4096
-// position sums then take the P = 4096 region's tree (lane_tree, one
-// exchange, butterflies). Integer totals and extremes are order-free. The
-// crush search is CrushLane's at level 3 (a region of 16 warps), each batch
-// of candidates evaluated on every chunk as it is read, each candidate's
-// lane maxima and wrapping error sums kept until the last chunk; the ladder's
-// box and keys, the peel and the choice are CrushLane's own.
-//
-// One CTA a region: a 4K level 4 is 510 CTAs, level 5 135, level 6 12; from
-// level 6 on most SMs idle (PERF.md).
+// The share is 4 chunks (cs = C / 4, at most 16), copied once into shared
+// memory (words, u8 factors and mask bytes: 36 KB a chunk) and read there
+// by every pass. A CTA pays ~9 cluster barriers and a region's search
+// decisions whatever its share; with shares of one chunk these, and code
+// that each CTA ran once, cost more than the tail they removed (PERF.md).
+// At 4K, levels 4-7 hold 510 / 135 / 40 / 12 regions of P = 16,384 /
+// 65,536 / 262,144 / 1,048,576: clusters of 1 / 4 / 16 / 16 CTAs, 510 /
+// 540 / 640 / 192 CTAs. From level 7 on a share of more than 4 chunks is
+// read from device memory by every pass, its factors kept in the q output
+// as scratch, which the decode pass then overwrites pixel by pixel in the
+// same thread.
 
 constexpr int kChunkPixels = 4096;
 constexpr int kMaxLogChunks = 18;   // C <= 2^18: P <= 2^30, pixel indices in int32
+constexpr int kMaxLogCluster = 4;   // clusters of at most 16 CTAs
+constexpr int kStageLog = 2;        // a CTA's share: 4 chunks, staged (144 KB)
+constexpr int kChunkInts = 9 * kChunkPixels / 4;   // a staged chunk: words, factors, mask bytes
+// the cluster exchange's slots: two sets of kBatchVals ints for each CTA
+constexpr int kSlots = 2 * kMaxCluster * kBatchVals;
 
-// The halving tree's levels over the C chunks at one position: f(k, v)
-// gives chunk k's N values there; out their tree sum.
-template <int N, class F>
+template <int CH>
+using ChunkLane = CrushLane<CH, 16, 3>;
+
+// The halving tree's levels over the 2^logc chunks at one position (logc <=
+// D): f(k, v) gives chunk k's N values there; out their tree sum. The
+// chunks come in bit-reversed order and fold as a binary counter.
+template <int D, int N, class F>
 __device__ __forceinline__ void chunk_fold(int logc, F f, float (&out)[N]) {
-  float part[kMaxLogChunks + 1][N];   // indexed at run time: local memory
+  float part[D + 1][N];
 #pragma unroll 1
   for (int t = 0; t < (1 << logc); ++t) {
-    f((int)(__brev((unsigned)t) >> (32 - logc)), out);
-    int l = 0;
-#pragma unroll 1
-    for (; (t >> l) & 1; ++l) {
+    f(bit_rev(t, logc), out);
+    bool open = true;
 #pragma unroll
-      for (int i = 0; i < N; ++i) out[i] = part[l][i] + out[i];
+    for (int l = 0; l <= D; ++l) {
+      if (open) {
+        if (l < logc && ((t >> l) & 1)) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) out[i] = part[l][i] + out[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < N; ++i) part[l][i] = out[i];
+          open = false;
+        }
+      }
     }
-#pragma unroll
-    for (int i = 0; i < N; ++i) part[l][i] = out[i];
   }
 }
 
-// The region's pixels in device memory, as thread t reads them.
-struct ChunkedRegion {
+// A CTA's share of the region as thread t reads it, pixel j (a compile-time
+// index) of chunk k: from the stage in shared memory (STAGED) or from device
+// memory.
+template <int CH, bool STAGED>
+struct Share {
   const int32_t* packed;
   const uint8_t* mask;
-  int32_t* f8;        // the fit's packed u8 factors (the q output as scratch)
+  int32_t* f8;        // in device memory: the fit's packed u8 factors (the q output as scratch)
+  int* stage;         // staged: chunk k's words, factors and mask bytes at kChunkInts * k
   size_t base;        // the region's first word
-  int t, logc;
+  int t, logc, cs, rank;   // logc: log2 of the share's chunks
 
-  __device__ __forceinline__ size_t at(int k, int j) const {
-    return base + (size_t)k * kChunkPixels + (size_t)(t + 512 * j);
+  // its index in the share, in the region, in the buffer
+  __device__ __forceinline__ int local(int k, int j) const {
+    return k * kChunkPixels + t + 512 * j;
   }
-  template <int CH>
-  __device__ __forceinline__ void pixel(int k, int j, float (&f)[CH], float& m) const {
-    const size_t i = at(k, j);
-    const uint32_t word = (uint32_t)packed[i];
+  __device__ __forceinline__ int pixel_index(int k, int j) const {
+    return cs * local(k, j) + rank;
+  }
+  __device__ __forceinline__ size_t at(int k, int j) const {
+    return base + (size_t)pixel_index(k, j);
+  }
+  __device__ __forceinline__ int* staged(int k) const { return stage + k * kChunkInts; }
+  __device__ __forceinline__ uint8_t* staged_mask(int k) const {
+    return reinterpret_cast<uint8_t*>(staged(k) + 2 * kChunkPixels);
+  }
+  __device__ __forceinline__ uint32_t word(int k, int j) const {
+    return (uint32_t)(STAGED ? staged(k)[t + 512 * j] : packed[at(k, j)]);
+  }
+  __device__ __forceinline__ bool member(int k, int j) const {
+    return (STAGED ? staged_mask(k)[t + 512 * j] : mask[at(k, j)]) != 0;
+  }
+  __device__ __forceinline__ int factors(int k, int j) const {
+    return STAGED ? staged(k)[kChunkPixels + t + 512 * j] : f8[at(k, j)];
+  }
+  __device__ __forceinline__ void set_factors(int k, int j, int w) const {
+    if (STAGED) staged(k)[kChunkPixels + t + 512 * j] = w;
+    else f8[at(k, j)] = w;
+  }
+  template <int N>
+  __device__ __forceinline__ void pixel(int k, int j, float (&f)[N], float& m) const {
+    const uint32_t w = word(k, j);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) f[c] = (float)((word >> (8 * c)) & 0xFFu);
-    m = mask[i] != 0 ? 1.0f : 0.0f;
+    for (int c = 0; c < N; ++c) f[c] = (float)((w >> (8 * c)) & 0xFFu);
+    m = member(k, j) ? 1.0f : 0.0f;
+  }
+  // the share's words and mask bytes into the stage (every thread of the
+  // CTA, before a barrier)
+  __device__ void fill() const {
+    if constexpr (STAGED) {
+#pragma unroll 1
+      for (int k = 0; k < (1 << logc); ++k) {
+        uint32_t w[8];
+        uint8_t m[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          w[j] = (uint32_t)packed[at(k, j)];
+          m[j] = mask[at(k, j)];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          staged(k)[t + 512 * j] = (int)w[j];
+          staged_mask(k)[t + 512 * j] = m[j];
+        }
+      }
+    }
   }
   // chunk k's 8 pixels of this thread into the search's lane state
-  template <int CH, class Lane>
-  __device__ __forceinline__ void load(Lane& cl, int k) const {
+  __device__ __forceinline__ void load(ChunkLane<CH>& cl, int k) const {
     int vm = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const size_t i = at(k, j);
-      const uint32_t word = (uint32_t)packed[i];
+      const uint32_t w = word(k, j);
 #pragma unroll
-      for (int c = 0; c < CH; ++c) cl.px[c][j] = (int)((word >> (8 * c)) & 0xFFu);
-      cl.f8w[j] = f8[i];
-      vm |= (mask[i] != 0 ? 1 : 0) << j;
+      for (int c = 0; c < CH; ++c) cl.px[c][j] = (int)((w >> (8 * c)) & 0xFFu);
+      cl.f8w[j] = factors(k, j);
+      vm |= (member(k, j) ? 1 : 0) << j;
     }
     cl.vmask = vm;
   }
 };
 
-template <int CH>
-using ChunkLane = CrushLane<CH, 16, 3>;
+// The tree's last levels across the cluster. Each CTA's values (the same in
+// every thread of the CTA) go into slot `rank` of every CTA; after one
+// cluster barrier every CTA folds the cs slots itself. Two slot sets
+// alternate, as RegionExchange's do: a CTA writes into a set again only
+// after the next exchange's barrier, which every CTA reaches after its reads
+// of this one.
+struct ClusterExchange {
+  int* slots;   // [2][kMaxCluster][kBatchVals], this CTA's
+  int cs, rank, warp, lane, set;
 
-// The values of a batch of n candidates (cand(i, s)) of the region: each
-// chunk read once, each candidate's lane maximum and wrapping error sum
-// kept over the chunks, then put as CrushLane's value pair i.
-template <int CH, int NMAX, class Cand>
-__device__ void chunked_batch(ChunkLane<CH>& cl, const ChunkedRegion& reg, int n, Cand cand) {
-  int pm[NMAX], be[NMAX];
+  __device__ int* mine() const { return slots + set * kMaxCluster * kBatchVals; }
+
+  // The region's sums of N values: the CTAs' subtree sums folded by the
+  // halving tree over the ranks; with cnt, also the region's total of an
+  // int (order-free).
+  template <int N>
+  __device__ void sum(float (&v)[N], int* cnt = nullptr) {
+    if (cs == 1) return;
+    const int* s = mine();
+    if (warp == 0 && lane < cs) {
+      int* d = at_rank(mine(), lane) + rank * kBatchVals;
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) pm[i] = be[i] = 0;
+      for (int i = 0; i < N; ++i) d[i] = __float_as_int(v[i]);
+      if (cnt != nullptr) d[N] = *cnt;
+    }
+    cluster_sync();
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float x[kMaxCluster];
+#pragma unroll
+      for (int w = 0; w < kMaxCluster; ++w)
+        x[w] = w < cs ? __int_as_float(s[w * kBatchVals + i]) : 0.0f;
+#pragma unroll
+      for (int n = kMaxCluster / 2; n > 0; n >>= 1) {
+        if (n < cs) {
+#pragma unroll
+          for (int w = 0; w < n; ++w) x[w] = x[w] + x[w + n];
+        }
+      }
+      v[i] = x[0];
+    }
+    if (cnt != nullptr) {
+      int c = 0;
 #pragma unroll 1
-  for (int k = 0; k < (1 << reg.logc); ++k) {
-    reg.load<CH>(cl, k);
+      for (int w = 0; w < cs; ++w) c = add_wrap(c, s[w * kBatchVals + N]);
+      *cnt = c;
+    }
+    set ^= 1;
+  }
+
+  // The region's minima and maxima of three values each (order-free).
+  __device__ void fold(float (&mn)[3], float (&mx)[3]) {
+    if (cs == 1) return;
+    const int* s = mine();
+    if (warp == 0 && lane < cs) {
+      int* d = at_rank(mine(), lane) + rank * kBatchVals;
 #pragma unroll
-    for (int i = 0; i < NMAX; ++i) {
-      if (i < n) {
-        int s[3], p, e;
-        cand(i, s);
-        cl.eval(s, p, e);
-        pm[i] = max(pm[i], p);
-        be[i] = add_wrap(be[i], e);
+      for (int i = 0; i < 3; ++i) {
+        d[i] = __float_as_int(mn[i]);
+        d[3 + i] = __float_as_int(mx[i]);
       }
     }
-  }
+    cluster_sync();
+#pragma unroll 1
+    for (int w = 0; w < cs; ++w) {
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i)
-    if (i < n) cl.put(i, pm[i], be[i]);
+      for (int i = 0; i < 3; ++i) {
+        mn[i] = fminf(mn[i], __int_as_float(s[w * kBatchVals + i]));
+        mx[i] = fmaxf(mx[i], __int_as_float(s[w * kBatchVals + 3 + i]));
+      }
+    }
+    set ^= 1;
+  }
+
+  // The region's totals of a crush batch: CrushLane's row after end_batch
+  // (n value pairs, then 0 and the count) summed over the CTAs, the pixel
+  // maxima by max and the rest by wrapping sums (order-free), into every
+  // warp's row.
+  template <class Lane>
+  __device__ void crush(const Lane& cl, int n) {
+    if (cs == 1) return;
+    const int nv = 2 * n + 2;
+    const int* s = mine();
+    int* row = cl.my_row();
+    if (warp == 0) {
+#pragma unroll 1
+      for (int q = lane; q < nv * cs; q += 32) {
+        const int i = q % nv, rk = q / nv;
+        at_rank(mine(), rk)[rank * kBatchVals + i] = row[i];
+      }
+    }
+    cluster_sync();
+#pragma unroll 1
+    for (int i = lane; i < nv; i += 32) {
+      const bool is_max = i < 2 * n && (i & 1) == 0;
+      int x = s[i];
+#pragma unroll 1
+      for (int w = 1; w < cs; ++w) {
+        const int y = s[w * kBatchVals + i];
+        x = is_max ? max(x, y) : add_wrap(x, y);
+      }
+      row[i] = x;
+    }
+    __syncwarp();
+    set ^= 1;
+  }
+};
+
+// Ends a batch of n value pairs: the CTA's totals (CrushLane::end_batch),
+// then the region's (the cluster's).
+template <int CH>
+__device__ __forceinline__ void end_batch(ChunkLane<CH>& cl, ClusterExchange& cx, int n, int cnt) {
+  cl.end_batch(n, cnt);
+  cx.crush(cl, n);
 }
 
-// The sweeps of axis A (pairs 9 A + s, (A, 0) only as pair 0), on each
-// chunk's sweep_base.
-template <int CH, int A>
-__device__ void chunked_sweep(ChunkLane<CH>& cl, const ChunkedRegion& reg) {
+// Candidate i's (pixel max, error sum) over the share's chunks, as
+// CrushLane's value pair i. One candidate at a time, each chunk read again:
+// batches unrolled over their candidates spilled (PERF.md).
+template <int CH, bool STAGED>
+__device__ void share_eval(ChunkLane<CH>& cl, const Share<CH, STAGED>& sh, int i,
+                           const int (&s)[3]) {
+  int pm = 0, be = 0;
+#pragma unroll 1
+  for (int k = 0; k < (1 << sh.logc); ++k) {
+    sh.load(cl, k);
+    int p, e;
+    cl.eval(s, p, e);
+    pm = max(pm, p);
+    be = add_wrap(be, e);
+  }
+  cl.put(i, pm, be);
+}
+
+// The sweeps of axis A (pairs 9 A + s, (A, 0) only as pair 0): each chunk
+// read once and its sweep_base made once.
+template <int CH, int A, bool STAGED>
+__device__ void share_sweep(ChunkLane<CH>& cl, const Share<CH, STAGED>& sh) {
   int pm[9], be[9];
 #pragma unroll
   for (int s = 0; s < 9; ++s) pm[s] = be[s] = 0;
 #pragma unroll 1
-  for (int k = 0; k < (1 << reg.logc); ++k) {
-    reg.load<CH>(cl, k);
+  for (int k = 0; k < (1 << sh.logc); ++k) {
+    sh.load(cl, k);
     int base[CH][8];
     cl.template sweep_base<A>(base);
 #pragma unroll
@@ -604,19 +782,21 @@ __device__ void chunked_sweep(ChunkLane<CH>& cl, const ChunkedRegion& reg) {
   for (int s = A == 0 ? 0 : 1; s < 9; ++s) cl.put(9 * A + s, pm[s], be[s]);
 }
 
-// CrushLane::search over the chunks (the same batches, candidates and
-// choice); cnt is the thread's count of member pixels.
-template <int CH>
-__device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int crush_mode,
-                               int ladder_k, int num_factors, int cnt, int (&best)[3]) {
+// CrushLane::search over the share's chunks and the cluster (the same
+// batches, candidates and choice); cnt is the thread's count of member
+// pixels.
+template <int CH, bool STAGED>
+__device__ void cluster_search(ChunkLane<CH>& cl, ClusterExchange& cx,
+                               const Share<CH, STAGED>& sh, int crush_mode, int ladder_k,
+                               int num_factors, int cnt, int (&best)[3]) {
   best[0] = best[1] = best[2] = 0;
   cl.floors = false;
   cl.floor_pix = cl.floor_blk = 0;
   if (crush_mode == kLadder) {
-    chunked_sweep<CH, 0>(cl, reg);
-    chunked_sweep<CH, 1>(cl, reg);
-    chunked_sweep<CH, 2>(cl, reg);
-    cl.end_batch(kMaxCands, cnt);
+    share_sweep<CH, 0>(cl, sh);
+    share_sweep<CH, 1>(cl, sh);
+    share_sweep<CH, 2>(cl, sh);
+    end_batch<CH>(cl, cx, kMaxCands, cnt);
     int key[8], base[3];
     cl.ladder_setup(num_factors, key, base);
     int* trips = cl.sh->trips + cl.blk * kCandBatch;
@@ -624,20 +804,14 @@ __device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int 
 #pragma unroll 1
     for (int r0 = 0; r0 < ladder_k; r0 += kCandBatch) {
       const int n = min(kCandBatch, ladder_k - r0);
-      int sv[kCandBatch];
-#pragma unroll
-      for (int i = 0; i < kCandBatch; ++i) {
-        int s[3] = {0, 0, 0};
-        if (i < n) cl.peel(key, base, s);
-        sv[i] = s[0] | (s[1] << 4) | (s[2] << 8);
-        if (cl.sub == 0 && i < n) trips[i] = sv[i];
+#pragma unroll 1
+      for (int i = 0; i < n; ++i) {
+        int s[3];
+        cl.peel(key, base, s);
+        if (cl.sub == 0) trips[i] = s[0] | (s[1] << 4) | (s[2] << 8);
+        share_eval(cl, sh, i, s);
       }
-      chunked_batch<CH, kCandBatch>(cl, reg, n, [&](int i, int (&s)[3]) {
-        s[0] = sv[i] & 15;
-        s[1] = (sv[i] >> 4) & 15;
-        s[2] = sv[i] >> 8;
-      });
-      cl.end_batch(n, cnt);
+      end_batch<CH>(cl, cx, n, cnt);
 #pragma unroll 1
       for (int i = 0; i < n; ++i) {
         const int tr = trips[i];
@@ -654,8 +828,13 @@ __device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int 
         s[1] = ((i0 + i) / 9) % 9;
         s[2] = i;
       };
-      chunked_batch<CH, 9>(cl, reg, 9, triple);
-      cl.end_batch(9, cnt);
+#pragma unroll 1
+      for (int i = 0; i < 9; ++i) {
+        int s[3];
+        triple(i, s);
+        share_eval(cl, sh, i, s);
+      }
+      end_batch<CH>(cl, cx, 9, cnt);
       if (i0 == 0) {
         cl.count = cl.my_row()[2 * 9 + 1];
         cl.set_floors(num_factors, cl.pm_at(0), cl.be_at(0));
@@ -668,11 +847,13 @@ __device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int 
       }
     }
   } else if (crush_mode == kGuess) {
-    chunked_batch<CH, 5>(cl, reg, 5, [](int i, int (&s)[3]) {
-      s[0] = s[1] = s[2] = 0;
+#pragma unroll 1
+    for (int i = 0; i < 5; ++i) {
+      int s[3] = {0, 0, 0};
       if (i > 0) guess_triple(i - 1, s);
-    });
-    cl.end_batch(5, cnt);
+      share_eval(cl, sh, i, s);
+    }
+    end_batch<CH>(cl, cx, 5, cnt);
     cl.count = cl.my_row()[2 * 5 + 1];
     cl.set_floors(num_factors, cl.pm_at(0), cl.be_at(0));
     bool ok[4];
@@ -681,7 +862,7 @@ __device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int 
     const int pick = guess_pick(ok);
     if (pick >= 0) guess_triple(pick, best);
   } else {
-    cl.end_batch(0, cnt);
+    end_batch<CH>(cl, cx, 0, cnt);
     cl.count = cl.my_row()[1];
   }
 #pragma unroll
@@ -689,40 +870,56 @@ __device__ void chunked_search(ChunkLane<CH>& cl, const ChunkedRegion& reg, int 
     if (k >= num_factors) best[k] = max(best[k], 8);
 }
 
-template <int CH>
-__global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Args a, int logc) {
+// One region a cluster of cs CTAs (see above); logc: log2 of the region's
+// chunks.
+template <int CH, bool STAGED>
+__global__ void __launch_bounds__(512, 1)
+encode_region_cluster_kernel(const Args a, int logc) {
   using G = RegionGeo<kChunkPixels>;
+  // the counter's depth over the share's chunks
+  constexpr int D = STAGED ? kStageLog : kMaxLogChunks - kMaxLogCluster;
   __shared__ CrushShared<CH, G::kWarps, G::kLevel> shared;
   __shared__ float xbuf[2 * G::kXSet];
   const int warp = (int)(threadIdx.x >> 5), lane = (int)(threadIdx.x & 31);
   const int t = (int)threadIdx.x;
-  const int r = (int)blockIdx.x;      // one region a CTA
+  const int cs = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int r = (int)blockIdx.x / cs;   // one region a cluster
+  const int lc = logc - (31 - __clz(cs));
   const int p_all = kChunkPixels << logc;
-  const ChunkedRegion reg{a.packed, a.mask, a.q, (size_t)r * p_all, t, logc};
+  extern __shared__ __align__(16) int dyn[];   // the cluster exchange's slots, then the stage
+  const Share<CH, STAGED> sh{a.packed, a.mask, a.q, dyn + kSlots, (size_t)r * p_all, t, lc, cs,
+                             rank};
   RegionExchange<kChunkPixels> ex{xbuf, warp, lane, 0};
+  ClusterExchange cx{dyn, cs, rank, warp, lane, 0};
+  sh.fill();
+  // the stage is written, and every CTA of the cluster runs before any
+  // writes into its slots
+  cluster_sync();
 
-  // ---- fit (the plain version's steps, each pass over every chunk) ----------
+  // ---- fit (the plain version's steps, each pass over the share) -----------
   RegionFit<CH> fit;
   int count = 0;
   lane_tree<CH>([&](int j, float (&o)[CH]) {
-    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+    chunk_fold<D, CH>(lc, [&](int k, float (&v)[CH]) {
       float f[CH], m;
-      reg.pixel<CH>(k, j, f, m);
+      sh.pixel(k, j, f, m);
       count += (int)m;
 #pragma unroll
       for (int c = 0; c < CH; ++c) v[c] = f[c] * m;
     }, o);
   }, fit.avg);
-  int cnt = count;
+  const int cnt = count;
   ex.sum(fit.avg, &count);
+  cx.sum(fit.avg, &count);
   const float inv_count = 1.0f / fmaxf((float)count, 1.0f);
 #pragma unroll
   for (int c = 0; c < CH; ++c) fit.avg[c] = fit.avg[c] * inv_count;
 
   lane_tree<CH>([&](int j, float (&o)[CH]) {
-    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+    chunk_fold<D, CH>(lc, [&](int k, float (&v)[CH]) {
       float f[CH], m;
-      reg.pixel<CH>(k, j, f, m);
+      sh.pixel(k, j, f, m);
       fit.corrected(f, m, v);
       const float il = signed_inv_len<CH>(v, m);
 #pragma unroll
@@ -730,14 +927,15 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
     }, o);
   }, fit.dir_a);
   ex.sum(fit.dir_a);
+  cx.sum(fit.dir_a);
 #pragma unroll
   for (int c = 0; c < CH; ++c) fit.dir_a[c] = fit.dir_a[c] * inv_count;
   fit.inv_a = inv_or_zero(dot_self<CH>(fit.dir_a));
 
   lane_tree<CH>([&](int j, float (&o)[CH]) {
-    chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+    chunk_fold<D, CH>(lc, [&](int k, float (&v)[CH]) {
       float f[CH], m, fa, est[CH], ra[CH];
-      reg.pixel<CH>(k, j, f, m);
+      sh.pixel(k, j, f, m);
       fit.step_a(f, m, fa, est, ra);
       const float il = signed_inv_len<CH>(ra, m);
 #pragma unroll
@@ -745,6 +943,7 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
     }, o);
   }, fit.dir_b);
   ex.sum(fit.dir_b);
+  cx.sum(fit.dir_b);
 #pragma unroll
   for (int c = 0; c < CH; ++c) fit.dir_b[c] = fit.dir_b[c] * inv_count;
   fit.inv_b = inv_or_zero(dot_self<CH>(fit.dir_b));
@@ -753,9 +952,9 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
     FitSteps<CH>::cross(fit.dir_a, fit.dir_b, fit.dir_c);
   } else {
     lane_tree<CH>([&](int j, float (&o)[CH]) {
-      chunk_fold<CH>(logc, [&](int k, float (&v)[CH]) {
+      chunk_fold<D, CH>(lc, [&](int k, float (&v)[CH]) {
         float f[CH], m, fa, fb, rab[CH];
-        reg.pixel<CH>(k, j, f, m);
+        sh.pixel(k, j, f, m);
         fit.step_b(f, m, fa, fb, rab);
         const float il = signed_inv_len<CH>(rab, m);
 #pragma unroll
@@ -763,6 +962,7 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
       }, o);
     }, fit.dir_c);
     ex.sum(fit.dir_c);
+    cx.sum(fit.dir_c);
 #pragma unroll
     for (int c = 0; c < CH; ++c) fit.dir_c[c] = fit.dir_c[c] * inv_count;
   }
@@ -770,11 +970,11 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
 
   float mn[3] = {kBig, kBig, kBig}, mx[3] = {-kBig, -kBig, -kBig};
 #pragma unroll 1
-  for (int k = 0; k < (1 << logc); ++k) {
+  for (int k = 0; k < (1 << lc); ++k) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float f[CH], m, fac[3], rab[CH];
-      reg.pixel<CH>(k, j, f, m);
+      sh.pixel(k, j, f, m);
       fit.step_b(f, m, fac[0], fac[1], rab);
       fac[2] = RegionFit<CH>::project(rab, fit.dir_c, fit.inv_c) * m;
       const bool in = m != 0.0f;
@@ -786,27 +986,28 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
     }
   }
   ex.fold(mn, mx);
+  cx.fold(mn, mx);
   int ep[6][CH];
   round_endpoints<CH>(count, fit.avg, fit.dir_a, fit.dir_b, fit.dir_c, mn, mx, ep);
 
-  // ---- the u8 factors (to the scratch), the drops, the outputs ----------------
+  // ---- the u8 factors, the drops, the outputs -------------------------------
   {
     FactorFrame<CH> fr;
     fr.set(ep);
 #pragma unroll 1
-    for (int k = 0; k < (1 << logc); ++k) {
+    for (int k = 0; k < (1 << lc); ++k) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float f[CH], m;
         int f8[3];
-        reg.pixel<CH>(k, j, f, m);
+        sh.pixel(k, j, f, m);
         fr.f8_of(f, f8);
-        reg.f8[reg.at(k, j)] = f8[0] | (f8[1] << 8) | (f8[2] << 16);
+        sh.set_factors(k, j, f8[0] | (f8[1] << 8) | (f8[2] << 16));
       }
     }
   }
   drop_axes<CH>(ep, a.num_factors);
-  if (t == 0 && a.eps != nullptr) {
+  if (rank == 0 && t == 0 && a.eps != nullptr) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
 #pragma unroll
@@ -831,7 +1032,7 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
   cl.set_frame(ep);
   __syncwarp();
   int best[3];
-  chunked_search<CH>(cl, reg, a.crush_mode, a.ladder_k, a.num_factors, cnt, best);
+  cluster_search<CH>(cl, cx, sh, a.crush_mode, a.ladder_k, a.num_factors, cnt, best);
 
   // ---- dither, decode, weighted error ---------------------------------------
   int n_int[3][CH], m_int[3][CH];
@@ -846,11 +1047,10 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
   const bool dither = a.dither != 0;
   float dist[1];
   lane_tree<1>([&](int j, float (&o)[1]) {
-    chunk_fold<1>(logc, [&](int k, float (&v)[1]) {
-      const size_t i = reg.at(k, j);
-      const int p = k * kChunkPixels + t + 512 * j;
-      const uint32_t word = (uint32_t)a.packed[i];
-      const int f8w = a.q[i];
+    chunk_fold<D, 1>(lc, [&](int k, float (&v)[1]) {
+      const uint32_t word = sh.word(k, j);
+      const int f8w = sh.factors(k, j);
+      const int p = sh.pixel_index(k, j);
       int q[3];
 #pragma unroll
       for (int e = 0; e < 3; ++e) {
@@ -865,30 +1065,60 @@ __global__ void __launch_bounds__(512, 1) encode_region_chunked_kernel(const Arg
       decode_est<CH>(q, best, n_int, m_int, est);
 #pragma unroll
       for (int c = 0; c < CH; ++c) px[c][0] = (int)((word >> (8 * c)) & 0xFFu);
-      v[0] = a.mask[i] != 0 ? (float)clamped_pixel_err<CH>(est, px, 0) : 0.0f;
+      v[0] = sh.member(k, j) ? (float)clamped_pixel_err<CH>(est, px, 0) : 0.0f;
       uint32_t w = CH == 4 ? 0u : 0xFF000000u;
 #pragma unroll
       for (int c = 0; c < CH; ++c) w |= (uint32_t)__vimin_s32_relu(est[c], 255) << (8 * c);
+      const size_t i = sh.at(k, j);
       a.q[i] = q[0] | (q[1] << 8) | (q[2] << 16);
       a.dec[i] = (int32_t)w;
     }, o);
   }, dist);
   ex.sum(dist);
+  cx.sum(dist);
 
-  if (t == 0) {
+  if (rank == 0 && t == 0) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) a.shifts[(size_t)k * a.nb + r] = best[k];
     a.dist[r] = dist[0];
   }
 }
 
-// Launches encode_region_chunked_kernel<CH> for regions of 4096 << logc
-// pixels on `st`; returns cudaGetLastError().
-template <int CH>
-int launch_region_chunked(const Args& a, int logc, cudaStream_t st) {
-  if (logc < 1 || logc > kMaxLogChunks) return (int)cudaErrorInvalidValue;
-  encode_region_chunked_kernel<CH><<<a.nb, 512, 0, st>>>(a, logc);
+// Launches encode_region_cluster_kernel<CH, STAGED> for nb regions of 4096
+// << logc pixels in clusters of 2^logcs CTAs on `st`.
+template <int CH, bool STAGED>
+int launch_region_cluster(const Args& a, int logc, int logcs, cudaStream_t st) {
+  auto kernel = encode_region_cluster_kernel<CH, STAGED>;
+  const size_t smem = (kSlots + (STAGED ? kChunkInts << kStageLog : 0)) * sizeof(int);
+  // the kernel's attributes, set once for the device it last ran on
+  static int ready = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != ready) {
+    err = allow_cluster(kernel, kMaxCluster, smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = device;
+  }
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cluster_config(config, attr, 1 << logcs, 512, st);
+  config.gridDim = dim3((unsigned)a.nb << logcs, 1, 1);
+  config.dynamicSmemBytes = smem;
+  err = cudaLaunchKernelEx(&config, kernel, a, logc);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The region encode at P = 4096 << logc (logc >= 1): clusters of C / 4 CTAs
+// (1 to 16), each share of 4 chunks staged; past 16 CTAs the shares grow
+// and stay in device memory.
+template <int CH>
+int launch_region_large(const Args& a, int logc, cudaStream_t st) {
+  if (logc < 1 || logc > kMaxLogChunks) return (int)cudaErrorInvalidValue;
+  const int logcs = min(max(logc - kStageLog, 0), kMaxLogCluster);
+  return logc - logcs <= kStageLog ? launch_region_cluster<CH, true>(a, logc, logcs, st)
+                                   : launch_region_cluster<CH, false>(a, logc, logcs, st);
 }
 
 }  // namespace

@@ -58,18 +58,15 @@
 
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
+#include "cluster.cuh"
 #include "segment_encode.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kCWarps = 16;           // a CTA of 512 threads, at most 128 registers each
 constexpr int kCThreads = kCWarps * 32;
-constexpr int kMaxCluster = 16;
 constexpr int kBigLogc = 8;           // one instantiation for every P >= 16,384
 constexpr int kMaxLogc = 24;          // P <= 64 << 24 (kernels/encode_fixed.py MAX_REGION_PIXELS)
 constexpr int kFoldDepth = 8;         // an item folds at most 2^8 chunks
@@ -121,18 +118,6 @@ static_assert(sizeof(ClusterShared::lane_acc) >= (kMaxLogc - 4) * 4 * 2 * 32 * s
 
 __host__ __device__ constexpr size_t cluster_smem(int stage) {
   return (sizeof(ClusterShared) + 15) / 16 * 16 + (size_t)kCWarps * stage * kChunkBytes;
-}
-
-__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
-
-// p's counterpart in the shared memory of CTA `rank` of the cluster.
-template <class T>
-__device__ __forceinline__ T* at_rank(T* p, int rank) {
-  return cg::this_cluster().map_shared_rank(p, rank);
-}
-
-__device__ __forceinline__ int bit_rev(int x, int bits) {
-  return bits == 0 ? 0 : (int)(__brev((unsigned)x) >> (32 - bits));
 }
 
 // ChunkTree's binary counter over an item's chunks, its depth (at most D)
@@ -1183,16 +1168,9 @@ int launch_segment_cluster(const SegParams& P, int32_t* scratch, cudaStream_t st
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
 
-  cudaLaunchConfig_t config = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.blockDim = dim3(kCThreads, 1, 1);
-  config.stream = st;
-  config.attrs = attr;
-  config.numAttrs = 1;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  cluster_config(config, attr, cs, kCThreads, st);
   if (device != last_device) {
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -1201,10 +1179,7 @@ int launch_segment_cluster(const SegParams& P, int32_t* scratch, cudaStream_t st
     stage = (int)(room / ((long long)kCWarps * kChunkBytes) / 2 * 2);
     if (stage < 2) return (int)cudaErrorInvalidConfiguration;
     config.dynamicSmemBytes = cluster_smem(stage);
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)config.dynamicSmemBytes);
-    if (err == cudaSuccess && cs > 8)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = allow_cluster(kernel, cs, config.dynamicSmemBytes);
     config.gridDim = dim3(cs, 1, 1);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
     if (err != cudaSuccess) return (int)err;

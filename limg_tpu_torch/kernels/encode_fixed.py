@@ -16,8 +16,10 @@ P = 4096, encode_fixed.py:76-77), and returns its outputs in its layouts:
 On a CUDA tensor it launches ``csrc/encode_fixed.cu`` (P = 64) or
 ``csrc/encode_region.cu`` (P > 64), each built at first use from one
 template, ``csrc/region_encode.cuh`` (a region's pixels 8 a thread over
-P / 8 threads up to P = 4096; a larger region one CTA that walks it as
-P / 4096 chunks of 4096; the owner crush's crush search), and raises if
+P / 8 threads up to P = 4096; a larger region a thread-block cluster of
+up to 16 CTAs, each a subtree of the region's halving tree walked as
+chunks of 4096 from shared memory; the owner crush's crush search), and
+raises if
 the launch fails; on a CPU tensor it runs ``encode_blocks_reference``,
 which composes the plain ops of ``limg_tpu_torch.ops`` in the kernels'
 arithmetic order: every float sum over a region's P pixels is one halving

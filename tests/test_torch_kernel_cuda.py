@@ -619,14 +619,15 @@ def test_ten_level_dense_encode_on_card_equals_cpu(device):
     assert card["psnr"] == cpu["psnr"] and card["n_runs"] == cpu["n_runs"]
 
 
-@pytest.mark.parametrize("p", [16384, 65536])
+@pytest.mark.parametrize("p", [16384, 65536, 262144])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_large_region_kernel_matches_plain_version(device, p, channels):
-    """The region encode's chunked kernel (csrc/region_encode.cuh, one CTA a
-    region of P / 4096 chunks) on seeded buffers (all- and half-masked
-    regions, a saturated region whose block-error sum wraps int32 at P =
-    65,536) and on a ragged image's grid with an all-masked row and column,
-    in every crush mode."""
+    """The region encode's cluster kernel (csrc/region_encode.cuh, a cluster
+    of 1, 4 or 16 CTAs a region, each CTA's share of 4 chunks staged in
+    shared memory) on
+    seeded buffers (all- and half-masked regions, a saturated region whose
+    block-error sum wraps int32 from P = 65,536 on) and on a ragged image's
+    grid with an all-masked row and column, in every crush mode."""
     rng = np.random.default_rng(p + channels)
     words = _words(300, 700, channels, 29, device)
     bufs = {"seeded": region_run_buffer(rng, p, LARGE_REGION_LANES[p], channels, device,
@@ -647,6 +648,29 @@ def test_large_region_kernel_matches_plain_version(device, p, channels):
                     torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
                 else:
                     assert torch.equal(g, w), (name, mode, i)
+
+
+@pytest.mark.parametrize("mode,num_factors,dithering", ROUNDS_SETTINGS)
+@pytest.mark.parametrize("channels", [3, 4])
+def test_region_kernel_at_level_9(device, channels, mode, num_factors, dithering):
+    """The region encode at P = 16,777,216 (level 9): each CTA's share of a
+    16-CTA cluster is 256 chunks, read from device memory pass by pass; a
+    saturated region whose int32 block-error sum wraps, and two seeded
+    ones."""
+    packed, mask = region_run_buffer(np.random.default_rng(channels), ROUNDS_PIXELS, 3,
+                                     channels, device, saturate=True)[:2]
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors)
+    before = kmod.launches_region[ROUNDS_PIXELS]
+    got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
+    torch.cuda.synchronize(device)
+    assert kmod.launches_region[ROUNDS_PIXELS] == before + 1
+    want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), i
 
 
 @pytest.mark.parametrize("p", [16384, 65536])

@@ -40,7 +40,10 @@ layout of work over lanes adds floats in the order the plain versions
   across the region's warps (P = 1024, 4096), then butterflies (8 lanes a
   block at P = 64, a warp from 256 on); its crush search is the owner
   crush's (csrc/crush_search.cuh), every lane of a region at level
-  log4(P / 64).
+  log4(P / 64); above P = 4096 a cluster of cs CTAs takes a region, CTA i
+  the pixels p = i mod cs, walked as chunks of 4096 folded as a binary
+  counter, then the P = 4096 region's tree, then the CTAs' sums by the
+  halving tree over the ranks.
 """
 
 import numpy as np
@@ -586,6 +589,79 @@ def test_region_lane_halving_tree_is_tree_sum(p, seed):
     want = tree_sum(x, 0)
     for t in range(p // 8):
         assert torch.equal(got[:, t].view(torch.int32), want.view(torch.int32))
+
+
+def _counter_fold(chunks: torch.Tensor) -> torch.Tensor:
+    """(C, ...) chunk values -> their sum as the kernel's chunk_fold takes
+    it: chunk bit_rev(t) at step t, folded as a binary counter (the partial
+    of level l first)."""
+    c = chunks.shape[0]
+    logc = c.bit_length() - 1
+    part = [None] * (logc + 1)
+    for t in range(c):
+        out = chunks[int(format(t, f"0{logc}b")[::-1], 2) if logc else 0]
+        lvl = 0
+        while (t >> lvl) & 1:
+            out = part[lvl] + out
+            lvl += 1
+        part[lvl] = out
+    return out
+
+
+def _cluster_region_sum(x: torch.Tensor, cs: int, chunk: int) -> torch.Tensor:
+    """The region encode's float sum of (P, N) pixel values above P = 4096
+    (encode_region_cluster_kernel): CTA i of the cluster's cs takes the
+    pixels p = i mod cs (share pixel p' = p / cs), folds the share's chunks
+    of `chunk` pixels position by position as a binary counter, then sums
+    the positions by the region lane tree of a `chunk`-pixel region (every
+    thread of the CTA must hold the same value); the CTAs' sums then meet
+    by the halving tree over the ranks (i with i + cs / 2 first). Returns
+    (N,)."""
+    p, n = x.shape
+    shares = x.reshape(p // cs, cs, n).movedim(1, 0)       # (cs, P / cs, N): x[i::cs]
+    sums = []
+    for share in shares:
+        folded = _counter_fold(share.reshape(-1, chunk, n))    # (chunk, N)
+        threads = _region_lane_sum(folded)                     # (N, chunk / 8)
+        assert torch.equal(threads, threads[:, :1].expand_as(threads))
+        sums.append(threads[:, 0])
+    ranks = torch.stack(sums)                                  # (cs, N)
+    while ranks.shape[0] > 1:
+        half = ranks.shape[0] // 2
+        ranks = ranks[:half] + ranks[half:]
+    return ranks[0]
+
+
+def _cluster_size(p: int, chunk: int) -> int:
+    """The region encode's cluster of C / 4 CTAs (1 to 16) for a region of
+    C = P / chunk chunks (launch_region_chunked)."""
+    return min(max(p // chunk // 4, 1), 16)
+
+
+@pytest.mark.parametrize("p,chunk", [
+    # levels 4-6: clusters of 1, 4 and 16 CTAs, 4 chunks a CTA
+    (16384, 4096), (65536, 4096), (262144, 4096),
+    # a share of more chunks than the stage holds (level 7 and up: read
+    # from device memory pass by pass), shrunk: chunks of 512 pixels on 2
+    # warps, 16 of them a CTA of a 16-CTA cluster
+    (131072, 512),
+])
+@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_region_cluster_split_is_tree_sum(p, chunk, n, seed):
+    """Above P = 4096 the region encode spreads a region over a cluster of
+    cs CTAs, each a subtree of the halving tree (p mod cs) walked as chunks
+    folded as a binary counter; the CTAs' sums meet in the tree's last
+    levels. The result is ops/fit.py tree_sum bit for bit, on random floats
+    with masked (zero) pixels."""
+    cs = _cluster_size(p, chunk)
+    rng = np.random.default_rng(seed * 31 + p + n)
+    x = rng.standard_normal((p, n)) * rng.uniform(1e-3, 1e3, (p, n))
+    x[rng.random((p, n)) < 0.2] = 0.0
+    x = torch.from_numpy(x.astype(np.float32))
+    got = _cluster_region_sum(x, cs, chunk)
+    want = tree_sum(x, 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _region_lanes(err, es):

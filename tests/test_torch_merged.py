@@ -437,7 +437,8 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     assert {p.name for p in build.source_files(build.CSRC / "encode_natural.cu")} == {
         "encode_natural.cu", "encode_merged.cuh", "crush_search.cuh", "limg_common.cuh"}
     assert {p.name for p in build.source_files(build.CSRC / "encode_fixed.cu")} == {
-        "encode_fixed.cu", "region_encode.cuh", "crush_search.cuh", "limg_common.cuh"}
+        "encode_fixed.cu", "region_encode.cuh", "cluster.cuh", "crush_search.cuh",
+        "limg_common.cuh"}
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)

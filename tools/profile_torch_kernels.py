@@ -22,8 +22,8 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
   whose difference is the wrapper's copies and glue) side by side:
   ``encode_fixed_p64`` on the fixed grid's 129,600 blocks and
   ``encode_region`` on the RD levels' 32,400 / 8,160 / 2,040 regions of
-  256 / 1,024 / 4,096 pixels and the dense levels' 510 / 135 of 16,384 /
-  65,536, each also with ``crush_mode="none"`` (which
+  256 / 1,024 / 4,096 pixels and the dense levels' 510 / 135 / 40 of
+  16,384 / 65,536 / 262,144, each also with ``crush_mode="none"`` (which
   prices the search against the fit); ``fit_levels`` at 3 levels and at 2
   (the price of a level), ``fit_levels_natural``, ``owner_crush`` (ladder
   K = 8, and with ``crush_mode="none"``, which prices the search),
@@ -62,17 +62,17 @@ reports for every kernel: registers, spill bytes, stack frame. Then, on the
   each build;
 - the 4K encodes of the fixed grid and of every merged path (Morton with
   and without coalescing, natural, RD at 3 and 4 levels, the dense path at
-  4 and 6 levels) with dithering off, with each build: PSNR, bpp, the decoded image's sum, and for the
-  merged paths the runs and the blocks whose owner level differs from the
-  JAX package's recorded default encode
+  4, 5 and 6 levels) with dithering off, with each build: PSNR, bpp, the
+  decoded image's sum, and for the merged paths the runs and the blocks
+  whose owner level differs from the JAX package's recorded default encode
   (tests/fixtures/torch_port_coalesce_reference.npz).
 
 The baseline runs as its own package (its wrappers, glue and kernels,
 imported under another module name), on inputs made by this checkout, so
 a change of a kernel's C interface or of its callers is compared as a
-whole; with a baseline, the SASS (``cuobjdump -sass``) of the segment
-encode at P = 64 (``coalesce.cu``) of each build, compared instruction by
-instruction. Writes the numbers as JSON to FILE (default
+whole; with a baseline, the SASS (``cuobjdump -sass``) of each build's
+segment encode (every P) and of the fixed grid and region encode up to P
+= 4096, compared instruction by instruction (SASS_KERNELS). Writes the numbers as JSON to FILE (default
 build/profile_kernels.json). Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -272,23 +272,35 @@ def sass_functions(build, library: str, pattern: str) -> dict:
     return out
 
 
+# (library, kernel symbol pattern) whose SASS the two builds compare: the
+# segment encode at P = 64, 256 and from 1024 on (its cluster and first-pass
+# kernels), the fixed grid and the region encode up to P = 4096
+SASS_KERNELS = (
+    ("coalesce", r"segment_encode_kernelILi[34]ELi0E"),
+    ("segment_region", r"segment_(encode|cluster|prep)_kernelILi[34]ELi\d+E"),
+    ("encode_fixed", r"encode_region_kernelILi64ELi[34]E"),
+    ("encode_region", r"encode_region_kernelILi(256|1024|4096)ELi[34]E"),
+)
+
+
 def compare_sass(builds) -> dict:
-    """The segment encode at P = 64 of each build: instructions, and the
-    lines that differ between the two."""
-    pattern = r"segment_encode_kernelILi[34]ELi0E"
-    # the anonymous namespace's mangled name carries a hash of the source's path
-    sass = {w: {re.search(pattern + r".*", fn).group(0): ins
-                for fn, ins in sass_functions(b.build, "coalesce", pattern).items()}
-            for w, b in builds.items()}
+    """The SASS_KERNELS of each build: instructions, and the lines that
+    differ between the two."""
     out = {}
-    for fn, ins in sass["this"].items():
-        base = sass.get("baseline", {}).get(fn)
-        diff = None if base is None else (sum(a != b for a, b in zip(ins, base))
-                                          + abs(len(ins) - len(base)))
-        out[fn] = {"this": len(ins), "baseline": None if base is None else len(base),
-                   "differing_lines": diff}
-        log(f"  SASS {fn}: {len(ins)} instructions, baseline "
-            f"{'-' if base is None else len(base)}, differing lines {diff}")
+    for library, pattern in SASS_KERNELS:
+        # the anonymous namespace's mangled name carries a hash of the
+        # source's path
+        sass = {w: {re.search(pattern + r".*", fn).group(0): ins
+                    for fn, ins in sass_functions(b.build, library, pattern).items()}
+                for w, b in builds.items()}
+        for fn, ins in sass["this"].items():
+            base = sass.get("baseline", {}).get(fn)
+            diff = None if base is None else (sum(a != b for a, b in zip(ins, base))
+                                              + abs(len(ins) - len(base)))
+            out[fn] = {"this": len(ins), "baseline": None if base is None else len(base),
+                       "differing_lines": diff}
+            log(f"  SASS {library} {fn}: {len(ins)} instructions, baseline "
+                f"{'-' if base is None else len(base)}, differing lines {diff}")
     return out
 
 
@@ -442,9 +454,9 @@ def main():
             f"strides {sweep[4].stride()}")
 
         # the fixed grid's blocks, the RD levels' regions, as the RD step
-        # encodes them (endpoints emitted), and the dense path's levels 4 and 5
+        # encodes them (endpoints emitted), and the dense path's levels 4-6
         regions = {64: _packed_blocks(img_d)[:2]}
-        for side in (16, 32, 64, 128, 256):
+        for side in (16, 32, 64, 128, 256, 512):
             regions[side * side] = layout.blockify_words(words, side)[:2]
         # name: (call of a build, kernel name pattern, plain version or None)
         calls = {}
@@ -453,7 +465,8 @@ def main():
             for tag, c in (("", cfg), (" crush none", cfg_none)):
                 calls[name + tag] = (
                     lambda P, rp=rp, rm=rm, c=c: P.kf.encode_blocks_kernel(rp, rm, c, 0, True),
-                    r"encode_(fixed_p64|region|region_chunked)_kernel",
+                    # the parent's one-CTA kernel above P = 4096, this build's cluster
+                    r"encode_(fixed_p64|region|region_chunked|region_cluster)_kernel",
                     lambda rp=rp, rm=rm, c=c: kf.encode_blocks_reference(rp, rm, c, 0, True))
         calls.update({
             "fit_levels L3": (lambda P: P.km.fit_levels_kernel(words, cfg, 3),
@@ -595,6 +608,7 @@ def main():
             "rd": dict(merge_policy="rd", rd_lambda=RD_LAMBDA),
             "rd 4 levels": dict(merge_policy="rd", rd_lambda=RD_LAMBDA, num_levels=4),
             "dense 4 levels": dict(fused=False, num_levels=4),
+            "dense 5 levels": dict(fused=False, num_levels=5),
             "dense 6 levels": dict(fused=False, num_levels=6),
         }
         for path, kw in paths.items():

@@ -15,7 +15,9 @@ default encode (``bitstream``, ``utils.diagnostics``, the CLI's
 --write-ltp1``), run the legacy encoder (``encode_legacy``), and encode
 corpora of 1080p images over a one-card mesh (``limg_tpu_torch.parallel``:
 the fixed-grid, merged and mixed-size corpora, the block-sharded image, the
-streaming corpus on the native staging pool).
+streaming corpus on the native staging pool), and run the scatter-form
+segment refit and crush (``ops.segments.fit_segments`` /
+``find_shifts_segments`` with ``contiguous=False``) on 4K segment maps.
 
     python3 chip_smoke.py
 
@@ -141,6 +143,21 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    flags on 99.9% of the blocks, stats within the dense tolerances); each
    stream written (JAX's SHA-256 where the state is JAX's) and refused by
    ``deserialize``, as the JAX package's reader refuses 5 levels;
+3j. the scatter-form segment refit and crush on the 4K RGB and RGBA images'
+   block grids, two segment maps each: the default 3-level encode's owner
+   regions numbered in row-major block order (a square's members are not
+   adjacent) and a seeded random map of 32,400 segments, some empty;
+   ``fit_segments`` -> ``extract_factors`` / ``quantize_factors`` on
+   ``gather_decomp`` -> ``find_shifts_segments`` under ladder, exhaustive
+   and guess at num_factors 3 and 2, ``seg_sum_fold`` and
+   ``crush_eval_rows`` counted from 0; every result equal to a second card
+   run and to the CPU version (the fit on the whole map; the search on the
+   map's first segments, up to 8,192 blocks for the ladder, 1,024 for the
+   exhaustive search and the whole map for guess), empty segments (0, 0,
+   0) and 2^31 - 1; ``seg_sum_fold`` against its plain version (the CPU's
+   left fold; 6 cases, bit-equal) and ``index_add_`` on the card against
+   it (the sums its atomics change); the ladder call, the fit and
+   ``seg_sum_fold`` timed by CUDA events;
 3h. corpus and multi-device encode (``limg_tpu_torch.parallel``): the
    mesh (``make_mesh(1)`` is ``(cuda:0,)``, one past the card count
    raises); ``encode_corpus_sharded`` on 8 x 1080p (dithering off) in one
@@ -213,7 +230,7 @@ NATURAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_natural_re
 DENSE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_dense_reference.npz")
 LEVELS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_levels_reference.npz")
 LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "segment_region", "encode_region",
-             "encode_natural", "crush_eval")
+             "encode_natural", "crush_eval", "seg_fold")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
@@ -236,6 +253,10 @@ NATURAL_REPLACES = {
 CRUSH_EVAL_SOURCE = "limg_tpu_torch/csrc/crush_eval.cu"
 # crush_eval_rows_k_pallas; crush_eval_rows_pallas (:1021) is its K = 1 form
 CRUSH_EVAL_REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:1063"
+# no Pallas kernel: the scatter-add of the JAX package's seg_sum, which the
+# card folds in block order
+SEG_FOLD_SOURCE = "limg_tpu_torch/csrc/seg_fold.cu"
+SEG_FOLD_REPLACES = "limg_tpu/ops/segments.py:44"
 # P = 256 / 1024 run encode_blocks_pallas's mono kernel (:739), P = 4096
 # its fit and crush kernels (:764, :781)
 REGION_SIZES = (256, 1024, 4096)
@@ -424,6 +445,15 @@ def compare_outputs(got, want) -> float:
         elif not torch.equal(g, w):
             n = int((g != w).sum())
             raise AssertionError(f"output {i}: {n} of {g.numel()} values differ")
+    return worst
+
+
+def compare_bits(got, want) -> float:
+    """``compare_outputs`` with float outputs equal bit for bit too."""
+    worst = compare_outputs(got, want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not g.equal(w):
+            raise AssertionError(f"output {i}: {int((g != w).sum())} of {g.numel()} values differ")
     return worst
 
 
@@ -620,6 +650,22 @@ def seg_map(rng, n: int, max_span: int = 256) -> np.ndarray:
         seg[i:i + span] = i
         i += span
     return seg
+
+
+def owner_segment_map(owner: np.ndarray) -> tuple:
+    """Per-block owner levels (by, bx) -> (seg_id (NB,) int32, S): each owner
+    region, the aligned 2^l x 2^l square of blocks that holds a block of
+    level l, one segment, numbered in the row-major order of its first
+    block. A square of 2 or more blocks a side spans rows, so its members
+    are not adjacent in the row-major block order."""
+    by, bx = owner.shape
+    y, x = np.mgrid[0:by, 0:bx]
+    lvl = owner.astype(np.int64)
+    key = (lvl * by + (y >> lvl)) * bx + (x >> lvl)
+    _, first, inv = np.unique(key.ravel(), return_index=True, return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv.ravel()].astype(np.int32), len(first)
 
 
 def run_labels(rng, seg: np.ndarray) -> np.ndarray:
@@ -1165,8 +1211,10 @@ def reset_launches():
     from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
     from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.kernels import seg_fold as ksf
 
-    for counts in (km.launches, kc.launches, kmod.launches_region, kn.launches, kce.launches):
+    for counts in (km.launches, kc.launches, kmod.launches_region, kn.launches, kce.launches,
+                   ksf.launches):
         for k in counts:
             counts[k] = 0
     kmod.launches = 0
@@ -1179,8 +1227,9 @@ def read_launches() -> dict:
     from limg_tpu_torch.kernels import encode_fixed as kmod
     from limg_tpu_torch.kernels import encode_merged as km
     from limg_tpu_torch.kernels import encode_natural as kn
+    from limg_tpu_torch.kernels import seg_fold as ksf
 
-    return {**km.launches, **kc.launches, **kn.launches, **kce.launches,
+    return {**km.launches, **kc.launches, **kn.launches, **kce.launches, **ksf.launches,
             "encode_fixed_p64": kmod.launches,
             **{f"encode_region_p{p}": n for p, n in kmod.launches_region.items()}}
 
@@ -2110,6 +2159,221 @@ def phase_main_path_levels(device):
     return launched
 
 
+# the scatter-form segment refit and crush (phase 3j): each 4K map's search
+# under every crush mode and these num_factors
+SCATTER_MODES = ("ladder", "exhaustive", "guess")
+SCATTER_FACTORS = (3, 2)
+# the CPU version is held to the card on the first segments of a map (in id
+# order) whose members number at most this many blocks, by crush mode (the
+# whole 4K map for the fit and the guess mode: the CPU's exhaustive search
+# of 129,600 blocks would take minutes a call, its ladder tens of seconds)
+SCATTER_CPU_BLOCKS = {"ladder": 8192, "exhaustive": 1024, "guess": 129600}
+
+
+def scatter_maps(img, device) -> dict:
+    """Phase 3j's two segment maps of a 4K image's block grid, {name: (seg_id
+    (NB,) int32, S)}: the default 3-level encode's owner regions, numbered in
+    row-major block order (``owner_segment_map``), and a seeded random map,
+    a quarter as many segments as blocks, some of them empty."""
+    import limg_tpu_torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.config import BLOCK_SIZE
+
+    cfg = EncodeConfig(error_factor=100, has_alpha=img.shape[2] == 4)
+    owner = limg_tpu_torch.encode_image_merged(img, cfg, device=device)["owner_px"]
+    owner_seg, owner_s = owner_segment_map(owner[::BLOCK_SIZE, ::BLOCK_SIZE])
+    nb = owner_seg.size
+    rand = np.random.default_rng(17).integers(0, nb // 4, nb).astype(np.int32)
+    return {"owner": (owner_seg, owner_s), "random": (rand, nb // 4)}
+
+
+def segment_subset(seg: np.ndarray, s: int, max_blocks: int) -> tuple:
+    """The first k segments of ``seg`` whose members number at most
+    ``max_blocks`` blocks (at least one segment): (their blocks, in block
+    order, as an index array; those blocks' ids; k)."""
+    k = max(1, int(np.searchsorted(np.cumsum(np.bincount(seg, minlength=s)), max_blocks,
+                                   side="right")))
+    blocks = np.nonzero(seg < k)[0]
+    return blocks, seg[blocks], k
+
+
+def seg_fold_cases(maps: dict, nb: int) -> dict:
+    """seg_sum_fold_kernel's cases: {name: (float32 rows, seg_id, S)}: the
+    fit's (3, NB) rows on each 4K map, magnitudes over seven decades so a
+    sum's order shows in its bits, 81 rows (the exhaustive chunk's), one
+    segment of every block (one thread folds 129,600 values), most segments
+    empty, and a map with ids past the buffer's blocks."""
+    rng = np.random.default_rng(23)
+
+    def rows(r, n):
+        return (rng.standard_normal((r, n)) * 10.0 ** rng.integers(-3, 4, (r, n))).astype(
+            np.float32)
+
+    cases = {f"{name} map (3, {nb})": (rows(3, nb), seg, s) for name, (seg, s) in maps.items()}
+    seg_r, s_r = maps["random"]
+    cases[f"random map (81, {nb})"] = (rows(81, nb), seg_r, s_r)
+    cases[f"one segment (1, {nb})"] = (rows(1, nb), np.zeros(nb, np.int32), 1)
+    cases["most segments empty (4, 1000)"] = (rows(4, 1000),
+                                              rng.integers(0, 2000, 1000).astype(np.int32), 2000)
+    cases["ids past the blocks (2, 37)"] = (rows(2, 37), rng.integers(40, 50, 37).astype(np.int32),
+                                            64)
+    return cases
+
+
+def compare_seg_fold(device, cases: dict) -> tuple:
+    """seg_sum_fold_kernel against its plain version (the CPU's left fold)
+    on ``cases``, bit-equal, and against a second launch; and PyTorch's
+    ``index_add_`` on the card against the fold: the sums it gets in another
+    order. Returns (max abs diff, the index_add_ finding)."""
+    import torch
+    from limg_tpu_torch.kernels.seg_fold import seg_sum_fold_kernel, seg_sum_fold_reference
+    from limg_tpu_torch.ops.segments import fold_plan, seg_sum_plain
+
+    worst, finding = 0.0, {}
+    for name, (x, seg, s) in cases.items():
+        xt, st = torch.from_numpy(x), torch.from_numpy(seg)
+        want = seg_sum_fold_reference(xt, st, s)
+        xd, sd = xt.to(device), st.to(device)
+        got = seg_sum_fold_kernel(xd, sd, s)
+        again = seg_sum_fold_kernel(xd, sd, s, fold_plan(sd, s))
+        torch.cuda.synchronize(device)
+        worst = max(worst, compare_bits((got.cpu(),), (want,)))
+        if not torch.equal(got, again):
+            raise AssertionError(f"seg_sum_fold {name}: two launches differ")
+        atomics = [seg_sum_plain(xd, sd, s).cpu() for _ in range(2)]
+        finding[name] = (int((atomics[0] != want).sum()), int((atomics[0] != atomics[1]).sum()),
+                         want.numel())
+    return worst, finding
+
+
+def phase_main_path_scatter(device, smi: str):
+    """The scatter-form segment refit and crush at 4K RGB and RGBA
+    (ops/segments.py ``fit_segments`` / ``find_shifts_segments``, contiguous
+    False) on two maps (``scatter_maps``): the fit, the factors on
+    ``gather_decomp``, and the search under every crush mode at num_factors
+    3 and 2; seg_sum_fold and crush_eval_rows counted from 0; each result
+    equal to a second run on the card and to the CPU version (the fit on the
+    whole map, the search on ``segment_subset``), empty segments (0, 0, 0)
+    and 2^31 - 1; seg_sum_fold held to its plain version; the ladder call and
+    the fit timed. Returns (launches, max abs diff, seg_sum_fold's timing
+    row)."""
+    import torch
+    from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.kernels.seg_fold import seg_sum_fold_kernel
+    from limg_tpu_torch.ops import layout
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.fit import drop_decomposition_axes
+    from limg_tpu_torch.ops.segments import (find_shifts_segments, fit_segments, fold_plan,
+                                             gather_decomp, seg_sum_plain)
+    from limg_tpu_torch.utils.timing import device_busy_ms
+    from tools.record_torch_reference import case_images
+
+    log("== phase 3j: scatter-form segment refit and crush at 4K (fit_segments / "
+        "find_shifts_segments, contiguous=False)")
+    images = case_images(2160, 3840)
+    inputs = {}
+    for lane, img in images.items():
+        px, mask, _ = layout.blockify(torch.from_numpy(img).to(device))
+        for name, (seg, s) in scatter_maps(img, device).items():
+            inputs[(lane, name)] = (px, mask, seg, s)
+    nb = inputs[("rgb", "owner")][2].size
+    log("  maps: " + ", ".join(f"{lane} {name} {s} segments, "
+                               f"{int((np.bincount(seg, minlength=s) == 0).sum())} empty"
+                               for (lane, name), (_, _, seg, s) in inputs.items()))
+
+    def run(px, mask, seg_t, s, ch):
+        """The main path on one map: per (num_factors, mode) the search."""
+        d = fit_segments(px, mask, seg_t, s, ch)
+        f8 = torch.stack(quantize_factors(*extract_factors(px, gather_decomp(d, seg_t), ch)))
+        out = {"fit": d}
+        for nf in SCATTER_FACTORS:
+            d_nf = drop_decomposition_axes(d, nf)
+            for mode in SCATTER_MODES:
+                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
+                                   num_factors=nf)
+                out[(nf, mode)] = (find_shifts_segments(px, mask, f8, d_nf, seg_t, s, cfg),
+                                   d_nf, cfg)
+        return out, f8
+
+    reset_launches()
+    t0 = time.perf_counter()
+    results = {key: run(px, mask, torch.from_numpy(seg).to(device), s, px.shape[0])
+               for key, (px, mask, seg, s) in inputs.items()}
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in read_launches().items() if v}
+    if not (launched.get("crush_eval_rows") and launched.get("seg_sum_fold")):
+        raise AssertionError(f"the scatter refit and crush skipped a kernel: launches {launched}")
+    log(f"  {len(results)} fits and {len(results) * len(SCATTER_FACTORS) * len(SCATTER_MODES)} "
+        f"searches in {secs:.2f} s wall, launches {launched}")
+
+    worst = 0.0
+    for key, (out, f8) in results.items():
+        t0 = time.perf_counter()
+        px, mask, seg, s = inputs[key]
+        seg_t, ch = torch.from_numpy(seg).to(device), px.shape[0]
+        again, _ = run(px, mask, seg_t, s, ch)
+        cpu = (px.cpu(), mask.cpu(), f8.cpu())
+        want = fit_segments(cpu[0], cpu[1], torch.from_numpy(seg), s, ch)
+        worst = max(worst, compare_bits(tuple(f.cpu() for f in out["fit"]), want),
+                    compare_bits(tuple(f.cpu() for f in again["fit"]), want))
+        empty = torch.from_numpy(np.bincount(seg, minlength=s) == 0)
+        for nf_mode, ((shifts, err), d_nf, cfg) in ((k, v) for k, v in out.items() if k != "fit"):
+            if not (torch.equal(shifts, again[nf_mode][0][0])
+                    and torch.equal(err, again[nf_mode][0][1])):
+                raise AssertionError(f"{key} {nf_mode}: two card runs differ")
+            if shifts[:, empty.to(device)].any() or (err[empty.to(device)] != 2**31 - 1).any():
+                raise AssertionError(f"{key} {nf_mode}: an empty segment was crushed")
+            blocks, sub_seg, k = segment_subset(seg, s, SCATTER_CPU_BLOCKS[nf_mode[1]])
+            b = torch.from_numpy(blocks)
+            d_sub = type(d_nf)(*(f[..., :k].cpu() for f in d_nf))
+            want_s, want_e = find_shifts_segments(cpu[0][..., b], cpu[1][:, b], cpu[2][..., b],
+                                                  d_sub, torch.from_numpy(sub_seg), k, cfg)
+            worst = max(worst, compare_bits((shifts[:, :k].cpu(), err[:k].cpu()),
+                                               (want_s, want_e)))
+        log(f"  {key}: fit bit-equal to the CPU version on all {s} segments; "
+            f"{len(out) - 1} searches equal to a second card run and to the CPU version on the "
+            f"first segments of at most {SCATTER_CPU_BLOCKS} blocks by mode "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    worst_f, finding = compare_seg_fold(device, seg_fold_cases(
+        {name: inputs[("rgb", name)][2:] for name in ("owner", "random")}, nb))
+    log(f"  seg_sum_fold vs its plain version: {len(finding)} cases, max abs diff {worst_f}")
+    for name, (n_fold, n_runs, n) in finding.items():
+        log(f"    index_add_ on the card, {name}: {n_fold} of {n} sums differ from the fold, "
+            f"{n_runs} between two runs")
+
+    # times at the owner map, RGB: the ladder search, the fit, and the fit's
+    # seg_sum_fold call on its (3, NB) channel sums
+    px, mask, seg, s = inputs[("rgb", "owner")]
+    seg_t = torch.from_numpy(seg).to(device)
+    out, f8 = results[("rgb", "owner")]
+    _, d3, cfg = out[(3, "ladder")]
+    ladder = lambda: find_shifts_segments(px, mask, f8, d3, seg_t, s, cfg)
+    fit = lambda: fit_segments(px, mask, seg_t, s, 3)
+    x = (px.to(torch.float32) * mask).sum(dim=1)
+    plan = fold_plan(seg_t, s)
+    fold = lambda: seg_sum_fold_kernel(x, seg_t, s, plan)
+    ladder_ms, fit_ms = time_fn(ladder, device), time_fn(fit, device)
+    busy = [device_busy_ms(fn, 5, device=device) for fn in (ladder, fit, fold)]
+    log(f"  4K rgb owner map ({s} segments): find_shifts_segments ladder {ladder_ms!r} ms, "
+        f"fit_segments {fit_ms!r} ms (CUDA events, median of {TIMED_RUNS}); device busy per "
+        f"call (torch.profiler, 5 calls): ladder {busy[0]!r}, fit {busy[1]!r}, its "
+        f"seg_sum_fold call {busy[2]!r} ms [{smi}]")
+    out = fold()
+    k_ms = time_fn(fold, device)
+    p_ms = time_fn(lambda: seg_sum_plain(x, seg_t, s), device)
+    zeros, idx = torch.zeros_like(out), seg_t.to(torch.int64)
+    lib_ms = time_fn(lambda: zeros.index_add_(1, idx, x), device)
+    bound_ms, bound_by = kernel_bound("seg_sum_fold", (x, seg_t, s, plan), out)
+    log(f"  4K rgb seg_sum_fold (3, {nb}) -> (3, {s}): kernel {k_ms!r} ms, plain version "
+        f"(index_add_ into new zeros) {p_ms!r} ms, index_add_ {lib_ms!r} ms, bound {bound_ms!r} "
+        f"ms ({bound_by}) [{smi}]")
+    log(f"phase 3j ok: the scatter refit and crush on the card equal the CPU version and a "
+        f"second run (max abs diff {max(worst, worst_f)})")
+    return launched, max(worst, worst_f), (k_ms, p_ms, bound_ms, bound_by, lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # Bounds: bytes and operations of a call, counted from its inputs and outputs
 # (each tensor read or written once) and from the kernels' code
@@ -2277,6 +2541,11 @@ def kernel_bound(name: str, args, out) -> tuple:
         ops = match_ops(probed_pairs(*args[:3]), args[2])
     elif name == "match_neighbors":
         ops = match_ops(neighbor_probed_pairs(*args[:2]), args[1])
+    elif name == "seg_sum_fold":
+        # one add a member of each row; each row read once, the plan (not
+        # the ids) once, each sum written once
+        x, plan = args[0], args[3]
+        return call_bound(x.numel(), tensor_bytes(x, plan, out))
     elif name == "seg_mixed_all":
         from limg_tpu_torch.ops.segments import scan_steps
 
@@ -2882,37 +3151,23 @@ def launches_per_step(fn) -> dict:
 
 
 def profile_step(fn, device, lane: str, iters: int = 5, by_op: bool = False):
-    """Device time by operation over ``iters`` perf steps (torch.profiler),
-    and the device-busy share of the profiled window; ``by_op`` also logs
-    the device time of the kernels each PyTorch operation launched itself,
-    by the operation's name (the plain-torch glue; the port's own kernels
-    are launched by no operation)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by operation over ``iters`` perf steps (torch.profiler,
+    ``utils.timing.profile_device``), and the device-busy share of the
+    profiled window; ``by_op`` also logs the device time of the kernels each
+    PyTorch operation launched itself, by the operation's name (the
+    plain-torch glue; the port's own kernels are launched by no
+    operation)."""
+    from limg_tpu_torch.utils.timing import profile_device
 
-    for _ in range(2):   # the first window pays the profiler's start-up
-        fn()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize(device)
-        wall_us = (time.perf_counter() - t0) * 1e6 / iters
-    # device-side events only (CPU ops would count their kernels twice)
-    rows = sorted(((e.key, e.self_device_time_total / iters) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    busy = sum(us for _, us in rows)
-    log(f"  profile 4K {lane} step: device busy {busy!r} us of {wall_us!r} us wall "
-        f"per step, idle share {1 - busy / wall_us!r} (profiler on)")
+    prof = profile_device(fn, iters, device=device)
+    rows = sorted(prof.kernels.items(), key=lambda r: -r[1])
+    busy = prof.busy_us
+    log(f"  profile 4K {lane} step: device busy {busy!r} us of {prof.wall_us!r} us wall "
+        f"per step, idle share {1 - busy / prof.wall_us!r} (profiler on)")
     for key, us in rows[:8]:
         log(f"    {us!r:>22} us  {key[:90]}")
     if by_op:
-        ops = sorted(((e.key, e.self_device_time_total / iters) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-                     key=lambda r: -r[1])
+        ops = sorted(prof.ops.items(), key=lambda r: -r[1])
         log(f"  profile 4K {lane} step by PyTorch operation: {sum(us for _, us in ops)!r} us "
             f"of device time in {len(ops)} operations")
         for key, us in ops[:20]:
@@ -3307,11 +3562,12 @@ def phase_timing_corpus(device, smi: str, tmp: str):
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, timing) -> dict:
-    k_ms, p_ms, bound_ms, bound_by = timing
-    # no single PyTorch call computes any of these functions: no library time
+    """``timing``: (ms, plain ms, bound ms, bound by[, library ms]); only
+    seg_sum_fold's function has a PyTorch call (``index_add_``)."""
+    k_ms, p_ms, bound_ms, bound_by, lib_ms = (*timing, None)[:5]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
 def main():
@@ -3336,6 +3592,7 @@ def main():
     phase_ltp1(device, smi)
     launched_d = phase_main_path_dense(device)
     launched_l = phase_main_path_levels(device)
+    launched_j, worst_j, row_j = phase_main_path_scatter(device, smi)
     with tempfile.TemporaryDirectory() as tmp:      # the streamed corpus's TGA files
         launched_h = phase_main_path_corpus(device, tmp)
         rows, worst4k = phase_timing(device, smi)
@@ -3363,9 +3620,14 @@ def main():
     for name, replaces in NATURAL_REPLACES.items():
         kernels.append(kernel_row(name, NATURAL_SOURCE, replaces, launched_n[name],
                                   max(worst_n, worst4k_n), rows_n[(name, "rgb")]))
+    # crush_eval_rows' launches: the composed coalesce pass (phase 3e) and
+    # the scatter crush (phase 3j)
     kernels.append(kernel_row("crush_eval_rows", CRUSH_EVAL_SOURCE, CRUSH_EVAL_REPLACES,
-                              launched_n["crush_eval_rows"], max(worst_n, worst4k_n),
+                              launched_n["crush_eval_rows"] + launched_j["crush_eval_rows"],
+                              max(worst_n, worst4k_n, worst_j),
                               rows_n[("crush_eval_rows", "rgb")]))
+    kernels.append(kernel_row("seg_sum_fold", SEG_FOLD_SOURCE, SEG_FOLD_REPLACES,
+                              launched_j["seg_sum_fold"], worst_j, row_j))
     for p in SEGMENT_SIZES:
         name = f"segment_encode_p{p}"
         kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE, COALESCE_REPLACES["segment_encode"],

@@ -15,8 +15,9 @@ versions.
   (limg_tpu/pallas_kernels/seg_scan.py:140): the doubling-scan chain of
   ops/segments.py for a batch of independent problems (``ScanProblem``:
   each its own segment map and int32 or float32 rows of sum, max or min)
-  in one launch; ``seg_mixed_all_kernel`` (one problem of (R, N) rows),
-  ``seg_sum_all`` and ``seg_min_all`` are one-problem calls of it.
+  in one launch; ``seg_mixed_all_kernel`` is a one-problem call of it
+  (of (R, N) rows), which ops/segments.py's ``seg_sum_all`` /
+  ``seg_max_all`` / ``seg_min_all`` take on a card.
 - ``segment_encode_kernel`` takes the role of ``segment_encode_pallas``
   (limg_tpu/pallas_kernels/encode_segments.py:188): refit, factors, crush
   search, dither and decode of the contiguous segments (at most SEG_CAP
@@ -369,17 +370,6 @@ def seg_mixed_all_kernel(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_
         return torch.empty_like(x)
     ops = "s" * n_sum + "x" * (x.shape[0] - n_sum)
     return seg_scan([ScanProblem(seg_c, list(x.contiguous()), ops, init_max)])[0]
-
-
-def seg_sum_all(x: torch.Tensor, seg_c: torch.Tensor) -> torch.Tensor:
-    """Per-member segment sums of the (N,) row ``x``, through the kernel."""
-    return seg_scan([ScanProblem(seg_c, (x,), "s")])[0][0]
-
-
-def seg_min_all(x: torch.Tensor, seg_c: torch.Tensor, init=0) -> torch.Tensor:
-    """Per-member segment minima of the (N,) row ``x``: -max(-x), in the
-    kernel's registers."""
-    return seg_scan([ScanProblem(seg_c, (x,), "n", init)])[0][0]
 
 
 # ---------------------------------------------------------------------------

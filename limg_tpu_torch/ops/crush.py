@@ -274,9 +274,49 @@ def force_dropped_axes(shifts: torch.Tensor, num_factors: int) -> torch.Tensor:
     return torch.maximum(shifts, forced[:, None])
 
 
+_CORES = {"exhaustive": exhaustive_core, "guess": guess_core, "ladder": ladder_core}
+
+
+def _search(core, eval_batch, count, cfg: EncodeConfig, err_scale: int):
+    """Run a search core over the regions of ``count``, with the zero-shift
+    floors of the reduced-factor modes (num_factors < 3)."""
+    n = count.shape[-1]
+    floors = None
+    if cfg.num_factors < 3:
+        pm0, be0 = eval_batch(_const_cands([(0, 0, 0)], n, count.device))
+        floors = (pm0[0], be0[0])
+    return core(eval_batch, count, cfg, n, floors, err_scale)
+
+
+def _block_search(core, px, mask_i, f8, d: Decomposition, count, cfg: EncodeConfig):
+    es = err_scale_shift(px.shape[1])
+    return _search(core, lambda c: evaluate_batch(px, mask_i, f8, d, c, px.shape[0], es),
+                   count, cfg, es)
+
+
+def find_shifts_exhaustive(px, mask_i, f8, d: Decomposition, count, cfg: EncodeConfig):
+    """The exhaustive search of each block alone, on int32 inputs: px (ch, P,
+    N), mask_i (P, N), f8 (3, P, N), count (N,) (the JAX package's
+    ``find_shifts_exhaustive``, limg_tpu/ops/crush.py:345). Returns (shifts
+    (3, N), block_err (N,))."""
+    return _block_search(exhaustive_core, px, mask_i, f8, d, count, cfg)
+
+
+def find_shifts_guess(px, mask_i, f8, d: Decomposition, count, cfg: EncodeConfig):
+    """The guess search of each block alone; see ``find_shifts_exhaustive``."""
+    return _block_search(guess_core, px, mask_i, f8, d, count, cfg)
+
+
+def find_shifts_ladder(px, mask_i, f8, d: Decomposition, count, cfg: EncodeConfig):
+    """The ladder search of each block alone; see ``find_shifts_exhaustive``."""
+    return _block_search(ladder_core, px, mask_i, f8, d, count, cfg)
+
+
 def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=None,
                 use_kernel: bool = False):
-    """Dispatch by cfg.crush_mode. Returns (shifts (3, NB) i32, block_err).
+    """Dispatch by cfg.crush_mode. Returns (shifts (3, R) i32, block_err (R,)),
+    R the regions of ``red``'s values: the blocks, or a ``ScatterReducer``'s
+    segments.
 
     ``f8_u8``: the three (P, NB) uint8 factor planes (or a (3, P, NB)
     tensor); ``d``: the decomposition the search decodes with (already
@@ -293,7 +333,7 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
     mask_i = mask.to(torch.int32)
     count = red.sum(mask_i)
     f8 = torch.stack([p.to(torch.int32) for p in f8_u8])
-    n = px.shape[-1]
+    n = count.shape[-1]
     if not cfg.crush_bits:
         return (torch.zeros((3, n), dtype=torch.int32, device=px.device),
                 torch.zeros((n,), dtype=torch.int32, device=px.device))
@@ -320,13 +360,7 @@ def find_shifts(px_u8, mask, f8_u8, d: Decomposition, cfg: EncodeConfig, red=Non
             return evaluate_batch(px, mask_i, f8, d, cands, channels, es)
 
     def eval_batch(cands):
-        pm, be = evaluate(cands)
+        pm, be = evaluate(red.to_blocks(cands))
         return red.combine_max(pm), red.combine_sum(be >> ss)
 
-    floors = None
-    if cfg.num_factors < 3:
-        pm0, be0 = eval_batch(_const_cands([(0, 0, 0)], n, px.device))
-        floors = (pm0[0], be0[0])
-    core = {"exhaustive": exhaustive_core, "guess": guess_core}.get(
-        cfg.crush_mode, ladder_core)
-    return core(eval_batch, count, cfg, n, floors, es + ss)
+    return _search(_CORES.get(cfg.crush_mode, ladder_core), eval_batch, count, cfg, es + ss)

@@ -137,25 +137,31 @@ def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
     """Fit every region of the reducer ``red`` (ops/reduce.py).
 
     ``px_u8``: (>=ch, P, NB) uint8 or int; ``mask``: (P, NB) bool. Returns
-    (Decomposition with each region's values broadcast to its blocks,
-    region pixel counts (NB,) int32).
+    (Decomposition, region pixel counts int32), each region's values
+    broadcast to its blocks, (..., NB), or per segment, (..., S), for a
+    ``ScatterReducer`` (whose ``to_blocks`` takes them to the blocks for the
+    per-pixel passes; every other reducer's is the identity).
     """
     px = px_u8[:channels].to(torch.float32)
     m = mask.to(torch.float32)
+    blk = red.to_blocks
     count = red.sum(mask.to(torch.int32))
     inv_count = 1.0 / torch.clamp(count.to(torch.float32), min=1.0)
 
     avg = red.sum(px * m) * inv_count                      # (ch, NB)
-    corrected = (px - avg[:, None, :]) * m
+    avg_b = blk(avg)[:, None, :]
+    corrected = (px - avg_b) * m
     dir_a = _signed_unit_mean(corrected, m, inv_count, red)
+    dir_a_b = blk(dir_a)
 
-    fac_a = _project(corrected, dir_a) * m
-    est = avg[:, None, :] + fac_a[None] * dir_a[:, None, :]
+    fac_a = _project(corrected, dir_a_b) * m
+    est = avg_b + fac_a[None] * dir_a_b[:, None, :]
     resid_a = (px - est) * m
     dir_b = _signed_unit_mean(resid_a, m, inv_count, red)
+    dir_b_b = blk(dir_b)
 
-    fac_b = _project(resid_a, dir_b) * m
-    est_b = est + fac_b[None] * dir_b[:, None, :]
+    fac_b = _project(resid_a, dir_b_b) * m
+    est_b = est + fac_b[None] * dir_b_b[:, None, :]
     resid_ab = (px - est_b) * m
     if channels == 3:
         # dirC = cross(dirA, dirB) (src/limg_factorization.h:946)
@@ -167,7 +173,7 @@ def fit_regions(px_u8: torch.Tensor, mask: torch.Tensor, channels: int, red):
     else:
         # R^4: a third residual sweep (src/limg_factorization.h:1002-1247)
         dir_c = _signed_unit_mean(resid_ab, m, inv_count, red)
-    fac_c = _project(resid_ab, dir_c) * m
+    fac_c = _project(resid_ab, blk(dir_c)) * m
 
     # empty regions (segments of padding lanes): the +-BIG sentinels become
     # 0 (limg_tpu/ops/segments.py:345-349); such a region is flat, so its

@@ -27,7 +27,13 @@ A reducer maps per-pixel arrays ``(..., P, N)`` or per-block rows
   a row-major block grid (``nat_pairwise``), which pairs blocks as the
   Morton tree does;
 - across the blocks of a contiguous segment of the run-coalescing buffer
-  (``SegmentReducer``), the doubling scan of ops/segments.py.
+  (``SegmentReducer``), the doubling scan of ops/segments.py;
+- across the blocks of a segment of any map (``ScatterReducer``), a left
+  fold over its members in block order (ops/segments.py ``seg_sum``).
+
+Every reducer but ``ScatterReducer`` gives each block its region's value;
+``ScatterReducer`` gives each segment its value, (..., S), and
+``to_blocks`` takes such values back to the blocks.
 
 Integer sums wrap in int32 and, like min and max, do not depend on order.
 ``chunks`` is the most blocks a region can hold: the crush search's
@@ -38,8 +44,8 @@ from __future__ import annotations
 
 import torch
 
-from .fit import tree_sum
-from .segments import SEG_ERR_SHIFT, seg_mixed_all
+from .fit import _BIG, tree_sum
+from .segments import SEG_ERR_SHIFT, fold_plan, seg_max, seg_min, seg_mixed_all, seg_sum
 
 
 def pairwise_tree(row: torch.Tensor, group: int, op) -> torch.Tensor:
@@ -89,6 +95,10 @@ class _Reducer:
 
     def combine(self, row: torch.Tensor, op) -> torch.Tensor:
         raise NotImplementedError
+
+    def to_blocks(self, values: torch.Tensor) -> torch.Tensor:
+        """Region values as this reducer returns them -> each block's (..., N)."""
+        return values
 
     def combine_sum(self, row):
         return self.combine(row, torch.add)
@@ -183,6 +193,52 @@ class SegmentReducer(_Reducer):
         else:
             raise ValueError(f"no segment scan for {op}")
         return out.reshape(row.shape)
+
+
+class ScatterReducer(_Reducer):
+    """Regions are the segments of any map ``seg_id`` (N,) of ids in [0, S),
+    members anywhere (the JAX package's scatter form,
+    limg_tpu/ops/segments.py:44, :222-235). Values are per segment, (..., S);
+    a segment with no member keeps the reduction's start: 0 for a sum, for
+    a maximum (minimum) 0 on integers and -(+)3.4e38 on floats, as the JAX
+    package starts them. Block errors shift right by SEG_ERR_SHIFT less the
+    block's pre-scale before the sum, as a contiguous segment's."""
+
+    seg_err_shift = SEG_ERR_SHIFT
+
+    def __init__(self, seg_id: torch.Tensor, num_segments: int):
+        self.seg_id = seg_id
+        self.num_segments = num_segments
+        self._plan = None
+
+    def _fold_plan(self, row: torch.Tensor):
+        """The float sums' plan on a card, built once (ops/segments.py
+        ``fold_plan``); the CPU's ``index_add_`` needs none."""
+        if row.device.type == "cpu" or not row.is_floating_point():
+            return None
+        if self._plan is None:
+            self._plan = fold_plan(self.seg_id, self.num_segments)
+        return self._plan
+
+    def combine_sum(self, row):
+        return seg_sum(row, self.seg_id, self.num_segments, self._fold_plan(row))
+
+    def combine_max(self, row):
+        return seg_max(row, self.seg_id, self.num_segments,
+                       -_BIG if row.is_floating_point() else 0)
+
+    def combine_min(self, row):
+        return seg_min(row, self.seg_id, self.num_segments,
+                       _BIG if row.is_floating_point() else 2**31 - 1)
+
+    def to_blocks(self, values):
+        """(..., S) segment values -> (..., N); a (K, 3, S) table of
+        candidate shifts expanded with stride 0 (ops/crush.py
+        ``_const_cands``) stays one, as kernels/crush_eval.py reads it."""
+        n = self.seg_id.shape[0]
+        if values.shape[-1] > 1 and values.stride(-1) == 0:
+            return values[..., :1].expand(*values.shape[:-1], n)
+        return values[..., self.seg_id.to(torch.int64)]
 
 
 class NatGroupReducer(_QuadReducer):

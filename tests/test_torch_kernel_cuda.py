@@ -16,9 +16,9 @@ import torch
 
 from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, LARGE_REGION_LANES, LARGE_SEGMENT_SPANS,
                         LARGE_SETTINGS, RAGGED_SIZES, ROUNDS_PIXELS, ROUNDS_SETTINGS,
-                        SEGMENT_LANES, every_lane_a_member,
+                        SEGMENT_LANES, every_lane_a_member, owner_segment_map,
                         region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
-                        seg_map, small_image, with_alpha)
+                        seg_fold_cases, seg_map, small_image, with_alpha)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
@@ -756,3 +756,118 @@ def test_sharded_corpus_and_blocks_on_card_equal_cpu(device, channels, dithering
     cpu = mesh.encode_image_blocks_sharded(images[0], cfg, n_devices=1, seed=4, device="cpu")
     np.testing.assert_array_equal(card[0], cpu[0])
     assert card[1:] == cpu[1:]
+
+
+# ---------------------------------------------------------------------------
+# The scatter-form segment sum, refit and crush (kernels/seg_fold.py,
+# ops/segments.py with contiguous=False)
+# ---------------------------------------------------------------------------
+
+def _scatter_maps(by: int, bx: int, seed: int) -> dict:
+    """Quadtree owner squares (levels 0-2, numbered in row-major block order)
+    and a random map with empty segments, on a by x bx block grid."""
+    rng = np.random.default_rng(seed)
+    owner = np.repeat(np.repeat(rng.integers(0, 3, (-(-by // 4), -(-bx // 4))), 4, 0), 4, 1)
+    nb = by * bx
+    return {"owner": owner_segment_map(owner[:by, :bx]),
+            "random": (rng.integers(0, nb // 4, nb).astype(np.int32), nb // 4 + 3)}
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_seg_sum_fold_kernel_matches_plain_version(device, case):
+    """The fold kernel equals the CPU's left fold bit for bit, launch after
+    launch, with its plan built in the wrapper or passed in."""
+    from limg_tpu_torch.kernels import seg_fold
+    from limg_tpu_torch.ops.segments import fold_plan
+
+    name, (x, seg, s) = list(seg_fold_cases(_scatter_maps(40, 60, 5), 2400).items())[case]
+    xt, st = torch.from_numpy(x), torch.from_numpy(seg)
+    want = seg_fold.seg_sum_fold_reference(xt, st, s)
+    before = seg_fold.launches["seg_sum_fold"]
+    xd, sd = xt.to(device), st.to(device)
+    got = [seg_fold.seg_sum_fold_kernel(xd, sd, s),
+           seg_fold.seg_sum_fold_kernel(xd, sd, s, fold_plan(sd, s))]
+    torch.cuda.synchronize(device)
+    assert seg_fold.launches["seg_sum_fold"] == before + 2, name
+    for g in got:
+        assert g.is_cuda and torch.equal(g.cpu(), want), name
+
+
+@pytest.mark.parametrize("mode,num_factors", [("ladder", 3), ("ladder", 2), ("exhaustive", 3),
+                                              ("guess", 2), ("ladder", 1), ("none", 3)])
+@pytest.mark.parametrize("kind", ["owner", "random"])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_scatter_fit_and_crush_on_card_equal_cpu(device, channels, kind, mode, num_factors):
+    """fit_segments -> factors -> find_shifts_segments(contiguous=False) on
+    the card (seg_sum_fold in the fit, crush_eval_rows in the search) equal
+    the same calls on the CPU bit for bit, and a second card run."""
+    from limg_tpu_torch.kernels import crush_eval, seg_fold
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.fit import drop_decomposition_axes
+    from limg_tpu_torch.ops.segments import find_shifts_segments, fit_segments, gather_decomp
+
+    img = mrec.make_4k_lane(45, 67, "rgba" if channels == 4 else "rgb")
+    px, mask, grid = layout.blockify(torch.from_numpy(np.ascontiguousarray(img)))
+    seg, s = _scatter_maps(grid.blocks_y, grid.blocks_x, 9)[kind]
+    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                       num_factors=num_factors)
+
+    def run(dev):
+        p, m, sg = px.to(dev), mask.to(dev), torch.from_numpy(seg).to(dev)
+        d = fit_segments(p, m, sg, s, channels)
+        f8 = torch.stack(quantize_factors(*extract_factors(p, gather_decomp(d, sg), channels)))
+        d_nf = drop_decomposition_axes(d, num_factors)
+        return [*d, *find_shifts_segments(p, m, f8, d_nf, sg, s, cfg)]
+
+    before = (seg_fold.launches["seg_sum_fold"], crush_eval.launches["crush_eval_rows"])
+    card = run(device)
+    torch.cuda.synchronize(device)
+    assert seg_fold.launches["seg_sum_fold"] > before[0]
+    assert (crush_eval.launches["crush_eval_rows"] > before[1]) == cfg.crush_bits
+    for g, a, w in zip(card, run(device), run("cpu")):
+        assert g.is_cuda and torch.equal(g, a) and torch.equal(g.cpu(), w)
+    empty = torch.from_numpy(np.bincount(seg, minlength=s) == 0).to(device)
+    if cfg.crush_bits and kind == "random":
+        assert empty.any() and not card[-2][:, empty].any()
+        assert (card[-1][empty] == 2**31 - 1).all()
+
+
+@pytest.mark.parametrize("mode", ["ladder", "guess"])
+def test_contiguous_segment_fit_and_crush_on_card_equal_cpu(device, mode):
+    """contiguous=True on the card (the scan kernel, crush_eval_rows) equals
+    the CPU, per member."""
+    from limg_tpu_torch.kernels import coalesce as kc
+    from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+    from limg_tpu_torch.ops.segments import find_shifts_segments, fit_segments
+
+    img = mrec.make_4k_lane(45, 67, "rgb")
+    px, mask, grid = layout.blockify(torch.from_numpy(np.ascontiguousarray(img)))
+    nb = grid.num_blocks
+    seg = seg_map(np.random.default_rng(8), nb, 9)
+    cfg = EncodeConfig(error_factor=100, crush_mode=mode)
+
+    def run(dev):
+        p, m, sg = px.to(dev), mask.to(dev), torch.from_numpy(seg).to(dev)
+        d = fit_segments(p, m, sg, nb, 3, contiguous=True)
+        f8 = torch.stack(quantize_factors(*extract_factors(p, d, 3)))
+        return [*d, *find_shifts_segments(p, m, f8, d, sg, nb, cfg, contiguous=True)]
+
+    before = kc.launches["seg_mixed_all"]
+    card = run(device)
+    torch.cuda.synchronize(device)
+    assert kc.launches["seg_mixed_all"] > before
+    for g, w in zip(card, run("cpu")):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_device_busy_ms_on_card(device):
+    """device_busy_ms sums the device time of the kernels a call launches."""
+    from limg_tpu_torch.kernels import seg_fold
+    from limg_tpu_torch.utils.timing import device_busy_ms, profile_device
+
+    x = torch.rand((3, 100_000), device=device)
+    seg = torch.randint(0, 5000, (100_000,), device=device, dtype=torch.int32)
+    ms = device_busy_ms(lambda: seg_fold.seg_sum_fold_kernel(x, seg, 5000), device=device)
+    assert ms is not None and 0 < ms < 100
+    prof = profile_device(lambda: seg_fold.seg_sum_fold_kernel(x, seg, 5000), device=device)
+    assert any("seg_sum_fold_kernel" in k for k in prof.kernels)

@@ -180,9 +180,24 @@ def test_import_pulls_in_no_jax():
             "limg_tpu_torch.kernels.encode_merged, limg_tpu_torch.ops.match, "
             "limg_tpu_torch.ops.morton, limg_tpu_torch.ops.reduce, "
             "limg_tpu_torch.kernels.coalesce, limg_tpu_torch.ops.segments, "
+            "limg_tpu_torch.kernels.seg_fold, limg_tpu_torch.kernels.crush_eval, "
             "limg_tpu_torch.bitstream, limg_tpu_torch.native, limg_tpu_torch.utils.diagnostics, "
             "limg_tpu_torch.parallel, limg_tpu_torch.parallel.mesh, limg_tpu_torch.parallel.corpus; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'limg_tpu.')) "
             "or m in ('limg_tpu', 'PIL', 'triton')]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_device_busy_ms_has_no_device_trace_on_the_cpu():
+    """device_busy_ms (limg_tpu/utils/timing.py:108) returns None where no
+    device trace exists, as JAX's does; on the CPU the call is not profiled."""
+    from limg_tpu_torch.utils import timing
+
+    calls = []
+    assert timing.device_busy_ms(lambda: calls.append(1), device="cpu") is None
+    assert timing.device_busy_ms(lambda: calls.append(1), 5, device=torch.device("cpu")) is None
+    assert timing.profile_device(lambda: calls.append(1), device="cpu") is None
+    assert calls == []
+    prof = timing.DeviceProfile({"k1": 2.5, "k2": 0.5}, {}, 10.0)
+    assert prof.busy_us == 3.0

@@ -79,9 +79,9 @@ def test_seg_sum_and_min_are_exact_for_integers():
     for s in np.unique(seg):
         members = seg == s
         sums[members], mins[members] = x[members].sum(), x[members].min()
-    np.testing.assert_array_equal(kc.seg_sum_all(t_x, t_seg).numpy(), sums)
-    np.testing.assert_array_equal(kc.seg_min_all(t_x, t_seg, 1).numpy(), mins)
-    np.testing.assert_array_equal(kc.seg_min_all(t_x, t_seg, 1).numpy(),
+    np.testing.assert_array_equal(segments.seg_sum_all(t_x, t_seg).numpy(), sums)
+    np.testing.assert_array_equal(segments.seg_min_all(t_x, t_seg, 1).numpy(), mins)
+    np.testing.assert_array_equal(segments.seg_min_all(t_x, t_seg, 1).numpy(),
                                   np.asarray(jseg.seg_min_all(jnp.asarray(x), jnp.asarray(seg), 1)))
     assert segments.scan_steps(1) == [] and segments.scan_steps(300) == [1, 2, 4, 8, 16, 32, 64, 128]
     assert (segments.SEG_CAP, segments.SEG_ERR_SHIFT) == (jseg.SEG_CAP, jseg.SEG_ERR_SHIFT)

@@ -231,24 +231,11 @@ def events_ms(fn, device) -> tuple[float, float]:
 def profiled(fn, device, pattern: str | None) -> tuple[float, float]:
     """(device ms per call of the kernels whose name matches ``pattern``,
     device busy ms per call) by torch.profiler over PROFILED calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from limg_tpu_torch.utils.timing import profile_device
 
-    fn()
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(PROFILED):
-            fn()
-        torch.cuda.synchronize(device)
-    kern = busy = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        busy += e.self_device_time_total
-        if pattern and re.search(pattern, e.key):
-            kern += e.self_device_time_total
-    return kern / PROFILED / 1e3, busy / PROFILED / 1e3
+    prof = profile_device(fn, PROFILED, device=device, windows=1)
+    kern = sum(us for key, us in prof.kernels.items() if pattern and re.search(pattern, key))
+    return kern / 1e3, prof.busy_us / 1e3
 
 
 def sass_functions(build, library: str, pattern: str) -> dict:

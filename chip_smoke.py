@@ -468,6 +468,10 @@ SETTINGS = ([(mode, 3, dith) for mode in ("ladder", "exhaustive", "guess", "none
 # 160 px is 240 blocks, 60 / 15 / 6 regions) and regions with no pixel
 # inside the image (a grid one region row and column larger than the image)
 EDGE_IMAGE = (96, 160)
+# the segment encode's ladder at K = 1 and MAX_LADDER_K, and at error factor
+# 10 (small shifts: verified candidates that are sweeps, whose values the
+# kernel takes from its sweep pass)
+SEGMENT_LADDER_ENDS = ((1, 100), (16, 100), (8, 10))
 EDGE_SETTINGS = [("ladder", 3, True), ("exhaustive", 1, False), ("guess", 2, True),
                  ("none", 3, False), ("ladder", 1, False)]
 
@@ -887,6 +891,11 @@ def phase_compare_coalesce(device, images=None) -> float:
                 cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
                                    dithering=dith, num_factors=nf)
                 check(f"segment_encode seeded ch={ch} n={n} {mode} nf={nf} dither={dith}",
+                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
+                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
+            for k, ef in SEGMENT_LADDER_ENDS:
+                cfg = EncodeConfig(error_factor=ef, has_alpha=ch == 4, ladder_k=k)
+                check(f"segment_encode seeded ch={ch} n={n} ladder K={k} error_factor={ef}",
                       kc.segment_encode_kernel(*buf, cfg, 0x5EED),
                       kc.segment_encode_reference(*buf, cfg, 0x5EED))
     # segment encode at its edges: 1-256 members, tile crossings, empty lanes
@@ -1817,6 +1826,10 @@ def phase_compare_segment_regions(device) -> float:
                                        dithering=dith, num_factors=nf)
                     check(f"segment_encode P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
                           buf, cfg)
+            for k, ef in SEGMENT_LADDER_ENDS:
+                cfg = EncodeConfig(error_factor=ef, has_alpha=ch == 4, ladder_k=k)
+                check(f"segment_encode P={p} seeded ch={ch} ladder K={k} error_factor={ef}",
+                      bufs["seeded"], cfg)
         log(f"  P={p}: {n_cases} cases so far bit-equal")
     log(f"phase 2f ok: {n_cases} cases, max abs diff {worst}")
     return worst

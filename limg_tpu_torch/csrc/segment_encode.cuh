@@ -9,10 +9,10 @@
 // dither and decode of the contiguous segments of the run buffer.
 //
 // What bounds it on the H100: it does the work of the fixed-grid kernel per
-// member block (a fit and 35+ exact candidate decodes at ladder K = 8), so
-// its bound is operations (chip_smoke.py kernel_bound); it runs far from
-// it, compute- and barrier-bound: a segment reduction after every fit step
-// and candidate batch.
+// member block (a fit and 25 sweeps plus up to K exact candidate decodes at
+// ladder K = 8), so its bound is operations (chip_smoke.py kernel_bound);
+// it runs far from it, compute- and barrier-bound: a segment reduction
+// after every fit step and candidate pass.
 //
 // segment_encode's design: segment ids are the first member's position,
 // members are contiguous and a segment has at most SEG_CAP of them. A lane
@@ -25,27 +25,41 @@
 // version's outputs for an empty region at once (write_empty), and every
 // later loop walks only the other lanes (S.act); a CTA of such lanes alone
 // stops there. A warp works on one block at a time and loops over the
-// CTA's active blocks: 64 pixels in registers at a time (two a lane, as in
-// encode_fixed), a larger region chunk by chunk, each float sum over its
-// pixels kept lane by lane in the plain version's halving-tree order
-// (ChunkTree) and the crush's 9 candidates of a batch evaluated on each
-// chunk as it is read (the chunk and candidate loops are not unrolled:
-// unrolled, they spilled 2-3 KB a thread, took 1.6x the time and twice the
-// build); between the steps of the fit and between candidate batches the
-// blocks' partial values meet in shared memory:
-// - float sums (counts, channel sums, unit-vector sums) and the factor
-//   extremes go through the doubling scan of ops/segments.py in the plain
-//   version's order, fwd + bwd - x, which is not the exact segment sum and
-//   can differ between members: between two CTA barriers each warp scans
-//   whole segments (scan_segments), a segment of up to 32 members by
-//   shuffles (at 4K all but ~70 of ~37,000), a longer one over shared
-//   memory with the warp's own barriers;
-// - the crush's integer pixel maxima and error sums are order-free, so they
-//   are per-segment shared-memory atomics;
-// - the fit's per-pixel steps are repeated from the image in each phase
-//   (limg_common.cuh FitSteps), its factors go to a scratch plane for the
-//   crush, and per-block state (region values, ladder boxes, candidates,
-//   the running best) lives in shared memory, one column per block.
+// CTA's active blocks. In the fit, 64 pixels are in registers at a time
+// (two a lane, as in encode_fixed), a larger region chunk by chunk, each
+// float sum over its pixels kept lane by lane in the plain version's
+// halving-tree order (ChunkTree; the chunk loops are not unrolled:
+// unrolled, they spilled 2-3 KB a thread); between the steps of the fit the
+// blocks' partial values meet in shared memory: float sums (counts,
+// channel sums, unit-vector sums) and the factor extremes go through the
+// doubling scan of ops/segments.py in the plain version's order, fwd + bwd
+// - x, which is not the exact segment sum and can differ between members:
+// between two CTA barriers each warp scans whole segments
+// (scan_segments), a segment of up to 32 members by shuffles (at 4K all
+// but ~70 of ~37,000), a longer one over shared memory with the warp's own
+// barriers. The fit's per-pixel steps are repeated from the image in each
+// phase (limg_common.cuh FitSteps), its factors go to a scratch plane, and
+// per-block state lives in shared memory, one column per block.
+//
+// The crush search (ops/crush.py find_shifts on segment totals): its pixel
+// maxima and wrapping error sums are order-free, so a lane of a block holds
+// all its 2^(LOGC+1) pixels and factors in registers (SegLane), reduces
+// each candidate over the warp (two reductions) and keeps the block's
+// values of candidate c in lane c, and lanes c of a pass add them to the
+// segment's totals, a row of shared memory a segment (its ordinal among
+// the CTA's segment starts), one atomic instruction a pass each. Ladder:
+// one pass of the 25 distinct sweeps, each axis's on its base (the other
+// two axes' decode at shift 0, made once a pixel and channel, as
+// crush_search.cuh's sweep_base); after one CTA barrier each warp builds
+// its blocks' ladder box and 64 lattice keys from the totals, peels the K
+// candidates (lane r keeps the r-th) and evaluates those that are not
+// sweeps (a sweep's totals are the sweep pass's); after a second barrier
+// the decode pass folds the K candidates, lane r judging the r-th. Exhaustive: passes of two rows
+// of 9 triples (s0, s1 fixed), each row a sweep of axis 2 on its base, the
+// segment's start folding the totals (ties to later) between barriers.
+// Guess: one pass of (0, 0, 0) and the four canned triples. A candidate's
+// per-axis constants are hoisted out of the pixel loop and a decoded
+// channel's clamp is one DPX instruction (clamped_pixel_err).
 // One warp per segment, with no CTA barrier after the counts, computed the
 // same bits but took 3x the time at 4K (PERF.md). At P = 256 this design
 // measured 3.5x faster than the cluster design on the 4K dense buffer
@@ -54,6 +68,7 @@
 #pragma once
 
 #include "limg_common.cuh"
+#include "crush_search.cuh"
 
 namespace {
 
@@ -74,37 +89,51 @@ constexpr int kSegLanes = 128 + kSegCap - 1;  // the most lanes a CTA covers
 constexpr int kSegWarps = 8;
 constexpr int kSegThreads = kSegWarps * 32;
 constexpr int kScanRows = 6;                     // float rows scanned at once
-constexpr int kBatch = 9;                        // candidates per reduction
+constexpr int kBatch = 9;                        // candidates a batch (segment_cluster.cuh)
 constexpr int kMaxK = 16;                        // kernels/coalesce.py MAX_LADDER_K
+constexpr int kMaxTile = 128;                    // the most segment starts a CTA takes
+constexpr int kTotCands = 25;                    // the most candidates a pass: the 25 sweeps
+constexpr int kTotStride = 2 * kTotCands;        // a segment's totals: pixel maxima, error sums
+constexpr int kExhRows = 2;                      // exhaustive: rows of 9 triples a pass
 
 // Segment starts per CTA: 128 for 8x8 blocks; 32 for 16x16 px regions,
 // whose buffers hold a quarter of the lanes, so that the card still gets a
 // few hundred CTAs.
 template <int LOGC>
 __host__ __device__ constexpr int seg_tile() {
-  return LOGC == 0 ? 128 : 32;
+  return LOGC == 0 ? kMaxTile : 32;
 }
 
 // Per-block state rows (ints; floats by bit pattern). The crush's rows reuse
-// the fit's once the endpoints are out, and the ladder candidates reuse the
-// box rows once the keys are made.
+// the fit's once the endpoints are out; they hold a segment's values at its
+// start's column.
 enum : int {
   S_AVG = 0, S_DIRA = 4, S_DIRB = 8, S_DIRC = 12, S_MN = 16, S_MX = 19,   // fit, floats
-  S_BEST = 0, S_TOT = 1, S_ERR = 2, S_FPIX = 3, S_FBLK = 4,              // crush
-  S_BASE = 5, S_DBLK = 8, S_DPIX = 20, S_ERR0 = 32, S_PIX0 = 33,          // ladder box
-  S_CAND = 8,                                                            // ladder candidates
-  S_COUNT = 34,                                                          // segment pixels
-  kStateRows = 35,
+  S_BEST = 0, S_TOT = 1, S_ERR = 2, S_FPIX = 3, S_FBLK = 4,              // exhaustive search
+  S_CAND = 5,                                                            // ladder candidates
+  S_COUNT = 22,                                                          // segment pixels
+  kStateRows = 23,
+};
+
+// The fit's rows of the doubling scan.
+struct SegScan {
+  float sx[kScanRows][kSegLanes], sf[kScanRows][kSegLanes], sb[kScanRows][kSegLanes];
 };
 
 struct SegShared {
   int seg[kSegLanes];  // local index of each block's segment start
-  int len[kSegLanes];  // at a segment start: its lane count
+  int len[kSegLanes];  // at a segment start: its lane count; in the crush search, each
+                       // lane's segment's ordinal among the CTA's segment starts
   int act[kSegLanes];  // the lanes whose segment holds a member pixel
   int n_act;
-  float sx[kScanRows][kSegLanes], sf[kScanRows][kSegLanes], sb[kScanRows][kSegLanes];
-  int acc[2 * kBatch][kSegLanes];  // per-segment pixel maxima, then error sums
+  union {
+    SegScan scan;                       // the fit
+    int tot[kMaxTile * kTotStride];     // the crush: each segment's candidate totals
+  };
+  int vtot[kMaxTile * kTotStride];      // pixel counts; the ladder's verified candidates' totals
   int st[kStateRows][kSegLanes];
+  int frame[kSegWarps][6 * 4];          // each warp's block's decode frame
+  unsigned starts[(kSegLanes + 31) / 32];   // the segment starts, a bit a lane
   int range[2];
 };
 
@@ -234,7 +263,7 @@ __device__ void scan_segments(SegShared& S, int nl) {
       for (int r = 0; r < NROWS; ++r) {
         const bool sum = r < NSUM;
         if (n <= 32) {
-          const float x = lane < n ? S.sx[r][s + lane] : 0.0f;
+          const float x = lane < n ? S.scan.sx[r][s + lane] : 0.0f;
           float f = x, b = x;
 #pragma unroll
           for (int d = 1; d < 32; d <<= 1) {
@@ -242,12 +271,12 @@ __device__ void scan_segments(SegShared& S, int nl) {
             if (lane >= d) f = sum ? f + pf : fmaxf(f, pf);
             if (lane + d < n) b = sum ? b + pb : fmaxf(b, pb);
           }
-          if (lane < n) S.sx[r][s + lane] = sum ? (f + b) - x : fmaxf(f, b);
+          if (lane < n) S.scan.sx[r][s + lane] = sum ? (f + b) - x : fmaxf(f, b);
         } else {
           constexpr int kPer = kSegCap / 32;
-          float* sf = S.sf[r] + s;
-          float* sb = S.sb[r] + s;
-          for (int j = lane; j < n; j += 32) sf[j] = sb[j] = S.sx[r][s + j];
+          float* sf = S.scan.sf[r] + s;
+          float* sb = S.scan.sb[r] + s;
+          for (int j = lane; j < n; j += 32) sf[j] = sb[j] = S.scan.sx[r][s + j];
           __syncwarp();
           for (int d = 1; d < n; d <<= 1) {
             float nf[kPer], nbk[kPer];
@@ -271,8 +300,8 @@ __device__ void scan_segments(SegShared& S, int nl) {
             __syncwarp();
           }
           for (int j = lane; j < n; j += 32) {
-            const float x = S.sx[r][s + j];
-            S.sx[r][s + j] = sum ? (sf[j] + sb[j]) - x : fmaxf(sf[j], sb[j]);
+            const float x = S.scan.sx[r][s + j];
+            S.scan.sx[r][s + j] = sum ? (sf[j] + sb[j]) - x : fmaxf(sf[j], sb[j]);
           }
           __syncwarp();
         }
@@ -356,7 +385,7 @@ __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, i
     for (int c = 0; c < CH; ++c) part[c] = tree_sum(terms[c][0], terms[c][1]);
     if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) S.sx[c][i] = part[c];
+      for (int c = 0; c < CH; ++c) S.scan.sx[c][i] = part[c];
     }
   }
   __syncthreads();
@@ -364,7 +393,7 @@ __device__ void fit_direction(const SegParams& P, SegShared& S, int a, int nl, i
   for (int i = threadIdx.x; i < nl; i += kSegThreads) {
     const float ic = inv_count(S, i);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) putf(S, out_row + c, i, S.sx[c][i] * ic);
+    for (int c = 0; c < CH; ++c) putf(S, out_row + c, i, S.scan.sx[c][i] * ic);
   }
   __syncthreads();
 }
@@ -434,77 +463,6 @@ __device__ __forceinline__ void eval_lane(const Block<CH>& blk, const int (&s)[3
   }
 }
 
-// Segment totals of ncand candidates: pixel maxima in acc[c], error sums in
-// acc[kBatch + c], at each segment's start. cand(i, c, s) gives block i's
-// candidate c (the same for every member of a segment). An 8x8 block is
-// read once per batch and each candidate reduced over the warp at once; a
-// larger region is read chunk by chunk once per batch, each candidate's
-// lane maxima and sums kept until the last chunk.
-template <int CH, int LOGC, class Cand>
-__device__ void eval_batch(const SegParams& P, SegShared& S, int a, int nl, int ncand,
-                           const Cand& cand) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int kBlkShift = kSegErrShift - block_err_scale<LOGC>();
-  for (int e = tid; e < 2 * kBatch * kSegLanes; e += kSegThreads) {
-    const int r = e / kSegLanes, i = e % kSegLanes;
-    if (i < nl) S.acc[r][i] = r < kBatch ? (-2147483647 - 1) : 0;
-  }
-  __syncthreads();
-      for (int ai = warp; ai < S.n_act; ai += kSegWarps) {
-        const int i = S.act[ai];
-        const size_t b = (size_t)(a + i);
-        Block<CH> blk;
-        setup_crush_block<CH, LOGC>(P, S, b, i, blk);
-        const int at = S.seg[i];
-        if constexpr (LOGC == 0) {
-          load_crush_chunk<CH, LOGC>(P, b, 0, lane, blk);
-          for (int c = 0; c < ncand; ++c) {
-            int s[3];
-            cand(i, c, s);
-            int pm, be;
-            blk.eval(s, pm, be);
-            if (lane == 0) {
-              atomicMax(&S.acc[c][at], pm);
-              atomicAdd(&S.acc[kBatch + c][at], be >> kBlkShift);
-            }
-          }
-        } else {
-          int sv[kBatch], pm[kBatch], be[kBatch];
-  #pragma unroll 1
-          for (int c = 0; c < kBatch; ++c) {
-            int s[3] = {0, 0, 0};
-            if (c < ncand) cand(i, c, s);
-            sv[c] = pack3(s);
-            pm[c] = be[c] = 0;
-          }
-  #pragma unroll 1
-          for (int k = 0; k < (1 << LOGC); ++k) {
-            load_crush_chunk<CH, LOGC>(P, b, k, lane, blk);
-  #pragma unroll 1
-            for (int c = 0; c < kBatch; ++c) {
-              if (c < ncand) {
-                int s[3];
-                unpack3(sv[c], s);
-                eval_lane<CH>(blk, s, pm[c], be[c]);
-              }
-            }
-          }
-  #pragma unroll 1
-          for (int c = 0; c < kBatch; ++c) {
-            if (c < ncand) {
-              const int pmw = __reduce_max_sync(kFull, pm[c]);
-              const int bew = __reduce_add_sync(kFull, be[c]);
-              if (lane == 0) {
-                atomicMax(&S.acc[c][at], pmw);
-                atomicAdd(&S.acc[kBatch + c][at], bew >> kBlkShift);
-              }
-            }
-          }
-        }
-      }
-  __syncthreads();
-}
-
 // Block i's region admissibility test.
 struct SegAdm {
   int count, max_pix, max_blk, floor_pix, floor_blk;
@@ -515,22 +473,198 @@ struct SegAdm {
 };
 
 __device__ __forceinline__ SegAdm seg_adm(const SegParams& P, const SegShared& S, int i,
-                                          bool floors) {
-  return SegAdm{S.st[S_COUNT][i], P.max_pix, P.max_blk, S.st[S_FPIX][i], S.st[S_FBLK][i],
-                floors};
+                                          bool floors, int floor_pix, int floor_blk) {
+  return SegAdm{S.st[S_COUNT][i], P.max_pix, P.max_blk, floor_pix, floor_blk, floors};
 }
 
-// Folds candidate c of the last batch into block i's running best.
-__device__ __forceinline__ void fold(SegShared& S, int i, int c, const int (&s)[3],
-                                     const SegAdm& adm, bool ties_to_later) {
-  const int at = S.seg[i];
-  int best[3];
-  unpack3(S.st[S_BEST][i], best);
-  int tot = S.st[S_TOT][i], err = S.st[S_ERR][i];
-  take_if_better(adm, s, S.acc[c][at], S.acc[kBatch + c][at], ties_to_later, best, tot, err);
-  S.st[S_BEST][i] = pack3(best);
-  S.st[S_TOT][i] = tot;
-  S.st[S_ERR][i] = err;
+// One lane's part of the crush search of one block: its 2^(LOGC+1) pixels
+// (pixel t = 2k + j is pixel 64k + lane + 32j of the region) and their u8
+// factors in registers, the block's decode frame in its warp's slot of
+// shared memory. A candidate's values are the lane's pixel maximum and
+// wrapping error sum, then the warp's (one reduction each), then the
+// segment's (atomics): integers, the same in any order. A decoded
+// channel's clamp to [0, 255] is one DPX instruction (clamped_pixel_err).
+template <int CH, int LOGC>
+struct SegLane {
+  static constexpr int kPix = 2 << LOGC;
+  int px[CH][kPix];
+  int f8w[kPix];      // pixel t's u8 factors, axis k in byte k
+  unsigned vmask;     // bit t: pixel t is a member
+  int lane;
+  const int* fr;      // axis normals n[k][c] at k CH + c, offsets m[k][c] at (3 + k) CH + c
+
+  // Block b's pixels and factors, and its frame (from the endpoint rows)
+  // into the warp's slot.
+  __device__ void load(const SegParams& P, size_t b, int lane_, int* slot) {
+    lane = lane_;
+    vmask = 0;
+#pragma unroll
+    for (int k = 0; k < (1 << LOGC); ++k) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = 2 * k + j;
+        const size_t at = pixel_at<LOGC>(b, k, lane, j);
+        const uint32_t w = (uint32_t)P.packed[at];
+#pragma unroll
+        for (int c = 0; c < CH; ++c) px[c][t] = (int)((w >> (8 * c)) & 0xFFu);
+        vmask |= (P.mask[at] != 0 ? 1u : 0u) << t;
+        f8w[t] = P.f8[at];
+      }
+    }
+    // lane e < 6 CH reads endpoint value e (row e / CH, channel e % CH);
+    // lane k CH + c < 3 CH writes axis k's normal and offset of channel c
+    const int ep = lane < 6 * CH ? P.eps[(size_t)lane * P.n + b] : 0;
+    const int kc = min(lane, 3 * CH - 1), k = kc / CH, c = kc % CH;
+    const int hi = __shfl_sync(kFull, ep, (2 * k + 1) * CH + c);
+    const int lo = __shfl_sync(kFull, ep, 2 * k * CH + c);
+    __syncwarp();  // the warp's last block's frame is read
+    if (lane < 3 * CH) {
+      slot[lane] = hi - lo;
+      slot[3 * CH + lane] = lo;
+    }
+    __syncwarp();
+    fr = slot;
+  }
+
+  // Axis k's term of decode_est (limg_common.cuh) at shift s, its
+  // constants hoisted out of the pixel loop.
+  struct Axis {
+    int shr, qm, mul, nn[CH], mm[CH];
+  };
+  __device__ Axis axis(int k, int s) const {
+    Axis x;
+    const int se = min(s, 8);
+    x.shr = 8 * k + se;
+    x.qm = 0xFF >> se;
+    x.mul = mult_for(se);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      x.nn[c] = s > 7 ? 0 : fr[k * CH + c];
+      x.mm[c] = (k == 0 || s <= 7) ? fr[(3 + k) * CH + c] : 0;
+    }
+    return x;
+  }
+  __device__ __forceinline__ void add_axis(const Axis& x, int t, int (&est)[CH]) const {
+    const int fdec = ((f8w[t] >> x.shr) & x.qm) * x.mul;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) est[c] += x.mm[c] + ((fdec * x.nn[c] + 128) >> 8);
+  }
+  // pixel t's error under est (0 outside the members) into (pm, be)
+  __device__ __forceinline__ void take(const int (&est)[CH], int t, int& pm, int& be) const {
+    const int e = (vmask >> t) & 1 ? clamped_pixel_err<CH, kPix>(est, px, t) : 0;
+    pm = max(pm, e);
+    be = add_wrap(be, e >> block_err_scale<LOGC>());
+  }
+
+  // Exact (pixel max, error sum) of this lane's pixels under triple s.
+  __device__ void eval(const int (&s)[3], int& pm, int& be) const {
+    const Axis x0 = axis(0, s[0]), x1 = axis(1, s[1]), x2 = axis(2, s[2]);
+    pm = be = 0;
+#pragma unroll
+    for (int t = 0; t < kPix; ++t) {
+      int est[CH] = {};
+      add_axis(x0, t, est);
+      add_axis(x1, t, est);
+      add_axis(x2, t, est);
+      take(est, t, pm, be);
+    }
+  }
+  // The decode of axes k0 and k1 at shifts s0 and s1, pixel by pixel: the
+  // base of the triples that differ only in the third axis.
+  __device__ void base2(int k0, int s0, int k1, int s1, int (&base)[CH][kPix]) const {
+    const Axis x0 = axis(k0, s0), x1 = axis(k1, s1);
+#pragma unroll
+    for (int t = 0; t < kPix; ++t) {
+      int est[CH] = {};
+      add_axis(x0, t, est);
+      add_axis(x1, t, est);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) base[c][t] = est[c];
+    }
+  }
+  // eval of the base's triple with its third axis, k, at shift s
+  __device__ void eval_on(const int (&base)[CH][kPix], int k, int s, int& pm, int& be) const {
+    const Axis x = axis(k, s);
+    pm = be = 0;
+#pragma unroll
+    for (int t = 0; t < kPix; ++t) {
+      int est[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) est[c] = base[c][t];
+      add_axis(x, t, est);
+      take(est, t, pm, be);
+    }
+  }
+
+  // The block's values of one candidate (a reduction each over the warp);
+  // lane `mine` keeps them.
+  __device__ __forceinline__ void keep(int mine, int pm, int be, int& hp, int& hb) const {
+    pm = __reduce_max_sync(kFull, pm);
+    be = __reduce_add_sync(kFull, be);
+    if (lane == mine) {
+      hp = pm;
+      hb = be;
+    }
+  }
+};
+
+// Lane c adds its candidate c's block values to the segment's totals (pixel
+// maxima at tot[c], error sums, each block's shifted first, at tot[kTotCands
+// + c]): a pass's atomics in one instruction each.
+template <int LOGC>
+__device__ __forceinline__ void publish(int* tot, int lane, bool mine, int hp, int hb) {
+  if (mine) {
+    atomicMax(tot + lane, hp);
+    atomicAdd(tot + kTotCands + lane, hb >> (kSegErrShift - block_err_scale<LOGC>()));
+  }
+}
+
+// limg_common.cuh guess_triple(t) packed (pack3), from a constant rather
+// than a table (a table indexed at run time would sit in local memory).
+__device__ __forceinline__ int guess_packed(int t) {
+  return (int)((0x542864885654ull >> (12 * t)) & 0xFFFu);
+}
+
+// Triple s's index among the ladder's 25 distinct sweeps (0: (0, 0, 0);
+// 8 a + v: axis a at v > 0, the others 0), or -1.
+__device__ __forceinline__ int sweep_index(const int (&s)[3]) {
+  const int nz = (s[0] > 0) + (s[1] > 0) + (s[2] > 0);
+  if (nz > 1) return -1;
+  return s[0] > 0 ? s[0] : (s[1] > 0 ? 8 + s[1] : (s[2] > 0 ? 16 + s[2] : 0));
+}
+
+// The ladder box and the 64 lattice keys of a segment from its sweeps'
+// totals, spread over the warp (limg_common.cuh ladder_axis and ladder_key,
+// the same integers): lane 9 a + s tests axis a's sweep s, a ballot gives
+// each axis's base (its largest admissible shift), and each lane makes its
+// keys lane and lane + 32 from the totals at the box's shifts.
+__device__ __forceinline__ void ladder_keys_of(const int* tot, const SegAdm& adm, int lane,
+                                               LadderBox& box, int (&key)[2]) {
+  const auto at = [](int a, int s) { return s == 0 ? 0 : 8 * a + s; };
+  const int x = at(lane / 9, lane % 9);
+  const unsigned ok = __ballot_sync(kFull, lane < 27 && adm(tot[x], tot[kTotCands + x]));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const unsigned bits = (ok >> (9 * a)) & 0x1FFu;
+    box.base[a] = bits == 0 ? 0 : 31 - __clz(bits);
+  }
+  const int pm0 = tot[0], be0 = tot[kTotCands];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int idx = lane + 32 * j, o[3] = {idx / 16, (idx / 4) % 4, idx % 4};
+    int d_blk = 0, d_pix = 0, total = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int s = max(box.base[a] - o[a], 0), y = at(a, s);
+      d_blk += tot[kTotCands + y] - be0;
+      d_pix += tot[y] - pm0;
+      total += s;
+    }
+    const int ablk = be0 + d_blk, apix = pm0 + d_pix;
+    const int fits = adm(apix, ablk) ? 1 : 0;
+    const int err_pack = (33554431) - min(ablk >> 6, 33554431);
+    key[j] = (int)(((uint32_t)fits << 30) + ((uint32_t)total << 25) + (uint32_t)err_pack);
+  }
 }
 
 // dither_decode (limg_common.cuh) for chunk k of a region of npix pixels:
@@ -614,7 +748,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   for (int i = tid; i < nl; i += kSegThreads) {
     const int s = P.seg[a + i] - a;
     S.seg[i] = (s < 0 || s > i) ? i : s;
-    S.acc[0][i] = 0;
+    S.vtot[i] = 0;
   }
   __syncthreads();
 
@@ -629,11 +763,11 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
       m += (P.mask[at] != 0 ? 1 : 0) + (P.mask[at + 32] != 0 ? 1 : 0);
     }
     const int cnt = __reduce_add_sync(kFull, m);
-    if (lane == 0 && cnt > 0) atomicAdd(&S.acc[0][S.seg[i]], cnt);
+    if (lane == 0 && cnt > 0) atomicAdd(&S.vtot[S.seg[i]], cnt);
   }
   __syncthreads();
   for (int i = tid; i < nl; i += kSegThreads) {
-    S.st[S_COUNT][i] = S.acc[0][S.seg[i]];
+    S.st[S_COUNT][i] = S.vtot[S.seg[i]];
     if (S.st[S_COUNT][i] > 0) S.act[atomicAdd(&S.n_act, 1)] = i;
     if (i == nl - 1 || S.seg[i + 1] != S.seg[i]) S.len[S.seg[i]] = i - S.seg[i] + 1;
   }
@@ -664,7 +798,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     for (int c = 0; c < CH; ++c) sums[c] = tree_sum(v[c][0], v[c][1]);
     if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) S.sx[c][i] = sums[c];
+      for (int c = 0; c < CH; ++c) S.scan.sx[c][i] = sums[c];
     }
   }
   __syncthreads();
@@ -672,7 +806,7 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   for (int i = tid; i < nl; i += kSegThreads) {
     const float ic = inv_count(S, i);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) putf(S, S_AVG + c, i, S.sx[c][i] * ic);
+    for (int c = 0; c < CH; ++c) putf(S, S_AVG + c, i, S.scan.sx[c][i] * ic);
   }
   __syncthreads();
 
@@ -722,8 +856,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
     if (lane == 0) {
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        S.sx[k][i] = -mn[k];
-        S.sx[3 + k][i] = mx[k];
+        S.scan.sx[k][i] = -mn[k];
+        S.scan.sx[3 + k][i] = mx[k];
       }
       if (CH == 3) {
 #pragma unroll
@@ -736,8 +870,8 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   for (int i = tid; i < nl; i += kSegThreads) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      putf(S, S_MN + k, i, -S.sx[k][i]);
-      putf(S, S_MX + k, i, S.sx[3 + k][i]);
+      putf(S, S_MN + k, i, -S.scan.sx[k][i]);
+      putf(S, S_MX + k, i, S.scan.sx[3 + k][i]);
     }
   }
   __syncthreads();
@@ -778,136 +912,201 @@ __global__ void __launch_bounds__(kSegThreads, 2) segment_encode_kernel(const Se
   __syncthreads();  // the factor and endpoint rows are read back below
 
   // ---- crush search (ops/crush.py cores, region values = segment totals)
+  // Each segment's totals sit in its row of tot (vtot: the ladder's verified
+  // candidates), the row its ordinal among the CTA's segment starts, which
+  // len holds for each lane from here on.
+  constexpr int kPix = SegLane<CH, LOGC>::kPix;
+  constexpr int kRows = seg_tile<LOGC>();   // the most segment starts here
+  for (int c = warp; c * 32 < nl; c += kSegWarps) {
+    const int g = c * 32 + lane;
+    const unsigned w = __ballot_sync(kFull, g < nl && S.seg[g] == g);
+    if (lane == 0) S.starts[c] = w;
+  }
+  for (int e = tid; e < kRows * kTotStride; e += kSegThreads) {
+    const int v = e % kTotStride < kTotCands ? (-2147483647 - 1) : 0;
+    S.tot[e] = v;
+    S.vtot[e] = v;
+  }
+  __syncthreads();
   for (int i = tid; i < nl; i += kSegThreads) {
-    S.st[S_BEST][i] = 0;
-    S.st[S_TOT][i] = -1;
-    S.st[S_ERR][i] = 2147483647;
-    S.st[S_FPIX][i] = S.st[S_FBLK][i] = 0;
+    const int s = S.seg[i];
+    int o = __popc(S.starts[s >> 5] & ((1u << (s & 31)) - 1u));
+    for (int c = 0; c < (s >> 5); ++c) o += __popc(S.starts[c]);
+    S.len[i] = min(o, kRows - 1);   // well-formed ids: at most kRows segments start here
+    if (s == i) {
+      S.st[S_BEST][i] = 0;
+      S.st[S_TOT][i] = -1;
+      S.st[S_ERR][i] = 2147483647;
+      S.st[S_FPIX][i] = S.st[S_FBLK][i] = 0;
+    }
   }
   __syncthreads();
   const bool floors = P.crush_mode != kNone && P.num_factors < 3;
-  if (floors) {
-    eval_batch<CH, LOGC>(P, S, a, nl, 1, [](int, int, int (&s)[3]) { s[0] = s[1] = s[2] = 0; });
-    for (int i = tid; i < nl; i += kSegThreads) {
-      S.st[S_FPIX][i] = S.acc[0][S.seg[i]];
-      S.st[S_FBLK][i] = S.acc[kBatch][S.seg[i]];
+  if (P.crush_mode == kLadder) {
+    // the 25 distinct sweeps (axis ax at shift s, the other axes
+    // unquantized) in one pass: per axis the other two axes' decode once
+    for (int ai = warp; ai < na; ai += kSegWarps) {
+      const int i = S.act[ai];
+      SegLane<CH, LOGC> L;
+      L.load(P, (size_t)(a + i), lane, S.frame[warp]);
+      int hp = 0, hb = 0;
+      // unrolled at P = 64 (2 pixels a lane), where registers allow it
+#pragma unroll (LOGC == 0 ? 3 : 1)
+      for (int ax = 0; ax < 3; ++ax) {
+        int base[CH][kPix];
+        L.base2(ax == 0 ? 1 : 0, 0, ax == 2 ? 1 : 2, 0, base);
+#pragma unroll (LOGC == 0 ? 9 : 1)
+        for (int s = ax == 0 ? 0 : 1; s < 9; ++s) {
+          int pm, be;
+          L.eval_on(base, ax, s, pm, be);
+          L.keep(s == 0 ? 0 : 8 * ax + s, pm, be, hp, hb);
+        }
+      }
+      publish<LOGC>(S.tot + S.len[i] * kTotStride, lane, lane < kTotCands, hp, hb);
     }
     __syncthreads();
-  }
-
-  if (P.crush_mode == kExhaustive) {
-    // all 729 triples in ascending lex order; ties to later
-    for (int i0 = 0; i0 < 729; i0 += kBatch) {
-      const auto triple = [i0](int, int c, int (&s)[3]) {
-        s[0] = (i0 + c) / 81;
-        s[1] = ((i0 + c) / 9) % 9;
-        s[2] = (i0 + c) % 9;
-      };
-      eval_batch<CH, LOGC>(P, S, a, nl, kBatch, triple);
-      for (int i = tid; i < nl; i += kSegThreads) {
-        const SegAdm adm = seg_adm(P, S, i, floors);
-        for (int c = 0; c < kBatch; ++c) {
-          int s[3];
-          triple(i, c, s);
-          fold(S, i, c, s, adm, true);
+    // lattice keys and the K best-ranked candidates (lane r keeps the r-th,
+    // the segment's start its row), then the exact values of those that
+    // are not sweeps
+    for (int ai = warp; ai < na; ai += kSegWarps) {
+      const int i = S.act[ai], row = S.len[i];
+      const int* tot = S.tot + row * kTotStride;
+      const SegAdm adm = seg_adm(P, S, i, floors, tot[0], tot[kTotCands]);
+      LadderBox box;
+      int key[2], mine = 0;
+      ladder_keys_of(tot, adm, lane, box, key);
+      for (int r = 0; r < P.ladder_k; ++r) {
+        int s[3];
+        ladder_peel(key, box, lane, s);
+        if (lane == r) mine = pack3(s);
+      }
+      int sm[3];
+      unpack3(mine, sm);
+      if (lane < P.ladder_k && S.seg[i] == i) S.st[S_CAND + lane][i] = mine;
+      const unsigned need = __ballot_sync(kFull, lane < P.ladder_k && sweep_index(sm) < 0);
+      if (need == 0) continue;
+      SegLane<CH, LOGC> L;
+      L.load(P, (size_t)(a + i), lane, S.frame[warp]);
+      int hp = 0, hb = 0;
+      for (unsigned m = need; m != 0; m &= m - 1) {
+        const int r = __ffs(m) - 1;
+        int s[3], pm, be;
+        unpack3(__shfl_sync(kFull, mine, r), s);
+        L.eval(s, pm, be);
+        L.keep(r, pm, be, hp, hb);
+      }
+      publish<LOGC>(S.vtot + row * kTotStride, lane, (need >> lane) & 1, hp, hb);
+    }
+    __syncthreads();
+  } else if (P.crush_mode == kExhaustive) {
+    // all 729 triples in ascending lex order, kExhRows rows of 9 (s0 and s1
+    // fixed, s2 = 0 .. 8) a pass, each row on its first two axes' decode;
+    // the segment's start folds them, ties to later
+    for (int r0 = 0; r0 < 81; r0 += kExhRows) {
+      const int nr = min(kExhRows, 81 - r0);
+      for (int ai = warp; ai < na; ai += kSegWarps) {
+        const int i = S.act[ai];
+        SegLane<CH, LOGC> L;
+        L.load(P, (size_t)(a + i), lane, S.frame[warp]);
+        int hp = 0, hb = 0;
+#pragma unroll 1
+        for (int rr = 0; rr < nr; ++rr) {
+          int base[CH][kPix];
+          L.base2(0, (r0 + rr) / 9, 1, (r0 + rr) % 9, base);
+#pragma unroll 1
+          for (int s2 = 0; s2 < 9; ++s2) {
+            int pm, be;
+            L.eval_on(base, 2, s2, pm, be);
+            L.keep(9 * rr + s2, pm, be, hp, hb);
+          }
         }
+        publish<LOGC>(S.tot + S.len[i] * kTotStride, lane, lane < 9 * nr, hp, hb);
+      }
+      __syncthreads();
+      for (int i = tid; i < nl; i += kSegThreads) {
+        if (S.seg[i] != i || S.st[S_COUNT][i] == 0) continue;
+        int* tot = S.tot + S.len[i] * kTotStride;
+        if (r0 == 0 && floors) {   // the floors: (0, 0, 0)'s values
+          S.st[S_FPIX][i] = tot[0];
+          S.st[S_FBLK][i] = tot[kTotCands];
+        }
+        const SegAdm adm = seg_adm(P, S, i, floors, S.st[S_FPIX][i], S.st[S_FBLK][i]);
+        int best[3], b_tot = S.st[S_TOT][i], b_err = S.st[S_ERR][i];
+        unpack3(S.st[S_BEST][i], best);
+        for (int c = 0; c < 9 * nr; ++c) {
+          const int t = 9 * r0 + c, s[3] = {t / 81, (t / 9) % 9, t % 9};
+          take_if_better(adm, s, tot[c], tot[kTotCands + c], true, best, b_tot, b_err);
+          tot[c] = -2147483647 - 1;   // emptied for the next pass
+          tot[kTotCands + c] = 0;
+        }
+        S.st[S_BEST][i] = pack3(best);
+        S.st[S_TOT][i] = b_tot;
+        S.st[S_ERR][i] = b_err;
       }
       __syncthreads();
     }
   } else if (P.crush_mode == kGuess) {
-    eval_batch<CH, LOGC>(P, S, a, nl, 4, [](int, int c, int (&s)[3]) { guess_triple(c, s); });
-    for (int i = tid; i < nl; i += kSegThreads) {
-      const SegAdm adm = seg_adm(P, S, i, floors);
-      bool ok[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) ok[t] = adm(S.acc[t][S.seg[i]], S.acc[kBatch + t][S.seg[i]]);
-      int best[3] = {0, 0, 0};
-      const int pick = guess_pick(ok);
-      if (pick >= 0) guess_triple(pick, best);
-      S.st[S_BEST][i] = pack3(best);
-    }
-    __syncthreads();
-  } else if (P.crush_mode == kLadder) {
-    // 27 per-axis sweeps, one axis per batch -> the ladder box
-    for (int ax = 0; ax < 3; ++ax) {
-      eval_batch<CH, LOGC>(P, S, a, nl, kBatch, [ax](int, int c, int (&s)[3]) {
-        s[0] = s[1] = s[2] = 0;
-        s[ax] = c;
-      });
-      for (int i = tid; i < nl; i += kSegThreads) {
-        const SegAdm adm = seg_adm(P, S, i, floors);
-        int pm_ax[9], be_ax[9];
-#pragma unroll
-        for (int s = 0; s < 9; ++s) {
-          pm_ax[s] = S.acc[s][S.seg[i]];
-          be_ax[s] = S.acc[kBatch + s][S.seg[i]];
-        }
-        LadderBox box;
-        ladder_axis(box, ax, pm_ax, be_ax, adm);
-        S.st[S_BASE + ax][i] = box.base[ax];
-#pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          S.st[S_DBLK + 4 * ax + o][i] = box.d_blk[ax][o];
-          S.st[S_DPIX + 4 * ax + o][i] = box.d_pix[ax][o];
-        }
-        if (ax == 0) {
-          S.st[S_ERR0][i] = box.err0;
-          S.st[S_PIX0][i] = box.pix0;
-        }
-      }
-      __syncthreads();
-    }
-    // lattice keys and the K best candidates of each block
+    // (0, 0, 0), whose values are the floors, and the four canned triples
     for (int ai = warp; ai < na; ai += kSegWarps) {
       const int i = S.act[ai];
-      LadderBox box;
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-        box.base[ax] = S.st[S_BASE + ax][i];
-#pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          box.d_blk[ax][o] = S.st[S_DBLK + 4 * ax + o][i];
-          box.d_pix[ax][o] = S.st[S_DPIX + 4 * ax + o][i];
-        }
+      SegLane<CH, LOGC> L;
+      L.load(P, (size_t)(a + i), lane, S.frame[warp]);
+      int hp = 0, hb = 0;
+#pragma unroll 1
+      for (int t = 0; t < 5; ++t) {
+        int s[3], pm, be;
+        unpack3(t > 0 ? guess_packed(t - 1) : 0, s);
+        L.eval(s, pm, be);
+        L.keep(t, pm, be, hp, hb);
       }
-      box.err0 = S.st[S_ERR0][i];
-      box.pix0 = S.st[S_PIX0][i];
-      const SegAdm adm = seg_adm(P, S, i, floors);
-      int key[2];
-      ladder_keys(box, adm, lane, key);
-      __syncwarp();  // every lane has read the box rows the candidates reuse
-      for (int r = 0; r < P.ladder_k; ++r) {
-        int s[3];
-        ladder_peel(key, box, lane, s);
-        if (lane == 0) S.st[S_CAND + r][i] = pack3(s);
-      }
+      publish<LOGC>(S.tot + S.len[i] * kTotStride, lane, lane < 5, hp, hb);
     }
     __syncthreads();
-    // exact verification, best-ranked first
-    for (int r0 = 0; r0 < P.ladder_k; r0 += kBatch) {
-      const int nc = min(kBatch, P.ladder_k - r0);
-      const auto cand = [&S, r0](int i, int c, int (&s)[3]) { unpack3(S.st[S_CAND + r0 + c][i], s); };
-      eval_batch<CH, LOGC>(P, S, a, nl, nc, cand);
-      for (int i = tid; i < nl; i += kSegThreads) {
-        const SegAdm adm = seg_adm(P, S, i, floors);
-        for (int c = 0; c < nc; ++c) {
-          int s[3];
-          cand(i, c, s);
-          fold(S, i, c, s, adm, false);
-        }
-      }
-      __syncthreads();
-    }
   }
 
   // ---- dither, decode and the outputs
   for (int ai = warp; ai < na; ai += kSegWarps) {
     const int i = S.act[ai];
     const size_t b = (size_t)(a + i);
+    // the segment's shift triple from its totals (the same in every lane)
+    int best[3] = {0, 0, 0};
+    const int at = S.seg[i];
+    const int* tot = S.tot + S.len[i] * kTotStride;
+    if (P.crush_mode == kLadder) {
+      // the K candidates, best-ranked first
+      // (take_if_better in turn: the admissible one of the largest total,
+      // then of the smallest error, then the first); lane r judges the r-th
+      const int* vt = S.vtot + S.len[i] * kTotStride;
+      const SegAdm adm = seg_adm(P, S, i, floors, tot[0], tot[kTotCands]);
+      const bool real = lane < P.ladder_k;
+      const int mine = real ? S.st[S_CAND + lane][at] : 0;
+      int s[3];
+      unpack3(mine, s);
+      const int x = sweep_index(s);
+      const int pm = !real ? 0 : (x >= 0 ? tot[x] : vt[lane]);
+      const int be = !real ? 0 : (x >= 0 ? tot[kTotCands + x] : vt[kTotCands + lane]);
+      const bool ok = real && adm(pm, be);
+      const int total = s[0] + s[1] + s[2];
+      const int top = __reduce_max_sync(kFull, ok ? total : -1);
+      if (top >= 0) {
+        const bool at_top = ok && total == top;
+        const unsigned order = (unsigned)be ^ 0x80000000u;   // be's order, unsigned
+        const unsigned low = __reduce_min_sync(kFull, at_top ? order : 0xFFFFFFFFu);
+        const unsigned first = __reduce_min_sync(kFull, at_top && order == low ? (unsigned)lane : 32u);
+        unpack3(__shfl_sync(kFull, mine, (int)first), best);
+      }
+    } else if (P.crush_mode == kExhaustive) {
+      unpack3(S.st[S_BEST][at], best);
+    } else if (P.crush_mode == kGuess) {
+      const SegAdm adm = seg_adm(P, S, i, floors, tot[0], tot[kTotCands]);
+      bool ok[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) ok[t] = adm(tot[1 + t], tot[kTotCands + 1 + t]);
+      const int pick = guess_pick(ok);
+      if (pick >= 0) unpack3(guess_packed(pick), best);
+    }
     Block<CH> blk;
     setup_crush_block<CH, LOGC>(P, S, b, i, blk);
-    int best[3];
-    unpack3(S.st[S_BEST][i], best);
 #pragma unroll
     for (int k = 0; k < 3; ++k)
       if (k >= P.num_factors) best[k] = max(best[k], 8);  // statically dropped axes

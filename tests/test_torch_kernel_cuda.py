@@ -279,19 +279,26 @@ def test_run_building_scans_launch_once_per_stage(device, channels, policy):
             assert torch.equal(g, w)
 
 
+# crush settings of the segment encode's tests: mode, num_factors, ladder K
+# (1 and MAX_LADDER_K = 16 at its ends) and an error factor (10: small
+# shifts, so that verified ladder candidates are often one-axis sweeps,
+# whose values the kernel takes from its sweep pass)
+SEGMENT_CRUSH = [("ladder", 3, 8, 100), ("ladder", 1, 8, 100), ("exhaustive", 3, 8, 100),
+                 ("guess", 2, 8, 100), ("none", 3, 8, 100), ("ladder", 3, 1, 100),
+                 ("ladder", 2, 16, 100), ("ladder", 3, 8, 10), ("ladder", 3, 16, 10)]
+
+
 @pytest.mark.parametrize("dithering", [False, True])
-@pytest.mark.parametrize("mode,num_factors", [
-    ("ladder", 3), ("ladder", 1), ("exhaustive", 3), ("guess", 2), ("none", 3),
-])
+@pytest.mark.parametrize("mode,num_factors,ladder_k,error_factor", SEGMENT_CRUSH)
 @pytest.mark.parametrize("channels", [3, 4])
 def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num_factors,
-                                                     dithering):
+                                                     ladder_k, error_factor, dithering):
     from limg_tpu_torch.kernels import coalesce as kc
 
     rng = np.random.default_rng(channels * 10 + num_factors)
     buf = seeded_run_buffer(rng, 700, channels, device)
-    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
-                       dithering=dithering, num_factors=num_factors)
+    cfg = EncodeConfig(error_factor=error_factor, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors, ladder_k=ladder_k)
     before = kc.launches["segment_encode"]
     got = kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD)
     torch.cuda.synchronize(device)
@@ -300,12 +307,13 @@ def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num
 
 
 @pytest.mark.parametrize("buffer", ["edges+empty tail", "no member", "edges"])
-@pytest.mark.parametrize("mode,num_factors,dithering", [
-    ("ladder", 3, True), ("exhaustive", 1, False), ("guess", 2, True), ("none", 3, False),
+@pytest.mark.parametrize("mode,num_factors,dithering,ladder_k", [
+    ("ladder", 3, True, 8), ("exhaustive", 1, False, 8), ("guess", 2, True, 8),
+    ("none", 3, False, 8), ("ladder", 2, False, 1), ("ladder", 3, False, 16),
 ])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_segment_encode_kernel_at_its_edges(device, channels, mode, num_factors, dithering,
-                                            buffer):
+                                            ladder_k, buffer):
     """Segments of 1, 31, 32, 33 and 256 members, some across the kernel's
     128-lane tiles; a tail of lanes with no member; no member at all."""
     from chip_smoke import edge_run_buffers
@@ -313,7 +321,7 @@ def test_segment_encode_kernel_at_its_edges(device, channels, mode, num_factors,
 
     buf = edge_run_buffers(np.random.default_rng(channels), channels, device)[buffer]
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
-                       dithering=dithering, num_factors=num_factors)
+                       dithering=dithering, num_factors=num_factors, ladder_k=ladder_k)
     got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
     torch.cuda.synchronize(device)
     _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x5EED))
@@ -506,13 +514,15 @@ def test_ltp1_stream_of_the_card_encode_is_jaxs(device, name):
 
 
 @pytest.mark.parametrize("dithering", [False, True])
-@pytest.mark.parametrize("mode,num_factors", [
-    ("ladder", 3), ("ladder", 2), ("exhaustive", 1), ("guess", 3), ("none", 3),
+@pytest.mark.parametrize("mode,num_factors,ladder_k,error_factor", [
+    ("ladder", 3, 8, 100), ("ladder", 2, 8, 100), ("exhaustive", 1, 8, 100),
+    ("guess", 3, 8, 100), ("none", 3, 8, 100), ("ladder", 3, 1, 100), ("ladder", 2, 16, 100),
+    ("ladder", 3, 16, 10),
 ])
 @pytest.mark.parametrize("channels", [3, 4])
 @pytest.mark.parametrize("p", [256, 1024, 4096])
 def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_factors,
-                                                dithering):
+                                                ladder_k, error_factor, dithering):
     """The segment encode at the dense levels' region sizes, bit-equal to its
     plain version; at P = 4096 lane 0 is a saturated region whose unscaled
     error sum passes 2^31."""
@@ -521,8 +531,8 @@ def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_f
     rng = np.random.default_rng(p + channels)
     n = SEGMENT_LANES[p]
     buf = region_run_buffer(rng, p, n, channels, device, empty_tail=n // 6, saturate=p == 4096)
-    cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
-                       dithering=dithering, num_factors=num_factors)
+    cfg = EncodeConfig(error_factor=error_factor, has_alpha=channels == 4, crush_mode=mode,
+                       dithering=dithering, num_factors=num_factors, ladder_k=ladder_k)
     name = kc.segment_kernel_name(p)
     before = kc.launches[name]
     got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)

@@ -46,6 +46,8 @@ layout of work over lanes adds floats in the order the plain versions
   halving tree over the ranks.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -56,9 +58,12 @@ from limg_tpu_torch.kernels import encode_merged as km
 from limg_tpu_torch.ops import crush
 from limg_tpu_torch.ops.decode import decode_blocks
 from limg_tpu_torch.ops.error import weighted_error
-from limg_tpu_torch.ops.fit import Decomposition, inv_or_zero, tree_sum
+from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
+from limg_tpu_torch.ops.fit import (Decomposition, drop_decomposition_axes, fit_regions,
+                                   inv_or_zero, tree_sum)
+from limg_tpu_torch.ops.layout import unpack_plane
 from limg_tpu_torch.ops.match import _COLOR_DIFF_FACTORS, _normals, match_decomps
-from limg_tpu_torch.ops.reduce import OwnerReducer, nat_block_sum, pairwise_tree
+from limg_tpu_torch.ops.reduce import OwnerReducer, SegmentReducer, nat_block_sum, pairwise_tree
 from limg_tpu_torch.ops.segments import scan_steps, seg_mixed_all
 
 torch.set_num_threads(1)
@@ -534,6 +539,217 @@ def test_eight_lane_crush_search_is_find_shifts(levels, nf, mode, k):
     assert torch.equal(got[:, real], want[:, real])
     assert torch.equal(count[real], red.sum(blocks.mask.to(torch.int32))[real])
     assert (owner[real] == levels - 1).any()       # the top level holds cut squares
+
+
+# ---------------------------------------------------------------------------
+# The one-warp segment encode's crush search (csrc/segment_encode.cuh, P = 64
+# and 256): a warp takes a block, each lane its 2^(LOGC+1) pixels; a
+# candidate's block values are the warp's pixel max and wrapping sum of
+# err >> es (es = block_err_scale, 0 here), its segment's the max and the
+# wrapping sum of each block's sum >> (kSegErrShift - es). The ladder's 25
+# distinct sweeps go in one pass, each on its axis's base (the other two
+# axes' decode at shift 0, made once); the K peeled candidates that are
+# sweeps take their values from that pass, the others are evaluated; the
+# exhaustive search's rows (s0, s1 fixed) are sweeps of axis 2 on their
+# base, two rows a pass
+# ---------------------------------------------------------------------------
+
+SEG_ERR_SHIFT = 8                       # csrc/segment_encode.cuh kSegErrShift
+_MULT = torch.tensor([1, 2, 4, 8, 17, 36, 85, 255, 0], dtype=torch.int32)   # mult_for
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with wrap-around."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _axis_term(f8, eps, k: int, s) -> torch.Tensor:
+    """Axis k's term of the kernel's decode at shift s (an int or (N,)),
+    SegLane::axis / add_axis: (ch, P, N)."""
+    n_lanes = f8.shape[-1]
+    s = torch.as_tensor(s, dtype=torch.int32).expand(n_lanes)
+    se = torch.clamp(s, max=8)
+    fdec = (f8[k] >> se[None]) * _MULT[se.long()][None]             # (P, N)
+    live = s <= 7
+    nn = torch.where(live[None], eps[2 * k + 1] - eps[2 * k], 0)     # (ch, N)
+    mm = torch.where(live[None] | (k == 0), eps[2 * k], 0)
+    return mm[:, None, :] + ((fdec[None] * nn[:, None, :] + 128) >> 8)
+
+
+def _segment_totals(err: torch.Tensor, seg: torch.Tensor, es: int):
+    """(K, P, N) member pixel errors -> each lane's segment's (pixel max,
+    error sum) (K, N), as the warp's reductions and the segment's atomics
+    give them."""
+    pm_blk = err.amax(dim=1)
+    be_blk = _wrap32((err >> es).to(torch.int64).sum(dim=1)) >> (SEG_ERR_SHIFT - es)
+    ids = seg.long()[None].expand_as(pm_blk)
+    pm = torch.full_like(pm_blk, -2**31).scatter_reduce(1, ids, pm_blk, "amax")
+    be = _wrap32(torch.zeros(pm_blk.shape, dtype=torch.int64).scatter_add(
+        1, ids, be_blk.to(torch.int64)))
+    return pm[:, seg.long()], be[:, seg.long()]
+
+
+def _sweep_index(c: torch.Tensor) -> torch.Tensor:
+    """(3, N) triples -> each one's index among the 25 sweeps, or -1
+    (segment_encode.cuh sweep_index)."""
+    nz = (c > 0).sum(dim=0)
+    idx = torch.where(c[0] > 0, c[0], torch.where(c[1] > 0, 8 + c[1],
+                                                  torch.where(c[2] > 0, 16 + c[2], 0)))
+    return torch.where(nz > 1, -1, idx)
+
+
+def _segment_kernel_search(px, mask, f8, d, seg, cfg, p):
+    """The segment template's search (segment_encode_kernel's crush) on one
+    run buffer: (3, N) shifts, statically dropped axes forced to 8."""
+    n, nf = px.shape[-1], cfg.num_factors
+    es = crush.err_scale_shift(p)
+    eps = torch.stack(list(d[1:]))                                   # (6, ch, N)
+    mask_i = mask.to(torch.int32)
+    ids = seg.long()
+    count = torch.zeros(n, dtype=torch.int64).index_add(0, ids, mask_i.sum(0).long())
+    count = count[ids].to(torch.int32)
+
+    def err_of(est):
+        return weighted_error(torch.clamp(est, 0, 255), px) * mask_i
+
+    def totals(errs):
+        return _segment_totals(torch.stack(errs), seg, es)
+
+    def full(c):
+        return err_of(sum(_axis_term(f8, eps, k, c[k]) for k in range(3)))
+
+    floors = None
+    best = crush._init_best(n, px.device)
+    if not cfg.crush_bits or cfg.crush_mode == "none":
+        shifts = best[0]
+    elif cfg.crush_mode == "ladder":
+        errs = []
+        for ax in range(3):                                          # one pass
+            o = [k for k in range(3) if k != ax]
+            base = _axis_term(f8, eps, o[0], 0) + _axis_term(f8, eps, o[1], 0)
+            errs += [err_of(base + _axis_term(f8, eps, ax, s)) for s in range(ax > 0, 9)]
+        pm, be = totals(errs)                                        # (25, N)
+        if nf < 3:
+            floors = (pm[0], be[0])
+        fl = None if floors is None else (floors[0][None], floors[1][None])
+        base, d_blk, d_pix, s_cand = [], [], [], []
+        for a in range(3):                                           # ladder_box
+            pm_ax = torch.cat([pm[:1], pm[1 + 8 * a:9 + 8 * a]])
+            be_ax = torch.cat([be[:1], be[1 + 8 * a:9 + 8 * a]])
+            adm = crush._admissible(pm_ax, be_ax, count[None], cfg, fl, SEG_ERR_SHIFT)
+            b = torch.where(adm, torch.arange(9)[:, None], 0).amax(dim=0)
+            s = torch.clamp(b[None] - torch.arange(4)[:, None], min=0)
+            base.append(b)
+            s_cand.append(s)
+            d_blk.append(torch.gather(be_ax - be_ax[:1], 0, s.long()))
+            d_pix.append(torch.gather(pm_ax - pm_ax[:1], 0, s.long()))
+        ablk, apix = be[0][None] + crush._lattice(d_blk), pm[0][None] + crush._lattice(d_pix)
+        ok = crush._admissible(apix, ablk, count[None], cfg, fl, SEG_ERR_SHIFT).to(torch.int32)
+        key = ((ok << 30) + (crush._lattice(s_cand) << 25)
+               + ((2**25 - 1) - torch.clamp(ablk >> 6, max=2**25 - 1)))
+        for top in _peel_argmax(key, cfg.ladder_k):                  # best-ranked first
+            c = torch.stack([torch.clamp(base[0] - top // 16, min=0),
+                             torch.clamp(base[1] - (top // 4) % 4, min=0),
+                             torch.clamp(base[2] - top % 4, min=0)]).to(torch.int32)
+            x = _sweep_index(c)
+            pm_r, be_r = totals([full(c)])
+            sweep = x >= 0
+            pm_c = torch.where(sweep, pm.gather(0, x.clamp(min=0).long()[None])[0], pm_r[0])
+            be_c = torch.where(sweep, be.gather(0, x.clamp(min=0).long()[None])[0], be_r[0])
+            best = crush._select(c[None], pm_c[None], be_c[None], count, cfg, floors, best,
+                                 False, SEG_ERR_SHIFT)
+        shifts = best[0]
+    elif cfg.crush_mode == "exhaustive":
+        for r0 in range(0, 81, 2):                                   # two rows a pass
+            errs, trips = [], []
+            for row in range(r0, min(r0 + 2, 81)):
+                base = _axis_term(f8, eps, 0, row // 9) + _axis_term(f8, eps, 1, row % 9)
+                errs += [err_of(base + _axis_term(f8, eps, 2, s2)) for s2 in range(9)]
+                trips += [(row // 9, row % 9, s2) for s2 in range(9)]
+            pm, be = totals(errs)
+            if r0 == 0 and nf < 3:
+                floors = (pm[0], be[0])
+            c = torch.tensor(trips, dtype=torch.int32)[:, :, None].expand(-1, 3, n)
+            best = crush._select(c, pm, be, count, cfg, floors, best, True, SEG_ERR_SHIFT)
+        shifts = best[0]
+    else:                                                            # guess: (0, 0, 0), then 4
+        trips = [(0, 0, 0)] + list(crush.GUESS_TRIPLES)
+        pm, be = totals([full(torch.tensor(t, dtype=torch.int32)[:, None].expand(3, n))
+                         for t in trips])
+        fl = (pm[:1], be[:1]) if nf < 3 else None
+        ok = crush._admissible(pm[1:], be[1:], count[None], cfg, fl, SEG_ERR_SHIFT)
+        t = torch.tensor(crush.GUESS_TRIPLES, dtype=torch.int32)[:, :, None]
+        hi = torch.where(ok[1][None], t[1], torch.where(ok[2][None], t[2], t[0]))
+        lo = torch.where(ok[3][None], t[3], torch.zeros_like(t[0]))
+        shifts = torch.where(ok[0][None], hi, lo)
+    return crush.force_dropped_axes(shifts, nf)
+
+
+# spans of the run buffers: segments of 1, 31, 32, 33 and 256 members, then
+# a tail of segments with no member pixel; the exhaustive search's shorter
+SEGMENT_SEARCH_SPANS = {64: (1, 31, 32, 33, 256), 256: (1, 31, 32, 33),
+                        "exhaustive": (1, 2, 3, 1, 5, 1, 9)}
+SEGMENT_SEARCH_TAIL = (3, 1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_search_inputs(p: int, ch: int, nf: int, spans: tuple):
+    """A seeded run buffer of regions of p pixels, each segment a colour
+    with a gradient and noise of its own amplitude (so that the shifts
+    found range from 0 to 8), 10% of its pixels not members; and the plain
+    version's fit of it (kernels/coalesce.py _segment_encode's steps)."""
+    rng = np.random.default_rng(p + 10 * ch + nf)
+    seg = _segments(rng, sum(spans) + sum(SEGMENT_SEARCH_TAIL), spans + SEGMENT_SEARCH_TAIL)
+    n = seg.numel()
+    first = seg.numpy()
+    colour = rng.integers(0, 256, (4, n))[:, first]
+    amp = rng.choice([0.5, 2.0, 6.0, 20.0, 60.0], n)[first]
+    ramp = np.linspace(-1.0, 1.0, p)[None, :, None] * rng.uniform(-8, 8, (4, 1, n))[:, :, first]
+    px = colour[:, None, :] + ramp + rng.standard_normal((4, p, n)) * amp
+    px = np.clip(np.rint(px), 0, 255).astype(np.int64)
+    if ch == 3:
+        px[3] = 0
+    mask = rng.random((p, n)) < 0.9
+    mask[:, n - sum(SEGMENT_SEARCH_TAIL):] = False
+    words = px[0] | (px[1] << 8) | (px[2] << 16) | (px[3] << 24)
+    words = torch.from_numpy(np.where(words >= 2**31, words - 2**32, words).astype(np.int32))
+    mask = torch.from_numpy(mask)
+    blocks = torch.from_numpy(rng.permutation(4 * n)[:n].astype(np.int32))
+    planes = torch.stack([unpack_plane(words, c) for c in range(ch)])
+    red = SegmentReducer(seg)
+    d, _ = fit_regions(planes, mask, ch, red)
+    f8 = torch.stack([q.to(torch.int32) for q in quantize_factors(*extract_factors(planes, d, ch))])
+    return (words, mask, seg, blocks), planes.to(torch.int32), f8, drop_decomposition_axes(d, nf)
+
+
+@pytest.mark.parametrize("mode,k,ef", [("ladder", 1, 100), ("ladder", 5, 100), ("ladder", 8, 100),
+                                       ("ladder", 11, 100), ("ladder", 8, 10),
+                                       ("exhaustive", 8, 100), ("guess", 8, 100),
+                                       ("none", 8, 100)])
+@pytest.mark.parametrize("nf", [1, 2, 3])
+@pytest.mark.parametrize("p", [64, 256])
+def test_segment_template_search_is_find_shifts(p, nf, mode, k, ef):
+    """The one-warp segment encode's search in its passes (the sweeps on
+    per-axis bases, verified sweeps' values reused, exhaustive rows as
+    axis-2 sweeps) equals the plain version's shifts
+    (kernels/coalesce.py segment_encode_reference) and ops/crush.py
+    find_shifts with the segment reducer, on a seeded run buffer of
+    segments of 1-256 members and a tail with no member (RGB at P = 64,
+    RGBA at 256; error factor 10 gives small shifts, where verified ladder
+    candidates are often sweeps)."""
+    ch = 3 if p == 64 else 4
+    spans = SEGMENT_SEARCH_SPANS["exhaustive" if mode == "exhaustive" else p]
+    buf, px, f8, d = _segment_search_inputs(p, ch, nf, spans)
+    cfg = EncodeConfig(error_factor=ef, has_alpha=ch == 4, num_factors=nf, crush_mode=mode,
+                       ladder_k=k)
+    got = _segment_kernel_search(px, buf[1], f8, d, buf[2], cfg, p)
+    want = crush.force_dropped_axes(
+        crush.find_shifts(px, buf[1], f8, d, cfg, SegmentReducer(buf[2]))[0], nf)
+    assert torch.equal(got, want)
+    assert torch.equal(got, kc.segment_encode_reference(*buf, cfg, 0x5EED).shifts)
+    if mode != "none" and ef == 100:                    # not all shifts alike
+        assert (got[:nf] == 0).any() and (got[:nf] > 1).any()
+    assert not got[:nf, -sum(SEGMENT_SEARCH_TAIL):].any()      # no member: (0, 0, 0)
 
 
 # ---------------------------------------------------------------------------

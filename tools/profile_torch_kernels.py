@@ -71,8 +71,9 @@ The baseline runs as its own package (its wrappers, glue and kernels,
 imported under another module name), on inputs made by this checkout, so
 a change of a kernel's C interface or of its callers is compared as a
 whole; with a baseline, the SASS (``cuobjdump -sass``) of each build's
-segment encode (every P) and of the fixed grid and region encode up to P
-= 4096, compared instruction by instruction (SASS_KERNELS). Writes the numbers as JSON to FILE (default
+segment encode (every P), fixed grid, region encode (every P), owner crush
+(both layouts) and ``crush_eval_rows``, compared instruction by
+instruction (SASS_KERNELS). Writes the numbers as JSON to FILE (default
 build/profile_kernels.json). Needs a CUDA card and nvcc; imports no JAX.
 """
 
@@ -261,12 +262,16 @@ def sass_functions(build, library: str, pattern: str) -> dict:
 
 # (library, kernel symbol pattern) whose SASS the two builds compare: the
 # segment encode at P = 64, 256 and from 1024 on (its cluster and first-pass
-# kernels), the fixed grid and the region encode up to P = 4096
+# kernels), the fixed grid, the region encode at every P, the owner crush
+# (both layouts) and crush_eval_rows
 SASS_KERNELS = (
     ("coalesce", r"segment_encode_kernelILi[34]ELi0E"),
     ("segment_region", r"segment_(encode|cluster|prep)_kernelILi[34]ELi\d+E"),
     ("encode_fixed", r"encode_region_kernelILi64ELi[34]E"),
-    ("encode_region", r"encode_region_kernelILi(256|1024|4096)ELi[34]E"),
+    ("encode_region", r"encode_region_(kernelILi\d+ELi[34]E|cluster_kernelILi[34]ELb[01]E)"),
+    ("encode_merged", r"owner_crush_kernel"),
+    ("encode_natural", r"owner_crush_kernel"),
+    ("crush_eval", r"crush_eval_kernel"),
 )
 
 

@@ -1,0 +1,13 @@
+"""The 95th percentile of every image's latency in the window, in ms (the
+call to its totals on the host). Read only from 200 images on: ten beyond
+the percentile."""
+
+import statistics
+
+MIN_IMAGES = 200
+
+
+def read(run):
+    if run.images < MIN_IMAGES:
+        return None
+    return statistics.quantiles(run.latencies_s, n=100, method="inclusive")[94] * 1e3

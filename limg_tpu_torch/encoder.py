@@ -20,6 +20,7 @@ from .kernels.encode_fixed import encode_blocks_kernel
 from .ops import layout
 from .ops.error import psnr as weighted_psnr
 from .ops.fit import ENDPOINT_FIELDS, Decomposition
+from .utils.diagnostics import span
 
 
 class EncodeResult(NamedTuple):
@@ -114,11 +115,16 @@ def _assemble_decoded(decoded_blocks: torch.Tensor, grid: layout.BlockGrid,
 def encode_image_device(image, cfg: EncodeConfig, seed: int = 0, device="cuda"):
     """(H, W, 3|4) uint8 -> (decoded (H, W, 4) uint8 tensor, EncodeResult, grid),
     all on ``device``."""
-    dev = resolve_device(device)
-    img = _as_image_tensor(image, dev)
-    packed, mask, grid = _packed_blocks(img)
-    res = encode_blocks(packed, mask, cfg, seed)
-    return _assemble_decoded(res.decoded, grid, cfg.channels), res, grid
+    with span("limg.encode_image_device"):
+        dev = resolve_device(device)
+        img = _as_image_tensor(image, dev)
+        with span("limg.fixed.blockify"):
+            packed, mask, grid = _packed_blocks(img)
+        with span("limg.fixed.encode"):
+            res = encode_blocks(packed, mask, cfg, seed)
+        with span("limg.fixed.assemble"):
+            decoded = _assemble_decoded(res.decoded, grid, cfg.channels)
+        return decoded, res, grid
 
 
 def encode_perf_step(image, cfg: EncodeConfig, seed: int = 0, device="cuda"):

@@ -80,6 +80,7 @@ from .ops.error import max_possible_error
 from .ops.fit import Decomposition
 from .ops.match import MATCH_REASON_BITS, match_decomps
 from .ops.segments import SEG_CAP
+from .utils.diagnostics import count, span
 
 MERGE_POLICIES = ("match", "rd")
 FUSED_LAYOUTS = ("morton", "natural")
@@ -194,7 +195,8 @@ def encode_levels(words: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels:
     is ``ops.dither.level_key(seed, cfg.dither_seed, l)``."""
     grids, levels = [], []
     for lvl in range(num_levels):
-        lv = _encode_level(words, lvl, cfg, seed)
+        with span(f"limg.dense.encode.L{lvl}"):
+            lv = _encode_level(words, lvl, cfg, seed)
         grids.append(lv.pop("grid"))
         levels.append(lv)
     return grids, levels
@@ -584,7 +586,11 @@ def coalesce_segments(px_plane, mask_plane, seg_id, is_run, lv: dict, cfg: Encod
         split_seg = torch.full((), -1, dtype=torch.int32, device=dev)
     ok_c = sel_is_run & (seg_orig != split_seg)
     n_dropped = (is_start & sel_is_run & (seg_orig == split_seg)).sum()
-    n_overflow = is_run.sum() - sel_is_run.sum()
+    n_members = sel_is_run.sum()
+    n_overflow = is_run.sum() - n_members
+    # the buffer's lanes that hold a run member, of its lanes (segment_encode_p{P})
+    count(f"limg.segments.members.p{px_plane.shape[0]}", n_members)
+    count(f"limg.segments.lanes.p{px_plane.shape[0]}", cap)
 
     encode = segment_encode_composed if use_kernel is False else segment_encode_kernel
     enc = encode(packed_c, mask_c, seg_c, sel.to(torch.int32), cfg, key, emit_q=need_planes)
@@ -660,9 +666,10 @@ def _pre_state(words: torch.Tensor, grid: layout.BlockGrid, lv0: dict, owner0, l
                  n_run_blocks=torch.zeros((), dtype=torch.int64, device=lead0.device),
                  dec_nat=None, layout="morton")
     if coalesce:
-        seg0, is_run0 = build_runs_multilevel(owner0, lv0["avg"], lv0["eps"], lead0, grid,
-                                              num_levels, channels)
-        px_plane, mask_plane, _ = layout.blockify_words(words)
+        with span("limg.pre.runs"):
+            seg0, is_run0 = build_runs_multilevel(owner0, lv0["avg"], lv0["eps"], lead0, grid,
+                                                  num_levels, channels)
+            px_plane, mask_plane, _ = layout.blockify_words(words)
         state.update(seg0=seg0, is_run0=is_run0, n_run_blocks=is_run0.sum(),
                      px=px_plane, mask=mask_plane)
     return state
@@ -680,26 +687,31 @@ def _fused_pre(img: torch.Tensor, cfg: EncodeConfig, seed: int, num_levels: int,
     words = _words(img)
     grid = layout.grid_for(*words.shape)
     dec_nat = None
-    if fused_layout == "natural":
-        fit = fit_levels_natural_kernel(words, cfg, num_levels)
-        crush = owner_crush_natural_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg,
-                                           num_levels, seed, emit_q=need_q)
-        if coalesce:
-            dec = layout.blockify_words(crush.dec)[0]
+    natural = fused_layout == "natural"
+    with span("limg.pre.fit"):
+        fit = (fit_levels_natural_kernel if natural else fit_levels_kernel)(words, cfg,
+                                                                             num_levels)
+    with span("limg.pre.crush"):
+        if natural:
+            crush = owner_crush_natural_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg,
+                                               num_levels, seed, emit_q=need_q)
+            if coalesce:
+                dec = layout.blockify_words(crush.dec)[0]
+            else:
+                dec, dec_nat = None, crush.dec
+            crush = crush._replace(dec=dec,
+                                   q=layout.blockify_words(crush.q)[0] if need_q else None)
         else:
-            dec, dec_nat = None, crush.dec
-        crush = crush._replace(dec=dec, q=layout.blockify_words(crush.q)[0] if need_q else None)
-    else:
-        fit = fit_levels_kernel(words, cfg, num_levels)
-        crush = owner_crush_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, num_levels,
-                                   seed, emit_q=need_q)
-    merge_stats = [{name: (r & bit).ne(0).sum() for name, bit in MATCH_REASON_BITS}
-                   for r in fit.reasons]
-    lead0 = _leaders(fit.owner, grid, num_levels)
-    lv0 = dict(shifts=crush.shifts,
-               bits=_bits_with_header(crush.shifts, fit.cnt0, lead0, static_block_bits(ch)),
-               bpp=crush.bpp, dist=crush.dist_blk, eps=fit.eps_sel, avg=fit.avg_sel,
-               dec=crush.dec, q=crush.q)
+            crush = owner_crush_kernel(words, fit.owner, fit.f8_sel, fit.eps_sel, cfg,
+                                       num_levels, seed, emit_q=need_q)
+    with span("limg.pre.leaders"):
+        merge_stats = [{name: (r & bit).ne(0).sum() for name, bit in MATCH_REASON_BITS}
+                       for r in fit.reasons]
+        lead0 = _leaders(fit.owner, grid, num_levels)
+        lv0 = dict(shifts=crush.shifts,
+                   bits=_bits_with_header(crush.shifts, fit.cnt0, lead0, static_block_bits(ch)),
+                   bpp=crush.bpp, dist=crush.dist_blk, eps=fit.eps_sel, avg=fit.avg_sel,
+                   dec=crush.dec, q=crush.q)
     state = _pre_state(words, grid, lv0, fit.owner, lead0, fit.cnt0, fit.stats_bits,
                        merge_stats, num_levels, ch, coalesce)
     state.update(dec_nat=dec_nat, layout=fused_layout)
@@ -802,43 +814,45 @@ def _fused_finish(state: dict, cfg: EncodeConfig, seed: int, num_levels: int,
     run_rid = torch.arange(nb, dtype=torch.int32, device=dev)
     applied = torch.zeros(nb, dtype=torch.bool, device=dev)
     if cap is not None:
-        # the coalesce pass updates the rows in place: work on copies
-        lv = {k: None if v is None else v.clone() for k, v in lv.items()}
-        applied, n_runs, coalesce_stats = coalesce_segments(
-            state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
-            coalesce_key(seed, cfg.dither_seed), cap, need_planes=need_q,
-            merge_policy=merge_policy, rd_lambda=rd_lambda, header_bits=header_bits)
-        rid_blk = torch.where(applied, state["seg0"], rid_blk)
-        run_rid = torch.where(applied, state["seg0"], run_rid)
-    cnt0 = cnt0.to(torch.int64)
-    s_eff0 = torch.clamp(lv["shifts"], max=8).to(torch.int64)
-    one_hot = s_eff0[:, None, :] == torch.arange(9, device=dev)[None, :, None]
-    out = dict(
-        decoded=_decoded_image(lv["dec"], grid, state["dec_nat"]),
-        accum_bits=((8 - s_eff0) * cnt0[None]).sum(dim=1),
-        bits_histogram=(one_hot * cnt0[None, None, :]).sum(dim=2),
-        alive_counts=torch.stack([((state["stats_row"] >> lvl) & 1).sum()
-                                  for lvl in range(num_levels)]),
-        mean_bpp=(lv["bpp"].to(torch.float64) * cnt0).sum() / (grid.height * grid.width),
-        total_err=lv["dist"].to(torch.float64).sum(),
-        merge_stats=state["merge_stats"],
-        n_runs=n_runs,
-        coalesce_stats=coalesce_stats,
-    )
-    if emit_planes:
-        out["endpoint_rows"] = lv["eps"].reshape(-1, nb)
-        out["block_rows8"] = torch.cat(
-            [s_eff0, lv["bpp"][None].to(torch.int64),
-             owner0[None].to(torch.int64)]).to(torch.uint8)                  # (5, NB)
-        out["region_rows"] = owner0 * nb + rid_blk
-        q = torch.stack([(lv["q"] >> (8 * k)) & 0xFF for k in range(3)])
-        out["factors_pnb"] = ((q << s_eff0[:, None, :]) & 0xFF).to(torch.uint8)
-    if return_state:
-        out["ser_rows"] = torch.cat([owner0[None], lv["shifts"], lv["eps"].reshape(-1, nb),
-                                     run_rid[None], applied[None]]).to(torch.int32)
-        out["ser_q"] = torch.stack([(lv["q"] >> (8 * k)) & 0xFF
-                                    for k in range(3)]).to(torch.uint8)
-    return out
+        with span("limg.finish.coalesce"):
+            # the coalesce pass updates the rows in place: work on copies
+            lv = {k: None if v is None else v.clone() for k, v in lv.items()}
+            applied, n_runs, coalesce_stats = coalesce_segments(
+                state["px"], state["mask"], state["seg0"], state["is_run0"], lv, cfg,
+                coalesce_key(seed, cfg.dither_seed), cap, need_planes=need_q,
+                merge_policy=merge_policy, rd_lambda=rd_lambda, header_bits=header_bits)
+            rid_blk = torch.where(applied, state["seg0"], rid_blk)
+            run_rid = torch.where(applied, state["seg0"], run_rid)
+    with span("limg.finish.totals"):
+        cnt0 = cnt0.to(torch.int64)
+        s_eff0 = torch.clamp(lv["shifts"], max=8).to(torch.int64)
+        one_hot = s_eff0[:, None, :] == torch.arange(9, device=dev)[None, :, None]
+        out = dict(
+            decoded=_decoded_image(lv["dec"], grid, state["dec_nat"]),
+            accum_bits=((8 - s_eff0) * cnt0[None]).sum(dim=1),
+            bits_histogram=(one_hot * cnt0[None, None, :]).sum(dim=2),
+            alive_counts=torch.stack([((state["stats_row"] >> lvl) & 1).sum()
+                                      for lvl in range(num_levels)]),
+            mean_bpp=(lv["bpp"].to(torch.float64) * cnt0).sum() / (grid.height * grid.width),
+            total_err=lv["dist"].to(torch.float64).sum(),
+            merge_stats=state["merge_stats"],
+            n_runs=n_runs,
+            coalesce_stats=coalesce_stats,
+        )
+        if emit_planes:
+            out["endpoint_rows"] = lv["eps"].reshape(-1, nb)
+            out["block_rows8"] = torch.cat(
+                [s_eff0, lv["bpp"][None].to(torch.int64),
+                 owner0[None].to(torch.int64)]).to(torch.uint8)                  # (5, NB)
+            out["region_rows"] = owner0 * nb + rid_blk
+            q = torch.stack([(lv["q"] >> (8 * k)) & 0xFF for k in range(3)])
+            out["factors_pnb"] = ((q << s_eff0[:, None, :]) & 0xFF).to(torch.uint8)
+        if return_state:
+            out["ser_rows"] = torch.cat([owner0[None], lv["shifts"], lv["eps"].reshape(-1, nb),
+                                         run_rid[None], applied[None]]).to(torch.int32)
+            out["ser_q"] = torch.stack([(lv["q"] >> (8 * k)) & 0xFF
+                                        for k in range(3)]).to(torch.uint8)
+        return out
 
 
 def fused_merged_pre(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
@@ -958,22 +972,25 @@ def coalesce_level_bands(levels, grids, owner0: torch.Tensor, cfg: EncodeConfig,
     the summed coalesce stats."""
     ch = cfg.channels
     grid0 = grids[0]
-    owner2 = owner0.reshape(grid0.blocks_y, grid0.blocks_x)
-    owned = [(owner2[::1 << lvl, ::1 << lvl] == lvl).reshape(-1) for lvl in range(len(levels))]
-    rows = [torch.cat([lv["avg"], lv["eps"].reshape(6 * ch, -1).to(torch.float32)])
-            for lv in levels]
-    matches = neighbor_pair_matches(rows, grids, ch)
-    runs = build_runs_levels([(owned[lvl], grids[lvl], SEG_CAP, matches[lvl])
-                              for lvl in range(len(levels))])
+    with span("limg.dense.runs"):
+        owner2 = owner0.reshape(grid0.blocks_y, grid0.blocks_x)
+        owned = [(owner2[::1 << lvl, ::1 << lvl] == lvl).reshape(-1)
+                 for lvl in range(len(levels))]
+        rows = [torch.cat([lv["avg"], lv["eps"].reshape(6 * ch, -1).to(torch.float32)])
+                for lv in levels]
+        matches = neighbor_pair_matches(rows, grids, ch)
+        runs = build_runs_levels([(owned[lvl], grids[lvl], SEG_CAP, matches[lvl])
+                                  for lvl in range(len(levels))])
     n_runs, stats, info = 0, {}, []
     for lvl, (lv, (seg_id, run_len)) in enumerate(zip(levels, runs)):
         nb = seg_id.shape[0]
-        applied, n_l, st = coalesce_segments(
-            lv["px"], lv["mask"], seg_id, owned[lvl] & (run_len >= 2), lv, cfg,
-            coalesce_key(seed, cfg.dither_seed, lvl), _coalesce_cap(cap_frac, nb), need_planes,
-            merge_policy, rd_lambda, header_bits, old_header_included=False)
-        rid = torch.where(applied, seg_id, torch.arange(nb, dtype=torch.int32,
-                                                        device=seg_id.device))
+        with span(f"limg.dense.coalesce.L{lvl}"):
+            applied, n_l, st = coalesce_segments(
+                lv["px"], lv["mask"], seg_id, owned[lvl] & (run_len >= 2), lv, cfg,
+                coalesce_key(seed, cfg.dither_seed, lvl), _coalesce_cap(cap_frac, nb),
+                need_planes, merge_policy, rd_lambda, header_bits, old_header_included=False)
+            rid = torch.where(applied, seg_id, torch.arange(nb, dtype=torch.int32,
+                                                            device=seg_id.device))
         info.append((applied, rid))
         n_runs = n_runs + n_l
         stats = {k: stats.get(k, 0) + v for k, v in st.items()}
@@ -1008,12 +1025,14 @@ def encode_image_merged_device(image, cfg: EncodeConfig, seed: int = 0, num_leve
     grids, levels = encode_levels(words, cfg, seed, num_levels)
     grid0 = grids[0]
     nb0, dev = grid0.num_blocks, words.device
-    if merge_policy == "rd":
-        extra = 0.0 if rd_header_bits is None else float(rd_header_bits - static_block_bits(ch))
-        alive, merge_stats = rd_merge_keep(levels, grids, num_levels, rd_lambda, extra)
-    else:
-        alive, merge_stats = merge_levels_alive(levels, grids, ch)
-    owner0 = _owner_level(alive, grids, num_levels)
+    with span("limg.dense.merge"):
+        if merge_policy == "rd":
+            extra = (0.0 if rd_header_bits is None
+                     else float(rd_header_bits - static_block_bits(ch)))
+            alive, merge_stats = rd_merge_keep(levels, grids, num_levels, rd_lambda, extra)
+        else:
+            alive, merge_stats = merge_levels_alive(levels, grids, ch)
+        owner0 = _owner_level(alive, grids, num_levels)
 
     arange = [torch.arange(g.num_blocks, dtype=torch.int32, device=dev) for g in grids]
     run_info = [(torch.zeros(g.num_blocks, dtype=torch.bool, device=dev), arange[lvl])
@@ -1039,25 +1058,27 @@ def encode_image_merged_device(image, cfg: EncodeConfig, seed: int = 0, num_leve
             out = torch.where(owner0 == lvl, fn(per_level[lvl], lvl), out)
         return out
 
-    owner2 = owner0.reshape(grid0.blocks_y, grid0.blocks_x)
-    total_err = torch.zeros((), dtype=torch.float64, device=dev)
-    bpp_weighted = torch.zeros((), dtype=torch.float64, device=dev)
-    accum_bits = torch.zeros(3, dtype=torch.int64, device=dev)
-    bits_histogram = torch.zeros((3, 9), dtype=torch.int64, device=dev)
-    for lvl, lv in enumerate(levels):
-        # the regions owned at this level (the owner map at their top-left block)
-        own = (owner2[::1 << lvl, ::1 << lvl] == lvl).reshape(-1)
-        cnt = lv["count"].to(torch.int64) * own
-        s_eff = torch.clamp(lv["shifts"], max=8).to(torch.int64)
-        total_err = total_err + (lv["dist"].to(torch.float64) * own).sum()
-        accum_bits = accum_bits + ((8 - s_eff) * cnt[None]).sum(dim=1)
-        one_hot = s_eff[:, None, :] == torch.arange(9, device=dev)[None, :, None]
-        bits_histogram = bits_histogram + (one_hot * cnt[None, None, :]).sum(dim=2)
-        bpp_weighted = bpp_weighted + (lv["bpp"].to(torch.float64) * cnt).sum()
+    with span("limg.dense.totals"):
+        owner2 = owner0.reshape(grid0.blocks_y, grid0.blocks_x)
+        total_err = torch.zeros((), dtype=torch.float64, device=dev)
+        bpp_weighted = torch.zeros((), dtype=torch.float64, device=dev)
+        accum_bits = torch.zeros(3, dtype=torch.int64, device=dev)
+        bits_histogram = torch.zeros((3, 9), dtype=torch.int64, device=dev)
+        for lvl, lv in enumerate(levels):
+            # the regions owned at this level (the owner map at their top-left block)
+            own = (owner2[::1 << lvl, ::1 << lvl] == lvl).reshape(-1)
+            cnt = lv["count"].to(torch.int64) * own
+            s_eff = torch.clamp(lv["shifts"], max=8).to(torch.int64)
+            total_err = total_err + (lv["dist"].to(torch.float64) * own).sum()
+            accum_bits = accum_bits + ((8 - s_eff) * cnt[None]).sum(dim=1)
+            one_hot = s_eff[:, None, :] == torch.arange(9, device=dev)[None, :, None]
+            bits_histogram = bits_histogram + (one_hot * cnt[None, None, :]).sum(dim=2)
+            bpp_weighted = bpp_weighted + (lv["bpp"].to(torch.float64) * cnt).sum()
 
-    dec0 = select(plane0, [lv["dec"] for lv in levels])
+    with span("limg.dense.decoded"):
+        decoded = _decoded_image(select(plane0, [lv["dec"] for lv in levels]), grid0)
     out = dict(
-        decoded=_decoded_image(dec0, grid0),
+        decoded=decoded,
         accum_bits=accum_bits,
         bits_histogram=bits_histogram,
         alive_counts=torch.stack([a.sum() for a in alive]),
@@ -1101,70 +1122,10 @@ def encode_image_merged_device(image, cfg: EncodeConfig, seed: int = 0, num_leve
     return out
 
 
-def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
-                        fetch_planes: bool = True, merge_policy: str = "match",
-                        rd_lambda: float = 0.01, coalesce: bool = True,
-                        return_state: bool = False, rd_header_bits: int | None = None,
-                        fetch_decoded: bool = True, cap_frac: int = 0,
-                        fused_layout: str = "morton", fused: bool | None = None,
-                        device="cuda"):
-    """Host-facing merged encode, with the output dict of
-    ``limg_tpu.regions.encode_image_merged``: decoded, alive_counts,
-    bits_histogram, psnr, mse, mean_bpp, avg_block_bits, merge_stats,
-    n_runs, coalesce_stats, and with ``fetch_planes`` factors, shift, bpp,
-    region_id, owner_px and endpoint_rows (NumPy arrays).
-
-    ``merge_policy`` is "match" (the default) or "rd", whose cut and run
-    acceptance weigh bits + ``rd_lambda`` * distortion, charging
-    ``rd_header_bits`` per region (None: the static estimate).
-    ``fused_layout`` ("morton" or "natural") picks the match policy's
-    kernels; the RD policy ignores it, as the JAX package does.
-    ``fused`` picks the path: None (the default) the fused path at 2-4
-    levels, on every device; False, and any ``num_levels`` of 1 or of 5
-    or more, the dense path (``encode_image_merged_device``; with
-    ``fused=True`` 5 levels or more raise ValueError, as the fused entry
-    points do). On the fused path ``cap_frac=0`` (the default) is
-    auto run capacity: the pre stage runs, the host reads the run-block
-    count (one sync), and the coalesce stage runs once at
-    ``auto_run_capacity``, so no run is dropped; the dense path takes it as
-    full capacity per level. Another value goes to the device entry point
-    as it is. ``return_state=True`` returns
-    ``(out, state)``, ``state`` the LTP1 serializer's input
-    (``limg_tpu.bitstream.serialize_from_state``): height, width,
-    num_levels, channels, rows (6ch + 6, NB) int32, q (3, 64, NB) uint8 on
-    the fused path or (64, NB) int32 packed factors on the dense path (NumPy
-    arrays) and n_runs.
-    """
-    _check_levels(num_levels, merge_policy)
-    rd = merge_policy == "rd"
-    if fused is False or num_levels == 1 or (fused is None and num_levels > MAX_LEVELS):
-        out = encode_image_merged_device(image, cfg, seed, num_levels, fetch_planes,
-                                         merge_policy, rd_lambda, coalesce, return_state,
-                                         rd_header_bits, 1 if cap_frac == 0 else cap_frac,
-                                         device)
-    elif coalesce and cap_frac == 0:
-        _check_supported(num_levels, merge_policy, fused_layout)
-        need_q = fetch_planes or return_state
-        if rd:
-            state = fused_rd_pre(image, cfg, seed, rd_lambda, num_levels, need_q=need_q,
-                                 header_bits=rd_header_bits, device=device)
-        else:
-            state = fused_merged_pre(image, cfg, seed, num_levels, need_q=need_q,
-                                     fused_layout=fused_layout, device=device)
-        cap = auto_run_capacity(int(state["n_run_blocks"]), state["grid"].num_blocks)
-        out = _fused_finish(state, cfg, seed, num_levels, fetch_planes, cap, merge_policy,
-                            rd_lambda, rd_header_bits, return_state)
-    elif rd:
-        _check_supported(num_levels, merge_policy, fused_layout)
-        out = encode_image_merged_rd_device(image, cfg, seed, rd_lambda, num_levels,
-                                            fetch_planes, coalesce, return_state,
-                                            cap_frac if cap_frac != 0 else 1, rd_header_bits,
-                                            device)
-    else:
-        out = encode_image_merged_fused_device(image, cfg, seed, num_levels, fetch_planes,
-                                               coalesce, return_state,
-                                               cap_frac if cap_frac != 0 else 1,
-                                               fused_layout, device)
+def _host_outputs(out: dict, cfg: EncodeConfig, num_levels: int, fetch_planes: bool,
+                  fetch_decoded: bool, return_state: bool):
+    """``encode_image_merged``'s host outputs from a device entry point's
+    ``out``: the totals, and the planes and the state where asked."""
     h, w = out["decoded"].shape[:2]
     n = h * w
     mse = float(out["total_err"]) / n
@@ -1203,3 +1164,73 @@ def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int
                             rows=out["ser_rows"].cpu().numpy(), q=out["ser_q"].cpu().numpy(),
                             n_runs=np_out["n_runs"])
     return np_out
+
+
+def encode_image_merged(image, cfg: EncodeConfig, seed: int = 0, num_levels: int = 3,
+                        fetch_planes: bool = True, merge_policy: str = "match",
+                        rd_lambda: float = 0.01, coalesce: bool = True,
+                        return_state: bool = False, rd_header_bits: int | None = None,
+                        fetch_decoded: bool = True, cap_frac: int = 0,
+                        fused_layout: str = "morton", fused: bool | None = None,
+                        device="cuda"):
+    """Host-facing merged encode, with the output dict of
+    ``limg_tpu.regions.encode_image_merged``: decoded, alive_counts,
+    bits_histogram, psnr, mse, mean_bpp, avg_block_bits, merge_stats,
+    n_runs, coalesce_stats, and with ``fetch_planes`` factors, shift, bpp,
+    region_id, owner_px and endpoint_rows (NumPy arrays).
+
+    ``merge_policy`` is "match" (the default) or "rd", whose cut and run
+    acceptance weigh bits + ``rd_lambda`` * distortion, charging
+    ``rd_header_bits`` per region (None: the static estimate).
+    ``fused_layout`` ("morton" or "natural") picks the match policy's
+    kernels; the RD policy ignores it, as the JAX package does.
+    ``fused`` picks the path: None (the default) the fused path at 2-4
+    levels, on every device; False, and any ``num_levels`` of 1 or of 5
+    or more, the dense path (``encode_image_merged_device``; with
+    ``fused=True`` 5 levels or more raise ValueError, as the fused entry
+    points do). On the fused path ``cap_frac=0`` (the default) is
+    auto run capacity: the pre stage runs, the host reads the run-block
+    count (one sync), and the coalesce stage runs once at
+    ``auto_run_capacity``, so no run is dropped; the dense path takes it as
+    full capacity per level. Another value goes to the device entry point
+    as it is. ``return_state=True`` returns
+    ``(out, state)``, ``state`` the LTP1 serializer's input
+    (``limg_tpu.bitstream.serialize_from_state``): height, width,
+    num_levels, channels, rows (6ch + 6, NB) int32, q (3, 64, NB) uint8 on
+    the fused path or (64, NB) int32 packed factors on the dense path (NumPy
+    arrays) and n_runs.
+    """
+    with span("limg.encode_image_merged"):
+        _check_levels(num_levels, merge_policy)
+        rd = merge_policy == "rd"
+        if fused is False or num_levels == 1 or (fused is None and num_levels > MAX_LEVELS):
+            out = encode_image_merged_device(image, cfg, seed, num_levels, fetch_planes,
+                                             merge_policy, rd_lambda, coalesce, return_state,
+                                             rd_header_bits, 1 if cap_frac == 0 else cap_frac,
+                                             device)
+        elif coalesce and cap_frac == 0:
+            _check_supported(num_levels, merge_policy, fused_layout)
+            need_q = fetch_planes or return_state
+            if rd:
+                state = fused_rd_pre(image, cfg, seed, rd_lambda, num_levels, need_q=need_q,
+                                     header_bits=rd_header_bits, device=device)
+            else:
+                state = fused_merged_pre(image, cfg, seed, num_levels, need_q=need_q,
+                                         fused_layout=fused_layout, device=device)
+            with span("limg.run_count_read"):
+                cap = auto_run_capacity(int(state["n_run_blocks"]), state["grid"].num_blocks)
+            out = _fused_finish(state, cfg, seed, num_levels, fetch_planes, cap, merge_policy,
+                                rd_lambda, rd_header_bits, return_state)
+        elif rd:
+            _check_supported(num_levels, merge_policy, fused_layout)
+            out = encode_image_merged_rd_device(image, cfg, seed, rd_lambda, num_levels,
+                                                fetch_planes, coalesce, return_state,
+                                                cap_frac if cap_frac != 0 else 1, rd_header_bits,
+                                                device)
+        else:
+            out = encode_image_merged_fused_device(image, cfg, seed, num_levels, fetch_planes,
+                                                   coalesce, return_state,
+                                                   cap_frac if cap_frac != 0 else 1,
+                                                   fused_layout, device)
+        with span("limg.fetch"):
+            return _host_outputs(out, cfg, num_levels, fetch_planes, fetch_decoded, return_state)

@@ -1,4 +1,4 @@
-"""Observability: culprit-style diagnostics and a profiler hook.
+"""Observability: culprit-style diagnostics, spans and counters, and a profiler hook.
 
 The counterpart of ``limg_tpu/utils/diagnostics.py``, with the same counts
 and the same printout. The reference counts every rejection path into named
@@ -8,11 +8,20 @@ exits to count, so the equivalent question -- "what stops each block from
 crushing further?" -- is answered directly: for the chosen shift triple,
 try incrementing each axis and classify which admissibility constraint
 binds. The counts are deterministic reductions.
+
+Spans and counters: the encode paths mark each stage with ``span(name)``
+(a ``torch.profiler.record_function`` while a profiler records, so the
+stages land in the profiler's trace beside the device operations they
+launch, on one clock) and report work counts with ``count(name, value)``,
+kept by every ``record_counts()`` open around the call. Both are free when
+nothing listens: no record_function, no host sync, no launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import json
 import os
 import tempfile
 
@@ -199,12 +208,72 @@ def format_culprits(crush: dict, merge_stats=None, coalesce_stats=None) -> str:
     return "\n".join(lines)
 
 
+# the recordings open in this context, innermost last
+_RECORDINGS: contextvars.ContextVar = contextvars.ContextVar("limg_recordings", default=())
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking one stage of an encode: while a
+    ``torch.profiler`` records, ``record_function(name)``; otherwise one
+    shared no-op object (``record_function`` costs microseconds a call even
+    with the profiler off)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, value) -> None:
+    """Append ``value`` (a host int, or a 0-d device tensor the program
+    never reads) to ``name`` in every open ``record_counts()``; nothing
+    when none is open."""
+    for rec in _RECORDINGS.get():
+        rec.values.setdefault(name, []).append(value)
+
+
+class Recording:
+    """The counts of one ``record_counts()``: ``values`` maps a counter's
+    name to its values in call order, device tensors left on their device
+    until ``drain``."""
+
+    def __init__(self):
+        self.values: dict = {}
+
+    def drain(self) -> dict:
+        """{name: [int, ...]}: every device value copied to the host in one
+        transfer a device (a stack, then one copy), host ints as they are."""
+        by_device: dict = {}
+        for vals in self.values.values():
+            for i, v in enumerate(vals):
+                if isinstance(v, torch.Tensor):
+                    by_device.setdefault(v.device, []).append((vals, i))
+        for refs in by_device.values():
+            host = torch.stack([vals[i].reshape(()) for vals, i in refs]).tolist()
+            for (vals, i), h in zip(refs, host):
+                vals[i] = h
+        return {name: [int(v) for v in vals] for name, vals in self.values.items()}
+
+
+@contextlib.contextmanager
+def record_counts():
+    """Collect the ``count`` calls made inside the block into the yielded
+    ``Recording``; read them after the block with ``drain()``, outside the
+    timed work."""
+    rec = Recording()
+    token = _RECORDINGS.set(_RECORDINGS.get() + (rec,))
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.reset(token)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: str | None = None):
     """torch.profiler context (CPU, and CUDA where there is a card) that
-    writes a chrome trace, ``trace.json``, into ``log_dir`` (default: a
-    directory under the temporary directory) -- the JAX package's
-    jax.profiler hook (reference kept IACA markers at
+    writes a chrome trace, ``trace.json``, with the encode's spans, and the
+    counts of the block, ``counters.json`` ({name: [values]}), into
+    ``log_dir`` (default: a directory under the temporary directory) -- the
+    JAX package's jax.profiler hook (reference kept IACA markers at
     src/iacaMarks.h:35-36)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,6 +282,8 @@ def profile_trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with record_counts() as rec, profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "counters.json"), "w") as f:
+        json.dump(rec.drain(), f)

@@ -7,8 +7,14 @@ and on the port's own encodes, and ``crush_culprits`` on a JAX fixed-grid
 fit carried to torch, at 8x8 blocks and at 64x64-pixel regions, whose
 block error is pre-scaled (``err_scale_shift``, regions of 2048 pixels or
 more).
+
+The encode paths' spans and counters (``span``, ``count``,
+``record_counts``): off without a listener; under ``torch.profiler`` on the
+CPU each path's stage spans land in the Chrome trace inside its entry
+span, and the segment counters count each coalesce buffer.
 """
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -123,8 +129,99 @@ def test_format_culprits_equals_jax(with_stats):
     assert td.format_culprits({**crush, "blocks": 0}) == jd.format_culprits({**crush, "blocks": 0})
 
 
+def _spans_and_counts(tmp_path, path: str):
+    """One small encode of ``path`` under ``profile_trace``: its program
+    spans [(name, start, end)] and its counters."""
+    cfg = EncodeConfig()
+    img = make_test_image(np.random.default_rng(7), 72, 136)
+    with td.profile_trace(str(tmp_path / path)) as log_dir:
+        if path == "fixed":
+            limg_tpu_torch.encode_image_device(img, cfg, 3, device="cpu")
+        else:
+            limg_tpu_torch.encode_image_merged(img, cfg, 3, num_levels=5 if path == "dense" else 3,
+                                               fetch_planes=False, device="cpu")
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        counts = json.load(f)
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e["name"].startswith("limg.")]
+    return spans, counts
+
+
+PATH_SPANS = {
+    "fused": ("limg.encode_image_merged", ["limg.pre.fit", "limg.pre.crush", "limg.pre.leaders",
+                                           "limg.pre.runs", "limg.run_count_read",
+                                           "limg.finish.coalesce", "limg.finish.totals",
+                                           "limg.fetch"]),
+    "dense": ("limg.encode_image_merged",
+              [f"limg.dense.{s}.L{lvl}" for s in ("encode", "coalesce") for lvl in range(5)]
+              + ["limg.dense.merge", "limg.dense.runs", "limg.dense.totals",
+                 "limg.dense.decoded", "limg.fetch"]),
+    "fixed": ("limg.encode_image_device", ["limg.fixed.blockify", "limg.fixed.encode",
+                                           "limg.fixed.assemble"]),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATH_SPANS))
+def test_encode_spans_nest_in_their_entry_span(tmp_path, path):
+    """Every stage span of the path once (the dense ones once a level),
+    inside the one entry span, and no other program span."""
+    entry, stages = PATH_SPANS[path]
+    spans, counts = _spans_and_counts(tmp_path, path)
+    assert sorted(name for name, _, _ in spans) == sorted([entry] + stages)
+    (t0, t1), = [(s, e) for name, s, e in spans if name == entry]
+    assert all(t0 <= s and e <= t1 for _, s, e in spans)
+    # a coalesce buffer a pass: P = 64 on the fused path, one a level on the dense
+    ps = {"fused": [64], "dense": [64 << 2 * lvl for lvl in range(5)], "fixed": []}[path]
+    assert sorted(counts) == sorted(f"limg.segments.{k}.p{p}" for k in ("members", "lanes")
+                                    for p in ps)
+    for p in ps:
+        (members,), (lanes,) = counts[f"limg.segments.members.p{p}"], \
+            counts[f"limg.segments.lanes.p{p}"]
+        assert 0 <= members <= lanes
+
+
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with td.profile_trace(str(tmp_path / "trace")) as log_dir:
         torch.ones(64).sum()
+        td.count("limg.test", 3)
+        td.count("limg.test", torch.tensor(4))
     path = os.path.join(log_dir, "trace.json")
     assert os.path.getsize(path) > 0
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        assert json.load(f) == {"limg.test": [3, 4]}
+
+
+def test_spans_and_counts_are_off_without_a_listener(monkeypatch):
+    """No profiler, no recording: ``span`` never enters ``record_function``
+    (here made to raise) and is one shared object; ``count`` keeps nothing,
+    through a whole encode as well."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert td.span("limg.a") is td.span("limg.b")
+    td.count("limg.a", torch.ones(()))
+    img = make_test_image(np.random.default_rng(8), 40, 72)
+    limg_tpu_torch.encode_image_merged(img, EncodeConfig(), fetch_planes=False, device="cpu")
+    with td.record_counts() as rec:
+        pass
+    assert rec.values == {} and rec.drain() == {}
+    assert td._RECORDINGS.get() == ()
+
+
+def test_record_counts_keeps_each_open_recording():
+    """Nested recordings both keep a count made inside both; device values
+    stay tensors until ``drain``, which gives ints in call order."""
+    td.count("limg.x", 1)
+    with td.record_counts() as outer:
+        td.count("limg.x", torch.tensor(2, dtype=torch.int64))
+        with td.record_counts() as inner:
+            td.count("limg.x", torch.tensor(True).sum())
+            td.count("limg.y", 5)
+        td.count("limg.y", 6)
+    assert isinstance(outer.values["limg.x"][0], torch.Tensor)
+    assert outer.drain() == {"limg.x": [2, 1], "limg.y": [5, 6]}
+    assert inner.drain() == {"limg.x": [1], "limg.y": [5]}

@@ -86,7 +86,8 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    from device memory pass by pass): a saturated single-region segment and
    one of two regions, ladder, guess and no crush;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
-   its kernel's launches counted from 0, stats held against the JAX
+   its kernel's and its epilogue's (``fixed_planes``, one an encode)
+   launches counted from 0, stats held against the JAX
    package's recorded encode (tests/fixtures/torch_port_reference.json);
 3b. the merged path without coalescing: ``encode_image_merged(coalesce=
    False)`` on the same images, both kernels' launches counted from 0, held
@@ -196,7 +197,15 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    image, its kernel on the shard against its plain version and bound, the
    8 x 1080p merged corpus, and four host walls of the 32-file streaming
    corpus: staging alone, encode alone, ``encode_corpus_streaming``, and the
-   same loop with the JAX package's ``await_all`` wait.
+   same loop with the JAX package's ``await_all`` wait;
+4i. the fixed grid's epilogue, ``fixed_planes``, on seeded words of phase
+   3's 4K grid (tiles that cross block rows), a ragged 750 x 997 grid
+   (edge blocks cut, a tail tile) and an 8192 x 5464 grid (the benchmark's
+   photos), RGB and RGBA, bit-equal in values and strides to the
+   composition it replaces; at 8192 x 5464 timed beside it: the two
+   ``torch.stack`` calls of ``unpack_plane`` and ``assemble_decoded``, each
+   alone, and the kernel's bandwidth against the bound (its bytes over
+   3.35 TB/s).
 
 Prints the order in which to redesign the kernels (the ms each loses above
 its bound per default step, then per RD step: its profiler device time in
@@ -230,7 +239,7 @@ NATURAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_natural_re
 DENSE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_dense_reference.npz")
 LEVELS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_levels_reference.npz")
 LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "segment_region", "encode_region",
-             "encode_natural", "crush_eval", "seg_fold")
+             "encode_natural", "crush_eval", "seg_fold", "fixed_planes")
 KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
 REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
 MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
@@ -257,6 +266,14 @@ CRUSH_EVAL_REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:1063"
 # card folds in block order
 SEG_FOLD_SOURCE = "limg_tpu_torch/csrc/seg_fold.cu"
 SEG_FOLD_REPLACES = "limg_tpu/ops/segments.py:44"
+# no Pallas kernel: the fixed-grid encode's unpacking of the kernel's words
+# into its planes and decoded image, which the JAX package does in jnp
+FIXED_PLANES_SOURCE = "limg_tpu_torch/csrc/fixed_planes.cu"
+FIXED_PLANES_REPLACES = "limg_tpu/encoder.py:132-133, :104 (jnp)"
+# the fixed-grid epilogue's timed grid: the benchmark's 8192 x 5464 photos;
+# and a ragged one: 94 blocks a row, 125 rows, cut at both edges, 183 tiles and 38
+FIXED_PLANES_SIZE = (5464, 8192)
+FIXED_PLANES_RAGGED = (997, 750)
 # P = 256 / 1024 run encode_blocks_pallas's mono kernel (:739), P = 4096
 # its fit and crush kernels (:764, :781)
 REGION_SIZES = (256, 1024, 4096)
@@ -1051,6 +1068,7 @@ def phase_main_path(device, size: str = "4k"):
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
     from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.kernels import fixed_planes as kfp
     from tools.record_torch_reference import case_images
 
     log("== phase 3: fixed-grid path (limg_tpu_torch.encode_image)")
@@ -1058,7 +1076,7 @@ def phase_main_path(device, size: str = "4k"):
         cases = json.load(f)["cases"]
     h, w = cases[f"{size}_rgb_nodither"]["height"], cases[f"{size}_rgb_nodither"]["width"]
     images = case_images(h, w)
-    kmod.launches = 0
+    kmod.launches = kfp.launches = 0
     n_encodes = 0
     for lane, img in images.items():
         for dith in (False, True):
@@ -1083,8 +1101,11 @@ def phase_main_path(device, size: str = "4k"):
     launched = kmod.launches
     if launched == 0:
         raise AssertionError("the fixed-grid path launched no encode_fixed_p64 kernel")
-    log(f"phase 3 ok: {n_encodes + 1} encodes, {launched} kernel launches, outputs on {decoded.device}")
-    return launched
+    if kfp.launches != n_encodes + 1:
+        raise AssertionError(f"{kfp.launches} fixed_planes launches for {n_encodes + 1} encodes")
+    log(f"phase 3 ok: {n_encodes + 1} encodes, {launched} kernel launches and {kfp.launches} "
+        f"of fixed_planes, outputs on {decoded.device}")
+    return launched, kfp.launches
 
 
 def check_merged_against_fixture(name: str, out: dict, fx, n_px: int, dithering: bool):
@@ -2554,6 +2575,9 @@ def kernel_bound(name: str, args, out) -> tuple:
         ops = match_ops(probed_pairs(*args[:3]), args[2])
     elif name == "match_neighbors":
         ops = match_ops(neighbor_probed_pairs(*args[:2]), args[1])
+    elif name == "fixed_planes":
+        # each word read once, each plane and image byte written once
+        return call_bound(0, tensor_bytes(args[:2], out))
     elif name == "seg_sum_fold":
         # one add a member of each row; each row read once, the plan (not
         # the ids) once, each sum written once
@@ -3478,6 +3502,76 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     return launched
 
 
+def fixed_planes_words(h: int, w: int, ch: int, device, seed: int = 0):
+    """Seeded block-major q and dec words ((NB, 64) int32) of an h x w
+    image's grid, and the grid; dec's alpha byte 0xFF for RGB, as the
+    block encode writes it."""
+    import torch
+    from limg_tpu_torch.ops import layout
+
+    grid = layout.grid_for(h, w)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, dec = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, grid.num_blocks, 64), dtype=torch.int32,
+                           device=device, generator=gen)
+    if ch == 3:
+        dec |= -0x1000000
+    return q, dec, grid
+
+
+def phase_timing_fixed_planes(device, smi: str):
+    """fixed_planes against the composition it replaces, bit-equal in value
+    and layout on three grids: phase 3's 4K grid (480 blocks a row, so 64-block
+    tiles cross block rows), a ragged one (edge blocks cut, a tail tile) and
+    the benchmark's; timed beside it by CUDA events on the benchmark's grid.
+    Returns the rows and the max abs diff over every output compared."""
+    import torch
+    from limg_tpu_torch.kernels import fixed_planes as kfp
+
+    with open(FIXTURE) as f:
+        case = json.load(f)["cases"]["4k_rgb_nodither"]
+    sizes = ((case["height"], case["width"]), FIXED_PLANES_RAGGED, FIXED_PLANES_SIZE)
+    log("== phase 4i: the fixed grid's epilogue on",
+        ", ".join("x".join(map(str, hw[::-1])) for hw in sizes),
+        "timed at", "x".join(map(str, FIXED_PLANES_SIZE[::-1])),
+        "(CUDA events, median of", TIMED_RUNS, "runs)")
+    rows, worst = {}, 0.0
+    for hw in sizes:
+        for ch, lane in ((3, "rgb"), (4, "rgba")):
+            q, dec, grid = fixed_planes_words(*hw, ch, device)
+            got = kfp.fixed_planes_kernel(q, dec, ch, grid)
+            want = kfp.fixed_planes_reference(q, dec, ch, grid)
+            torch.cuda.synchronize(device)
+            worst = max(worst, compare_outputs(got, want))
+            for name, g, w_ in zip(("factors", "decoded", "image"), got, want):
+                if g.stride() != w_.stride():
+                    raise AssertionError(f"{hw} {lane} {name}: strides {g.stride()} vs "
+                                         f"{w_.stride()}")
+            if hw != FIXED_PLANES_SIZE:
+                continue
+            bound = kernel_bound("fixed_planes", (q, dec), got)
+            nbytes = tensor_bytes((q, dec), got)
+            planes = want[1]
+            # plain, kernel, kernel, plain: both see the same card state
+            stacks1 = time_fn(lambda: kfp.fixed_planes_reference(q, dec, ch), device)
+            assemble1 = time_fn(lambda: kfp.assemble_decoded(planes, grid, ch), device)
+            k1 = time_fn(lambda: kfp.fixed_planes_kernel(q, dec, ch, grid), device)
+            k2 = time_fn(lambda: kfp.fixed_planes_kernel(q, dec, ch, grid), device)
+            stacks2 = time_fn(lambda: kfp.fixed_planes_reference(q, dec, ch), device)
+            assemble2 = time_fn(lambda: kfp.assemble_decoded(planes, grid, ch), device)
+            k_ms = min(k1, k2)
+            p_ms = min(stacks1, stacks2) + min(assemble1, assemble2)
+            rows[lane] = (k_ms, p_ms, *bound)
+            log(f"  {lane}: kernel {k1!r} / {k2!r} ms, {nbytes / k_ms * 1e-6:.1f} GB/s = "
+                f"{100 * bound[0] / k_ms:.1f}% of the bound {bound[0]!r} ms ({nbytes / 1e9:.3f} "
+                f"GB, {bound[1]}); the two stacks {stacks1!r} / {stacks2!r} ms, "
+                f"assemble_decoded {assemble1!r} / {assemble2!r} ms [{smi}]")
+            del planes
+        del got, want
+    log(f"phase 4i ok: the epilogue equals the plain composition on the three grids (max abs "
+        f"diff {worst})")
+    return rows, worst
+
+
 def phase_timing_corpus(device, smi: str, tmp: str):
     """The corpus paths' times: the 8 x 1080p fixed-grid corpus in one
     launch against 8 encode_perf_step calls (and its kernel alone against
@@ -3597,7 +3691,7 @@ def main():
     worst_n = phase_compare_natural(device)
     worst_s = phase_compare_segment_regions(device)
     worst_l = phase_compare_large(device)
-    launched = phase_main_path(device)
+    launched, launched_fp = phase_main_path(device)
     launched_m = phase_main_path_merged(device)
     launched_c = phase_main_path_coalesce(device)
     launched_r = phase_main_path_rd(device)
@@ -3616,6 +3710,7 @@ def main():
         rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
         rows_l, worst4k_l, lost_levels = phase_timing_levels(device, smi)
         worst_g = phase_timing_corpus(device, smi, tmp)
+    rows_fp, worst_fp = phase_timing_fixed_planes(device, smi)
     # the 4K RGB lane; RGBA is printed above
     kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES,
                           launched + launched_h["encode_fixed_p64"],
@@ -3641,6 +3736,8 @@ def main():
                               rows_n[("crush_eval_rows", "rgb")]))
     kernels.append(kernel_row("seg_sum_fold", SEG_FOLD_SOURCE, SEG_FOLD_REPLACES,
                               launched_j["seg_sum_fold"], worst_j, row_j))
+    kernels.append(kernel_row("fixed_planes", FIXED_PLANES_SOURCE, FIXED_PLANES_REPLACES,
+                              launched_fp, worst_fp, rows_fp["rgb"]))
     for p in SEGMENT_SIZES:
         name = f"segment_encode_p{p}"
         kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE, COALESCE_REPLACES["segment_encode"],

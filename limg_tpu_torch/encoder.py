@@ -4,7 +4,9 @@ Reference entry point: limg_encode3d_test (src/limg.cpp:1887-2265): per block
 fit -> factor extraction -> bit-crush search -> dither -> output planes ->
 integer decode. Every stage runs on all blocks at once. On a CUDA device
 the block encode is one launch of the hand-written kernel
-(kernels/encode_fixed.py); on the CPU it is the kernel's plain version.
+(kernels/encode_fixed.py), and its output planes and decoded image one of
+the epilogue kernel (kernels/fixed_planes.py); on the CPU each is the
+kernel's plain version.
 Asking for a CUDA device where there is none raises.
 """
 
@@ -17,6 +19,7 @@ import torch
 
 from .config import BLOCK_SIZE, EncodeConfig, static_block_bits
 from .kernels.encode_fixed import encode_blocks_kernel
+from .kernels.fixed_planes import fixed_planes_kernel
 from .ops import layout
 from .ops.error import psnr as weighted_psnr
 from .ops.fit import ENDPOINT_FIELDS, Decomposition
@@ -78,38 +81,39 @@ def _block_stats(shifts: torch.Tensor, mask: torch.Tensor, channels: int):
     return accum_bits, bits_histogram, bpp_block
 
 
-def encode_blocks(packed: torch.Tensor, mask: torch.Tensor, cfg: EncodeConfig,
-                  seed: int = 0) -> EncodeResult:
-    """Encode pre-blockified (64, NB) packed words + (64, NB) mask.
-
-    Runs on the device of ``packed``: the kernel on CUDA, the plain
-    version on the CPU.
-    """
+def _encode_blocks(packed: torch.Tensor, mask: torch.Tensor, cfg: EncodeConfig, seed: int,
+                   grid: layout.BlockGrid | None = None):
+    """``encode_blocks``, and the decoded (H, W, 4) uint8 image of ``grid``
+    (None without one): (EncodeResult, image)."""
     ch = cfg.channels
     outs = encode_blocks_kernel(packed, mask, cfg, seed, emit_endpoints=True)
     shifts, q_packed, dec_packed = outs[:3]
+    # the words' block-major (NB, 64) storage behind the kernel's (64, NB) views
+    factors, decoded, image = fixed_planes_kernel(q_packed.t(), dec_packed.t(), ch, grid)
     d = Decomposition(avg=outs[10], **dict(zip(ENDPOINT_FIELDS, outs[4:10])))
     accum_bits, bits_histogram, bpp_block = _block_stats(shifts, mask, ch)
-    return EncodeResult(
+    res = EncodeResult(
         decomposition=d,
-        factors=torch.stack([layout.unpack_plane(q_packed, c) for c in range(3)]),
+        factors=factors,
         shifts=shifts,
-        decoded=torch.stack([layout.unpack_plane(dec_packed, c) for c in range(ch)]),
+        decoded=decoded,
         mask=mask,
         accum_bits=accum_bits,
         bits_histogram=bits_histogram,
         bpp_block=bpp_block,
     )
+    return res, image
 
 
-def _assemble_decoded(decoded_blocks: torch.Tensor, grid: layout.BlockGrid,
-                      channels: int) -> torch.Tensor:
-    """Block-layout decode -> (H, W, 4) uint8 RGBA (alpha = 0xFF for RGB)."""
-    dec = layout.unblockify(decoded_blocks.to(torch.uint8), grid, BLOCK_SIZE)
-    if channels == 3:
-        alpha = torch.full((*dec.shape[:2], 1), 0xFF, dtype=torch.uint8, device=dec.device)
-        dec = torch.cat([dec, alpha], dim=-1)
-    return dec
+def encode_blocks(packed: torch.Tensor, mask: torch.Tensor, cfg: EncodeConfig,
+                  seed: int = 0) -> EncodeResult:
+    """Encode pre-blockified (64, NB) packed words + (64, NB) mask.
+
+    Runs on the device of ``packed``: the kernels on CUDA (the block encode,
+    then the epilogue that unpacks its words into the planes), the plain
+    versions on the CPU.
+    """
+    return _encode_blocks(packed, mask, cfg, seed)[0]
 
 
 def encode_image_device(image, cfg: EncodeConfig, seed: int = 0, device="cuda"):
@@ -121,9 +125,10 @@ def encode_image_device(image, cfg: EncodeConfig, seed: int = 0, device="cuda"):
         with span("limg.fixed.blockify"):
             packed, mask, grid = _packed_blocks(img)
         with span("limg.fixed.encode"):
-            res = encode_blocks(packed, mask, cfg, seed)
+            # the epilogue writes the decoded image with the planes
+            res, decoded = _encode_blocks(packed, mask, cfg, seed, grid)
         with span("limg.fixed.assemble"):
-            decoded = _assemble_decoded(res.decoded, grid, cfg.channels)
+            pass  # the stage the breakdown names; its work is in the epilogue
         return decoded, res, grid
 
 

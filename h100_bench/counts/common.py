@@ -21,20 +21,29 @@ I32 = 4
 
 @dataclass(frozen=True)
 class Job:
-    """One image's encode as the counts see it: the frame, the encode
-    configuration (``reference.EncodeConfig``), the entry's levels and the
-    content's counts (``entries/<entry>.run_members``)."""
+    """One call's encode as the counts see it: the frame size and the
+    number of frames (1 for an image, B for a batch of B frames of one
+    size), the encode configuration (``reference.EncodeConfig``), the
+    entry's levels and the content's counts (``entries/<entry>.run_members``,
+    over the whole call)."""
 
     height: int
     width: int
     cfg: object
     num_levels: int = 1
     members: dict = field(default_factory=dict)
+    frames: int = 1
+
+    @property
+    def pixels(self) -> int:
+        """Every pixel of the call's frames."""
+        return self.frames * self.height * self.width
 
     def blocks(self, lvl: int = 0) -> int:
-        """Regions of 8 * 2^lvl pixels a side covering the frame."""
+        """Regions of 8 * 2^lvl pixels a side covering the call's frames,
+        each frame's edges padded alone."""
         side = BLOCK << lvl
-        return -(-self.height // side) * -(-self.width // side)
+        return self.frames * -(-self.height // side) * -(-self.width // side)
 
 
 def axis_decode_ops(ch: int) -> int:

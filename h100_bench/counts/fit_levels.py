@@ -5,7 +5,7 @@ from .common import BLOCK_AREA, I32, call_bound, fit_ops
 
 
 def bound_s(kernel: str, job) -> float:
-    pixels, nb, ch, lv = job.height * job.width, job.blocks(0), job.cfg.channels, job.num_levels
+    pixels, nb, ch, lv = job.pixels, job.blocks(0), job.cfg.channels, job.num_levels
     ops = lv * pixels * fit_ops(ch)
     # words in; per block the count, the factors, endpoints, means, owner,
     # stats and a reason row per merged level out

@@ -6,7 +6,7 @@ from .common import BLOCK_AREA, I32, call_bound, encode_ops, fit_ops
 
 
 def bound_s(kernel: str, job, emit_q: bool = False) -> float:
-    pixels, nb, ch = job.height * job.width, job.blocks(0), job.cfg.channels
+    pixels, nb, ch = job.pixels, job.blocks(0), job.cfg.channels
     ops = encode_ops(pixels, pixels, job.cfg) - pixels * fit_ops(ch)
     # words, owner, factors and endpoints in; shifts, decoded words, two
     # errors and bpp out (and the crushed factors with emit_q)

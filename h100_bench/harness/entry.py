@@ -11,6 +11,14 @@ An entry module has three functions:
     run_members(lib, image, cfg, seed, params, device) -> {kernel: counts}
         work counts that depend on the image's content, for
         ``counts/<kernel>.py``.
+
+``image`` is one item of the traffic's pool, what one call encodes: an
+(H, W, C) image, or a (B, H, W, C) batch of frames in a batched cell, whose
+counts then cover the whole batch. ``device`` is the card of a one-card
+cell (``cuda:0``), or the tuple of the cards of a cell of several,
+``cuda:0`` ... ``cuda:{chips - 1}`` (``main.call_device``), so a call
+across cards learns them from the harness, never by counting the visible
+cards.
 """
 
 from __future__ import annotations

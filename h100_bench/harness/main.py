@@ -2,24 +2,30 @@
 
     python3 h100_bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up makes the traffic's pool of images on the card from ``--seed`` and
-encodes each once through the cell's entry (the first run in a checkout
-builds the port's kernels there). The window is a closed loop with one
-image in flight: image k is pool image k % pool, encoded with seed
-``--seed + k``, and its latency runs from the call to its totals on the
-host. The window ends with the first image that finishes ``--seconds`` or
-more after it began. With ``--trace 1`` a steady stretch of the window is
-profiled (``harness/trace.py``) and the line carries the per-layer metrics
-in place of the end-to-end ones.
+Set-up makes the traffic's pool of items from ``--seed`` (an item is what
+one call encodes: an (H, W, C) image, or a (B, H, W, C) batch of frames)
+and encodes each once through the cell's entry (the first run in a
+checkout builds the port's kernels there). The cell runs on its ``chips``
+cards, ``cuda:0`` ... (``cell_devices``): a traffic generator and an
+entry get the card of a one-card cell, or the tuple of the cards of a cell
+of several (``call_device``). The window is a closed loop with
+one call in flight, an image or a batch: call k encodes pool item k %
+pool with seed ``--seed + k``, and its latency runs from the call to its
+totals on the host. The window ends with the first call that finishes
+``--seconds`` or more after it began. With ``--trace 1`` a steady stretch
+of the window is profiled (``harness/trace.py``, card by card) and the
+line carries the per-layer metrics in place of the end-to-end ones.
 
-After the window (its peak memory read, the program's state freed) a
-sample of its images drawn from the seed is encoded again by the frozen
-plain reference (``reference/``) with the same image and seed, and the
-entry's numbers (``entries/<entry>.compare``) are held to the cell's
+After the window (every card's peak memory read, the program's state
+freed) a sample of its calls drawn from the seed is encoded again by the
+frozen plain reference (``reference/``) with the same item and seed, and
+the entry's numbers (``entries/<entry>.compare``) are held to the cell's
 limits: ``correct``. The last line of standard output is one JSON object
-with ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
-(traced) ``breakdown``, and last ``check``: each number compared with its
-limit, also the last lines of standard error.
+with ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``
+(``memory_peak_bytes`` the fullest card's, ``memory_peak_bytes_per_card``
+in card order; traced, ``busy_s`` the mean over the cards and
+``busy_s_per_card``), (traced) ``breakdown``, and last ``check``: each
+number compared with its limit, also the last lines of standard error.
 """
 
 from __future__ import annotations
@@ -87,15 +93,44 @@ def import_program(root: Path):
     return lib
 
 
-def cuda_device(chips: int):
-    """cuda:0, after checking that the cards the cell asks for are there."""
+def cell_devices(chips: int) -> tuple:
+    """The cell's cards, ``cuda:0`` ... ``cuda:{chips - 1}``, after checking
+    that they are there."""
     import torch
 
     if not torch.cuda.is_available():
         raise Refused("torch.cuda.is_available() is False: no card to measure")
     if torch.cuda.device_count() < chips:
         raise Refused(f"the cell needs {chips} cards, torch sees {torch.cuda.device_count()}")
-    return torch.device("cuda", 0)
+    return tuple(torch.device("cuda", i) for i in range(chips))
+
+
+def call_device(devices: tuple):
+    """What a traffic generator and an entry take as their ``device``: the
+    card of a one-card cell, the tuple of the cards of a cell of several."""
+    return tuple(devices) if len(devices) > 1 else devices[0]
+
+
+def synchronize(devices: tuple) -> None:
+    """Wait for the work queued on every card of ``devices``."""
+    import torch
+
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def item_frames(item) -> tuple:
+    """(frames, height, width) of a pool item: an (H, W, C) image is one
+    frame, a (B, H, W, C) batch B."""
+    *lead, h, w, _ = item.shape
+    return (int(lead[0]) if lead else 1), int(h), int(w)
+
+
+def item_pixels(item) -> int:
+    """The pixels one call of ``item`` encodes: frames x H x W."""
+    frames, h, w = item_frames(item)
+    return frames * h * w
 
 
 class Reservoir:
@@ -116,14 +151,16 @@ class Reservoir:
 
 @dataclass
 class Run:
-    """What the metric readers (``metrics/<name>.py``) read."""
+    """What the metric readers (``metrics/<name>.py``) read. An "image" of
+    a reader (``images``, the ``*_per_image`` metrics, a latency) is one
+    call: one image, or one batch of frames in a batched cell."""
 
     setup_s: float
     latencies_s: list
     window_s: float
-    pixels_per_image: int
+    pixels: int                          # every pixel the window's calls encoded
     trace: tracing.Trace | None = None
-    bound_jobs: object = None            # index -> counts.common.Job, for the counts
+    bound_jobs: object = None            # call index -> counts.common.Job, for the counts
     _bounds: dict = field(default_factory=dict)
 
     @property
@@ -131,7 +168,7 @@ class Run:
         return len(self.latencies_s)
 
     def kernel_bound_s(self, label: str) -> float | None:
-        """The bound of a port kernel's work in the traced images, summed
+        """The bound of a port kernel's work in the traced calls, summed
         (``counts/``); None where no count covers it."""
         if label not in self._bounds:
             mod = spec.count_module(label)
@@ -143,9 +180,10 @@ class Run:
         return self._bounds[label]
 
 
-def _window(call, pool: list, seed: int, seconds: float, reservoir: Reservoir, trace_plan):
+def _window(call, pool: list, seed: int, seconds: float, reservoir: Reservoir, trace_plan,
+            devices: tuple):
     """The closed loop. Returns (latencies, window seconds, failures, the
-    stopped profiler or None, traced image indices)."""
+    stopped profiler or None, traced call indices)."""
     import torch
 
     lat, failures, traced = [], [], []
@@ -179,8 +217,7 @@ def _window(call, pool: list, seed: int, seconds: float, reservoir: Reservoir, t
         k += 1
         if (prof is not None and now - trace_t0 >= trace_plan["seconds"]
                 and len(traced) >= trace_plan["min_images"]):
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
+            synchronize(devices)
             prof.stop()
             prof, done = None, prof
         if now - t0 >= seconds and (not trace_plan or done is not None):
@@ -188,7 +225,7 @@ def _window(call, pool: list, seed: int, seconds: float, reservoir: Reservoir, t
     return lat, time.perf_counter() - t0, failures, done, tuple(traced)
 
 
-def _reduce_profile(prof, traced: tuple, port_csrc: Path) -> tracing.Trace:
+def _reduce_profile(prof, traced: tuple, port_csrc: Path, cards: int) -> tracing.Trace:
     fd, path = tempfile.mkstemp(prefix="h100_bench_trace_", suffix=".json")
     os.close(fd)
     try:
@@ -196,13 +233,13 @@ def _reduce_profile(prof, traced: tuple, port_csrc: Path) -> tracing.Trace:
         events = tracing.read_chrome_trace(Path(path))
     finally:
         os.remove(path)
-    return tracing.reduce_trace(events, tracing.port_kernel_names(port_csrc), traced)
+    return tracing.reduce_trace(events, tracing.port_kernel_names(port_csrc), traced, cards)
 
 
 def _check(entry, ref, samples, pool, cfg_r, seed: int, params: dict, device,
            limits: dict) -> tuple:
-    """Each number of ``entry.compare`` over the sampled images (the worst
-    image), beside its limit; (correct, {name: (value, limit)})."""
+    """Each number of ``entry.compare`` over the sampled calls (the worst
+    call), beside its limit; (correct, {name: (value, limit)})."""
     worst: dict = {}
     for k, got in sorted(samples, key=lambda kv: kv[0]):
         want = entry.call(ref, pool[k % len(pool)], cfg_r, seed + k, params, device)
@@ -224,36 +261,57 @@ def _number(v):
     return v if math.isfinite(v) else str(v)
 
 
-def run_cell(args, started: float, cell: spec.Cell | None = None, device=None,
-             program=None) -> tuple:
-    """The run: (result dict, check lines). ``cell``, ``device`` and
+def count_jobs(entry, ref, pool: list, cfg_r, seed: int, params: dict, device):
+    """call index -> ``counts.common.Job`` of the item that call encoded:
+    its frames, the configuration, the content's counts from the reference
+    (``entries/<entry>.run_members``, once a pool item)."""
+    from ..counts.common import Job
+
+    members: dict = {}
+
+    def job(k: int):
+        i = k % len(pool)
+        if i not in members:
+            members[i] = entry.run_members(ref, pool[i], cfg_r, seed + k, params, device)
+        frames, h, w = item_frames(pool[i])
+        return Job(h, w, cfg_r, int(params.get("num_levels", 1)), members[i], frames)
+
+    return job
+
+
+def run_cell(args, started: float, cell: spec.Cell | None = None,
+             devices: tuple | None = None, program=None) -> tuple:
+    """The run: (result dict, check lines). ``cell``, ``devices`` and
     ``program`` given (the harness's own tests) skip the look-up of the
-    cell, the look for a card and the import of the package."""
+    cell, the look for its cards and the import of the package."""
     import torch
 
     cell = spec.load_cell(args.workload) if cell is None else cell
-    if device is None:
-        device = cuda_device(cell.chips)
+    if devices is None:
+        devices = cell_devices(cell.chips)
+    cards = [d for d in devices if d.type == "cuda"]
     lib = program if program is not None else import_program(spec.ROOT)
     from .. import reference as ref
 
     entry = entries.load(cell.config)
     gen = spec.load_module("traffic", cell.traffic["generator"])
+    device = call_device(devices)
     params = dict(cell.config.get("call", {}))
     cfg = entries.encode_config(lib, cell.config)
     settings = cell.settings
 
-    # set-up: the pool, and every image once through the entry
+    # set-up: the pool, and every item once through the entry
     pool = gen.make_pool(cell.traffic, args.seed, device)
+    pool_pixels = [item_pixels(item) for item in pool]
 
-    def call(image, seed):
-        return entry.call(lib, image, cfg, seed, params, device)
+    def call(item, seed):
+        return entry.call(lib, item, cfg, seed, params, device)
 
-    for i, image in enumerate(pool):
-        call(image, args.seed + WARM_SEED_OFFSET + i)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    for i, item in enumerate(pool):
+        call(item, args.seed + WARM_SEED_OFFSET + i)
+    synchronize(devices)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - started
 
     reservoir = Reservoir(int(settings.get("checked_images", 2)), args.seed)
@@ -263,18 +321,18 @@ def run_cell(args, started: float, cell: spec.Cell | None = None, device=None,
                           seconds=float(settings.get("trace_seconds", 2.0)),
                           min_images=int(settings.get("trace_min_images", 3)))
     lat, window_s, failures, prof, traced = _window(call, pool, args.seed, args.seconds,
-                                                   reservoir, trace_plan)
-    peak = 0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        peak = torch.cuda.max_memory_allocated(device)
-        torch.cuda.empty_cache()
+                                                   reservoir, trace_plan, devices)
+    synchronize(devices)
+    peaks = [torch.cuda.max_memory_allocated(d) for d in cards] or [0] * len(devices)
+    for d in cards:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
-    h, w = pool[0].shape[:2]
     run = Run(setup_s=setup_s, latencies_s=lat, window_s=window_s,
-              pixels_per_image=h * w)
+              pixels=sum(pool_pixels[k % len(pool)] for k in range(len(lat))))
     if prof is not None:
-        run.trace = _reduce_profile(prof, traced, Path(lib.__file__).parent / "csrc")
+        run.trace = _reduce_profile(prof, traced, Path(lib.__file__).parent / "csrc",
+                                    len(devices))
         del prof
 
     # the check, on the reference
@@ -284,31 +342,24 @@ def run_cell(args, started: float, cell: spec.Cell | None = None, device=None,
     correct = correct and not failures
     reservoir.items.clear()
 
-    # work counts of the traced images' content, for the counts' readers
-    members: dict = {}
-
-    def job(k: int):
-        from ..counts.common import Job
-
-        i = k % len(pool)
-        if i not in members:
-            members[i] = entry.run_members(ref, pool[i], cfg_r, args.seed + k, params, device)
-        return Job(h, w, cfg_r, int(params.get("num_levels", 1)), members[i])
-
-    run.bound_jobs = job
+    # work counts of the traced calls' items, for the counts' readers
+    run.bound_jobs = count_jobs(entry, ref, pool, cfg_r, args.seed, params, device)
     metrics = {}
     for m in cell.metrics(bool(args.trace)):
         value = spec.load_module("metrics", m.name).read(run)
         if value is not None:
             metrics[m.name] = {"value": float(value), "unit": m.unit}
 
-    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-           "count": cell.chips, "memory_peak_bytes": int(peak)}
+    first = devices[0]    # the cards are alike: the first names them
+    dev = {"platform": "gpu" if first.type == "cuda" else first.type,
+           "kind": torch.cuda.get_device_name(first) if first.type == "cuda" else "cpu",
+           "count": cell.chips, "memory_peak_bytes": int(max(peaks)),
+           "memory_peak_bytes_per_card": [int(p) for p in peaks]}
     result = {"correct": bool(correct), "attempted": len(lat), "failed": len(failures),
               "metrics": metrics, "device": dev}
     if run.trace is not None:
         dev["busy_s"] = run.trace.busy_s
+        dev["busy_s_per_card"] = list(run.trace.busy_s_per_card)
         dev["window_s"] = run.trace.window_s
         result["breakdown"] = {"device_ops": run.trace.device_ops(),
                                "idle_gaps": run.trace.idle_gaps()}

@@ -9,9 +9,21 @@ file of this folder:
                                names traffic/<generator>.py
     workloads/<cell>.json      the cell's own settings and check limits
     entries/<entry>.py         calls one public entry point of the port
+                               (``harness/entry.py``)
     metrics/<metric>.py        reads one metric of a finished run
     counts/<kernel>.py         the work of one kernel (or
                                counts/<family>.py for <family>_p<P>)
+
+A traffic generator has ``make_pool(params, seed, device)``: the list of
+items the window's calls encode in turn, each an (H, W, C) image or a
+(B, H, W, C) batch of B frames, on a card or in host memory. One call of
+an item encodes B x H x W pixels (H x W for an image), and B scales the
+item's ``counts.common.Job``.
+
+The cell's cards are ``cuda:0`` ... ``cuda:{chips - 1}``; the harness hands
+them over, and no module looks for cards itself. A traffic generator or an
+entry receives as its ``device`` the card of a one-card cell, or the tuple
+of the cards of a cell of several (``harness.main.call_device``).
 
 A later cell, configuration, traffic or metric is added by adding files.
 """

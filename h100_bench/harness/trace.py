@@ -5,8 +5,13 @@ activities, each image inside a ``record_function`` span (``IMAGE_SPAN``),
 exports the Chrome trace and reduces it here to a ``Trace``: the device
 operations (kernels, copies, fills) inside the traced window, which of them
 are the port's own kernels (a ``__global__`` function of the port's
-``csrc/``), the runtime calls that block the host, and the device's idle
+``csrc/``), the runtime calls that block the host, and each card's idle
 gaps with what the host was doing in each.
+
+A cell on several cards is read card by card: a device operation belongs
+to the card its event names (``args.device``, else its ``pid``), busy
+intervals are merged within a card only, and the busy time is the mean of
+the cards'. Operation counts and device times are sums over every card.
 """
 
 from __future__ import annotations
@@ -64,13 +69,14 @@ class Trace:
 
     images: int = 0
     window_s: float = 0.0
-    busy_s: float = 0.0
-    launches: int = 0
+    busy_s: float = 0.0                             # the mean of busy_s_per_card
+    busy_s_per_card: tuple = ()                     # union of a card's busy intervals
+    launches: int = 0                               # over every card
     host_syncs: int = 0
-    port_s: dict = field(default_factory=dict)      # port kernel label -> device s
-    glue_s: dict = field(default_factory=dict)      # other device op -> device s
-    idle_by_host: dict = field(default_factory=dict)  # host activity -> idle device s
-    traced_indices: tuple = ()                      # the window's image indices traced
+    port_s: dict = field(default_factory=dict)      # port kernel label -> device s, all cards
+    glue_s: dict = field(default_factory=dict)      # other device op -> device s, all cards
+    idle_by_host: dict = field(default_factory=dict)  # host activity -> idle card s, summed
+    traced_indices: tuple = ()                      # the window's call indices traced
 
     def device_ops(self, top: int = 10) -> list:
         ops = [*self.port_s.items(), *self.glue_s.items()]
@@ -114,9 +120,19 @@ class _HostIndex:
         return best
 
 
-def reduce_trace(events: list, port_names: frozenset, traced_indices: tuple = ()) -> Trace:
+def _card(event) -> int:
+    """The index of the card a device event ran on: ``args.device``, else
+    ``pid`` (the card where the profiler exports no ``args.device``)."""
+    return int(event.get("args", {}).get("device", event.get("pid", 0)))
+
+
+def reduce_trace(events: list, port_names: frozenset, traced_indices: tuple = (),
+                 cards: int = 1) -> Trace:
     """A ``Trace`` of the Chrome trace ``events`` between the first image
-    span's start and the last one's end."""
+    span's start and the last one's end, on the cell's cards ``0`` ...
+    ``cards - 1``, in that order: a card with no operation reads idle. A
+    device operation on any other card is refused (``ValueError``): the
+    program ran outside the cards it was given."""
     spans = [e for e in _complete(events, ("user_annotation", "cpu_op"))
              if e["name"] == IMAGE_SPAN]
     if not spans:
@@ -148,17 +164,29 @@ def reduce_trace(events: list, port_names: frozenset, traced_indices: tuple = ()
             by = launcher.get(e.get("args", {}).get("correlation"))
             key = f"{by}: {e['name'][:60]}" if by else e["name"][:80]
             tr.glue_s[key] = tr.glue_s.get(key, 0.0) + s
-    busy = _union([(max(e["ts"], t0), min(e["ts"] + e.get("dur", 0), t1)) for e in dev])
-    tr.busy_s = sum(e - s for s, e in busy if e > s) / 1e6
-    # idle gaps, each put to the host activity at its middle
+    busy_cards = [[] for _ in range(cards)]
+    for e in dev:
+        c = _card(e)
+        if not 0 <= c < cards:
+            raise ValueError(f"a device operation ({e['name'][:60]}) on card {c}, "
+                             f"outside the cell's {cards}")
+        busy_cards[c].append(e)
     every = _HostIndex(host)
-    edges = [t0] + [x for s, e in busy for x in (s, e)] + [t1]
-    for s, e in zip(edges[0::2], edges[1::2]):
-        if e <= s:
-            continue
-        ev = every.innermost((s + e) / 2)
-        key = ev["name"] if ev else "host (no traced call)"
-        tr.idle_by_host[key] = tr.idle_by_host.get(key, 0.0) + (e - s) / 1e6
+    per_card = []
+    for card_ops in busy_cards:
+        busy = _union([(max(e["ts"], t0), min(e["ts"] + e.get("dur", 0), t1))
+                       for e in card_ops])
+        per_card.append(sum(e - s for s, e in busy if e > s) / 1e6)
+        # the card's idle gaps, each put to the host activity at its middle
+        edges = [t0] + [x for s, e in busy for x in (s, e)] + [t1]
+        for s, e in zip(edges[0::2], edges[1::2]):
+            if e <= s:
+                continue
+            ev = every.innermost((s + e) / 2)
+            key = ev["name"] if ev else "host (no traced call)"
+            tr.idle_by_host[key] = tr.idle_by_host.get(key, 0.0) + (e - s) / 1e6
+    tr.busy_s_per_card = tuple(per_card)
+    tr.busy_s = sum(per_card) / len(per_card)
     return tr
 
 

@@ -1,5 +1,6 @@
 """The share of the traced window in which no operation ran on the device,
-in %: 1 minus the union of the device's busy intervals over the window."""
+in %: 1 minus the union of a card's busy intervals over the window, the
+cards' mean on a cell of several cards (``harness/trace.py``)."""
 
 
 def read(run):

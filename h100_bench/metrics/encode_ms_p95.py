@@ -1,6 +1,6 @@
 """The 95th percentile of every image's latency in the window, in ms (the
 call to its totals on the host). Read only from 200 images on: ten beyond
-the percentile."""
+the percentile. In a batched cell an image is one call, a whole batch."""
 
 import statistics
 

@@ -1,6 +1,6 @@
 """Blocking runtime calls (stream, device or event synchronise, synchronous
 copies) in the traced window, per image: each is a host read of a device
-value."""
+value. Per call in a batched cell."""
 
 
 def read(run):

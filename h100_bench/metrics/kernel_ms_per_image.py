@@ -1,5 +1,6 @@
 """Device time of the port's own kernels (``__global__`` functions of its
-``csrc/``), ms per image."""
+``csrc/``), ms per image: per call in a batched cell, summed over the
+cards of a cell of several."""
 
 
 def read(run):

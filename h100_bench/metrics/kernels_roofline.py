@@ -1,5 +1,6 @@
 """The port's kernels that the frozen counts cover, together: the sum of
-their bounds (``counts/``) over the sum of their device time, in %."""
+their bounds (``counts/``) over the sum of their device time, in %. On a
+cell of several cards both sums run over every card."""
 
 
 def read(run):

@@ -1,4 +1,5 @@
-"""Device operations (kernels, copies, fills) in the traced window, per image."""
+"""Device operations (kernels, copies, fills) in the traced window, per image
+(per call in a batched cell), on every card of the cell."""
 
 
 def read(run):

@@ -41,14 +41,14 @@ def main(argv=None) -> int:
 
     harness.set_cache_dirs(spec.ROOT)
     cell = spec.load_cell(args.workload)
-    device = harness.cuda_device(cell.chips)
+    devices = harness.cell_devices(cell.chips)
     program = harness.import_program(spec.ROOT)
     lines, lower, upper = [], {}, {}
     runs = [("program", s) for s in args.seeds] + [("control", s) for s in args.control_seeds]
     for kind, seed in runs:
         run_args = argparse.Namespace(workload=cell.name, seed=seed, seconds=args.seconds, trace=0)
         t0 = time.perf_counter()
-        result, _ = harness.run_cell(run_args, time.perf_counter(), cell=cell, device=device,
+        result, _ = harness.run_cell(run_args, time.perf_counter(), cell=cell, devices=devices,
                                      program=program if kind == "program" else control)
         numbers = {k: v["value"] for k, v in result["check"].items()}
         line = dict(kind=kind, seed=seed, correct=result["correct"], images=result["attempted"],
@@ -60,9 +60,11 @@ def main(argv=None) -> int:
         for k, v in numbers.items():
             v = float(v)
             into[k] = v if k not in into else pick(into[k], v)
-        torch.cuda.empty_cache()
+        for d in devices:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
     summary = dict(summary=True, workload=cell.name, lower=lower, upper=upper,
-                   card=torch.cuda.get_device_name(device))
+                   card=torch.cuda.get_device_name(devices[0]))
     print(json.dumps(summary), flush=True)
     if args.out:
         with open(args.out, "a") as f:

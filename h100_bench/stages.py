@@ -32,21 +32,22 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def traced_images(call, pool: list, seed: int, images: int, warm_s: float, record):
+def traced_images(call, pool: list, seed: int, images: int, warm_s: float, record,
+                  devices: tuple):
     """Untraced images for ``warm_s``, then ``images`` profiled ones, each
     in ``IMAGE_SPAN`` and ``record()``. Returns (Chrome trace events, the
     traced indices, each traced image's counts or None, traced wall s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from h100_bench.harness import main as harness
     from h100_bench.harness import trace as tracing
 
     k, t0 = 0, time.perf_counter()
     while time.perf_counter() - t0 < warm_s:
         call(pool[k % len(pool)], seed + k)
         k += 1
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    harness.synchronize(devices)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
                                      else [])
     recs, traced = [], []
@@ -57,8 +58,7 @@ def traced_images(call, pool: list, seed: int, images: int, warm_s: float, recor
                 call(pool[k % len(pool)], seed + k)
             recs.append(rec)
             traced.append(k)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        harness.synchronize(devices)
         wall = time.perf_counter() - t0
     counts = [rec.drain() if rec is not None else None for rec in recs]
     fd, path = tempfile.mkstemp(prefix="h100_bench_stages_", suffix=".json")
@@ -71,8 +71,9 @@ def traced_images(call, pool: list, seed: int, images: int, warm_s: float, recor
     return events, tuple(traced), counts, wall
 
 
-def stage_run(cell, seed: int, images: int, warm_s: float, device, program) -> dict:
-    """The line of one cell (``cell`` a ``spec.Cell``) on ``program``."""
+def stage_run(cell, seed: int, images: int, warm_s: float, devices: tuple, program) -> dict:
+    """The line of one cell (``cell`` a ``spec.Cell``, on its cards
+    ``devices``) on ``program``."""
     from h100_bench import reference as ref
     from h100_bench.harness import entry as entries
     from h100_bench.harness import main as harness
@@ -84,6 +85,7 @@ def stage_run(cell, seed: int, images: int, warm_s: float, device, program) -> d
     gen = spec.load_module("traffic", cell.traffic["generator"])
     params = dict(cell.config.get("call", {}))
     cfg = entries.encode_config(program, cell.config)
+    device = harness.call_device(devices)
     pool = gen.make_pool(cell.traffic, seed, device)
 
     def call(image, s):
@@ -95,29 +97,18 @@ def stage_run(cell, seed: int, images: int, warm_s: float, device, program) -> d
         record = importlib.import_module(f"{program.__name__}.utils.diagnostics").record_counts
     except (ImportError, AttributeError):
         record = contextlib.nullcontext
-    events, traced, counts, wall = traced_images(call, pool, seed, images, warm_s, record)
+    events, traced, counts, wall = traced_images(call, pool, seed, images, warm_s, record,
+                                                 devices)
     port = Path(program.__file__).parent / "csrc"
-    tr = tracing.reduce_trace(events, tracing.port_kernel_names(port), traced)
+    tr = tracing.reduce_trace(events, tracing.port_kernel_names(port), traced, len(devices))
     sp = program_spans.reduce_spans(events)
     if any(c is None for c in counts):
         counts = None
 
     # the per-layer metrics as the harness reads them
-    h, w = pool[0].shape[:2]
-    run = harness.Run(setup_s=0.0, latencies_s=[], window_s=wall, pixels_per_image=h * w,
-                      trace=tr)
+    run = harness.Run(setup_s=0.0, latencies_s=[], window_s=wall, pixels=0, trace=tr)
     cfg_r = entries.encode_config(ref, cell.config)
-    members: dict = {}
-
-    def job(k: int):
-        from h100_bench.counts.common import Job
-
-        i = k % len(pool)
-        if i not in members:
-            members[i] = entry.run_members(ref, pool[i], cfg_r, seed + k, params, device)
-        return Job(h, w, cfg_r, int(params.get("num_levels", 1)), members[i])
-
-    run.bound_jobs = job
+    run.bound_jobs = harness.count_jobs(entry, ref, pool, cfg_r, seed, params, device)
     metrics = {}
     for m in cell.metrics(True):
         value = spec.load_module("metrics", m.name).read(run)
@@ -152,10 +143,10 @@ def main(argv=None) -> int:
 
     harness.set_cache_dirs(spec.ROOT)
     cell = spec.load_cell(args.workload)
-    device = harness.cuda_device(cell.chips)
+    devices = harness.cell_devices(cell.chips)
     program = harness.import_program(spec.ROOT)
-    line = stage_run(cell, args.seed, args.images, args.warm_seconds, device, program)
-    line["card"] = torch.cuda.get_device_name(device)
+    line = stage_run(cell, args.seed, args.images, args.warm_seconds, devices, program)
+    line["card"] = torch.cuda.get_device_name(devices[0])
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

@@ -1,7 +1,7 @@
 """The harness on the CPU: arguments, the result line, refusals, the files a
 cell is found by, imports, and the check failing a broken timed path.
 
-A run here skips the look for a card (``run_cell(device=cpu)``) and runs
+A run here skips the look for a card (``run_cell(devices=(cpu,))``) and runs
 each cell's traffic at a tiny frame, where the port takes its plain route.
 """
 
@@ -22,8 +22,10 @@ import torch
 
 import limg_tpu_torch
 from h100_bench import control
+from h100_bench.harness import entry as entries
 from h100_bench.harness import main as harness
 from h100_bench.harness import spec
+from h100_bench.harness import trace as tracing
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -42,7 +44,7 @@ def run_tiny(name: str, program=limg_tpu_torch, trace: int = 0, seconds: float =
              seed: int = 2**31 + 99):
     args = argparse.Namespace(workload=name, seed=seed, seconds=seconds, trace=trace)
     return harness.run_cell(args, time.perf_counter(), cell=tiny(name),
-                            device=torch.device("cpu"), program=program)
+                            devices=(torch.device("cpu"),), program=program)
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +89,7 @@ def test_p95_reads_from_200_images():
     from h100_bench.metrics import encode_ms_p95
 
     run = harness.Run(setup_s=1.0, latencies_s=[0.001 * (i + 1) for i in range(199)],
-                      window_s=1.0, pixels_per_image=1)
+                      window_s=1.0, pixels=199)
     assert encode_ms_p95.read(run) is None
     run.latencies_s.append(0.2)
     assert encode_ms_p95.read(run) == pytest.approx(190.05, abs=1e-9)
@@ -106,7 +108,25 @@ def test_too_few_cards_are_refused(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(harness.Refused):
-        harness.cuda_device(4)
+        harness.cell_devices(4)
+    with pytest.raises(harness.Refused):
+        harness.cell_devices(2)
+
+
+def test_the_cell_gets_its_cards_in_order(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert harness.cell_devices(1) == (torch.device("cuda", 0),)
+    assert harness.cell_devices(4) == tuple(torch.device("cuda", i) for i in range(4))
+    # a one-card cell's traffic and entry take its card, a cell of several
+    # the tuple of its cards
+    assert harness.call_device(harness.cell_devices(1)) == torch.device("cuda", 0)
+    cards = harness.cell_devices(2)
+    assert harness.call_device(cards) == (torch.device("cuda", 0), torch.device("cuda", 1))
+    # every existing cell is a one-card cell
+    for name in CELLS:
+        cell = spec.load_cell(name)
+        assert harness.call_device(harness.cell_devices(cell.chips)) == torch.device("cuda", 0)
 
 
 def test_forbidden_modules_by_whole_top_level_name(monkeypatch):
@@ -129,6 +149,139 @@ def test_a_checkout_of_the_benchmark_alone_refuses(tmp_path):
     p = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(tmp_path)))
     assert p.returncode == 2 and "refused" in p.stdout
+
+
+# ---------------------------------------------------------------------------
+# pixels and frames of a call; a cell of several cards
+# ---------------------------------------------------------------------------
+
+def test_a_call_counts_the_pixels_and_frames_of_its_item():
+    image, batch = torch.zeros(5, 7, 3, dtype=torch.uint8), torch.zeros(4, 5, 7, 3)
+    assert harness.item_frames(image) == (1, 5, 7)
+    assert harness.item_frames(batch) == (4, 5, 7)
+    assert harness.item_pixels(image) == 35
+    assert harness.item_pixels(batch) == 140
+    from h100_bench.metrics import encode_mpx_s
+
+    # same-sized images: the window's pixels are images x pixels per image
+    run = harness.Run(setup_s=1.0, latencies_s=[0.01] * 3, window_s=0.5,
+                      pixels=3 * harness.item_pixels(torch.zeros(()).expand(5464, 8192, 3)))
+    assert encode_mpx_s.read(run) == 3 * 5464 * 8192 / 0.5 / 1e6
+    run.pixels = 140 + 35 + 140
+    assert encode_mpx_s.read(run) == 315 / 0.5 / 1e6
+
+
+def test_a_batch_job_counts_every_frame():
+    from h100_bench.counts import common, encode_fixed_p64
+    from h100_bench.reference import EncodeConfig
+
+    cfg = EncodeConfig()
+    one, four = common.Job(2160, 3840, cfg), common.Job(2160, 3840, cfg, frames=4)
+    assert one.frames == 1 and one.pixels == 2160 * 3840
+    assert four.blocks(0) == 4 * one.blocks(0) and four.blocks(2) == 4 * one.blocks(2)
+    assert four.pixels == 4 * one.pixels
+    assert common.Job(21, 13, cfg, frames=3).blocks(0) == 3 * 3 * 2   # each frame padded
+    assert encode_fixed_p64.bound_s("encode_fixed_p64", four) == pytest.approx(
+        4 * encode_fixed_p64.bound_s("encode_fixed_p64", one), rel=1e-12)
+
+
+def _x(name, cat, s, e, tid=1, **fields):
+    return dict(ph="X", name=name, cat=cat, ts=float(s), dur=float(e - s), tid=tid, **fields)
+
+
+def test_idle_is_read_card_by_card():
+    """Card 0 busy the whole window, card 1 half of it: 25% idle. The union
+    over both cards would cover the window and read 0% idle."""
+    events = [
+        _x(tracing.IMAGE_SPAN, "user_annotation", 0, 1000),
+        _x("aten::copy_", "cpu_op", 300, 450),
+        _x("k0", "kernel", 0, 600, tid=7, pid=0, args={"device": 0}),
+        _x("k0", "kernel", 600, 1000, tid=7, pid=0, args={"device": 0}),
+        # card 1's events name their card by pid alone
+        _x("k1", "kernel", 0, 250, tid=7, pid=1),
+        _x("k1", "kernel", 500, 750, tid=7, pid=1),
+    ]
+    tr = tracing.reduce_trace(events, frozenset(), (3,), cards=2)
+    assert tr.window_s == 1000 / 1e6
+    assert tr.busy_s_per_card == (1000 / 1e6, 500 / 1e6)
+    assert tr.busy_s == pytest.approx(750e-6, rel=1e-12)
+    assert tr.launches == 4
+    assert tr.glue_s == pytest.approx({"k0": 1000e-6, "k1": 500e-6})
+    # card 1's gaps, each put to the host activity at its middle
+    assert tr.idle_by_host == pytest.approx({"aten::copy_": 250e-6,
+                                             "host (no traced call)": 250e-6})
+    from h100_bench.metrics import device_idle_share
+
+    run = harness.Run(setup_s=1.0, latencies_s=[0.001], window_s=0.001, pixels=1,
+                      trace=tr)
+    assert device_idle_share.read(run) == pytest.approx(25.0, rel=1e-9)
+    # a card of the cell with no operation is idle the whole window
+    three = tracing.reduce_trace(events, frozenset(), (3,), cards=3)
+    assert three.busy_s_per_card == (1000 / 1e6, 500 / 1e6, 0.0)
+    assert three.busy_s == pytest.approx(500e-6, rel=1e-12)
+    # card 0 idle: card 1's busy time stays in card 1's place
+    only_1 = [e for e in events if e["name"] != "k0"]
+    tr = tracing.reduce_trace(only_1, frozenset(), (3,), cards=2)
+    assert tr.busy_s_per_card == (0.0, 500 / 1e6)
+    assert tr.busy_s == pytest.approx(250e-6, rel=1e-12)
+    # an operation on a card outside the cell is refused, not averaged in
+    with pytest.raises(ValueError, match="card 1"):
+        tracing.reduce_trace(events, frozenset(), (3,), cards=1)
+
+
+def test_one_card_reads_as_before():
+    """A one-card trace: every field the values the reduction read before
+    it went card by card (worked out by hand, equal to the last bit)."""
+    corr = dict(pid=0, tid=7)
+    events = [
+        _x(tracing.IMAGE_SPAN, "user_annotation", 0, 400),
+        _x(tracing.IMAGE_SPAN, "user_annotation", 500, 1000),
+        _x("aten::mul", "cpu_op", 10, 60),
+        _x("cudaLaunchKernel", "cuda_runtime", 20, 30, args={"correlation": 1}),
+        _x("limg::encode", "cpu_op", 70, 90),
+        _x("cudaLaunchKernel", "cuda_runtime", 75, 80, args={"correlation": 2}),
+        _x("cudaStreamSynchronize", "cuda_runtime", 420, 480),
+        _x("cudaMemcpyAsync", "cuda_runtime", 440, 445, args={"correlation": 3}),
+        _x("limg::encode", "cpu_op", 505, 520),
+        _x("cudaLaunchKernel", "cuda_runtime", 510, 515, args={"correlation": 4}),
+        _x("void at::native::vectorized_elementwise_kernel<4, MulFunctor>(int)", "kernel",
+           100, 200, args={"device": 0, "correlation": 1}, **corr),
+        _x("void (anonymous namespace)::encode_region_kernel<64, 3>(int)", "kernel",
+           210, 400, args={"device": 0, "correlation": 2}, **corr),
+        _x("Memcpy DtoH (Device -> Pageable)", "gpu_memcpy", 450, 470,
+           args={"device": 0, "correlation": 3}, **corr),
+        _x("void (anonymous namespace)::encode_region_kernel<64, 3>(int)", "kernel",
+           600, 800, args={"device": 0, "correlation": 4}, **corr),
+    ]
+    tr = tracing.reduce_trace(events, frozenset({"encode_region_kernel"}), (7, 8))
+    # busy [100, 200] + [210, 400] + [450, 470] + [600, 800] us
+    assert tr.busy_s == 0.00051 and tr.busy_s_per_card == (0.00051,)
+    assert (tr.images, tr.window_s, tr.launches, tr.host_syncs) == (2, 0.001, 4, 1)
+    assert tr.port_s == {"encode_fixed_p64": 0.00039000000000000005}   # 190e-6 + 200e-6
+    assert tr.glue_s == {
+        "aten::mul: void at::native::vectorized_elementwise_kernel<4, MulFunctor": 0.0001,
+        "cudaMemcpyAsync: Memcpy DtoH (Device -> Pageable)": 2e-05}
+    # gaps [0, 100] in aten::mul, [400, 450] in the sync; [200, 210],
+    # [470, 600] and [800, 1000] in no traced call
+    assert tr.idle_by_host == {"aten::mul": 0.0001, "host (no traced call)": 0.00034,
+                               "cudaStreamSynchronize": 5e-05}
+    assert tr.traced_indices == (7, 8)
+
+
+def test_a_batch_cell_on_two_devices(batch_cell):
+    """The batch cell on two CPU devices: a call's pixels are its 4 frames'
+    pixels, its count job has 4 frames, each device has its peak."""
+    untraced, traced = batch_cell("cpu", 2**31 + 77, 0.4)
+    for result in (untraced, traced):
+        assert result["correct"] is True and result["failed"] == 0, result["check"]
+        assert result["device"]["count"] == 2
+        assert result["device"]["memory_peak_bytes_per_card"] == [0, 0]
+        assert result["check"]["bpp_gap"]["value"] == 0.0
+    m = untraced["metrics"]
+    assert m["call_pixels_stub"]["value"] == 4 * 24 * 40
+    assert m["encode_mpx_s"]["value"] > 0 and "setup_s" in m
+    assert traced["metrics"]["call_frames_stub"]["value"] == 4
+    assert len(traced["device"]["busy_s_per_card"]) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -87,7 +87,7 @@ def _run(tr) -> harness.Run:
     from h100_bench.counts.common import Job
 
     run = harness.Run(setup_s=1.0, latencies_s=[0.001, 0.001], window_s=0.002,
-                      pixels_per_image=64 * 64, trace=tr)
+                      pixels=2 * 64 * 64, trace=tr)
     run.bound_jobs = lambda k: Job(64, 64, ref.EncodeConfig(), 3,
                                    {"segment_encode": {"members": 300, "lanes": 4096}})
     return run
@@ -222,7 +222,7 @@ def test_stage_run_at_test_size(name, program):
     rows of what lies outside it alone and no readings."""
     cell = spec.load_cell(name)
     cell = dataclasses.replace(cell, traffic=dict(cell.traffic, height=40, width=72, pool=2))
-    line = stages.stage_run(cell, 2**31 + 5, 2, 0.0, CPU, program)
+    line = stages.stage_run(cell, 2**31 + 5, 2, 0.0, (CPU,), program)
     names = {r[0] for r in line["breakdown"]["stages"]}
     assert line["images"] == 2 and line["traced_ms_per_image"] > 0
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps", "stages"}

@@ -22,6 +22,14 @@ Seeds: image i of a corpus encoded with ``seed`` draws its dither from
 ``image_seed(seed, i)``, and a fixed-grid shard, one launch, from its first
 image's. The JAX package splits a threefry key instead, so with dithering
 on the two agree statistically only, and exactly with it off.
+
+Spans and counters (``utils/diagnostics``): an entry's body is a span named
+after it (``limg.encode_corpus_sharded``, ``_merged``, ``_mixed``); inside
+it each shard's ``limg.corpus.upload`` and, on the fixed grid,
+``limg.corpus.blockify``, ``.encode`` and ``.stats``, then the call's
+``limg.corpus.gather`` and ``limg.fetch``. Each shard counts its images,
+``limg.corpus.frames``, and the bytes it sent from host memory to a card,
+``limg.corpus.upload_bytes``, both host ints.
 """
 
 from __future__ import annotations
@@ -33,15 +41,18 @@ import os
 import numpy as np
 import torch
 
-from .. import native
+# the fixed grid's kernel is called as ``encoder.encode_blocks_kernel``, so
+# that every fixed-grid path (the image, the corpus, the block shards) runs
+# the kernel the encoder runs
+from .. import encoder, native
 from ..config import EncodeConfig, static_block_bits
 from ..encoder import _as_image_tensor, _packed_blocks
 from ..io import load_image
-from ..kernels.encode_fixed import encode_blocks_kernel
 from ..ops import layout
 from ..ops.dither import image_seed
 from ..ops.error import max_possible_error
 from ..regions import encode_image_merged_device, encode_image_merged_fused_device
+from ..utils.diagnostics import count, span
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> tuple[torch.device, ...]:
@@ -132,19 +143,34 @@ def _shard_size(n: int, mesh) -> int:
     return n // len(mesh)
 
 
+def _upload(batch: torch.Tensor, k: int, n_loc: int, dev: torch.device) -> torch.Tensor:
+    """Shard ``k`` of ``batch`` (``n_loc`` images) on ``dev``. Counts its
+    images (``limg.corpus.frames``) and the bytes it sent from host memory to
+    a device that is not the CPU (``limg.corpus.upload_bytes``)."""
+    with span("limg.corpus.upload"):
+        shard = batch[k * n_loc:(k + 1) * n_loc].to(dev, non_blocking=True)
+    count("limg.corpus.frames", n_loc)
+    count("limg.corpus.upload_bytes",
+          shard.nbytes if batch.device.type == "cpu" and dev.type != "cpu" else 0)
+    return shard
+
+
 def _corpus_shard(imgs: torch.Tensor, cfg: EncodeConfig, seed: int):
     """One fixed-grid shard: its (n, H, W, C) images, on one device, in one
     kernel launch over their blocks concatenated on the block axis
     (limg_tpu/parallel/mesh.py:86-118). Returns per-image (psnr, bpp)."""
     n, h, w = imgs.shape[:3]
-    blocks = [_packed_blocks(im) for im in imgs]
-    nb = blocks[0][2].num_blocks
-    packed = torch.cat([b[0] for b in blocks], dim=1)
-    mask = torch.cat([b[1] for b in blocks], dim=1)
-    shifts, _, _, dist = encode_blocks_kernel(packed, mask, cfg, seed)[:4]
-    err = dist[0].to(torch.float64).reshape(n, nb).sum(dim=1)
-    bits = _factor_bits(shifts, mask).reshape(3, n, nb).sum(dim=(0, 2))
-    return _image_stats(err, bits, h * w, nb, cfg.channels)
+    with span("limg.corpus.blockify"):
+        blocks = [_packed_blocks(im) for im in imgs]
+        nb = blocks[0][2].num_blocks
+        packed = torch.cat([b[0] for b in blocks], dim=1)
+        mask = torch.cat([b[1] for b in blocks], dim=1)
+    with span("limg.corpus.encode"):
+        shifts, _, _, dist = encoder.encode_blocks_kernel(packed, mask, cfg, seed)[:4]
+    with span("limg.corpus.stats"):
+        err = dist[0].to(torch.float64).reshape(n, nb).sum(dim=1)
+        bits = _factor_bits(shifts, mask).reshape(3, n, nb).sum(dim=(0, 2))
+        return _image_stats(err, bits, h * w, nb, cfg.channels)
 
 
 def _gather(parts, mesh, n: int):
@@ -169,9 +195,10 @@ def _corpus_sharded(images, cfg: EncodeConfig, mesh, seed: int):
     parts = []
     for k, dev in enumerate(mesh):
         with _on(dev):
-            shard = imgs[k * n_loc:(k + 1) * n_loc].to(dev, non_blocking=True)
+            shard = _upload(imgs, k, n_loc, dev)
             parts.append(_corpus_shard(shard, cfg, image_seed(seed, k * n_loc)))
-    return _gather(parts, mesh, n)
+    with span("limg.corpus.gather"):
+        return _gather(parts, mesh, n)
 
 
 def encode_corpus_sharded(images, cfg: EncodeConfig, n_devices: int | None = None,
@@ -184,7 +211,10 @@ def encode_corpus_sharded(images, cfg: EncodeConfig, n_devices: int | None = Non
     per-image ``psnr`` and ``bpp`` (float32 NumPy) and the corpus-mean PSNR
     ``mean_psnr`` (a ``_psum`` over the shards).
     """
-    return _fetch(*_corpus_sharded(images, cfg, make_mesh(n_devices, device), seed))
+    with span("limg.encode_corpus_sharded"):
+        out = _corpus_sharded(images, cfg, make_mesh(n_devices, device), seed)
+        with span("limg.fetch"):
+            return _fetch(*out)
 
 
 def encode_corpus_sharded_merged(images, cfg: EncodeConfig, n_devices: int | None = None,
@@ -199,20 +229,25 @@ def encode_corpus_sharded_merged(images, cfg: EncodeConfig, n_devices: int | Non
     capacity (``cap_frac=8``) without planes, on its shard's device.
     """
     encode = encode_image_merged_fused_device if fused else encode_image_merged_device
-    mesh = make_mesh(n_devices, device)
-    imgs = _as_batch(images)
-    n, h, w = imgs.shape[:3]
-    n_loc = _shard_size(n, mesh)
-    parts = []
-    for k, dev in enumerate(mesh):
-        with _on(dev):
-            shard = imgs[k * n_loc:(k + 1) * n_loc].to(dev, non_blocking=True)
-            outs = [encode(im, cfg, image_seed(seed, k * n_loc + j), num_levels,
-                           emit_planes=False, coalesce=coalesce, device=dev)
-                    for j, im in enumerate(shard)]
-            parts.append((torch.stack([_psnr(o["total_err"], h * w, cfg.channels) for o in outs]),
-                          torch.stack([o["mean_bpp"] for o in outs]).to(torch.float32)))
-    return _fetch(*_gather(parts, mesh, n))
+    with span("limg.encode_corpus_sharded_merged"):
+        mesh = make_mesh(n_devices, device)
+        imgs = _as_batch(images)
+        n, h, w = imgs.shape[:3]
+        n_loc = _shard_size(n, mesh)
+        parts = []
+        for k, dev in enumerate(mesh):
+            with _on(dev):
+                shard = _upload(imgs, k, n_loc, dev)
+                outs = [encode(im, cfg, image_seed(seed, k * n_loc + j), num_levels,
+                               emit_planes=False, coalesce=coalesce, device=dev)
+                        for j, im in enumerate(shard)]
+                parts.append((torch.stack([_psnr(o["total_err"], h * w, cfg.channels)
+                                           for o in outs]),
+                              torch.stack([o["mean_bpp"] for o in outs]).to(torch.float32)))
+        with span("limg.corpus.gather"):
+            out = _gather(parts, mesh, n)
+        with span("limg.fetch"):
+            return _fetch(*out)
 
 
 def _read_image(path) -> np.ndarray:
@@ -236,26 +271,28 @@ def encode_corpus_sharded_mixed(images, cfg: EncodeConfig, n_devices: int | None
     Returns per-image ``psnr`` / ``bpp`` in input order, ``mean_psnr`` and
     ``buckets`` (images per shape).
     """
-    arrs = [_read_image(im) if isinstance(im, (str, os.PathLike)) else np.asarray(im)
-            for im in images]
-    buckets: dict[tuple, list[int]] = {}
-    for i, a in enumerate(arrs):
-        buckets.setdefault(a.shape, []).append(i)
-    mesh = make_mesh(n_devices, device)
-    outs = []
-    for _, idxs in sorted(buckets.items()):
-        batch = np.stack([arrs[i] for i in idxs])
-        pad = (-len(idxs)) % len(mesh)
-        if pad:
-            batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
-        outs.append((idxs, _corpus_sharded(batch, cfg, mesh, seed)))
-    psnr = np.zeros(len(arrs), np.float64)
-    bpp = np.zeros(len(arrs), np.float64)
-    for idxs, (p, b, _) in outs:
-        psnr[idxs] = p.cpu().numpy()[: len(idxs)]
-        bpp[idxs] = b.cpu().numpy()[: len(idxs)]
-    return {"psnr": psnr, "bpp": bpp, "mean_psnr": float(psnr.mean()) if len(arrs) else 0.0,
-            "buckets": {str(k): len(v) for k, v in buckets.items()}}
+    with span("limg.encode_corpus_sharded_mixed"):
+        arrs = [_read_image(im) if isinstance(im, (str, os.PathLike)) else np.asarray(im)
+                for im in images]
+        buckets: dict[tuple, list[int]] = {}
+        for i, a in enumerate(arrs):
+            buckets.setdefault(a.shape, []).append(i)
+        mesh = make_mesh(n_devices, device)
+        outs = []
+        for _, idxs in sorted(buckets.items()):
+            batch = np.stack([arrs[i] for i in idxs])
+            pad = (-len(idxs)) % len(mesh)
+            if pad:
+                batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
+            outs.append((idxs, _corpus_sharded(batch, cfg, mesh, seed)))
+        psnr = np.zeros(len(arrs), np.float64)
+        bpp = np.zeros(len(arrs), np.float64)
+        with span("limg.fetch"):
+            for idxs, (p, b, _) in outs:
+                psnr[idxs] = p.cpu().numpy()[: len(idxs)]
+                bpp[idxs] = b.cpu().numpy()[: len(idxs)]
+        return {"psnr": psnr, "bpp": bpp, "mean_psnr": float(psnr.mean()) if len(arrs) else 0.0,
+                "buckets": {str(k): len(v) for k, v in buckets.items()}}
 
 
 def _blocks_sharded(image, cfg: EncodeConfig, mesh, seed: int):
@@ -272,8 +309,8 @@ def _blocks_sharded(image, cfg: EncodeConfig, mesh, seed: int):
     for k, dev in enumerate(mesh):
         with _on(dev):
             m = mask[:, k * n_s:(k + 1) * n_s].to(dev)
-            shifts, _, dec, dist = encode_blocks_kernel(packed[:, k * n_s:(k + 1) * n_s].to(dev),
-                                                        m, cfg, seed)[:4]
+            shifts, _, dec, dist = encoder.encode_blocks_kernel(
+                packed[:, k * n_s:(k + 1) * n_s].to(dev), m, cfg, seed)[:4]
             decs.append(dec)
             errs.append(dist.to(torch.float64).sum())
             bits.append(_factor_bits(shifts, m).sum())

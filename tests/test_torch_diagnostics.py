@@ -11,7 +11,9 @@ more).
 The encode paths' spans and counters (``span``, ``count``,
 ``record_counts``): off without a listener; under ``torch.profiler`` on the
 CPU each path's stage spans land in the Chrome trace inside its entry
-span, and the segment counters count each coalesce buffer.
+span, and the segment counters count each coalesce buffer; the corpus
+encodes' spans nest in theirs, and their counters count each shard's frames
+and the bytes it sent from host memory to a card.
 """
 
 import json
@@ -33,6 +35,7 @@ import limg_tpu_torch
 from limg_tpu_torch.config import EncodeConfig
 from limg_tpu_torch.ops.crush import err_scale_shift
 from limg_tpu_torch.ops.fit import Decomposition
+from limg_tpu_torch.parallel import mesh
 from limg_tpu_torch.utils import diagnostics as td
 from tests.conftest import make_test_image
 from tools import record_torch_ltp1_reference as lrec
@@ -135,7 +138,9 @@ def _spans_and_counts(tmp_path, path: str):
     cfg = EncodeConfig()
     img = make_test_image(np.random.default_rng(7), 72, 136)
     with td.profile_trace(str(tmp_path / path)) as log_dir:
-        if path == "fixed":
+        if path == "corpus":
+            mesh.encode_corpus_sharded(_corpus_frames(), cfg, n_devices=4, seed=3, device="cpu")
+        elif path == "fixed":
             limg_tpu_torch.encode_image_device(img, cfg, 3, device="cpu")
         else:
             limg_tpu_torch.encode_image_merged(img, cfg, 3, num_levels=5 if path == "dense" else 3,
@@ -160,7 +165,17 @@ PATH_SPANS = {
                  "limg.dense.decoded", "limg.fetch"]),
     "fixed": ("limg.encode_image_device", ["limg.fixed.blockify", "limg.fixed.encode",
                                            "limg.fixed.assemble"]),
+    # four shards on four devices: each stage once a shard, then the call's
+    "corpus": ("limg.encode_corpus_sharded",
+               [f"limg.corpus.{s}" for s in ("upload", "blockify", "encode", "stats")] * 4
+               + ["limg.corpus.gather", "limg.fetch"]),
 }
+CORPUS_SHAPE = (8, 24, 40, 3)
+
+
+def _corpus_frames() -> np.ndarray:
+    """A (8, 24, 40, 3) uint8 batch in host memory."""
+    return np.random.default_rng(11).integers(0, 256, CORPUS_SHAPE, dtype=np.uint8)
 
 
 @pytest.mark.parametrize("path", sorted(PATH_SPANS))
@@ -172,6 +187,12 @@ def test_encode_spans_nest_in_their_entry_span(tmp_path, path):
     assert sorted(name for name, _, _ in spans) == sorted([entry] + stages)
     (t0, t1), = [(s, e) for name, s, e in spans if name == entry]
     assert all(t0 <= s and e <= t1 for _, s, e in spans)
+    if path == "corpus":
+        # a shard's frames; on a mesh of cpu devices no byte crosses to a card
+        n = CORPUS_SHAPE[0]
+        assert counts == {"limg.corpus.frames": [n // 4] * 4,
+                          "limg.corpus.upload_bytes": [0] * 4}
+        return
     # a coalesce buffer a pass: P = 64 on the fused path, one a level on the dense
     ps = {"fused": [64], "dense": [64 << 2 * lvl for lvl in range(5)], "fixed": []}[path]
     assert sorted(counts) == sorted(f"limg.segments.{k}.p{p}" for k in ("members", "lanes")
@@ -180,6 +201,56 @@ def test_encode_spans_nest_in_their_entry_span(tmp_path, path):
         (members,), (lanes,) = counts[f"limg.segments.members.p{p}"], \
             counts[f"limg.segments.lanes.p{p}"]
         assert 0 <= members <= lanes
+
+
+def test_corpus_counts_no_upload_for_a_batch_on_its_device():
+    """A tensor already on the mesh's device brings no bytes from host
+    memory; its frames are counted all the same."""
+    with td.record_counts() as rec:
+        mesh.encode_corpus_sharded(torch.from_numpy(_corpus_frames()), EncodeConfig(),
+                                   n_devices=4, seed=3, device="cpu")
+    assert rec.drain() == {"limg.corpus.frames": [2] * 4, "limg.corpus.upload_bytes": [0] * 4}
+
+
+def test_corpus_counts_the_bytes_a_shard_sends_from_host_memory():
+    """A shard of a batch in host memory bound for a device that is not the
+    CPU (``meta`` here, which holds no data) counts all its bytes; the same
+    shard kept on the CPU counts none."""
+    n, h, w, c = CORPUS_SHAPE
+    batch = torch.from_numpy(_corpus_frames())
+    with td.record_counts() as rec:
+        shards = [mesh._upload(batch, k, n // 4, torch.device("meta")) for k in range(4)]
+        mesh._upload(batch, 0, n // 4, torch.device("cpu"))
+    assert [s.shape for s in shards] == [(n // 4, h, w, c)] * 4
+    assert rec.drain() == {"limg.corpus.frames": [n // 4] * 5,
+                           "limg.corpus.upload_bytes": [n // 4 * h * w * c] * 4 + [0]}
+
+
+@pytest.mark.parametrize("entry", ["merged", "mixed"])
+def test_corpus_entries_span_their_bodies_and_uploads(tmp_path, entry):
+    """The merged and mixed corpus encodes: the entry's span around every
+    program span, one upload a shard, and the shard counters."""
+    frames = _corpus_frames()[:4]
+    with td.profile_trace(str(tmp_path / entry)) as log_dir:
+        if entry == "merged":
+            mesh.encode_corpus_sharded_merged(frames, EncodeConfig(), n_devices=2, seed=3,
+                                              device="cpu")
+        else:
+            mesh.encode_corpus_sharded_mixed(list(frames), EncodeConfig(), n_devices=2,
+                                             seed=3, device="cpu")
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e["name"].startswith("limg.")]
+    (t0, t1), = [(s, e) for name, s, e in spans
+                 if name == f"limg.encode_corpus_sharded_{entry}"]
+    assert all(t0 <= s and e <= t1 for _, s, e in spans)
+    names = [name for name, _, _ in spans]
+    assert names.count("limg.corpus.upload") == 2
+    assert names.count("limg.corpus.gather") == 1
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        counts = json.load(f)
+    assert counts["limg.corpus.frames"] == [2, 2]
+    assert counts["limg.corpus.upload_bytes"] == [0, 0]
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):

@@ -107,13 +107,13 @@ def test_corpus_sharded_independent_of_mesh_size():
 
 def test_corpus_shard_is_one_launch_per_shard(monkeypatch):
     calls = []
-    real = mesh.encode_blocks_kernel
+    real = mesh.encoder.encode_blocks_kernel
 
     def counted(packed, *args, **kwargs):
         calls.append(packed.shape[1])
         return real(packed, *args, **kwargs)
 
-    monkeypatch.setattr(mesh, "encode_blocks_kernel", counted)
+    monkeypatch.setattr(mesh.encoder, "encode_blocks_kernel", counted)
     cfg = EncodeConfig(error_factor=100, crush_mode="guess")
     mesh.encode_corpus_sharded(_images(), cfg, n_devices=2, device="cpu")
     assert calls == [4 * 9, 4 * 9]      # 4 images of 9 blocks a shard

@@ -30,11 +30,19 @@ it each shard's ``limg.corpus.upload`` and, on the fixed grid,
 ``limg.corpus.gather`` and ``limg.fetch``. Each shard counts its images,
 ``limg.corpus.frames``, and the bytes it sent from host memory to a card,
 ``limg.corpus.upload_bytes``, both host ints.
+
+Uploads: a shard in host memory bound for a CUDA card goes through that
+card's pinned buffers (``staging``), and counts those bytes as
+``limg.corpus.staged_bytes``; the fixed-grid and merged corpus encodes start
+every shard's upload at once, each card's on its own worker, and enqueue a
+shard's work once its copies are enqueued. Any other shard (already on a
+card, or bound for the CPU) is moved by ``.to``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 import os
 
@@ -53,6 +61,7 @@ from ..ops.dither import image_seed
 from ..ops.error import max_possible_error
 from ..regions import encode_image_merged_device, encode_image_merged_fused_device
 from ..utils.diagnostics import count, span
+from . import staging
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> tuple[torch.device, ...]:
@@ -143,15 +152,47 @@ def _shard_size(n: int, mesh) -> int:
     return n // len(mesh)
 
 
+# a corpus call's staged uploads, started for every shard at once:
+# (its batch, {(shard index, device): the future of the shard on the device})
+_started = contextvars.ContextVar("limg_corpus_started", default=None)
+
+
+@contextlib.contextmanager
+def _start_uploads(batch: torch.Tensor, n_loc: int, mesh):
+    """Start the staged upload of every shard of ``batch`` at once, each on
+    its card's worker; inside, ``_upload`` takes the one of its shard and
+    device. On leaving, waits for any that no shard took."""
+    ups = {(k, dev): staging.start(batch[k * n_loc:(k + 1) * n_loc], dev)
+           for k, dev in enumerate(mesh) if staging.staged(batch, dev)}
+    token = _started.set((batch, ups))
+    try:
+        yield
+    finally:
+        _started.reset(token)
+        for up in ups.values():
+            up.result()
+
+
 def _upload(batch: torch.Tensor, k: int, n_loc: int, dev: torch.device) -> torch.Tensor:
-    """Shard ``k`` of ``batch`` (``n_loc`` images) on ``dev``. Counts its
-    images (``limg.corpus.frames``) and the bytes it sent from host memory to
-    a device that is not the CPU (``limg.corpus.upload_bytes``)."""
+    """Shard ``k`` of ``batch`` (``n_loc`` images) on ``dev``, its copies
+    enqueued on the device's current stream. Counts its images
+    (``limg.corpus.frames``), the bytes it sent from host memory to a device
+    that is not the CPU (``limg.corpus.upload_bytes``) and, of those, the
+    bytes that went through pinned buffers (``limg.corpus.staged_bytes``)."""
+    src = batch[k * n_loc:(k + 1) * n_loc]
+    staged = staging.staged(src, dev)
     with span("limg.corpus.upload"):
-        shard = batch[k * n_loc:(k + 1) * n_loc].to(dev, non_blocking=True)
+        if staged:
+            started = _started.get()
+            up = started[1].pop((k, dev), None) if started and started[0] is batch else None
+            shard = (up or staging.start(src, dev)).result()
+        else:
+            shard = src.to(dev, non_blocking=True)
     count("limg.corpus.frames", n_loc)
     count("limg.corpus.upload_bytes",
           shard.nbytes if batch.device.type == "cpu" and dev.type != "cpu" else 0)
+    if staged:
+        count("limg.corpus.staged_bytes", shard.nbytes)
     return shard
 
 
@@ -193,10 +234,11 @@ def _corpus_sharded(images, cfg: EncodeConfig, mesh, seed: int):
     n = imgs.shape[0]
     n_loc = _shard_size(n, mesh)
     parts = []
-    for k, dev in enumerate(mesh):
-        with _on(dev):
-            shard = _upload(imgs, k, n_loc, dev)
-            parts.append(_corpus_shard(shard, cfg, image_seed(seed, k * n_loc)))
+    with _start_uploads(imgs, n_loc, mesh):
+        for k, dev in enumerate(mesh):
+            with _on(dev):
+                shard = _upload(imgs, k, n_loc, dev)
+                parts.append(_corpus_shard(shard, cfg, image_seed(seed, k * n_loc)))
     with span("limg.corpus.gather"):
         return _gather(parts, mesh, n)
 
@@ -235,15 +277,16 @@ def encode_corpus_sharded_merged(images, cfg: EncodeConfig, n_devices: int | Non
         n, h, w = imgs.shape[:3]
         n_loc = _shard_size(n, mesh)
         parts = []
-        for k, dev in enumerate(mesh):
-            with _on(dev):
-                shard = _upload(imgs, k, n_loc, dev)
-                outs = [encode(im, cfg, image_seed(seed, k * n_loc + j), num_levels,
-                               emit_planes=False, coalesce=coalesce, device=dev)
-                        for j, im in enumerate(shard)]
-                parts.append((torch.stack([_psnr(o["total_err"], h * w, cfg.channels)
-                                           for o in outs]),
-                              torch.stack([o["mean_bpp"] for o in outs]).to(torch.float32)))
+        with _start_uploads(imgs, n_loc, mesh):
+            for k, dev in enumerate(mesh):
+                with _on(dev):
+                    shard = _upload(imgs, k, n_loc, dev)
+                    outs = [encode(im, cfg, image_seed(seed, k * n_loc + j), num_levels,
+                                   emit_planes=False, coalesce=coalesce, device=dev)
+                            for j, im in enumerate(shard)]
+                    parts.append((torch.stack([_psnr(o["total_err"], h * w, cfg.channels)
+                                               for o in outs]),
+                                  torch.stack([o["mean_bpp"] for o in outs]).to(torch.float32)))
         with span("limg.corpus.gather"):
             out = _gather(parts, mesh, n)
         with span("limg.fetch"):

@@ -768,6 +768,97 @@ def test_sharded_corpus_and_blocks_on_card_equal_cpu(device, channels, dithering
     assert card[1:] == cpu[1:]
 
 
+def _cards(least: int) -> int:
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < least:
+        pytest.skip(f"needs {least} CUDA cards (run on a machine of {least} with -m cuda)")
+    return count
+
+
+def _frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    return np.stack([small_image(h, w, seed=seed + i) for i in range(n)])
+
+
+def test_staged_upload_equals_to(device):
+    """A shard of just over three rings of chunks, the last chunk partial,
+    lands on the card byte for byte as ``.to`` puts it, from an offset of the
+    batch; its staged bytes are its uploaded bytes."""
+    from limg_tpu_torch.parallel import mesh, staging
+    from limg_tpu_torch.utils.diagnostics import record_counts
+
+    n = -(-staging.RING * 3 * staging.CHUNK_BYTES // (1080 * 1920 * 3))
+    batch = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2 * n, 1080, 1920, 3), dtype=np.uint8))
+    with record_counts() as rec:
+        got = mesh._upload(batch, 1, n, device)
+    assert torch.equal(got, batch[n:].to(device))
+    counts = rec.drain()
+    assert counts["limg.corpus.staged_bytes"] == counts["limg.corpus.upload_bytes"] == [
+        batch[n:].nbytes]
+
+
+def test_staged_corpus_on_four_cards_equals_pageable(monkeypatch):
+    """The fixed-grid corpus on four cards through pinned buffers gives the
+    totals of plain ``.to`` uploads bit for bit, and counts every uploaded
+    byte as staged."""
+    from limg_tpu_torch.parallel import mesh, staging
+    from limg_tpu_torch.utils.diagnostics import record_counts
+
+    _cards(4)
+    images = _frames(8, 540, 960, 70)
+    cfg = EncodeConfig(error_factor=100)
+    with record_counts() as rec:
+        staged = mesh.encode_corpus_sharded(images, cfg, n_devices=4, seed=9, device="cuda")
+    counts = rec.drain()
+    assert counts["limg.corpus.staged_bytes"] == counts["limg.corpus.upload_bytes"] == [
+        images.nbytes // 4] * 4
+    monkeypatch.setattr(staging, "staged", lambda src, dev: False)
+    with record_counts() as rec:
+        plain = mesh.encode_corpus_sharded(images, cfg, n_devices=4, seed=9, device="cuda")
+    assert "limg.corpus.staged_bytes" not in rec.drain()
+    for key in ("psnr", "bpp", "mean_psnr"):
+        np.testing.assert_array_equal(staged[key], plain[key], err_msg=key)
+
+
+def test_staged_corpus_encodes_a_batch_refilled_in_place_afresh():
+    """On two or more cards: a batch refilled in place between calls gives
+    the new frames' stats, as a fresh batch of them does."""
+    from limg_tpu_torch.parallel import mesh
+
+    cards = min(_cards(2), 4)
+    cfg = EncodeConfig(error_factor=100)
+    batch = _frames(2 * cards, 270, 480, 10)
+    first = mesh.encode_corpus_sharded(batch, cfg, n_devices=cards, seed=2, device="cuda")
+    other = _frames(2 * cards, 270, 480, 50)
+    batch[...] = other
+    again = mesh.encode_corpus_sharded(batch, cfg, n_devices=cards, seed=2, device="cuda")
+    fresh = mesh.encode_corpus_sharded(other.copy(), cfg, n_devices=cards, seed=2,
+                                       device="cuda")
+    for key in ("psnr", "bpp", "mean_psnr"):
+        np.testing.assert_array_equal(again[key], fresh[key], err_msg=key)
+    assert not np.array_equal(first["psnr"], again["psnr"])
+
+
+def test_staged_pinned_memory_stays_within_its_bound():
+    """Ten corpus calls on every visible card hold at most ``RING`` pinned
+    buffers of ``CHUNK_BYTES`` a card, and the pinned pool stops growing
+    after the first call."""
+    from limg_tpu_torch.parallel import mesh, staging
+
+    cards = min(_cards(1), 4)
+    bound = cards * staging.RING * staging.CHUNK_BYTES
+    batch = _frames(4 * cards, 1080, 1920, 30)
+    before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    held = []
+    for i in range(10):
+        mesh.encode_corpus_sharded(batch, EncodeConfig(), n_devices=cards, seed=i,
+                                   device="cuda")
+        held.append(torch.cuda.host_memory_stats()["allocated_bytes.current"])
+    assert held[-1] - before <= bound and held[1:] == held[:-1]
+    rings = [b.nbytes for i in range(cards) for b in staging._cards[i].ring]
+    assert sum(rings) == bound and all(b == staging.CHUNK_BYTES for b in rings)
+
+
 # ---------------------------------------------------------------------------
 # The scatter-form segment sum, refit and crush (kernels/seg_fold.py,
 # ops/segments.py with contiguous=False)

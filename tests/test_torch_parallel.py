@@ -37,7 +37,7 @@ from limg_tpu_torch.config import EncodeConfig, config_from_jax
 from limg_tpu_torch.encoder import encode_image_device
 from limg_tpu_torch.ops.dither import image_seed
 from limg_tpu_torch.ops.fit import ENDPOINT_FIELDS
-from limg_tpu_torch.parallel import corpus, mesh
+from limg_tpu_torch.parallel import corpus, mesh, staging
 from limg_tpu_torch.regions import encode_image_merged_device, encode_image_merged_fused_device
 from tests.conftest import make_test_image
 
@@ -117,6 +117,89 @@ def test_corpus_shard_is_one_launch_per_shard(monkeypatch):
     cfg = EncodeConfig(error_factor=100, crush_mode="guess")
     mesh.encode_corpus_sharded(_images(), cfg, n_devices=2, device="cpu")
     assert calls == [4 * 9, 4 * 9]      # 4 images of 9 blocks a shard
+
+
+# a 750x997 RGBA frame is 2,991,000 bytes: chunks of 1 MiB do not divide it
+# (3 frames wrap a ring of 3 three times), chunks of 75 rows do (10 a frame,
+# so a ring of 2 wraps 5 times a frame); 16 MiB is more than a whole shard
+CHUNK_WALKS = {"ragged_1MiB_ring3": (1 << 20, 3), "75_rows_ring2": (75 * 997 * 4, 2),
+               "one_chunk_ring2": (16 << 20, 2)}
+
+
+@pytest.mark.parametrize("walk", sorted(CHUNK_WALKS))
+@pytest.mark.parametrize("frames", [1, 2, 3])
+def test_staged_chunk_walk_lands_every_frame(frames, walk):
+    """Shard 1 of a batch of 750x997 RGBA frames through the staged upload's
+    chunk walk, host buffers in place of pinned ones: every frame lands byte
+    for byte and in order, whether a chunk divides a frame or not and however
+    often the ring of buffers wraps."""
+    chunk, slots = CHUNK_WALKS[walk]
+    batch = torch.from_numpy(np.random.default_rng(frames).integers(
+        0, 256, (3 * frames, 750, 997, 4), dtype=np.uint8))
+    src = batch[frames:2 * frames]
+    dst = torch.zeros_like(src)
+    ring = [torch.empty(chunk, dtype=torch.uint8) for _ in range(slots)]
+    staging._walk(src.reshape(-1), dst.view(-1), ring)
+    assert torch.equal(dst, src)
+
+
+def test_corpus_encodes_a_batch_refilled_in_place_afresh():
+    """A caller that refills its batch in place between calls gets the new
+    frames' stats: nothing of a batch is kept from one call to the next."""
+    cfg = EncodeConfig(error_factor=100, crush_mode="guess")
+    batch = _images(n=4, seed=21)
+    first = mesh.encode_corpus_sharded(batch, cfg, n_devices=2, seed=5, device="cpu")
+    other = _images(n=4, seed=22)
+    batch[...] = other
+    again = mesh.encode_corpus_sharded(batch, cfg, n_devices=2, seed=5, device="cpu")
+    fresh = mesh.encode_corpus_sharded(other.copy(), cfg, n_devices=2, seed=5, device="cpu")
+    for k in ("psnr", "bpp", "mean_psnr"):
+        np.testing.assert_array_equal(again[k], fresh[k])
+    assert not np.array_equal(first["psnr"], again["psnr"])
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_corpus_starts_every_staged_upload_before_any_shard_work(monkeypatch, fault):
+    """With staging standing in for cards, a fixed-grid corpus call starts
+    every shard's upload, each once, before it enqueues any shard's work,
+    and a shard waits for its own upload before its work. A shard asked for
+    on another device than the one its upload was started for (here shard 0,
+    on a device of its own each time) is uploaded anew there, and the uploads
+    that no shard took are waited for on leaving."""
+    events = []
+
+    class Started:
+        def __init__(self, src):
+            self.src = src
+
+        def result(self):
+            events.append("wait")
+            return self.src.clone()
+
+    def start(src, dev):
+        events.append("start")
+        return Started(src)
+
+    monkeypatch.setattr(staging, "staged", lambda src, dev: True)
+    monkeypatch.setattr(staging, "start", start)
+    shard = mesh._corpus_shard
+    monkeypatch.setattr(mesh, "_corpus_shard", lambda *a: events.append("shard") or shard(*a))
+    if fault:
+        upload = mesh._upload
+        monkeypatch.setattr(mesh, "_upload", lambda batch, k, n_loc, dev: upload(
+            batch, 0, n_loc, torch.device("cpu", k)))
+    cfg = EncodeConfig(error_factor=100, crush_mode="guess")
+    images = _images()
+    out = mesh.encode_corpus_sharded(images, cfg, n_devices=4, device="cpu")
+    if fault:
+        assert events == ["start"] * 4 + ["start", "wait", "shard"] * 4 + ["wait"] * 4
+        images = np.concatenate([images[:2]] * 4)
+    else:
+        assert events == ["start"] * 4 + ["wait", "shard"] * 4
+    monkeypatch.undo()
+    want = mesh.encode_corpus_sharded(images, cfg, n_devices=4, device="cpu")
+    for k in ("psnr", "bpp", "mean_psnr"):
+        np.testing.assert_array_equal(out[k], want[k])
 
 
 def test_blocks_sharded():

@@ -1,90 +1,39 @@
-"""On-card smoke run of limg_tpu_torch: build, check and time the CUDA
-kernels, and drive the fixed-grid encode (``limg_tpu_torch.encode_image``),
-the quadtree-merged encode without coalescing
-(``encode_image_merged(..., coalesce=False)``), the default merged encode
-with run coalescing (``encode_image_merged()``, and the CLI's merged mode),
-the RD merge policy (``encode_image_merged(merge_policy="rd")``, and the
-CLI's ``--rd-merge``), the natural-layout default encode
+"""On-card smoke run of limg_tpu_torch: build the CUDA kernels, then drive
+the public paths at 4K against the JAX package's recorded encodes: the
+fixed-grid encode (``limg_tpu_torch.encode_image``), the quadtree-merged
+encode without coalescing (``encode_image_merged(..., coalesce=False)``),
+the default merged encode with run coalescing (``encode_image_merged()``,
+and the CLI's merged mode), the RD merge policy
+(``encode_image_merged(merge_policy="rd")``, and the CLI's
+``--rd-merge``), the natural-layout default encode
 (``encode_image_merged(fused_layout="natural", return_state=True)``) and
-the composed coalesce pass (``coalesce_segments(use_kernel=False)``) and
-the dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels,
-and ``encode_image_merged(num_levels=5 | 6)``, which only it runs) on 4K
-images through them, write, read and diagnose LTP1 streams of the
-default encode (``bitstream``, ``utils.diagnostics``, the CLI's
-``--write-ltp1`` / ``--decode-ltp1`` / ``--diagnose``, and ``--fixed-grid
---write-ltp1``), run the legacy encoder (``encode_legacy``), and encode
-corpora of 1080p images over a one-card mesh (``limg_tpu_torch.parallel``:
-the fixed-grid, merged and mixed-size corpora, the block-sharded image, the
-streaming corpus on the native staging pool), and run the scatter-form
-segment refit and crush (``ops.segments.fit_segments`` /
-``find_shifts_segments`` with ``contiguous=False``) on 4K segment maps.
+the composed coalesce pass (``coalesce_segments(use_kernel=False)``), the
+dense path (``encode_image_merged(fused=False)``, 1, 3 and 4 levels, and
+``encode_image_merged(num_levels=5 | 6)``, which only it runs); write,
+read and diagnose LTP1 streams of the default encode (``bitstream``,
+``utils.diagnostics``, the CLI's ``--write-ltp1`` / ``--decode-ltp1`` /
+``--diagnose``, and ``--fixed-grid --write-ltp1``), run the legacy encoder
+(``encode_legacy``), the scatter-form segment refit and crush
+(``ops.segments.fit_segments`` / ``find_shifts_segments`` with
+``contiguous=False``) on 4K segment maps, and encode corpora of 1080p
+images over a one-card mesh (``limg_tpu_torch.parallel``).
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
+Needs one CUDA card and nvcc; imports neither JAX nor PIL. Through phases
+3-3j every kernel wrapper, wherever the port imported it, is held to its
+plain version on the paths' own 4K calls (``HeldKernels``: the first call
+of each kernel and settings in a phase, the outputs equal, floats within
+``DIST_RTOL``), and a kernel those phases launch but never hold fails the
+run. The edge cases of each kernel against its plain version are
+tests/test_torch_kernel_cuda.py and tests/test_torch_fixed_planes_cuda.py
+(``-m cuda``), which take their case builders from this file; kernel
+times come from the benchmark's cells (h100_bench/) and
+tools/profile_torch_kernels.py. Phases:
 
 0. environment: torch, CUDA, nvcc, Triton, the card's name and power limit;
 1. build the kernel libraries from limg_tpu_torch/csrc/, one nvcc per
    source, all started together;
-2. ``encode_fixed_p64`` vs its plain PyTorch version on the card (same
-   inputs): integer outputs bit-equal, dist within 1e-6 relative, over
-   images, channel counts, crush modes, num_factors and dithering, and at
-   its edges (a last CTA of fewer blocks than the others, all-masked
-   blocks);
-2b. the same for ``fit_levels`` and ``owner_crush`` over levels 2 to 4,
-   RGB and RGBA, aligned and edge-padded images (4-level squares cut by
-   both edges), and the same settings; and ``owner_crush`` at ragged
-   squares owned at levels 2 and 3 (images whose sides are not multiples
-   of 32 or 64 px, with a flat corner), q emitted and not, dithering off
-   and on;
-2c. the same for the four run-coalescing kernels (``match_pairs``,
-   ``match_neighbors``, ``seg_mixed_all``, ``segment_encode``) on seeded and
-   fitted rows (``match_neighbors`` also on planes of 1, 2, odd and
-   non-multiple-of-32 blocks a side, ``match_pairs`` on 1-129 pairs around
-   a warp and a CTA, 3,000 and 16,132), random and real segment maps (the
-   batched scan, ``seg_scan``, on seeded batches of 1 to 129,600 lanes
-   around its 2,048-lane tiles, int and float rows of sum, max and min,
-   column problems, more problems than one launch takes, and every scan
-   call of a 4K default and RD encode), segment_encode's edges
-   (segments of 1, 31, 32, 33 and 256 members across its tiles, a tail of
-   lanes with no member, no member at all), RGB and RGBA, every crush
-   mode, num_factors 1-3, dithering off and on;
-2d. the same for ``encode_region`` at P = 256, 1024 and 4096 (16x16, 32x32
-   and 64x64 pixel regions), RGB and RGBA, aligned and edge-padded images,
-   the settings of phase 2, and at its edges (part-filled last CTAs,
-   all-masked regions);
-2e. the same for ``fit_levels_natural`` and ``owner_crush_natural`` (levels
-   2 to 4, RGB and RGBA, edge-padded images, the settings of phase 2, q
-   emitted and not; the crush also at phase 2b's ragged squares), for
-   ``crush_eval_rows`` (per-block triples at K = 1, 8, 27 and 729; the
-   search's stride-0 tables: the 27 axis sweeps, an exhaustive chunk, the
-   guess triples, the floors' K = 1; a table with duplicates, K = 19, and
-   one of 200 rows; ragged N with an all-masked block, RGB and RGBA, P = 64
-   and 256) and for the composed segment re-encode against the segment
-   kernel on real run buffers;
-2f. the same for ``segment_encode`` at P = 256, 1024 and 4096 (the dense
-   path's 16x16, 32x32 and 64x64 pixel regions; a thread-block cluster a
-   segment): seeded buffers, segments of 1 and SEG_CAP regions (at P =
-   4096 a warp streams its share through its stage), a tail of lanes with
-   no member, no member at all, every lane a member and a segment (the
-   most segments listed), a saturated 64x64 region whose unscaled error
-   sum passes 2^31; RGB and RGBA, every crush mode, num_factors 1-3,
-   dithering off and on;
-2g. the same for the region encode and the segment encode at P = 16,384,
-   65,536 and 262,144 (the dense path's 128x128, 256x256 and 512x512 px
-   regions: the region encode's clusters of 1, 4 and 16 CTAs, the
-   segment encode's 16-CTA clusters): seeded buffers with all- and
-   half-masked regions and a saturated region whose pre-scaled error sum
-   wraps int32, a ragged image's grid and that grid with an all-masked
-   row and column, a buffer of one region at P = 65,536 (one cluster),
-   segments of one and several regions with an empty tail, no member at
-   all, single-region segments whose every pixel is a member (a region
-   over every warp of a cluster); RGB and RGBA, ladder, exhaustive, guess
-   and no crush, num_factors 1-3, dithering off and on; and both encodes
-   at level 9 (P = 16,777,216: the segment encode's regions take several
-   rounds of a cluster's warps, the region encode's CTAs read their shares
-   from device memory pass by pass): a saturated single-region segment and
-   one of two regions, ladder, guess and no crush;
 3. the fixed-grid path: ``encode_image`` on the 4K RGB and RGBA images,
    its kernel's and its epilogue's (``fixed_planes``, one an encode)
    launches counted from 0, stats held against the JAX
@@ -157,8 +106,7 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    exhaustive search and the whole map for guess), empty segments (0, 0,
    0) and 2^31 - 1; ``seg_sum_fold`` against its plain version (the CPU's
    left fold; 6 cases, bit-equal) and ``index_add_`` on the card against
-   it (the sums its atomics change); the ladder call, the fit and
-   ``seg_sum_fold`` timed by CUDA events;
+   it (the sums its atomics change);
 3h. corpus and multi-device encode (``limg_tpu_torch.parallel``): the
    mesh (``make_mesh(1)`` is ``(cuda:0,)``, one past the card count
    raises); ``encode_corpus_sharded`` on 8 x 1080p (dithering off) in one
@@ -177,43 +125,14 @@ Needs one CUDA card and nvcc; imports neither JAX nor PIL. Phases:
    ``encode_image``'s; a missing file lands in ``failed``);
    ``encode_corpus_sharded_mixed`` on 5 x 1080p and 3 x 720p, some as TGA
    paths, equal to the direct encodes; every kernel's launches counted from
-   0 over these calls;
-4. / 4b. / 4c. / 4d. / 4e. / 4f. kernel and plain times at the 4K shapes of each
-   path (each compared once more), and each path's device-resident step,
-   CUDA events, median of 10 runs after warm-up, with a torch.profiler
-   breakdown (the fit, owner-crush and segment kernels' device time in the
-   step beside their events time alone) and each kernel's launches per
-   default and RD step; 4e also times the natural pair against the Morton
-   pair, the natural step against the Morton step, both
-   ``crush_eval_rows`` calls of the composed coalesce pass (the sweep
-   table and the verified per-block triples) with their bounds, and the
-   composed pass against the segment kernel's; 4f times ``segment_encode``
-   at the dense levels' 4K buffers (P = 256, 1024, 4096) and the dense
-   3-level step; 4h the region encode at the 4K image's level-4, level-5
-   and level-6 regions, the segment encode on a 6-level encode's level-4
-   and level-5 buffers, and the dense 5-level step (4K RGB);
-4g. the 8 x 1080p fixed-grid corpus (one launch) against 8
-   ``encode_perf_step`` calls, its device memory and device time per
-   image, its kernel on the shard against its plain version and bound, the
-   8 x 1080p merged corpus, and four host walls of the 32-file streaming
-   corpus: staging alone, encode alone, ``encode_corpus_streaming``, and the
-   same loop with the JAX package's ``await_all`` wait;
-4i. the fixed grid's epilogue, ``fixed_planes``, on seeded words of phase
-   3's 4K grid (tiles that cross block rows), a ragged 750 x 997 grid
-   (edge blocks cut, a tail tile) and an 8192 x 5464 grid (the benchmark's
-   photos), RGB and RGBA, bit-equal in values and strides to the
-   composition it replaces; at 8192 x 5464 timed beside it: the two
-   ``torch.stack`` calls of ``unpack_plane`` and ``assemble_decoded``, each
-   alone, and the kernel's bandwidth against the bound (its bytes over
-   3.35 TB/s).
+   0 over these calls.
 
-Prints the order in which to redesign the kernels (the ms each loses above
-its bound per default step, then per RD step: its profiler device time in
-the step less the bounds of its launches there), one JSON line of kernel
-results (each with its launches on its path's main run, its time, its
-plain version's, and its bound: the least time the card could take for
-the call's bytes and operations), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+Launches are counted by ``limg_tpu_torch.kernels.launch``. Prints a
+``{"kernels": {name: {launches, held, max_abs_err, bound_ms, bound_by}}}``
+line (the phases' launches, the calls held, the largest difference from
+the plain version, the largest held call's bound), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -240,48 +159,17 @@ DENSE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_dense_refere
 LEVELS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_levels_reference.npz")
 LIBRARIES = ("encode_fixed", "encode_merged", "coalesce", "segment_region", "encode_region",
              "encode_natural", "crush_eval", "seg_fold", "fixed_planes")
-KERNEL_SOURCE = "limg_tpu_torch/csrc/encode_fixed.cu"
-REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:808"
-MERGED_SOURCE = "limg_tpu_torch/csrc/encode_merged.cu"
-MERGED_REPLACES = {"fit_levels": "limg_tpu/pallas_kernels/encode_merged.py:813",
-                   "owner_crush": "limg_tpu/pallas_kernels/encode_merged.py:902"}
-COALESCE_SOURCE = "limg_tpu_torch/csrc/coalesce.cu"
-COALESCE_REPLACES = {
-    "match_neighbors": "limg_tpu/pallas_kernels/encode_merged.py:587",
-    "match_pairs": "limg_tpu/pallas_kernels/encode_merged.py:516",
-    "seg_mixed_all": "limg_tpu/pallas_kernels/seg_scan.py:140",
-    "segment_encode": "limg_tpu/pallas_kernels/encode_segments.py:188",
-}
-REGION_SOURCE = "limg_tpu_torch/csrc/encode_region.cu"
-SEGMENT_REGION_SOURCE = "limg_tpu_torch/csrc/segment_region.cu"
-NATURAL_SOURCE = "limg_tpu_torch/csrc/encode_natural.cu"
-NATURAL_REPLACES = {
-    "fit_levels_natural": "limg_tpu/pallas_kernels/encode_natural.py:421",
-    "owner_crush_natural": "limg_tpu/pallas_kernels/encode_natural.py:528",
-}
-CRUSH_EVAL_SOURCE = "limg_tpu_torch/csrc/crush_eval.cu"
-# crush_eval_rows_k_pallas; crush_eval_rows_pallas (:1021) is its K = 1 form
-CRUSH_EVAL_REPLACES = "limg_tpu/pallas_kernels/encode_fixed.py:1063"
-# no Pallas kernel: the scatter-add of the JAX package's seg_sum, which the
-# card folds in block order
-SEG_FOLD_SOURCE = "limg_tpu_torch/csrc/seg_fold.cu"
-SEG_FOLD_REPLACES = "limg_tpu/ops/segments.py:44"
-# no Pallas kernel: the fixed-grid encode's unpacking of the kernel's words
-# into its planes and decoded image, which the JAX package does in jnp
-FIXED_PLANES_SOURCE = "limg_tpu_torch/csrc/fixed_planes.cu"
-FIXED_PLANES_REPLACES = "limg_tpu/encoder.py:132-133, :104 (jnp)"
-# the fixed-grid epilogue's timed grid: the benchmark's 8192 x 5464 photos;
-# and a ragged one: 94 blocks a row, 125 rows, cut at both edges, 183 tiles and 38
+# the kernels of the quadtree fit and crush (Morton and natural layouts) and
+# of run building and coalescing, by their launch counts' names
+MERGED_KERNELS = ("fit_levels", "owner_crush")
+NATURAL_KERNELS = ("fit_levels_natural", "owner_crush_natural")
+COALESCE_KERNELS = ("match_neighbors", "match_pairs", "seg_mixed_all", "segment_encode_p64")
+# the fixed-grid epilogue's largest grid: the benchmark's 8192 x 5464 photos
 FIXED_PLANES_SIZE = (5464, 8192)
-FIXED_PLANES_RAGGED = (997, 750)
-# P = 256 / 1024 run encode_blocks_pallas's mono kernel (:739), P = 4096
-# its fit and crush kernels (:764, :781)
-REGION_SIZES = (256, 1024, 4096)
 RD_LAMBDA = 0.01
 # the RD path's kernels
 RD_KERNELS = ("encode_fixed_p64", "encode_region_p256", "encode_region_p1024",
-              "encode_region_p4096", "match_neighbors", "match_pairs", "seg_mixed_all",
-              "segment_encode")
+              "encode_region_p4096", *COALESCE_KERNELS)
 # the segment encode's region sizes on the dense path's levels 1-3, and the
 # dense path's kernels (at 1-4 levels)
 SEGMENT_SIZES = (256, 1024, 4096)
@@ -291,9 +179,6 @@ DENSE_KERNELS = RD_KERNELS + tuple(f"segment_encode_p{p}" for p in SEGMENT_SIZES
 LEVEL_SIZES = (16384, 65536)
 LEVELS_KERNELS = DENSE_KERNELS + tuple(f"{k}_p{p}" for k in ("encode_region", "segment_encode")
                                        for p in LEVEL_SIZES)
-# phase 4h times the region encode also at level 6 (512x512 px, P = 262,144:
-# 40 regions at 4K), which no encode of phase 3i reaches
-TIMED_REGION_SIZES = LEVEL_SIZES + (262144,)
 # 4K encodes at 5 and 6 levels against the JAX fixture: per-block owners and
 # run flags
 LEVELS_AGREE = 0.999
@@ -305,7 +190,6 @@ DITHER_PSNR_DB, DITHER_BPP = 0.3, 0.1   # MULTICHIP_EXPECTED.json
 ALIVE_FRAC, OWNER_AGREE = 0.005, 0.995  # merged: per-level counts, per-block owners
 RUNS_FRAC = 0.02                        # coalesced: n_runs
 LEVELS4_PSNR_DB, LEVELS4_BPP = 0.3, 0.1   # RD: 4 levels against 3 on the same image
-TIMED_RUNS = 10
 # the bound of a call (the least time the card could take for it): the
 # larger of its bytes over the HBM rate and its operations over their
 # rate, from NVIDIA's H100 SXM data sheet (3.35 TB/s; 67 TFLOP/s float32
@@ -318,6 +202,14 @@ SCALAR_OPS_PER_S = 67e12
 
 def log(*args):
     print(*args, flush=True)
+
+
+def launch_counts(names) -> dict:
+    """The launches of the kernels ``names`` since the last
+    ``launch.reset_launches()``."""
+    from limg_tpu_torch.kernels import launch
+
+    return {k: launch.launches[k] for k in names}
 
 
 def run_text(cmd) -> str:
@@ -474,21 +366,11 @@ def compare_bits(got, want) -> float:
     return worst
 
 
-SETTINGS = ([(mode, 3, dith) for mode in ("ladder", "exhaustive", "guess", "none")
-             for dith in (False, True)]
-            + [("ladder", nf, dith) for nf in (1, 2) for dith in (False, True)]
-            + [("exhaustive", 1, False), ("guess", 2, True)])
-
-
 # the region encode at its edges: a last CTA that holds fewer regions than
 # the others (32 blocks a CTA at P = 64, 8 regions at 256, 2 at 1024; 96 x
 # 160 px is 240 blocks, 60 / 15 / 6 regions) and regions with no pixel
 # inside the image (a grid one region row and column larger than the image)
 EDGE_IMAGE = (96, 160)
-# the segment encode's ladder at K = 1 and MAX_LADDER_K, and at error factor
-# 10 (small shifts: verified candidates that are sweeps, whose values the
-# kernel takes from its sweep pass)
-SEGMENT_LADDER_ENDS = ((1, 100), (16, 100), (8, 10))
 EDGE_SETTINGS = [("ladder", 3, True), ("exhaustive", 1, False), ("guess", 2, True),
                  ("none", 3, False), ("ladder", 1, False)]
 
@@ -503,163 +385,6 @@ def region_edge_buffers(words, p: int) -> dict:
     big = g._replace(blocks_y=g.blocks_y + 1, blocks_x=g.blocks_x + 1)
     return {"grid": layout.blockify_words(words, side)[:2],
             "all-masked row and column": layout.blockify_words(words, side, big)[:2]}
-
-
-def compare_region_edges(device, sizes, settings=EDGE_SETTINGS) -> tuple:
-    """encode_fixed_p64 / encode_region vs the plain version on
-    region_edge_buffers of the EDGE_IMAGE, RGB and RGBA; (max abs diff,
-    cases)."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.regions import _words
-    from tools.make_test_image import make_4k
-
-    worst, n_cases = 0.0, 0
-    rgb = make_4k(*EDGE_IMAGE)
-    for ch in (3, 4):
-        words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
-        for p in sizes:
-            for buf, (packed, mask) in region_edge_buffers(words, p).items():
-                for mode, nf, dith in settings:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    got = kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
-                    want = kmod.encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    try:
-                        worst = max(worst, compare_outputs(got, want))
-                    except AssertionError as e:
-                        raise AssertionError(f"edge {buf} ch={ch} P={p} {mode} nf={nf} "
-                                             f"dither={dith}: {e}")
-                    n_cases += 1
-    return worst, n_cases
-
-
-def phase_compare(device, images=None) -> float:
-    """Kernel vs plain version over the case grid; returns the max abs diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor, _packed_blocks
-    from limg_tpu_torch.kernels.encode_fixed import (encode_blocks_kernel,
-                                                     encode_blocks_reference)
-    from tools.make_test_image import make_4k
-
-    log("== phase 2: kernel vs plain version on the card")
-    if images is None:
-        rgb_small, rgb_mid = small_image(), make_4k(301, 437)
-        images = {"40x56": rgb_small, "301x437": rgb_mid}
-    settings = SETTINGS
-    worst, n_cases = 0.0, 0
-    for name, rgb in images.items():
-        for ch in (3, 4):
-            img = _as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device)
-            packed, mask, _ = _packed_blocks(img)
-            for mode, nf, dith in settings:
-                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                   dithering=dith, num_factors=nf)
-                got = encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
-                want = encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                try:
-                    err = compare_outputs(got, want)
-                except AssertionError as e:
-                    raise AssertionError(f"{name} ch={ch} {mode} nf={nf} dither={dith}: {e}")
-                worst = max(worst, err)
-                n_cases += 1
-        log(f"  {name}: {len(settings) * 2} cases bit-equal")
-    edge, n_edge = compare_region_edges(device, (64,))
-    worst, n_cases = max(worst, edge), n_cases + n_edge
-    log(f"  a part-filled last CTA and all-masked blocks: {n_edge} cases bit-equal")
-    log(f"phase 2 ok: {n_cases} cases, max abs diff {worst}")
-    return worst
-
-
-def phase_compare_merged(device, images=None) -> float:
-    """fit_levels and owner_crush vs their plain versions; max abs diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.regions import _words
-    from tools.make_test_image import make_4k
-
-    log("== phase 2b: fused quadtree kernels vs plain versions on the card")
-    if images is None:
-        images = {"256x384": make_4k(256, 384), "70x90": small_image(70, 90),
-                  "301x437": make_4k(301, 437), "37x200": make_4k(37, 200)}
-    worst, n_cases = 0.0, 0
-    for name, rgb in images.items():
-        for ch in (3, 4):
-            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
-            for levels in (2, 3, 4):
-                for mode, nf, dith in SETTINGS:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    case = f"{name} ch={ch} levels={levels} {mode} nf={nf} dither={dith}"
-                    fit = km.fit_levels_reference(words, cfg, levels)
-                    args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, levels, 7)
-                    got_fit = km.fit_levels_kernel(words, cfg, levels)
-                    got_crush = km.owner_crush_kernel(*args)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    try:
-                        worst = max(worst, compare_outputs(got_fit, fit),
-                                    compare_outputs(got_crush, km.owner_crush_reference(*args)))
-                    except AssertionError as e:
-                        raise AssertionError(f"{case}: {e}")
-                    n_cases += 1
-        log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (fit and crush)")
-    ragged, n_ragged = compare_ragged_crush(device, km.fit_levels_reference,
-                                            km.owner_crush_kernel, km.owner_crush_reference)
-    worst, n_cases = max(worst, ragged), n_cases + n_ragged
-    log(f"  owner_crush at ragged squares: {n_ragged} cases bit-equal")
-    log(f"phase 2b ok: {n_cases} cases, max abs diff {worst}")
-    return worst
-
-
-def phase_compare_region(device, images=None) -> float:
-    """encode_region vs its plain version at P = 256, 1024 and 4096; max
-    abs diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.ops import layout
-    from limg_tpu_torch.regions import _words
-    from tools.make_test_image import make_4k
-
-    log("== phase 2d: region encode kernel vs plain version on the card")
-    if images is None:
-        images = {"256x384": make_4k(256, 384), "301x437": make_4k(301, 437)}
-    worst, n_cases = 0.0, 0
-    for name, rgb in images.items():
-        for ch in (3, 4):
-            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
-            for p in REGION_SIZES:
-                packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
-                for mode, nf, dith in SETTINGS:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    got = kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
-                    want = kmod.encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-                    try:
-                        worst = max(worst, compare_outputs(got, want))
-                    except AssertionError as e:
-                        raise AssertionError(f"{name} ch={ch} P={p} {mode} nf={nf} "
-                                             f"dither={dith}: {e}")
-                    n_cases += 1
-        log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal")
-    edge, n_edge = compare_region_edges(device, REGION_SIZES)
-    worst, n_cases = max(worst, edge), n_cases + n_edge
-    log(f"  part-filled last CTAs and all-masked regions: {n_edge} cases bit-equal")
-    log(f"phase 2d ok: {n_cases} cases, max abs diff {worst}")
-    return worst
 
 
 def seg_map(rng, n: int, max_span: int = 256) -> np.ndarray:
@@ -770,9 +495,6 @@ def image_run_buffer(img, cfg, device, levels: int = MERGED_LEVELS):
     return buf, rows.reshape(-1, grid.blocks_y, grid.blocks_x)
 
 
-# match_pairs: one pair, a part-filled warp, one warp, the next; the same
-# around a 128-thread CTA; many CTAs; level 2's neighbour pairs at 4K
-MATCH_PAIRS_SIZES = (1, 31, 32, 33, 127, 128, 129, 3000, 16132)
 # seg_scan problem sizes: 1 lane, within a warp, around SEG_CAP, within one
 # 2,048-lane tile, around a tile and two, and the three levels' lanes at 4K
 SCAN_SIZES = (1, 7, 255, 256, 257, 5000, 2047, 2048, 2049, 4097, 8160, 32400, 129600)
@@ -829,223 +551,6 @@ def scan_batches(rng, device) -> dict:
     return batches
 
 
-COALESCE_SETTINGS_SEEDED = [("ladder", 3, False), ("ladder", 3, True), ("exhaustive", 1, False),
-                            ("guess", 2, True), ("none", 3, False), ("ladder", 2, True)]
-
-
-def phase_compare_coalesce(device, images=None) -> float:
-    """The four run-coalescing kernels vs their plain versions; max abs diff."""
-    import torch
-    import limg_tpu_torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.kernels import coalesce as kc
-    from tools.make_test_image import make_4k
-    from tools.record_torch_reference import case_images
-
-    log("== phase 2c: run-coalescing kernels vs plain versions on the card")
-    if images is None:
-        images = {"256x384": make_4k(256, 384), "301x437": make_4k(301, 437)}
-    rng = np.random.default_rng(2024)
-    worst, n_cases = 0.0, 0
-
-    def check(case, got, want):
-        nonlocal worst, n_cases
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        try:
-            worst = max(worst, compare_outputs(got, want))
-        except AssertionError as e:
-            raise AssertionError(f"{case}: {e}")
-        n_cases += 1
-
-    # match kernels on seeded rows (one thread a pair: part-filled warps and
-    # CTAs, and level 2's 16,132 pairs at 4K)
-    for ch in (3, 4):
-        for n in MATCH_PAIRS_SIZES:
-            a = torch.from_numpy(seeded_rows(rng, n, ch)).to(device)
-            b = a + (torch.rand(a.shape, device=device) < 0.3) * torch.randint(
-                0, 6, a.shape, device=device)
-            check(f"match_pairs seeded ch={ch} n={n}", [kc.match_pairs_kernel(a, b, ch)],
-                  [kc.match_pairs_reference(a, b, ch)])
-        for by, bx in ((37, 150), (1, 70), (40, 1), (130, 130)):
-            plane = torch.from_numpy(seeded_rows(rng, by * bx, ch)).to(device).reshape(-1, by, bx)
-            check(f"match_neighbors seeded ch={ch} {by}x{bx}",
-                  kc.match_neighbors_kernel(plane, ch), kc.match_neighbors_reference(plane, ch))
-        for by, bx in NEIGHBOR_EDGES:
-            plane = torch.from_numpy(seeded_rows(rng, by * bx, ch)).to(device).reshape(-1, by, bx)
-            check(f"match_neighbors at its edges ch={ch} {by}x{bx}",
-                  kc.match_neighbors_kernel(plane, ch), kc.match_neighbors_reference(plane, ch))
-    # the scan on random segment maps, int and float rows, every row mix
-    for n in (1, 1000, 5000, 129600):
-        seg = torch.from_numpy(seg_map(rng, n)).to(device)
-        xi = torch.from_numpy(rng.integers(-2**20, 2**20, (3, n)).astype(np.int32)).to(device)
-        xf = torch.from_numpy((rng.standard_normal((3, n)) * 100).astype(np.float32)).to(device)
-        for x in (xi, xf):
-            for n_sum in (0, 1, 3):
-                check(f"seg_mixed_all n={n} {x.dtype} n_sum={n_sum}",
-                      [kc.seg_mixed_all_kernel(x, seg, n_sum)],
-                      [kc.seg_mixed_all_reference(x, seg, n_sum)])
-    # the batched scan: seeded batches of every size around its 2,048-lane
-    # tiles, int and float rows of sum, max and min, column problems, and
-    # the scans of the 4K default and RD steps
-    for seed in range(3):
-        for name, batch in scan_batches(np.random.default_rng(seed), device).items():
-            check(f"seg_scan {name} seed={seed}", kc.seg_scan(batch), kc.seg_scan_reference(batch))
-    for lane, img in case_images(2160, 3840).items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
-        for policy in ("match", "rd"):
-            calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
-                img, cfg, merge_policy=policy, rd_lambda=RD_LAMBDA, fetch_planes=False,
-                device=device))["seg_scan"]
-            for i, (args, kwargs) in enumerate(calls):
-                check(f"seg_scan 4K {lane} {policy} call {i}", kc.seg_scan(*args, **kwargs),
-                      kc.seg_scan_reference(*args, **kwargs))
-    # segment encode on seeded buffers (below and above one CTA's lanes)
-    for ch in (3, 4):
-        for n in (100, 1500):
-            buf = seeded_run_buffer(rng, n, ch, device)
-            for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
-                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                   dithering=dith, num_factors=nf)
-                check(f"segment_encode seeded ch={ch} n={n} {mode} nf={nf} dither={dith}",
-                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
-            for k, ef in SEGMENT_LADDER_ENDS:
-                cfg = EncodeConfig(error_factor=ef, has_alpha=ch == 4, ladder_k=k)
-                check(f"segment_encode seeded ch={ch} n={n} ladder K={k} error_factor={ef}",
-                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
-    # segment encode at its edges: 1-256 members, tile crossings, empty lanes
-    for ch in (3, 4):
-        for name, buf in edge_run_buffers(rng, ch, device).items():
-            for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
-                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                   dithering=dith, num_factors=nf)
-                check(f"segment_encode {name} ch={ch} {mode} nf={nf} dither={dith}",
-                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
-    log(f"  seeded and edge buffers: {n_cases} cases bit-equal")
-    # real run buffers and fitted rows of edge-padded and aligned images
-    for name, rgb in images.items():
-        for ch in (3, 4):
-            img = rgb if ch == 3 else with_alpha(rgb)
-            buf, plane = image_run_buffer(img, EncodeConfig(error_factor=100, has_alpha=ch == 4,
-                                                            dithering=False), device)
-            for lvl in range(MERGED_LEVELS):
-                p = plane[:, ::1 << lvl, ::1 << lvl].contiguous()
-                check(f"{name} ch={ch} match_neighbors level {lvl}",
-                      kc.match_neighbors_kernel(p, ch), kc.match_neighbors_reference(p, ch))
-                a, b = p[:, :, 1:].reshape(7 * ch, -1), p[:, :, :-1].reshape(7 * ch, -1)
-                check(f"{name} ch={ch} match_pairs level {lvl}", [kc.match_pairs_kernel(a, b, ch)],
-                      [kc.match_pairs_reference(a, b, ch)])
-            rows = torch.stack([buf[1].sum(dim=0, dtype=torch.int32), buf[3]])
-            check(f"{name} ch={ch} seg_mixed_all on the run buffer",
-                  [kc.seg_mixed_all_kernel(rows, buf[2], 2)],
-                  [kc.seg_mixed_all_reference(rows, buf[2], 2)])
-            for mode, nf, dith in SETTINGS:
-                cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                   dithering=dith, num_factors=nf)
-                check(f"{name} ch={ch} segment_encode {mode} nf={nf} dither={dith}",
-                      kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                      kc.segment_encode_reference(*buf, cfg, 0x5EED))
-        log(f"  {name}: real run buffers and fitted rows bit-equal")
-    log(f"phase 2c ok: {n_cases} cases, max abs diff {worst}")
-    return worst
-
-
-def phase_compare_natural(device, images=None) -> float:
-    """fit_levels_natural / owner_crush_natural and crush_eval_rows vs their
-    plain versions, and the composed segment re-encode vs the segment
-    kernel; max abs diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import crush_eval as kce
-    from limg_tpu_torch.kernels import encode_natural as kn
-    from limg_tpu_torch.ops.crush import _const_cands
-    from limg_tpu_torch.regions import _words
-    from tools.make_test_image import make_4k
-    from tools.record_torch_natural_reference import crush_eval_inputs
-
-    log("== phase 2e: natural-layout kernels and crush_eval_rows vs plain versions on the card")
-    if images is None:
-        images = {"70x90": small_image(70, 90), "301x437": make_4k(301, 437)}
-    worst, n_cases = 0.0, 0
-
-    def check(case, got, want):
-        nonlocal worst, n_cases
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        try:
-            worst = max(worst, compare_outputs(got, want))
-        except AssertionError as e:
-            raise AssertionError(f"{case}: {e}")
-        n_cases += 1
-
-    for name, rgb in images.items():
-        for ch in (3, 4):
-            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
-            for levels in (2, 3, 4):
-                for i, (mode, nf, dith) in enumerate(SETTINGS):
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    emit_q = (i // 2) % 2 == 0
-                    case = (f"{name} ch={ch} levels={levels} {mode} nf={nf} dither={dith} "
-                            f"emit_q={emit_q}")
-                    fit = kn.fit_levels_natural_reference(words, cfg, levels)
-                    check(f"{case} fit", kn.fit_levels_natural_kernel(words, cfg, levels), fit)
-                    args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, levels, 7, emit_q)
-                    check(f"{case} crush", kn.owner_crush_natural_kernel(*args),
-                          kn.owner_crush_natural_reference(*args))
-        log(f"  {name}: {2 * 3 * len(SETTINGS)} cases bit-equal (natural fit and crush)")
-    ragged, n_ragged = compare_ragged_crush(device, kn.fit_levels_natural_reference,
-                                            kn.owner_crush_natural_kernel,
-                                            kn.owner_crush_natural_reference)
-    worst, n_cases = max(worst, ragged), n_cases + n_ragged
-    log(f"  owner_crush_natural at ragged squares: {n_ragged} cases bit-equal")
-    # crush_eval_rows: per-block triples at every K the search asks for and
-    # the exhaustive 729, and the search's stride-0 tables (crush_eval_tables),
-    # ragged N up to the full 4K buffer with an all-masked block, both block
-    # sizes
-    n_ce = n_cases
-    for ch in (3, 4):
-        for p in (64, 256):
-            for n, k in ((1, 1), (37, 8), (1000, 27), (3001, 729), (129600, 27)):
-                packed, mask, f8p, eps, cands = crush_eval_inputs(ch, n=n, k=k, seed=p + n)
-                if p == 256:
-                    packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
-                mask = mask.copy()
-                mask[:, n // 2] = 0
-                ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                       for a in (packed, mask, f8p, eps)]
-                per_block = torch.from_numpy(cands).to(device)
-                check(f"crush_eval_rows ch={ch} P={p} N={n} per-block K={k}",
-                      kce.crush_eval_rows_kernel(*ins, per_block, ch),
-                      kce.crush_eval_rows_reference(*ins, per_block, ch))
-                for name, triples in crush_eval_tables(n).items():
-                    table = _const_cands(triples, n, device)
-                    check(f"crush_eval_rows ch={ch} P={p} N={n} {name}",
-                          kce.crush_eval_rows_kernel(*ins, table, ch),
-                          kce.crush_eval_rows_reference(*ins, table, ch))
-    log(f"  crush_eval_rows: {n_cases - n_ce} cases bit-equal")
-    # the composed re-encode (seg_mixed_all_kernel + crush_eval_rows_kernel)
-    # against the segment kernel on real run buffers
-    rgb = make_4k(256, 384)
-    for ch in (3, 4):
-        img = rgb if ch == 3 else with_alpha(rgb)
-        buf, _ = image_run_buffer(img, EncodeConfig(error_factor=100, has_alpha=ch == 4,
-                                                    dithering=False), device)
-        for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
-            cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                               dithering=dith, num_factors=nf)
-            check(f"256x384 ch={ch} composed segment encode {mode} nf={nf} dither={dith}",
-                  kc.segment_encode_composed(*buf, cfg, 0x5EED),
-                  kc.segment_encode_kernel(*buf, cfg, 0x5EED))
-    log(f"phase 2e ok: {n_cases} cases, max abs diff {worst}")
-    return worst
-
-
 def check_against_fixture(name: str, out: dict, ref: dict, n_px: int):
     hist_l1 = int(np.abs(np.asarray(out["bits_histogram"]) - np.asarray(ref["bits_histogram"])).sum())
     d_psnr = out["psnr"] - ref["psnr"]
@@ -1064,11 +569,9 @@ def check_against_fixture(name: str, out: dict, ref: dict, n_px: int):
 
 def phase_main_path(device, size: str = "4k"):
     """encode_image at real size through the kernel, against the fixture."""
-    import torch
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.kernels import fixed_planes as kfp
+    from limg_tpu_torch.kernels import launch
     from tools.record_torch_reference import case_images
 
     log("== phase 3: fixed-grid path (limg_tpu_torch.encode_image)")
@@ -1076,18 +579,18 @@ def phase_main_path(device, size: str = "4k"):
         cases = json.load(f)["cases"]
     h, w = cases[f"{size}_rgb_nodither"]["height"], cases[f"{size}_rgb_nodither"]["width"]
     images = case_images(h, w)
-    kmod.launches = kfp.launches = 0
+    launch.reset_launches()
     n_encodes = 0
     for lane, img in images.items():
         for dith in (False, True):
             name = f"{size}_{lane}_{'dither' if dith else 'nodither'}"
             cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=dith)
-            before = kmod.launches
+            before = launch.launches["encode_fixed_p64"]
             t0 = time.perf_counter()
             out = limg_tpu_torch.encode_image(img, cfg, seed=0, device=device)
             secs = time.perf_counter() - t0
             n_encodes += 1
-            if device.type == "cuda" and kmod.launches <= before:
+            if device.type == "cuda" and launch.launches["encode_fixed_p64"] <= before:
                 raise AssertionError(f"{name}: encode_image launched no kernel")
             dec = out["decoded"]
             if dec.shape != (h, w, 4) or not np.isfinite(out["psnr"]):
@@ -1098,14 +601,13 @@ def phase_main_path(device, size: str = "4k"):
         images["rgb"], EncodeConfig(error_factor=100), seed=0, device=device)
     if decoded.device.type != device.type or res.shifts.device.type != device.type:
         raise AssertionError(f"outputs on {decoded.device}, expected {device}")
-    launched = kmod.launches
-    if launched == 0:
+    n_fixed, n_planes = launch.launches["encode_fixed_p64"], launch.launches["fixed_planes"]
+    if n_fixed == 0:
         raise AssertionError("the fixed-grid path launched no encode_fixed_p64 kernel")
-    if kfp.launches != n_encodes + 1:
-        raise AssertionError(f"{kfp.launches} fixed_planes launches for {n_encodes + 1} encodes")
-    log(f"phase 3 ok: {n_encodes + 1} encodes, {launched} kernel launches and {kfp.launches} "
+    if n_planes != n_encodes + 1:
+        raise AssertionError(f"{n_planes} fixed_planes launches for {n_encodes + 1} encodes")
+    log(f"phase 3 ok: {n_encodes + 1} encodes, {n_fixed} kernel launches and {n_planes} "
         f"of fixed_planes, outputs on {decoded.device}")
-    return launched, kfp.launches
 
 
 def check_merged_against_fixture(name: str, out: dict, fx, n_px: int, dithering: bool):
@@ -1142,15 +644,14 @@ def phase_main_path_merged(device):
     """encode_image_merged(coalesce=False) at 4K through both kernels."""
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import launch
     from tools.record_torch_reference import case_images
 
     log("== phase 3b: merged path (limg_tpu_torch.encode_image_merged, coalesce=False)")
     fx = np.load(MERGED_FIXTURE)
     h, w = 2160, 3840
     images = case_images(h, w)
-    for k in km.launches:
-        km.launches[k] = 0
+    launch.reset_launches()
     n_encodes = 0
     for lane, img in images.items():
         for dith in (False, True):
@@ -1172,12 +673,11 @@ def phase_main_path_merged(device):
     for key in ("decoded", "bits_histogram", "factors_pnb", "block_rows8"):
         if dev_out[key].device.type != device.type:
             raise AssertionError(f"{key} on {dev_out[key].device}, expected {device}")
-    launched = dict(km.launches)
+    launched = launch_counts(MERGED_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the merged path skipped a kernel: launches {launched}")
     log(f"phase 3b ok: {n_encodes + 1} encodes, launches {launched}, outputs on "
         f"{dev_out['decoded'].device}")
-    return launched
 
 
 def dither_effect(name: str, rd: bool) -> tuple:
@@ -1234,36 +734,6 @@ def check_coalesced_against_fixture(name: str, out: dict, fx, n_px: int, ditheri
         raise AssertionError(f"{name}: outside the tolerance of the JAX default encode")
 
 
-def reset_launches():
-    """Every kernel's launch count to 0."""
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import crush_eval as kce
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.kernels import encode_natural as kn
-    from limg_tpu_torch.kernels import seg_fold as ksf
-
-    for counts in (km.launches, kc.launches, kmod.launches_region, kn.launches, kce.launches,
-                   ksf.launches):
-        for k in counts:
-            counts[k] = 0
-    kmod.launches = 0
-
-
-def read_launches() -> dict:
-    """Every kernel's launch count, by kernel name."""
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import crush_eval as kce
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.kernels import encode_natural as kn
-    from limg_tpu_torch.kernels import seg_fold as ksf
-
-    return {**km.launches, **kc.launches, **kn.launches, **kce.launches, **ksf.launches,
-            "encode_fixed_p64": kmod.launches,
-            **{f"encode_region_p{p}": n for p, n in kmod.launches_region.items()}}
-
-
 def phase_main_path_coalesce(device):
     """encode_image_merged() with its defaults at 4K through all six
     merged-path kernels, then the CLI's merged mode."""
@@ -1271,13 +741,14 @@ def phase_main_path_coalesce(device):
 
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.kernels import launch
     from tools.record_torch_reference import case_images
 
     log("== phase 3c: default merged path (limg_tpu_torch.encode_image_merged(), coalescing on)")
     fx = np.load(COALESCE_FIXTURE)
     h, w = 2160, 3840
     images = case_images(h, w)
-    reset_launches()
+    launch.reset_launches()
     n_encodes = 0
     for lane, img in images.items():
         for dith in (False, True):
@@ -1293,8 +764,7 @@ def phase_main_path_coalesce(device):
             log(f"  4k_{lane} dither={dith}: encode_image_merged {secs * 1e3:.1f} ms wall "
                 f"(host copies included)")
             check_coalesced_against_fixture(f"4k_{lane}_l{MERGED_LEVELS}", out, fx, h * w, dith)
-    launched = {k: v for k, v in read_launches().items()
-                if k in (*MERGED_REPLACES, *COALESCE_REPLACES)}
+    launched = launch_counts(MERGED_KERNELS + COALESCE_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the default merged path skipped a kernel: launches {launched}")
     log(f"  {n_encodes} encodes, launches {launched}")
@@ -1304,7 +774,6 @@ def phase_main_path_coalesce(device):
         for ln in run_cli([npy, "--no-output"]):
             log(f"  cli: {ln}")
     log("phase 3c ok")
-    return launched
 
 
 def run_cli(args) -> list:
@@ -1332,13 +801,14 @@ def phase_main_path_rd(device):
 
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.kernels import launch
     from tools.record_torch_reference import case_images
 
     log("== phase 3d: RD path (limg_tpu_torch.encode_image_merged(merge_policy='rd'))")
     fx = np.load(RD_FIXTURE)
     images = case_images(2160, 3840)
     h, w = images["rgb"].shape[:2]
-    reset_launches()
+    launch.reset_launches()
     n_encodes, l3 = 0, {}
     for lane, img in images.items():
         for dith in (False, True):
@@ -1379,7 +849,7 @@ def phase_main_path_rd(device):
             or abs(out["psnr"] - ref["psnr"]) > LEVELS4_PSNR_DB
             or abs(out["mean_bpp"] - ref["mean_bpp"]) > LEVELS4_BPP):
         raise AssertionError("the 4-level RD encode is off the 3-level one")
-    launched = {k: v for k, v in read_launches().items() if k in RD_KERNELS}
+    launched = launch_counts(RD_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the RD path skipped a kernel: launches {launched}")
     log(f"  {n_encodes} encodes, launches {launched}")
@@ -1389,32 +859,6 @@ def phase_main_path_rd(device):
         for ln in run_cli([npy, "--rd-merge", "--no-output"]):
             log(f"  cli --rd-merge: {ln}")
     log("phase 3d ok")
-    return launched
-
-
-def crush_eval_tables(n: int) -> dict:
-    """The shift tables crush_eval_rows is held to at N blocks: the
-    search's (the ladder's 27 axis sweeps, an exhaustive chunk of 81, the
-    guess mode's 4 triples, the reduced-factor floors' (0, 0, 0)), a seeded
-    table of 19 rows with duplicates and shifts above 8, and one of 200 rows
-    (two launches; below the full 4K buffer)."""
-    from limg_tpu_torch.ops.crush import GUESS_TRIPLES
-
-    rng = np.random.default_rng(n)
-    every = [(a, b, c) for a in range(9) for b in range(9) for c in range(9)]
-    few = [tuple(int(v) for v in rng.integers(0, 12, 3)) for _ in range(6)]
-    tables = {
-        "sweep table K=27": [tuple(s if ax == a else 0 for ax in range(3))
-                             for a in range(3) for s in range(9)],
-        f"exhaustive chunk {n % 9} K=81": every[81 * (n % 9):81 * (n % 9 + 1)],
-        "guess table K=4": list(GUESS_TRIPLES),
-        "floors table K=1": [(0, 0, 0)],
-        "table with duplicates K=19": [few[i] for i in rng.integers(0, 6, 19)],
-    }
-    if n < 129600:
-        tables["table K=200"] = [tuple(int(v) for v in rng.integers(0, 9, 3))
-                                 for _ in range(200)]
-    return tables
 
 
 def composed_pass(state, cfg, seed: int, use_kernel: bool) -> tuple:
@@ -1443,6 +887,7 @@ def phase_main_path_natural(device):
     import torch
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig
+    from limg_tpu_torch.kernels import launch
     from tools.record_torch_reference import case_images
 
     log("== phase 3e: natural-layout default path (encode_image_merged(fused_layout='natural', "
@@ -1451,7 +896,7 @@ def phase_main_path_natural(device):
     images = case_images(2160, 3840)
     h, w = images["rgb"].shape[:2]
     nb = -(-h // 8) * -(-w // 8)
-    reset_launches()
+    launch.reset_launches()
     outs = {}
     for lane, img in images.items():
         for dith in (False, True):
@@ -1475,10 +920,9 @@ def phase_main_path_natural(device):
             log("    against the JAX natural-layout encode:")
             check_coalesced_against_fixture(name, out, nfx, h * w, dith)
             outs[(lane, dith)] = (out, state)
-    launched = {k: v for k, v in read_launches().items()
-                if k in (*NATURAL_REPLACES, *MERGED_REPLACES, *COALESCE_REPLACES)}
-    if min(launched[k] for k in (*NATURAL_REPLACES, *COALESCE_REPLACES)) == 0 or any(
-            launched[k] for k in MERGED_REPLACES):
+    launched = launch_counts(NATURAL_KERNELS + MERGED_KERNELS + COALESCE_KERNELS)
+    if min(launched[k] for k in NATURAL_KERNELS + COALESCE_KERNELS) == 0 or any(
+            launched[k] for k in MERGED_KERNELS):
         raise AssertionError(f"the natural path's launches are off: {launched}")
     log(f"  {len(outs)} encodes, launches {launched}")
     # the port's Morton encode of the same inputs: both layouts sum a block
@@ -1502,22 +946,19 @@ def phase_main_path_natural(device):
     cfg = EncodeConfig(error_factor=100)
     state = limg_tpu_torch.fused_merged_pre(images["rgb"], cfg, 0, MERGED_LEVELS, device=device)
     want = composed_pass(state, cfg, 0, True)
-    reset_launches()
+    launch.reset_launches()
     got = composed_pass(state, cfg, 0, False)
-    composed = read_launches()
+    composed = launch_counts(("crush_eval_rows", "seg_mixed_all", "segment_encode_p64"))
     lv_k, lv_c = want[0], got[0]
     diff = [k for k in lv_k if not torch.equal(lv_k[k], lv_c[k])]
     if (diff or not torch.equal(want[1], got[1]) or int(want[2]) != int(got[2])
             or {k: int(v) for k, v in want[3].items()} != {k: int(v) for k, v in got[3].items()}):
         raise AssertionError(f"the composed coalesce pass differs from the segment kernel's: {diff}")
-    if composed["crush_eval_rows"] == 0 or composed["segment_encode"] != 0:
+    if composed["crush_eval_rows"] == 0 or composed["segment_encode_p64"] != 0:
         raise AssertionError(f"the composed pass's launches are off: {composed}")
-    launched["crush_eval_rows"] = composed["crush_eval_rows"]
     log(f"  composed coalesce pass on the 4K RGB default state ({int(got[2])} runs): bit-equal to "
-        f"the segment kernel's; launches crush_eval_rows {composed['crush_eval_rows']}, "
-        f"seg_mixed_all {composed['seg_mixed_all']}, segment_encode {composed['segment_encode']}")
+        f"the segment kernel's; launches {composed}")
     log("phase 3e ok")
-    return launched
 
 
 # ---------------------------------------------------------------------------
@@ -1599,6 +1040,7 @@ def phase_ltp1(device, smi: str, size=(2160, 3840)):
     import torch
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig, bitstream, native
+    from limg_tpu_torch.kernels import launch
     from limg_tpu_torch.utils.diagnostics import crush_culprits_merged
     from tools import record_torch_ltp1_reference as lrec
     from tools import record_torch_merged_reference as mrec
@@ -1617,15 +1059,14 @@ def phase_ltp1(device, smi: str, size=(2160, 3840)):
         f"{' '.join(native.GXX_FLAGS)})")
     h, w = size
     images = case_images(h, w)
-    reset_launches()
+    launch.reset_launches()
     encodes = {}
     for lane, img in images.items():
         cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
         out, state = limg_tpu_torch.encode_image_merged(img, cfg, return_state=True,
                                                         device=device)
         encodes[lane] = (cfg, out, state)
-    launched = {k: v for k, v in read_launches().items()
-                if k in (*MERGED_REPLACES, *COALESCE_REPLACES)}
+    launched = launch_counts(MERGED_KERNELS + COALESCE_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the encode behind the stream skipped a kernel: {launched}")
     log(f"  {len(encodes)} encodes (dithering on), launches {launched}")
@@ -1749,8 +1190,8 @@ def phase_ltp1(device, smi: str, size=(2160, 3840)):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2f: the segment encode at P = 256 / 1024 / 4096 (the dense path's
-# levels 1-3)
+# Run buffers of the dense levels' regions (tests/test_torch_kernel_cuda.py's
+# cases for the segment and region encodes from P = 256 on)
 # ---------------------------------------------------------------------------
 
 # lanes of the seeded buffers at each P: several CTAs of each P's tile
@@ -1804,61 +1245,9 @@ def every_lane_a_member(rng, p: int, n: int, ch: int, device):
     return words, torch.ones_like(mask), seg, blocks
 
 
-def phase_compare_segment_regions(device) -> float:
-    """segment_encode at P = 256, 1024 and 4096 vs its plain version on the
-    card, bit-equal: seeded buffers over several CTAs, RGB and RGBA, every
-    crush mode, num_factors 1-3, dithering off and on; at its edges
-    (segments of 1 and SEG_CAP regions, a tail of lanes with no member, no
-    member at all, a saturated 64x64 region); max abs diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.kernels import coalesce as kc
-
-    log("== phase 2f: segment_encode at P = 256 / 1024 / 4096 vs its plain version on the card")
-    rng = np.random.default_rng(2026)
-    worst, n_cases = 0.0, 0
-
-    def check(case, buf, cfg):
-        nonlocal worst, n_cases
-        got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
-        want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        try:
-            worst = max(worst, compare_outputs(got, want))
-        except AssertionError as e:
-            raise AssertionError(f"{case}: {e}")
-        n_cases += 1
-
-    for p in SEGMENT_SIZES:
-        for ch in (3, 4):
-            n = SEGMENT_LANES[p]
-            bufs = {"seeded": region_run_buffer(rng, p, n, ch, device, empty_tail=n // 6,
-                                                saturate=p == 4096)}
-            spans = [1, 256, 1, 3, 31, 33, 1]
-            edge = region_run_buffer(rng, p, sum(spans) + 9, ch, device, spans=spans + [9],
-                                     empty_tail=9, saturate=p == 4096)
-            bufs["edges (1, SEG_CAP members, empty tail)"] = edge
-            bufs["no member"] = (edge[0], torch.zeros_like(edge[1]), *edge[2:])
-            bufs["every lane a member, one a segment"] = every_lane_a_member(rng, p, n, ch, device)
-            for name, buf in bufs.items():
-                for mode, nf, dith in COALESCE_SETTINGS_SEEDED:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    check(f"segment_encode P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
-                          buf, cfg)
-            for k, ef in SEGMENT_LADDER_ENDS:
-                cfg = EncodeConfig(error_factor=ef, has_alpha=ch == 4, ladder_k=k)
-                check(f"segment_encode P={p} seeded ch={ch} ladder K={k} error_factor={ef}",
-                      bufs["seeded"], cfg)
-        log(f"  P={p}: {n_cases} cases so far bit-equal")
-    log(f"phase 2f ok: {n_cases} cases, max abs diff {worst}")
-    return worst
-
-
-# the dense path's levels 4-6 (128x128, 256x256 and 512x512 px regions):
-# the region encode's cluster kernel and the segment encode's <CH, 8> ones
-LARGE_SIZES = (16384, 65536, 262144)
+# the dense path's levels 4-6 (128x128, 256x256 and 512x512 px regions, P =
+# 16,384, 65,536 and 262,144): the region encode's cluster kernel and the
+# segment encode's <CH, 8> ones
 LARGE_REGION_LANES = {16384: 10, 65536: 5, 262144: 3}
 # a segment of one region, one of several, and a tail of lanes with no member
 LARGE_SEGMENT_SPANS = {16384: [1, 5, 1, 2, 1], 65536: [1, 3, 1, 1], 262144: [1, 2, 1]}
@@ -1873,101 +1262,6 @@ LARGE_IMAGE = (300, 700)
 ROUNDS_PIXELS = 64 << 18
 ROUNDS_SETTINGS = [("ladder", 3, True), ("ladder", 1, False), ("guess", 3, False),
                    ("none", 3, True)]
-
-
-def phase_compare_large(device) -> float:
-    """The region encode (encode_region_p16384 ...) and the segment encode
-    (segment_encode_p16384 ...) at P = 16,384, 65,536 and 262,144 vs their
-    plain versions on the card, bit-equal: RGB and RGBA, ladder, exhaustive,
-    guess and no crush, num_factors 1-3, dithering off and on; on seeded
-    buffers (all-masked and half-masked regions, lane 0 a saturated region
-    whose block-error sum wraps int32 at P >= 65,536), on a ragged image's
-    grid and on that grid with an all-masked row and column; the segment
-    encode on segments of one and of several regions with a tail of lanes
-    with no member, and with no member at all; the region encode on a
-    buffer of one region at P = 65,536 (a single cluster); both encodes at
-    P = 16,777,216 (the segment encode's regions over several rounds of
-    items, the region encode's shares read from device memory). Max abs
-    diff."""
-    import torch
-    from limg_tpu_torch.config import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.regions import _words
-    from tools.make_test_image import make_4k
-
-    log("== phase 2g: region encode and segment encode at P = 16,384 / 65,536 / 262,144 vs "
-        "their plain versions on the card")
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(2027)
-    rgb = make_4k(*LARGE_IMAGE)
-    worst, n_region, n_segment = 0.0, 0, 0
-
-    def check(case, got, want):
-        nonlocal worst
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        try:
-            worst = max(worst, compare_outputs(got, want))
-        except AssertionError as e:
-            raise AssertionError(f"{case}: {e}")
-
-    for p in LARGE_SIZES:
-        for ch in (3, 4):
-            words = _words(_as_image_tensor(rgb if ch == 3 else with_alpha(rgb), device))
-            seeded = region_run_buffer(rng, p, LARGE_REGION_LANES[p], ch, device, saturate=True)
-            bufs = {"seeded": seeded[:2], **region_edge_buffers(words, p)}
-            if p == 65536:   # the seeded buffer's saturated lane 0 alone
-                bufs["one region, one cluster"] = tuple(t[:, :1].contiguous()
-                                                        for t in seeded[:2])
-            for name, (packed, mask) in bufs.items():
-                for mode, nf, dith in LARGE_SETTINGS:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    check(f"encode_region P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
-                          kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True),
-                          kmod.encode_blocks_reference(packed, mask, cfg, 7,
-                                                       emit_endpoints=True))
-                    n_region += 1
-            spans = LARGE_SEGMENT_SPANS[p]
-            seg_buf = region_run_buffer(rng, p, sum(spans), ch, device, spans=spans,
-                                        empty_tail=spans[-1], saturate=True)
-            seg_bufs = {"segments of 1 and several, empty tail": seg_buf,
-                        "no member": (seg_buf[0], torch.zeros_like(seg_buf[1]), *seg_buf[2:]),
-                        "single regions, every lane a member": every_lane_a_member(
-                            rng, p, len(spans), ch, device)}
-            for name, buf in seg_bufs.items():
-                for mode, nf, dith in LARGE_SETTINGS:
-                    cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                                       dithering=dith, num_factors=nf)
-                    check(f"segment_encode P={p} {name} ch={ch} {mode} nf={nf} dither={dith}",
-                          kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                          kc.segment_encode_reference(*buf, cfg, 0x5EED))
-                    n_segment += 1
-        log(f"  P={p}: {n_region} region and {n_segment} segment cases so far bit-equal "
-            f"({time.perf_counter() - t0:.1f} s)")
-    for ch in (3, 4):
-        # a saturated single-region segment (its error sum wraps) and a
-        # segment of two regions, each region over several rounds of items;
-        # the region encode on the same three regions
-        buf = region_run_buffer(rng, ROUNDS_PIXELS, 3, ch, device, spans=[1, 2], saturate=True)
-        for mode, nf, dith in ROUNDS_SETTINGS:
-            cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, crush_mode=mode,
-                               dithering=dith, num_factors=nf)
-            check(f"segment_encode P={ROUNDS_PIXELS} over rounds ch={ch} {mode} nf={nf} "
-                  f"dither={dith}", kc.segment_encode_kernel(*buf, cfg, 0x5EED),
-                  kc.segment_encode_reference(*buf, cfg, 0x5EED))
-            n_segment += 1
-            check(f"encode_region P={ROUNDS_PIXELS} ch={ch} {mode} nf={nf} dither={dith}",
-                  kmod.encode_blocks_kernel(*buf[:2], cfg, 7, emit_endpoints=True),
-                  kmod.encode_blocks_reference(*buf[:2], cfg, 7, emit_endpoints=True))
-            n_region += 1
-        del buf
-    log(f"  P={ROUNDS_PIXELS}: {n_region} region and {n_segment} segment cases so far "
-        f"bit-equal ({time.perf_counter() - t0:.1f} s)")
-    log(f"phase 2g ok: {n_region} + {n_segment} cases, max abs diff {worst}")
-    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -2017,7 +1311,7 @@ def phase_main_path_dense(device):
 
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig, LegacyConfig, bitstream, native
-    from limg_tpu_torch import cli
+    from limg_tpu_torch.kernels import launch
     from tools import record_torch_dense_reference as drec
     from tools.record_torch_reference import case_images
 
@@ -2026,7 +1320,7 @@ def phase_main_path_dense(device):
     fx, rdfx = np.load(DENSE_FIXTURE), np.load(RD_FIXTURE)
     images = case_images(2160, 3840)
     h, w = images["rgb"].shape[:2]
-    reset_launches()
+    launch.reset_launches()
     n_encodes, outs = 0, {}
     for lane, img in images.items():
         cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
@@ -2086,7 +1380,7 @@ def phase_main_path_dense(device):
     if (len(out["alive_counts"]) != 4 or abs(out["psnr"] - ref["psnr"]) > LEVELS4_PSNR_DB
             or abs(out["mean_bpp"] - ref["mean_bpp"]) > LEVELS4_BPP):
         raise AssertionError("the 4-level dense encode is off the 3-level one")
-    launched = {k: v for k, v in read_launches().items() if k in DENSE_KERNELS}
+    launched = launch_counts(DENSE_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the dense path skipped a kernel: launches {launched}")
     log(f"  {n_encodes} encodes, launches {launched}")
@@ -2133,7 +1427,6 @@ def phase_main_path_dense(device):
         f"{leg['coverage']!r}%, grown {leg['grown_px']} px, avg bits {leg['avg_bits']!r}, psnr "
         f"{leg['psnr']!r}; 256x384 RGBA equal to its CPU run")
     log("phase 3g ok")
-    return launched
 
 
 def phase_main_path_levels(device):
@@ -2148,6 +1441,7 @@ def phase_main_path_levels(device):
     deserialize, as the JAX package's reader refuses 5 levels."""
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig, bitstream
+    from limg_tpu_torch.kernels import launch
     from tools import record_torch_dense_reference as drec
     from tools import record_torch_levels_reference as lrec
     from tools.record_torch_reference import case_images
@@ -2158,7 +1452,7 @@ def phase_main_path_levels(device):
     meta = json.loads(str(fx["meta"]))
     images = case_images(2160, 3840)
     h, w = images["rgb"].shape[:2]
-    reset_launches()
+    launch.reset_launches()
     for name, (lane, levels, _) in lrec.FULL_CASES.items():
         cfg = EncodeConfig(**meta["cases"][name]["config"])
         t0 = time.perf_counter()
@@ -2185,12 +1479,11 @@ def phase_main_path_levels(device):
         log(f"    stream {len(blob)} bytes (JAX {int(fx[f'{name}.stream_len'])}), "
             f"{'JAX' + chr(39) + 's SHA-256' if same else 'another state'}; deserialize refuses "
             f"it as JAX's does")
-    launched = {k: v for k, v in read_launches().items() if k in LEVELS_KERNELS}
+    launched = launch_counts(LEVELS_KERNELS)
     if min(launched.values()) == 0:
         raise AssertionError(f"the 5- and 6-level encodes skipped a kernel: launches {launched}")
     log(f"  {len(lrec.FULL_CASES)} encodes, launches {launched}")
     log("phase 3i ok")
-    return launched
 
 
 # the scatter-form segment refit and crush (phase 3j): each 4K map's search
@@ -2280,7 +1573,7 @@ def compare_seg_fold(device, cases: dict) -> tuple:
     return worst, finding
 
 
-def phase_main_path_scatter(device, smi: str):
+def phase_main_path_scatter(device):
     """The scatter-form segment refit and crush at 4K RGB and RGBA
     (ops/segments.py ``fit_segments`` / ``find_shifts_segments``, contiguous
     False) on two maps (``scatter_maps``): the fit, the factors on
@@ -2288,18 +1581,14 @@ def phase_main_path_scatter(device, smi: str):
     3 and 2; seg_sum_fold and crush_eval_rows counted from 0; each result
     equal to a second run on the card and to the CPU version (the fit on the
     whole map, the search on ``segment_subset``), empty segments (0, 0, 0)
-    and 2^31 - 1; seg_sum_fold held to its plain version; the ladder call and
-    the fit timed. Returns (launches, max abs diff, seg_sum_fold's timing
-    row)."""
+    and 2^31 - 1; seg_sum_fold held to its plain version."""
     import torch
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.kernels.seg_fold import seg_sum_fold_kernel
+    from limg_tpu_torch.kernels import launch
     from limg_tpu_torch.ops import layout
     from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
     from limg_tpu_torch.ops.fit import drop_decomposition_axes
-    from limg_tpu_torch.ops.segments import (find_shifts_segments, fit_segments, fold_plan,
-                                             gather_decomp, seg_sum_plain)
-    from limg_tpu_torch.utils.timing import device_busy_ms
+    from limg_tpu_torch.ops.segments import find_shifts_segments, fit_segments, gather_decomp
     from tools.record_torch_reference import case_images
 
     log("== phase 3j: scatter-form segment refit and crush at 4K (fit_segments / "
@@ -2329,14 +1618,14 @@ def phase_main_path_scatter(device, smi: str):
                                    d_nf, cfg)
         return out, f8
 
-    reset_launches()
+    launch.reset_launches()
     t0 = time.perf_counter()
     results = {key: run(px, mask, torch.from_numpy(seg).to(device), s, px.shape[0])
                for key, (px, mask, seg, s) in inputs.items()}
     torch.cuda.synchronize(device)
     secs = time.perf_counter() - t0
-    launched = {k: v for k, v in read_launches().items() if v}
-    if not (launched.get("crush_eval_rows") and launched.get("seg_sum_fold")):
+    launched = launch_counts(("seg_sum_fold", "crush_eval_rows"))
+    if min(launched.values()) == 0:
         raise AssertionError(f"the scatter refit and crush skipped a kernel: launches {launched}")
     log(f"  {len(results)} fits and {len(results) * len(SCATTER_FACTORS) * len(SCATTER_MODES)} "
         f"searches in {secs:.2f} s wall, launches {launched}")
@@ -2377,40 +1666,15 @@ def phase_main_path_scatter(device, smi: str):
         log(f"    index_add_ on the card, {name}: {n_fold} of {n} sums differ from the fold, "
             f"{n_runs} between two runs")
 
-    # times at the owner map, RGB: the ladder search, the fit, and the fit's
-    # seg_sum_fold call on its (3, NB) channel sums
-    px, mask, seg, s = inputs[("rgb", "owner")]
-    seg_t = torch.from_numpy(seg).to(device)
-    out, f8 = results[("rgb", "owner")]
-    _, d3, cfg = out[(3, "ladder")]
-    ladder = lambda: find_shifts_segments(px, mask, f8, d3, seg_t, s, cfg)
-    fit = lambda: fit_segments(px, mask, seg_t, s, 3)
-    x = (px.to(torch.float32) * mask).sum(dim=1)
-    plan = fold_plan(seg_t, s)
-    fold = lambda: seg_sum_fold_kernel(x, seg_t, s, plan)
-    ladder_ms, fit_ms = time_fn(ladder, device), time_fn(fit, device)
-    busy = [device_busy_ms(fn, 5, device=device) for fn in (ladder, fit, fold)]
-    log(f"  4K rgb owner map ({s} segments): find_shifts_segments ladder {ladder_ms!r} ms, "
-        f"fit_segments {fit_ms!r} ms (CUDA events, median of {TIMED_RUNS}); device busy per "
-        f"call (torch.profiler, 5 calls): ladder {busy[0]!r}, fit {busy[1]!r}, its "
-        f"seg_sum_fold call {busy[2]!r} ms [{smi}]")
-    out = fold()
-    k_ms = time_fn(fold, device)
-    p_ms = time_fn(lambda: seg_sum_plain(x, seg_t, s), device)
-    zeros, idx = torch.zeros_like(out), seg_t.to(torch.int64)
-    lib_ms = time_fn(lambda: zeros.index_add_(1, idx, x), device)
-    bound_ms, bound_by = kernel_bound("seg_sum_fold", (x, seg_t, s, plan), out)
-    log(f"  4K rgb seg_sum_fold (3, {nb}) -> (3, {s}): kernel {k_ms!r} ms, plain version "
-        f"(index_add_ into new zeros) {p_ms!r} ms, index_add_ {lib_ms!r} ms, bound {bound_ms!r} "
-        f"ms ({bound_by}) [{smi}]")
     log(f"phase 3j ok: the scatter refit and crush on the card equal the CPU version and a "
         f"second run (max abs diff {max(worst, worst_f)})")
-    return launched, max(worst, worst_f), (k_ms, p_ms, bound_ms, bound_by, lib_ms)
 
 
 # ---------------------------------------------------------------------------
 # Bounds: bytes and operations of a call, counted from its inputs and outputs
-# (each tensor read or written once) and from the kernels' code
+# (each tensor read or written once) and from the kernels' code;
+# h100_bench/counts/ holds a frozen copy, held equal to these at 4K by
+# h100_bench/tests/test_bench_counts.py
 # ---------------------------------------------------------------------------
 
 def tensor_bytes(*objs) -> int:
@@ -2595,201 +1859,13 @@ def kernel_bound(name: str, args, out) -> tuple:
     return call_bound(ops, tensor_bytes(args, out))
 
 
-def time_fn(fn, device, runs: int = TIMED_RUNS) -> float:
-    """Median ms of ``runs`` calls after one warm-up, by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def phase_timing(device, smi: str):
-    """Kernel and plain times at the 4K main-path shapes (also compared)."""
-    import torch
-    from limg_tpu_torch import EncodeConfig, encode_perf_step
-    from limg_tpu_torch.encoder import _as_image_tensor, _packed_blocks
-    from limg_tpu_torch.kernels.encode_fixed import (encode_blocks_kernel,
-                                                     encode_blocks_reference)
-    from tools.record_torch_reference import case_images
-
-    log("== phase 4: timing at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst = {}, 0.0
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        packed, mask, _ = _packed_blocks(img_d)
-        worst = max(worst, compare_outputs(
-            encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True),
-            encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)))
-        bound = kernel_bound("encode_fixed_p64", (packed, mask, cfg),
-                             encode_blocks_kernel(packed, mask, cfg, 0))
-        # plain, kernel, kernel, plain: both see the same card state
-        p1 = time_fn(lambda: encode_blocks_reference(packed, mask, cfg, 0), device)
-        k1 = time_fn(lambda: encode_blocks_kernel(packed, mask, cfg, 0), device)
-        k2 = time_fn(lambda: encode_blocks_kernel(packed, mask, cfg, 0), device)
-        p2 = time_fn(lambda: encode_blocks_reference(packed, mask, cfg, 0), device)
-        step = time_fn(lambda: encode_perf_step(img_d, cfg, 0, device), device)
-        mpx = img.shape[0] * img.shape[1] * 1e-6
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        rows[lane] = (k_ms, p_ms, *bound)
-        log(f"  4K {lane}: kernel {k1!r} / {k2!r} ms ({mpx / k_ms * 1e3!r} Mpx/s), "
-            f"plain {p1!r} / {p2!r} ms ({mpx / p_ms * 1e3!r} Mpx/s), bound {bound[0]!r} ms "
-            f"({bound[1]}); "
-            f"encode_perf_step {step!r} ms = {mpx / step * 1e3!r} Mpx/s [{smi}]")
-        profile_step(lambda: encode_perf_step(img_d, cfg, 0, device), device, lane)
-    log(f"phase 4 ok: 4K kernel outputs equal the plain version's (max abs diff {worst})")
-    return rows, worst
-
-
-def phase_timing_merged(device, smi: str):
-    """fit_levels / owner_crush vs plain, and the device-resident merged step,
-    at 4K (also compared)."""
-    from limg_tpu_torch import EncodeConfig, encode_image_merged_fused_device
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.regions import _words
-    from tools.record_torch_reference import case_images
-
-    log("== phase 4b: merged kernels at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst, lv = {}, 0.0, MERGED_LEVELS
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        words = _words(img_d)
-        fit = km.fit_levels_reference(words, cfg, lv)
-        worst = max(worst, compare_outputs(km.fit_levels_kernel(words, cfg, lv), fit))
-        args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, lv, 0)
-        worst = max(worst, compare_outputs(km.owner_crush_kernel(*args),
-                                           km.owner_crush_reference(*args)))
-        fns = {"fit_levels": (lambda: km.fit_levels_kernel(words, cfg, lv),
-                              lambda: km.fit_levels_reference(words, cfg, lv), (words, cfg, lv)),
-               "owner_crush": (lambda: km.owner_crush_kernel(*args),
-                               lambda: km.owner_crush_reference(*args), args)}
-        mpx = img.shape[0] * img.shape[1] * 1e-6
-        for name, (kern, plain, call) in fns.items():
-            bound = kernel_bound(name, call, kern())
-            # plain, kernel, kernel, plain: both see the same card state
-            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
-            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
-                f"bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
-
-        def step():
-            out = encode_image_merged_fused_device(img_d, cfg, 0, lv, emit_planes=False,
-                                                   coalesce=False, device=device)
-            return out["total_err"], out["mean_bpp"]
-
-        step_ms = time_fn(step, device)
-        log(f"  4K {lane} merged step (encode_image_merged_fused_device, emit_planes=False): "
-            f"{step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        prof = profile_step(step, device, f"{lane} merged")
-        for name in fns:
-            log_profiled(prof, name, rows[(name, lane)][0], lane, smi)
-    log(f"phase 4b ok: 4K merged kernel outputs equal the plain versions' (max abs diff {worst})")
-    return rows, worst
-
-
-def step_bounds(fn) -> dict:
-    """Each kernel's bound summed over its launches in one call of the step
-    ``fn``, every launch at its own shape: {kernel name: ms}."""
-    from limg_tpu_torch import encoder, regions
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.kernels import encode_natural as kn
-
-    wrappers = [(kc, "match_neighbors_kernel"), (kc, "match_pairs_kernel"),
-                (kc, "seg_scan"), (kc, "segment_encode_kernel"),
-                (km, "fit_levels_kernel"), (km, "owner_crush_kernel"),
-                (kn, "fit_levels_natural_kernel"), (kn, "owner_crush_natural_kernel"),
-                (kmod, "encode_blocks_kernel")]
-    totals, saved = {}, {n: getattr(m, n) for m, n in wrappers}
-
-    def spy(fname):
-        def call(*args, **kwargs):
-            out = saved[fname](*args, **kwargs)
-            name = COALESCE_WRAPPERS.get(fname, fname[:-len("_kernel")])
-            if fname == "segment_encode_kernel":
-                name = kc.segment_kernel_name(args[0].shape[0])
-            if fname == "encode_blocks_kernel":
-                p = args[0].shape[0]
-                name = "encode_fixed_p64" if p == 64 else f"encode_region_p{p}"
-            kind = ("encode_region" if name.startswith("encode_region")
-                    else "segment_encode" if name.startswith("segment_encode") else name)
-            totals[name] = totals.get(name, 0.0) + kernel_bound(kind, args, out)[0]
-            return out
-        return call
-
-    users = (regions, encoder)
-    try:
-        for mod, fname in wrappers:
-            setattr(mod, fname, spy(fname))
-            for user in users:
-                if hasattr(user, fname):
-                    setattr(user, fname, getattr(mod, fname))
-        fn()
-    finally:
-        for mod, fname in wrappers:
-            setattr(mod, fname, saved[fname])
-            for user in users:
-                if hasattr(user, fname):
-                    setattr(user, fname, saved[fname])
-    return totals
-
-
-def profiled_kernel_name(key: str):
-    """The kernel name (as the launch counts have it) of a profiled CUDA
-    kernel's symbol; step_losses drops the names of PyTorch's own."""
-    m = re.search(r"(\w+)_kernel<([^>]*)>", key)
-    if not m:
-        return None
-    name, targs = m.group(1), [t.strip() for t in m.group(2).split(",")]
-    if name in ("fit_levels", "owner_crush"):
-        return name + ("_natural" if targs[-1] == "true" else "")
-    if name == "encode_region":   # one template: P = 64 is the fixed grid's kernel
-        return "encode_fixed_p64" if targs[0] == "64" else f"encode_region_p{targs[0]}"
-    # the region encode's cluster kernel and the segment encode's <CH, 8>
-    # instances run every P above 4096; the steps profiled run them at P =
-    # 16,384 alone
-    if name == "encode_region_cluster":
-        return "encode_region_p16384"
-    # <CH, log2 of P / 64>: P = 256 on the one-warp template, P >= 1024 on
-    # the cluster design's two kernels
-    if name in ("segment_cluster", "segment_prep") or (name == "segment_encode"
-                                                       and targs[1:2] != ["0"]):
-        return f"segment_encode_p{64 << int(targs[1])}"
-    return {"seg_scan": "seg_mixed_all", "crush_eval": "crush_eval_rows"}.get(name, name)
-
-
-def step_losses(profile: dict, bounds: dict) -> dict:
-    """Each kernel's ms lost above its bound in one step: its profiler
-    device time in the step less the bound of its launches there."""
-    device_ms, ours = {}, set(read_launches())
-    for key, us in profile.items():
-        name = profiled_kernel_name(key)
-        if name in ours:
-            device_ms[name] = device_ms.get(name, 0.0) + us / 1e3
-    return {name: ms - bounds.get(name, 0.0) for name, ms in device_ms.items()}
-
-
 def capture_coalesce_calls(fn) -> dict:
     """Run ``fn`` with the four run-coalescing wrappers recording their
     arguments: {wrapper name: [(args, kwargs), ...]}."""
     from limg_tpu_torch import regions
     from limg_tpu_torch.kernels import coalesce as kc
 
-    names = tuple(COALESCE_WRAPPERS)
+    names = COALESCE_WRAPPERS
     calls, saved = {n: [] for n in names}, {n: getattr(kc, n) for n in names}
 
     def spy(name):
@@ -2810,414 +1886,213 @@ def capture_coalesce_calls(fn) -> dict:
     return calls
 
 
-# the run-coalescing wrappers and the kernel each launches
-COALESCE_WRAPPERS = {"match_neighbors_kernel": "match_neighbors",
-                     "match_pairs_kernel": "match_pairs", "seg_scan": "seg_mixed_all",
-                     "segment_encode_kernel": "segment_encode"}
+# the run-coalescing wrappers that regions.py calls
+COALESCE_WRAPPERS = ("match_neighbors_kernel", "match_pairs_kernel", "seg_scan",
+                     "segment_encode_kernel")
 
 
-def call_shape(args) -> str:
-    """A captured call's shape: its first tensor's, or a scan batch's
-    problems as (rows, lanes)."""
-    first = args[0]
-    if isinstance(first, (list, tuple)):
-        return "[" + ", ".join(f"({len(p.rows)}, {p.seg.numel()})" for p in first) + "]"
-    return str(tuple(first.shape))
+# ---------------------------------------------------------------------------
+# Every kernel against its plain version, on the calls of phases 3-3j
+# ---------------------------------------------------------------------------
+
+# wrapper entry -> (its module in limg_tpu_torch.kernels, its plain version)
+HELD_WRAPPERS = {
+    "encode_blocks_kernel": ("encode_fixed", "encode_blocks_reference"),
+    "fixed_planes_kernel": ("fixed_planes", "fixed_planes_reference"),
+    "crush_eval_rows_kernel": ("crush_eval", "crush_eval_rows_reference"),
+    "seg_sum_fold_kernel": ("seg_fold", "seg_sum_fold_reference"),
+    "fit_levels_kernel": ("encode_merged", "fit_levels_reference"),
+    "owner_crush_kernel": ("encode_merged", "owner_crush_reference"),
+    "fit_levels_natural_kernel": ("encode_natural", "fit_levels_natural_reference"),
+    "owner_crush_natural_kernel": ("encode_natural", "owner_crush_natural_reference"),
+    "match_pairs_kernel": ("coalesce", "match_pairs_reference"),
+    "match_neighbors_kernel": ("coalesce", "match_neighbors_reference"),
+    "seg_scan": ("coalesce", "seg_scan_reference"),
+    "seg_mixed_all_kernel": ("coalesce", "seg_mixed_all_reference"),
+    "segment_encode_kernel": ("coalesce", "segment_encode_reference"),
+}
+# wrappers whose plain version is the CPU's: seg_sum_fold's left fold in
+# block order is index_add_ on the CPU; on a card index_add_'s atomics add
+# in another order (phase 3j)
+PLAIN_ON_CPU = ("seg_sum_fold_kernel",)
 
 
-def phase_timing_coalesce(device, smi: str):
-    """The four run-coalescing kernels vs plain at the 4K main-path shapes
-    (also compared), and the default merged step."""
-    import limg_tpu_torch
-    from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import coalesce as kc
-    from tools.record_torch_reference import case_images
-
-    log("== phase 4c: run-coalescing kernels at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst, lv = {}, 0.0, MERGED_LEVELS
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        calls = capture_coalesce_calls(
-            lambda: limg_tpu_torch.encode_image_merged(img_d, cfg, fetch_planes=False,
-                                                       device=device))
-        # the main path's first calls: level 0's neighbour plane, the one
-        # pair launch (level 2 at 4K), run building's first scan (every
-        # level's horizontal run lengths and rectangle test, 129,600 +
-        # 32,400 + 8,160 lanes), the full-capacity segment encode
-        shapes = {COALESCE_WRAPPERS[k]: v[0] for k, v in calls.items()}
-        log(f"  4K {lane} main-path calls: " + ", ".join(
-            f"{k} {len(v)}" for k, v in calls.items()) + "; timed shapes: "
-            + ", ".join(f"{k} {call_shape(c[0])}" for k, c in shapes.items()))
-        mpx = img.shape[0] * img.shape[1] * 1e-6
-        for name, (args, kwargs) in shapes.items():
-            wrapper = next(k for k, v in COALESCE_WRAPPERS.items() if v == name)
-            kern = getattr(kc, wrapper)
-            plain = getattr(kc, wrapper.replace("_kernel", "") + "_reference")
-            got, want = kern(*args, **kwargs), plain(*args, **kwargs)
-            worst = max(worst, compare_outputs(
-                got if isinstance(got, (tuple, list)) else [got],
-                want if isinstance(want, (tuple, list)) else [want]))
-            bound = kernel_bound(name, args, got)
-            # plain, kernel, kernel, plain: both see the same card state
-            p1, k1, k2, p2 = (time_fn(lambda f=f: f(*args, **kwargs), device)
-                              for f in (plain, kern, kern, plain))
-            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
-            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
-                f"bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
-
-        nb = 270 * 480
-
-        def step():
-            state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, need_q=False,
-                                                    device=device)
-            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_merged_finish(state, cfg, 0, lv, False, cap)
-            return out["total_err"], out["mean_bpp"]
-
-        step_ms = time_fn(step, device)
-        log(f"  4K {lane} default merged step (fused_merged_pre, host capacity read, "
-            f"fused_merged_finish; emit_planes=False): {step_ms!r} ms = "
-            f"{mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        prof = profile_step(step, device, f"{lane} default merged")
-        log_profiled(prof, "segment_encode", rows[("segment_encode", lane)][0], lane, smi)
-        if lane == "rgb":
-            log(f"  kernel launches per default step: {launches_per_step(step)}")
-            losses = step_losses(prof, step_bounds(step))
-            log(f"  ms lost above the bound per default step: {losses}")
-    log(f"phase 4c ok: 4K run-coalescing kernel outputs equal the plain versions' "
-        f"(max abs diff {worst})")
-    return rows, worst, losses
-
-
-def phase_timing_rd(device, smi: str):
-    """encode_region vs plain at each P at the 4K shapes of the RD levels
-    (also compared), and the RD step."""
-    import limg_tpu_torch
-    from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.ops import layout
-    from limg_tpu_torch.regions import _words
-    from tools.record_torch_reference import case_images
-
-    log("== phase 4d: region encode kernel and RD step at 4K (CUDA events, median of",
-        TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst = {}, 0.0
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        words = _words(img_d)
-        for p in REGION_SIZES:
-            packed, mask, grid = layout.blockify_words(words, int(p ** 0.5))
-            got = kmod.encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True)
-            worst = max(worst, compare_outputs(
-                got, kmod.encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)))
-            bound = kernel_bound("encode_region", (packed, mask, cfg), got)
-            kern = lambda: kmod.encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True)
-            plain = lambda: kmod.encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True)
-            # plain, kernel, kernel, plain: both see the same card state
-            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-            rows[(p, lane)] = (min(k1, k2), min(p1, p2), *bound)
-            log(f"  4K {lane} encode_region P={p} ({grid.num_blocks} regions): kernel {k1!r} / "
-                f"{k2!r} ms, plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
-        mpx = img.shape[0] * img.shape[1] * 1e-6
-        nb = 270 * 480
-
-        def step():
-            state = limg_tpu_torch.fused_rd_pre(img_d, cfg, 0, RD_LAMBDA, MERGED_LEVELS,
-                                                need_q=False, device=device)
-            cap = limg_tpu_torch.auto_run_capacity(int(state["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_rd_finish(state, cfg, 0, RD_LAMBDA, MERGED_LEVELS, False,
-                                                 cap)
-            return out["total_err"], out["mean_bpp"]
-
-        step_ms = time_fn(step, device)
-        log(f"  4K {lane} RD step (fused_rd_pre, host capacity read, fused_rd_finish; "
-            f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        prof = profile_step(step, device, f"{lane} RD")
-        if lane == "rgb":
-            log(f"  kernel launches per RD step: {launches_per_step(step)}")
-            losses = step_losses(prof, step_bounds(step))
-            log(f"  ms lost above the bound per RD step: {losses}")
-    log(f"phase 4d ok: 4K region kernel outputs equal the plain version's (max abs diff {worst})")
-    return rows, worst, losses
-
-
-def phase_timing_natural(device, smi: str):
-    """The natural pair vs plain and vs the Morton pair, crush_eval_rows vs
-    plain at the composed pass's first call, the composed coalesce pass vs
-    the segment kernel's, and the natural default step vs the Morton one, at
-    4K (the kernels also compared)."""
+def on_cpu(a):
+    """``a`` with its tensors (also inside tuples and lists) on the CPU."""
     import torch
-    import limg_tpu_torch
+
+    if isinstance(a, torch.Tensor):
+        return a.cpu()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*map(on_cpu, a))
+    if isinstance(a, (tuple, list)):
+        return type(a)(map(on_cpu, a))
+    return a
+
+
+def flat_outputs(out) -> list:
+    """The tensors (and Nones) of a wrapper's output, in order."""
+    import torch
+
+    if out is None or isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in flat_outputs(o)]
+
+
+def call_settings(args) -> tuple:
+    """A call's settings: its config, flags and small integers (channels,
+    levels, counts), not its tensors, seeds or dither keys."""
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import crush_eval as kce
-    from limg_tpu_torch.kernels import encode_merged as km
-    from limg_tpu_torch.kernels import encode_natural as kn
-    from limg_tpu_torch.regions import _words
-    from tools.record_torch_reference import case_images
 
-    log("== phase 4e: natural pair, crush_eval_rows, composed coalesce pass and natural step "
-        "at 4K (CUDA events, median of", TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst, lv = {}, 0.0, MERGED_LEVELS
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        words = _words(img_d)
-        fit = kn.fit_levels_natural_reference(words, cfg, lv)
-        worst = max(worst, compare_outputs(kn.fit_levels_natural_kernel(words, cfg, lv), fit))
-        args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, lv, 0)
-        worst = max(worst, compare_outputs(kn.owner_crush_natural_kernel(*args),
-                                           kn.owner_crush_natural_reference(*args)))
-        m_fit = km.fit_levels_kernel(words, cfg, lv)
-        m_args = (words, m_fit.owner, m_fit.f8_sel, m_fit.eps_sel, cfg, lv, 0)
-        fns = {"fit_levels_natural": (lambda: kn.fit_levels_natural_kernel(words, cfg, lv),
-                                      lambda: kn.fit_levels_natural_reference(words, cfg, lv),
-                                      lambda: km.fit_levels_kernel(words, cfg, lv),
-                                      (words, cfg, lv)),
-               "owner_crush_natural": (lambda: kn.owner_crush_natural_kernel(*args),
-                                       lambda: kn.owner_crush_natural_reference(*args),
-                                       lambda: km.owner_crush_kernel(*m_args), args)}
-        for name, (kern, plain, twin, call) in fns.items():
-            bound = kernel_bound(name, call, kern())
-            # plain, kernel, Morton twin, twin, kernel, plain: one card state
-            p1, k1, t1, t2, k2, p2 = (time_fn(f, device)
-                                      for f in (plain, kern, twin, twin, kern, plain))
-            rows[(name, lane)] = (min(k1, k2), min(p1, p2), *bound)
-            log(f"  4K {lane} {name}: kernel {k1!r} / {k2!r} ms, Morton twin {t1!r} / {t2!r} ms, "
-                f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
+    return tuple(a for a in args if isinstance(a, (EncodeConfig, bool, str))
+                 or (isinstance(a, int) and abs(a) < 1 << 16))
 
-        # the composed coalesce pass's crush evaluations, on the default state
-        state = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, device=device)
-        calls, saved = [], kce.crush_eval_rows_kernel
 
-        def spy(*a):
-            calls.append(a)
-            return saved(*a)
+def wrapper_bound(wrapper: str, args, out) -> tuple:
+    """``kernel_bound`` of one wrapper call, ``args`` bound to its signature."""
+    if wrapper == "encode_blocks_kernel":
+        name = "encode_fixed_p64" if args[0].shape[0] == 64 else "encode_region"
+    elif wrapper == "seg_mixed_all_kernel":
+        from limg_tpu_torch.kernels.coalesce import ScanProblem
 
-        kce.crush_eval_rows_kernel = spy
+        # the one seg_scan problem the wrapper launches
+        x, seg_c, n_sum, init = args
+        ops = "s" * n_sum + "x" * (x.shape[0] - n_sum)
+        return kernel_bound("seg_mixed_all", ([ScanProblem(seg_c, list(x), ops, init)],), out)
+    else:
+        name = {"seg_scan": "seg_mixed_all",
+                "segment_encode_kernel": "segment_encode"}.get(wrapper,
+                                                               wrapper.removesuffix("_kernel"))
+    return kernel_bound(name, args, out)
+
+
+class HeldKernels:
+    """Inside ``held()``, every kernel wrapper of HELD_WRAPPERS, wherever the
+    port imported it, runs the kernel and, on the first call of each
+    kernel, wrapper and settings (``call_settings``) that launches on the
+    card, its plain version on the same arguments (on the CPU for
+    PLAIN_ON_CPU): ``compare_outputs`` raises unless they agree. The host sync debug mode is off for the
+    plain version, the compare and ``wrapper_bound``; a held call nested
+    in another and the plain versions' own launches run as they are, and
+    the launch counts the phases read are restored after each plain run.
+
+    ``launches``: the paths' kernel launches by name (not the plain
+    versions'); ``rows``: per kernel name the calls held, the largest
+    difference and the largest held call's bound."""
+
+    def __init__(self):
+        import collections
+        import threading
+
+        self.launches = collections.Counter()
+        self.rows: dict = {}
+        self.local = threading.local()
+
+    def _hold(self, names, wrapper: str, plain, args, out) -> None:
+        import torch
+        from limg_tpu_torch.kernels import launch
+
+        mode = torch.cuda.get_sync_debug_mode()
+        counts = launch.launches.copy()
+        torch.cuda.set_sync_debug_mode(0)
+        self.local.plain = True
         try:
-            composed_pass(state, cfg, 0, False)
+            got = flat_outputs(out)
+            if wrapper in PLAIN_ON_CPU:
+                want = [w if w is None else w.to(g.device)
+                        for g, w in zip(got, flat_outputs(plain(*map(on_cpu, args))))]
+            else:
+                want = flat_outputs(plain(*args))
+            if len(got) != len(want):
+                raise AssertionError(f"{len(got)} outputs against {len(want)}")
+            err = compare_outputs(got, want)
+            ms, by = wrapper_bound(wrapper, args, out)
+        except AssertionError as e:
+            raise AssertionError(f"{'+'.join(names)} ({wrapper}) against its plain version: "
+                                 f"{e}") from None
         finally:
-            kce.crush_eval_rows_kernel = saved
-        # both calls: the ladder's 27 axis sweeps over the whole buffer (a
-        # stride-0 table; its row in the kernels line) and its 8 verified
-        # candidates (one triple a block)
-        for i, ce_args in enumerate(calls):
-            got = kce.crush_eval_rows_kernel(*ce_args)
-            worst = max(worst, compare_outputs(got, kce.crush_eval_rows_reference(*ce_args)))
-            bound = kernel_bound("crush_eval_rows", ce_args, got)
-            kern = lambda: kce.crush_eval_rows_kernel(*ce_args)
-            plain = lambda: kce.crush_eval_rows_reference(*ce_args)
-            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-            if i == 0:
-                rows[("crush_eval_rows", lane)] = (min(k1, k2), min(p1, p2), *bound)
-            form = "table" if kce.table_of(ce_args[4]) is not None else "per-block"
-            log(f"  4K {lane} crush_eval_rows, call {i + 1} of {len(calls)} in the composed pass "
-                f"(K = {ce_args[4].shape[0]}, {form}, N = {ce_args[0].shape[1]}): kernel {k1!r} / "
-                f"{k2!r} ms, plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}) [{smi}]")
-        seg_pass = lambda: composed_pass(state, cfg, 0, True)[0]["dist"]
-        comp_pass = lambda: composed_pass(state, cfg, 0, False)[0]["dist"]
-        s1, c1, c2, s2 = (time_fn(f, device) for f in (seg_pass, comp_pass, comp_pass, seg_pass))
-        log(f"  4K {lane} coalesce pass at auto capacity: composed (use_kernel=False) {c1!r} / "
-            f"{c2!r} ms, segment kernel {s1!r} / {s2!r} ms [{smi}]")
+            self.local.plain = False
+            torch.cuda.set_sync_debug_mode(mode)
+            launch.launches.clear()
+            launch.launches.update(counts)
+        for name in names:
+            row = self.rows.setdefault(name, {"held": 0, "max_abs_err": 0.0, "bound_ms": 0.0,
+                                              "bound_by": by})
+            row["held"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if ms > row["bound_ms"]:
+                row["bound_ms"], row["bound_by"] = ms, by
 
-        mpx = img.shape[0] * img.shape[1] * 1e-6
-        nb = state["grid"].num_blocks
+    def _spy(self, wrapper: str, kernel, plain, seen: set):
+        import inspect
 
-        def step(layout):
-            st = limg_tpu_torch.fused_merged_pre(img_d, cfg, 0, lv, need_q=False,
-                                                 fused_layout=layout, device=device)
-            cap = limg_tpu_torch.auto_run_capacity(int(st["n_run_blocks"]), nb)
-            out = limg_tpu_torch.fused_merged_finish(st, cfg, 0, lv, False, cap,
-                                                     fused_layout=layout)
-            return out["total_err"], out["mean_bpp"]
+        from limg_tpu_torch.kernels import launch
 
-        m1, n1, n2, m2 = (time_fn(lambda lay=lay: step(lay), device)
-                          for lay in ("morton", "natural", "natural", "morton"))
-        log(f"  4K {lane} default step (fused_merged_pre, host capacity read, "
-            f"fused_merged_finish; emit_planes=False): natural {n1!r} / {n2!r} ms = "
-            f"{mpx / min(n1, n2) * 1e3!r} Mpx/s, Morton {m1!r} / {m2!r} ms [{smi}]")
-        if lane == "rgb":
-            prof = profile_step(lambda: step("natural"), device, f"{lane} natural default")
-            log_profiled(prof, "fit_levels", rows[("fit_levels_natural", lane)][0], lane, smi)
-    log(f"phase 4e ok: 4K natural and crush_eval_rows outputs equal the plain versions' "
-        f"(max abs diff {worst})")
-    return rows, worst
+        signature = inspect.signature(kernel)
 
+        def call(*args, **kwargs):
+            if getattr(self.local, "inside", False):
+                return kernel(*args, **kwargs)
+            self.local.inside = True
+            try:
+                before = launch.launches.copy()
+                out = kernel(*args, **kwargs)
+                names = sorted(launch.launches - before)
+                bound = signature.bind(*args, **kwargs)
+                bound.apply_defaults()
+                args = tuple(bound.arguments.values())
+                key = (tuple(names), wrapper, call_settings(args))
+                if names and key not in seen:
+                    seen.add(key)
+                    self._hold(names, wrapper, plain, args, out)
+                return out
+            finally:
+                self.local.inside = False
+        return call
 
-def phase_timing_dense(device, smi: str):
-    """segment_encode at P = 256, 1024 and 4096 vs plain at the 4K shapes of
-    the dense levels (also compared; captured from a 4-level dense encode),
-    and the dense 3-level step's device time."""
-    import limg_tpu_torch
-    from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import coalesce as kc
-    from tools.record_torch_reference import case_images
+    @contextlib.contextmanager
+    def held(self):
+        """Hold the wrappers (each kernel, wrapper and settings once)."""
+        import importlib
 
-    log("== phase 4f: segment_encode at P = 256 / 1024 / 4096 and the dense step at 4K "
-        "(CUDA events, median of", TIMED_RUNS, "runs)")
-    images = case_images(2160, 3840)
-    rows, worst, losses = {}, 0.0, {}
-    for lane, img in images.items():
-        cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba")
-        img_d = _as_image_tensor(img, device)
-        calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
-            img_d, cfg, num_levels=4, fused=False, fetch_planes=False, device=device))
-        for args, kwargs in calls["segment_encode_kernel"]:
-            p = args[0].shape[0]
-            if p not in SEGMENT_SIZES:
-                continue
-            got = kc.segment_encode_kernel(*args, **kwargs)
-            worst = max(worst, compare_outputs(got, kc.segment_encode_reference(*args, **kwargs)))
-            bound = kernel_bound("segment_encode", args, got)
-            kern = lambda: kc.segment_encode_kernel(*args, **kwargs)
-            plain = lambda: kc.segment_encode_reference(*args, **kwargs)
-            # plain, kernel, kernel, plain: both see the same card state
-            p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-            members = int(args[1].any(dim=0).sum())
-            rows[(p, lane)] = (min(k1, k2), min(p1, p2), *bound)
-            log(f"  4K {lane} segment_encode P={p} ({args[0].shape[1]} lanes, {members} with a "
-                f"member pixel): kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, bound "
-                f"{bound[0]!r} ms ({bound[1]}) [{smi}]")
-        mpx = img.shape[0] * img.shape[1] * 1e-6
+        from limg_tpu_torch.kernels import launch
 
-        def step():
-            out = limg_tpu_torch.encode_image_merged_device(img_d, cfg, num_levels=MERGED_LEVELS,
-                                                            emit_planes=False, cap_frac=1,
-                                                            device=device)
-            return out["total_err"], out["mean_bpp"]
+        seen: set = set()
+        spies = {}
+        for wrapper, (module, plain) in HELD_WRAPPERS.items():
+            mod = importlib.import_module(f"limg_tpu_torch.kernels.{module}")
+            kernel = getattr(mod, wrapper)
+            spies[id(kernel)] = (kernel, self._spy(wrapper, kernel, getattr(mod, plain), seen))
+        patched = []
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("limg_tpu_torch"):
+                for attr, val in list(vars(mod).items()):
+                    if id(val) in spies and spies[id(val)][0] is val:
+                        setattr(mod, attr, spies[id(val)][1])
+                        patched.append((mod, attr, val))
+        launch_call = launch.call
 
-        step_ms = time_fn(step, device)
-        log(f"  4K {lane} dense step (encode_image_merged_device, 3 levels, full run capacity, "
-            f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-        prof = profile_step(step, device, f"{lane} dense", by_op=lane == "rgb")
-        if lane == "rgb":
-            log(f"  kernel launches per dense step: {launches_per_step(step)}")
-            losses = step_losses(prof, step_bounds(step))
-            log(f"  ms lost above the bound per dense step: {losses}")
-    log(f"phase 4f ok: 4K segment_encode outputs at P = 256 / 1024 / 4096 equal the plain "
-        f"version's (max abs diff {worst})")
-    return rows, worst, losses
+        def counted_call(lib, fn_name, kernel, device, *args):
+            launch_call(lib, fn_name, kernel, device, *args)
+            if not getattr(self.local, "plain", False):
+                self.launches[kernel] += 1
 
+        launch.call = counted_call
+        try:
+            yield self
+        finally:
+            launch.call = launch_call
+            for mod, attr, val in patched:
+                setattr(mod, attr, val)
 
-def phase_timing_levels(device, smi: str):
-    """The region encode (encode_region_p16384 / _p65536 / _p262144) on the
-    4K image's level-4, level-5 and level-6 regions and the segment encode
-    at P = 16,384 and 65,536 on the buffers of a 6-level dense encode
-    (captured), each against its plain version (also compared) and its
-    bound; the dense 5-level step's events time, device busy and kernel
-    launches (4K RGB)."""
-    import limg_tpu_torch
-    from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.encoder import _as_image_tensor
-    from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import encode_fixed as kmod
-    from limg_tpu_torch.ops import layout
-    from limg_tpu_torch.regions import _words
-    from tools.record_torch_reference import case_images
-
-    log("== phase 4h: region encodes at P = 16,384 / 65,536 / 262,144, segment encodes at P = "
-        "16,384 / 65,536 and the 5-level dense step at 4K RGB (CUDA events, median of",
-        TIMED_RUNS, "runs)")
-    img = case_images(2160, 3840)["rgb"]
-    cfg = EncodeConfig(error_factor=100)
-    img_d = _as_image_tensor(img, device)
-    rows, worst = {}, 0.0
-
-    def timed(name, kern, plain, got, bound, shape):
-        nonlocal worst
-        worst = max(worst, compare_outputs(got, plain()))
-        # plain, kernel, kernel, plain: both see the same card state
-        p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-        rows[name] = (min(k1, k2), min(p1, p2), *bound)
-        log(f"  4K rgb {name} ({shape}): kernel {k1!r} / {k2!r} ms, plain {p1!r} / {p2!r} ms, "
-            f"bound {bound[0]!r} ms ({bound[1]}), {bound[0] / min(k1, k2):.4f} of it [{smi}]")
-
-    words = _words(img_d)
-    for p in TIMED_REGION_SIZES:
-        packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
-        args = (packed, mask, cfg, 0)
-        got = kmod.encode_blocks_kernel(*args, emit_endpoints=True)
-        timed(f"encode_region_p{p}", lambda: kmod.encode_blocks_kernel(*args, emit_endpoints=True),
-              lambda: kmod.encode_blocks_reference(*args, emit_endpoints=True), got,
-              kernel_bound("encode_region", args, got), f"{packed.shape[1]} regions")
-    calls = capture_coalesce_calls(lambda: limg_tpu_torch.encode_image_merged(
-        img_d, cfg, num_levels=6, fused=False, fetch_planes=False, device=device))
-    for args, kwargs in calls["segment_encode_kernel"]:
-        p = args[0].shape[0]
-        if p not in LEVEL_SIZES:
-            continue
-        got = kc.segment_encode_kernel(*args, **kwargs)
-        members = int(args[1].any(dim=0).sum())
-        timed(f"segment_encode_p{p}", lambda: kc.segment_encode_kernel(*args, **kwargs),
-              lambda: kc.segment_encode_reference(*args, **kwargs), got,
-              kernel_bound("segment_encode", args, got),
-              f"{args[0].shape[1]} lanes, {members} with a member pixel")
-    mpx = img.shape[0] * img.shape[1] * 1e-6
-
-    def step():
-        out = limg_tpu_torch.encode_image_merged_device(img_d, cfg, num_levels=5,
-                                                        emit_planes=False, cap_frac=1,
-                                                        device=device)
-        return out["total_err"], out["mean_bpp"]
-
-    step_ms = time_fn(step, device)
-    log(f"  4K rgb dense step at 5 levels (encode_image_merged_device, full run capacity, "
-        f"emit_planes=False): {step_ms!r} ms = {mpx / step_ms * 1e3!r} Mpx/s [{smi}]")
-    prof = profile_step(step, device, "rgb dense 5-level")
-    log(f"  kernel launches per 5-level dense step: {launches_per_step(step)}")
-    losses = step_losses(prof, step_bounds(step))
-    log(f"  ms lost above the bound per 5-level dense step: {losses}")
-    log(f"phase 4h ok: the kernels' 4K outputs equal the plain versions' (max abs diff {worst})")
-    return rows, worst, losses
-
-
-def launches_per_step(fn) -> dict:
-    """Each kernel's launches in one call of the step ``fn``."""
-    reset_launches()
-    fn()
-    return {k: v for k, v in read_launches().items() if v}
-
-
-def profile_step(fn, device, lane: str, iters: int = 5, by_op: bool = False):
-    """Device time by operation over ``iters`` perf steps (torch.profiler,
-    ``utils.timing.profile_device``), and the device-busy share of the
-    profiled window; ``by_op`` also logs the device time of the kernels each
-    PyTorch operation launched itself, by the operation's name (the
-    plain-torch glue; the port's own kernels are launched by no
-    operation)."""
-    from limg_tpu_torch.utils.timing import profile_device
-
-    prof = profile_device(fn, iters, device=device)
-    rows = sorted(prof.kernels.items(), key=lambda r: -r[1])
-    busy = prof.busy_us
-    log(f"  profile 4K {lane} step: device busy {busy!r} us of {prof.wall_us!r} us wall "
-        f"per step, idle share {1 - busy / prof.wall_us!r} (profiler on)")
-    for key, us in rows[:8]:
-        log(f"    {us!r:>22} us  {key[:90]}")
-    if by_op:
-        ops = sorted(prof.ops.items(), key=lambda r: -r[1])
-        log(f"  profile 4K {lane} step by PyTorch operation: {sum(us for _, us in ops)!r} us "
-            f"of device time in {len(ops)} operations")
-        for key, us in ops[:20]:
-            log(f"    {us!r:>22} us  {key[:90]}")
-    return dict(rows)
-
-
-def log_profiled(profile: dict, kernel: str, events_ms: float, lane: str, smi: str):
-    """A kernel's device time in a step's profile (ms per step) beside its
-    events time alone."""
-    us = sum(v for k, v in profile.items() if f"{kernel}_kernel<" in k)
-    log(f"  4K {lane} {kernel}: events {events_ms!r} ms alone, profiler device time "
-        f"{us / 1e3!r} ms per step [{smi}]")
+    def report(self) -> dict:
+        """{kernel: launches, calls held, max_abs_err, bound}; raises if a
+        kernel the paths launched was never held."""
+        unheld = sorted(set(self.launches) - set(self.rows))
+        if unheld:
+            raise AssertionError(f"launched but never held to a plain version: {unheld}")
+        return {name: {"launches": n, **self.rows[name]}
+                for name, n in sorted(self.launches.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -3351,31 +2226,7 @@ def check_corpus_stats(name: str, got: dict, want: list, idx=None):
         raise AssertionError(f"{name}: per-image stats differ from encode_image's")
 
 
-def streaming_await_all(paths, h: int, w: int, cfg, device, seed: int = 0):
-    """encode_corpus_streaming's loop as the JAX package writes it
-    (limg_tpu/parallel/corpus.py:74-88): every file staged up front, and
-    each wait on the whole pool (``await_all``). Returns (psnr, bpp)."""
-    import torch
-    from limg_tpu_torch import native
-    from limg_tpu_torch.ops.dither import image_seed
-    from limg_tpu_torch.parallel import corpus
-
-    pool = native.StagingPool()
-    try:
-        slots = [pool.stage(p, h, w) for p in paths]
-        stats = []
-        for i, (packed, mask, status) in enumerate(slots):
-            while status[0] == 0:
-                pool.await_all()
-            if status[0] == 1:
-                stats.append(torch.stack(corpus._encode_packed_stats(
-                    *corpus._upload(packed, mask, device), cfg, image_seed(seed, i))))
-        return torch.stack(stats).cpu().numpy().T
-    finally:
-        pool.close()
-
-
-def phase_main_path_corpus(device, tmp: str) -> dict:
+def phase_main_path_corpus(device, tmp: str):
     """limg_tpu_torch.parallel on the card: the mesh, the fixed-grid corpus
     (one launch, no host sync), shard bodies on one card, the block-sharded
     4K image, the merged corpus, the multichip gate, the streaming corpus
@@ -3384,7 +2235,7 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     import torch
     import limg_tpu_torch
     from limg_tpu_torch import EncodeConfig, native
-    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.kernels import launch
     from limg_tpu_torch.ops.dither import image_seed
     from limg_tpu_torch.parallel import corpus, mesh
     from limg_tpu_torch.regions import encode_image_merged_fused_device
@@ -3418,7 +2269,7 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     img4k_d = torch.from_numpy(img4k).to(device)
     torch.cuda.synchronize(device)
 
-    reset_launches()
+    launch.reset_launches()
     # 1. the mesh: one entry per card, never more than there are
     mesh1 = mesh.make_mesh(1, device=device.type)
     if mesh1 != (device,):
@@ -3429,10 +2280,11 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     except RuntimeError as e:
         log(f"  make_mesh(1) = {mesh1}; make_mesh({torch.cuda.device_count() + 1}) raised: {e}")
     # 2. the fixed-grid corpus: one launch for the shard, no host sync
-    before = kmod.launches
+    before = launch.launches["encode_fixed_p64"]
     out = mesh.encode_corpus_sharded(batch, nodither, n_devices=1, device=device)
-    if kmod.launches != before + 1:
-        raise AssertionError(f"{CORPUS_N}-image shard: {kmod.launches - before} launches, not 1")
+    if launch.launches["encode_fixed_p64"] != before + 1:
+        raise AssertionError(f"{CORPUS_N}-image shard: "
+                             f"{launch.launches['encode_fixed_p64'] - before} launches, not 1")
     check_corpus_stats(f"fixed-grid corpus ({CORPUS_N} x 1080p, 1 launch)", out,
                        want[:CORPUS_N])
     with sync_debug("error"):
@@ -3444,12 +2296,13 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     log("  the device-resident corpus ran under set_sync_debug_mode('error') up to its "
         "fetch: no host sync")
     # 3. eight shard bodies on one card, the same batch split 8 ways
-    before = kmod.launches
+    before = launch.launches["encode_fixed_p64"]
     split = mesh._fetch(*mesh._corpus_sharded(batch_d, nodither, (device,) * CORPUS_N, 0))
     for key in ("psnr", "bpp"):
         if not np.array_equal(split[key], out[key]):
             raise AssertionError(f"8 shard bodies on one card: {key} differs from one shard")
-    log(f"  {CORPUS_N} shard bodies on {device} ({kmod.launches - before} launches): per-image "
+    log(f"  {CORPUS_N} shard bodies on {device} "
+        f"({launch.launches['encode_fixed_p64'] - before} launches): per-image "
         f"stats equal the one-shard run's; mean {split['mean_psnr']!r} vs {out['mean_psnr']!r}")
     # 4. the block-sharded 4K image: one shard is encode_image, dithering on
     dec, psnr, bpp = mesh.encode_image_blocks_sharded(img4k, dither, n_devices=1, device=device)
@@ -3496,10 +2349,7 @@ def phase_main_path_corpus(device, tmp: str) -> dict:
     check_corpus_stats("mixed corpus, 1080p bucket", mix, [want[i] for i in (0, 1, 2, 3, 4)],
                        idx=[0, 1, 3, 4, 6])
     check_corpus_stats("mixed corpus, 720p bucket", mix, want_mixed, idx=[2, 5, 7])
-    launched = read_launches()
-    ran = {k: v for k, v in launched.items() if v}
-    log(f"phase 3h ok: kernel launches over the corpus calls {ran}")
-    return launched
+    log(f"phase 3h ok: kernel launches over the corpus calls {dict(launch.launches)}")
 
 
 def fixed_planes_words(h: int, w: int, ch: int, device, seed: int = 0):
@@ -3518,165 +2368,6 @@ def fixed_planes_words(h: int, w: int, ch: int, device, seed: int = 0):
     return q, dec, grid
 
 
-def phase_timing_fixed_planes(device, smi: str):
-    """fixed_planes against the composition it replaces, bit-equal in value
-    and layout on three grids: phase 3's 4K grid (480 blocks a row, so 64-block
-    tiles cross block rows), a ragged one (edge blocks cut, a tail tile) and
-    the benchmark's; timed beside it by CUDA events on the benchmark's grid.
-    Returns the rows and the max abs diff over every output compared."""
-    import torch
-    from limg_tpu_torch.kernels import fixed_planes as kfp
-
-    with open(FIXTURE) as f:
-        case = json.load(f)["cases"]["4k_rgb_nodither"]
-    sizes = ((case["height"], case["width"]), FIXED_PLANES_RAGGED, FIXED_PLANES_SIZE)
-    log("== phase 4i: the fixed grid's epilogue on",
-        ", ".join("x".join(map(str, hw[::-1])) for hw in sizes),
-        "timed at", "x".join(map(str, FIXED_PLANES_SIZE[::-1])),
-        "(CUDA events, median of", TIMED_RUNS, "runs)")
-    rows, worst = {}, 0.0
-    for hw in sizes:
-        for ch, lane in ((3, "rgb"), (4, "rgba")):
-            q, dec, grid = fixed_planes_words(*hw, ch, device)
-            got = kfp.fixed_planes_kernel(q, dec, ch, grid)
-            want = kfp.fixed_planes_reference(q, dec, ch, grid)
-            torch.cuda.synchronize(device)
-            worst = max(worst, compare_outputs(got, want))
-            for name, g, w_ in zip(("factors", "decoded", "image"), got, want):
-                if g.stride() != w_.stride():
-                    raise AssertionError(f"{hw} {lane} {name}: strides {g.stride()} vs "
-                                         f"{w_.stride()}")
-            if hw != FIXED_PLANES_SIZE:
-                continue
-            bound = kernel_bound("fixed_planes", (q, dec), got)
-            nbytes = tensor_bytes((q, dec), got)
-            planes = want[1]
-            # plain, kernel, kernel, plain: both see the same card state
-            stacks1 = time_fn(lambda: kfp.fixed_planes_reference(q, dec, ch), device)
-            assemble1 = time_fn(lambda: kfp.assemble_decoded(planes, grid, ch), device)
-            k1 = time_fn(lambda: kfp.fixed_planes_kernel(q, dec, ch, grid), device)
-            k2 = time_fn(lambda: kfp.fixed_planes_kernel(q, dec, ch, grid), device)
-            stacks2 = time_fn(lambda: kfp.fixed_planes_reference(q, dec, ch), device)
-            assemble2 = time_fn(lambda: kfp.assemble_decoded(planes, grid, ch), device)
-            k_ms = min(k1, k2)
-            p_ms = min(stacks1, stacks2) + min(assemble1, assemble2)
-            rows[lane] = (k_ms, p_ms, *bound)
-            log(f"  {lane}: kernel {k1!r} / {k2!r} ms, {nbytes / k_ms * 1e-6:.1f} GB/s = "
-                f"{100 * bound[0] / k_ms:.1f}% of the bound {bound[0]!r} ms ({nbytes / 1e9:.3f} "
-                f"GB, {bound[1]}); the two stacks {stacks1!r} / {stacks2!r} ms, "
-                f"assemble_decoded {assemble1!r} / {assemble2!r} ms [{smi}]")
-            del planes
-        del got, want
-    log(f"phase 4i ok: the epilogue equals the plain composition on the three grids (max abs "
-        f"diff {worst})")
-    return rows, worst
-
-
-def phase_timing_corpus(device, smi: str, tmp: str):
-    """The corpus paths' times: the 8 x 1080p fixed-grid corpus in one
-    launch against 8 encode_perf_step calls (and its kernel alone against
-    its plain version and bound), the 8 x 1080p merged corpus (CUDA events,
-    median of TIMED_RUNS), and four host walls of the 32-file streaming
-    corpus (median of HOST_RUNS): staging alone, encode alone, the
-    streaming loop, and the same loop with the JAX package's await_all."""
-    import torch
-    from limg_tpu_torch import EncodeConfig, encode_perf_step, native
-    from limg_tpu_torch.kernels.encode_fixed import encode_blocks_kernel, encode_blocks_reference
-    from limg_tpu_torch.ops.dither import image_seed
-    from limg_tpu_torch.parallel import corpus, mesh
-
-    log("== phase 4g: corpus paths at 1080p (CUDA events, median of", TIMED_RUNS,
-        "runs; host walls, median of", HOST_RUNS, "runs)")
-    h, w = CORPUS_HW
-    cfg = EncodeConfig(error_factor=100)
-    paths = sorted(os.path.join(tmp, f) for f in os.listdir(tmp) if f.startswith("corpus"))
-    batch = np.stack([native.read_tga(p)[..., :3] for p in paths[:CORPUS_N]])
-    batch_d = torch.from_numpy(batch).to(device)
-    mesh1 = mesh.make_mesh(1, device=device.type)
-    mpx = CORPUS_N * h * w * 1e-6
-
-    torch.cuda.reset_peak_memory_stats(device)
-    base = torch.cuda.memory_allocated(device)
-    mesh._fetch(*mesh._corpus_sharded(batch_d, cfg, mesh1, 0))
-    peak = torch.cuda.max_memory_allocated(device) - base
-    corpus_ms = time_fn(lambda: mesh._corpus_sharded(batch_d, cfg, mesh1, 0), device)
-    steps_ms = time_fn(lambda: [encode_perf_step(im, cfg, 0, device) for im in batch_d], device)
-    log(f"  fixed-grid corpus {CORPUS_N} x 1080p, one launch: {corpus_ms!r} ms = "
-        f"{mpx / corpus_ms * 1e3!r} Mpx/s; {CORPUS_N} encode_perf_step calls {steps_ms!r} ms = "
-        f"{mpx / steps_ms * 1e3!r} Mpx/s; the shard's device memory above its images "
-        f"{peak / 2**20!r} MiB [{smi}]")
-    prof = profile_step(lambda: mesh._corpus_sharded(batch_d, cfg, mesh1, 0), device,
-                        f"corpus {CORPUS_N}x1080p")
-    busy_ms = sum(prof.values()) / 1e3
-    log(f"  fixed-grid corpus: device busy {busy_ms / CORPUS_N!r} ms per image, events "
-        f"{corpus_ms / CORPUS_N!r} ms per image [{smi}]")
-    blocks = [mesh._packed_blocks(im) for im in batch_d]
-    packed = torch.cat([b[0] for b in blocks], dim=1)
-    mask = torch.cat([b[1] for b in blocks], dim=1)
-    worst = compare_outputs(encode_blocks_kernel(packed, mask, cfg, 0, emit_endpoints=True),
-                            encode_blocks_reference(packed, mask, cfg, 0, emit_endpoints=True))
-    bound = kernel_bound("encode_fixed_p64", (packed, mask, cfg),
-                         encode_blocks_kernel(packed, mask, cfg, 0))
-    kern = lambda: encode_blocks_kernel(packed, mask, cfg, 0)
-    plain = lambda: encode_blocks_reference(packed, mask, cfg, 0)
-    p1, k1, k2, p2 = (time_fn(f, device) for f in (plain, kern, kern, plain))
-    log(f"  encode_fixed_p64 on the shard ({packed.shape[1]} blocks): kernel {k1!r} / {k2!r} ms, "
-        f"plain {p1!r} / {p2!r} ms, bound {bound[0]!r} ms ({bound[1]}); max abs diff {worst} "
-        f"[{smi}]")
-
-    merged_ms = time_fn(lambda: mesh.encode_corpus_sharded_merged(
-        batch_d, cfg, n_devices=1, num_levels=MERGED_LEVELS, device=device), device)
-    log(f"  merged corpus {CORPUS_N} x 1080p (fused, {MERGED_LEVELS} levels, with its fetch): "
-        f"{merged_ms!r} ms = {mpx / merged_ms * 1e3!r} Mpx/s [{smi}]")
-
-    smpx = len(paths) * h * w * 1e-6
-
-    def staging_alone():
-        pool = native.StagingPool()
-        try:
-            slots = [pool.stage(p, h, w) for p in paths]
-            pool.await_all()
-        finally:
-            pool.close()
-        return slots, pool.threads
-
-    def encode_alone(slots):
-        stats = [torch.stack(corpus._encode_packed_stats(*corpus._upload(p, m, device), cfg,
-                                                         image_seed(0, i)))
-                 for i, (p, m, _) in enumerate(slots)]
-        return torch.stack(stats).cpu()
-
-    stage_ms, (slots, threads) = host_ms(staging_alone)
-    encode_ms, _ = host_ms(lambda: encode_alone(slots))
-    walls = {"streaming": [], "await_all": []}
-    for r in range(HOST_RUNS):      # the two loops in turns, each first in turn
-        for name in (("streaming", "await_all") if r % 2 == 0 else ("await_all", "streaming")):
-            t0 = time.perf_counter()
-            if name == "streaming":
-                corpus.encode_corpus_streaming(paths, h, w, cfg, device=device)
-            else:
-                streaming_await_all(paths, h, w, cfg, device)
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-    stream_ms, await_ms = (float(np.median(walls[k])) for k in ("streaming", "await_all"))
-    log(f"  streaming corpus, {len(paths)} TGA files of 1080p, {threads} pool "
-        f"threads (host wall ms, median of {HOST_RUNS}): staging alone {stage_ms!r}, "
-        f"encode alone (pre-staged) {encode_ms!r}, encode_corpus_streaming {stream_ms!r} "
-        f"({walls['streaming']}; {smpx / stream_ms * 1e3!r} Mpx/s), the await_all loop "
-        f"{await_ms!r} ({walls['await_all']}; {smpx / await_ms * 1e3!r} Mpx/s) [{smi}]")
-    log(f"phase 4g ok: the shard's kernel outputs equal the plain version's (max abs diff "
-        f"{worst})")
-    return worst
-
-
-def kernel_row(name, source, replaces, launches, max_abs_err, timing) -> dict:
-    """``timing``: (ms, plain ms, bound ms, bound by[, library ms]); only
-    seg_sum_fold's function has a PyTorch call (``index_add_``)."""
-    k_ms, p_ms, bound_ms, bound_by, lib_ms = (*timing, None)[:5]
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-
-
 def main():
     sys.path.insert(0, ROOT)
     import torch
@@ -3684,93 +2375,16 @@ def main():
     smi = phase_environment()
     device = torch.device("cuda", 0)
     phase_build()
-    worst = phase_compare(device)
-    worst_m = phase_compare_merged(device)
-    worst_c = phase_compare_coalesce(device)
-    worst_r = phase_compare_region(device)
-    worst_n = phase_compare_natural(device)
-    worst_s = phase_compare_segment_regions(device)
-    worst_l = phase_compare_large(device)
-    launched, launched_fp = phase_main_path(device)
-    launched_m = phase_main_path_merged(device)
-    launched_c = phase_main_path_coalesce(device)
-    launched_r = phase_main_path_rd(device)
-    launched_n = phase_main_path_natural(device)
-    phase_ltp1(device, smi)
-    launched_d = phase_main_path_dense(device)
-    launched_l = phase_main_path_levels(device)
-    launched_j, worst_j, row_j = phase_main_path_scatter(device, smi)
-    with tempfile.TemporaryDirectory() as tmp:      # the streamed corpus's TGA files
-        launched_h = phase_main_path_corpus(device, tmp)
-        rows, worst4k = phase_timing(device, smi)
-        rows_m, worst4k_m = phase_timing_merged(device, smi)
-        rows_c, worst4k_c, lost_default = phase_timing_coalesce(device, smi)
-        rows_r, worst4k_r, lost_rd = phase_timing_rd(device, smi)
-        rows_n, worst4k_n = phase_timing_natural(device, smi)
-        rows_d, worst4k_d, lost_dense = phase_timing_dense(device, smi)
-        rows_l, worst4k_l, lost_levels = phase_timing_levels(device, smi)
-        worst_g = phase_timing_corpus(device, smi, tmp)
-    rows_fp, worst_fp = phase_timing_fixed_planes(device, smi)
-    # the 4K RGB lane; RGBA is printed above
-    kernels = [kernel_row("encode_fixed_p64", KERNEL_SOURCE, REPLACES,
-                          launched + launched_h["encode_fixed_p64"],
-                          max(worst, worst4k, worst_g), rows["rgb"])]
-    for name, replaces in MERGED_REPLACES.items():
-        kernels.append(kernel_row(name, MERGED_SOURCE, replaces, launched_m[name],
-                                  max(worst_m, worst4k_m), rows_m[(name, "rgb")]))
-    for name, replaces in COALESCE_REPLACES.items():
-        kernels.append(kernel_row(name, COALESCE_SOURCE, replaces, launched_c[name],
-                                  max(worst_c, worst4k_c), rows_c[(name, "rgb")]))
-    for p in REGION_SIZES:
-        name = f"encode_region_p{p}"
-        kernels.append(kernel_row(name, REGION_SOURCE, REPLACES, launched_r[name],
-                                  max(worst_r, worst4k_r), rows_r[(p, "rgb")]))
-    for name, replaces in NATURAL_REPLACES.items():
-        kernels.append(kernel_row(name, NATURAL_SOURCE, replaces, launched_n[name],
-                                  max(worst_n, worst4k_n), rows_n[(name, "rgb")]))
-    # crush_eval_rows' launches: the composed coalesce pass (phase 3e) and
-    # the scatter crush (phase 3j)
-    kernels.append(kernel_row("crush_eval_rows", CRUSH_EVAL_SOURCE, CRUSH_EVAL_REPLACES,
-                              launched_n["crush_eval_rows"] + launched_j["crush_eval_rows"],
-                              max(worst_n, worst4k_n, worst_j),
-                              rows_n[("crush_eval_rows", "rgb")]))
-    kernels.append(kernel_row("seg_sum_fold", SEG_FOLD_SOURCE, SEG_FOLD_REPLACES,
-                              launched_j["seg_sum_fold"], worst_j, row_j))
-    kernels.append(kernel_row("fixed_planes", FIXED_PLANES_SOURCE, FIXED_PLANES_REPLACES,
-                              launched_fp, worst_fp, rows_fp["rgb"]))
-    for p in SEGMENT_SIZES:
-        name = f"segment_encode_p{p}"
-        kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE, COALESCE_REPLACES["segment_encode"],
-                                  launched_d[name], max(worst_s, worst4k_d), rows_d[(p, "rgb")]))
-    # the dense path's levels 4 and 5 (launches: phase 3i's 5- and 6-level
-    # encodes)
-    for p in LEVEL_SIZES:
-        name = f"encode_region_p{p}"
-        kernels.append(kernel_row(name, REGION_SOURCE, REPLACES, launched_l[name],
-                                  max(worst_l, worst4k_l), rows_l[name]))
-    for p in LEVEL_SIZES:
-        name = f"segment_encode_p{p}"
-        kernels.append(kernel_row(name, SEGMENT_REGION_SOURCE,
-                                  "limg_tpu/pallas_kernels/encode_segments.py:205",
-                                  launched_l[name], max(worst_l, worst4k_l), rows_l[name]))
-    # the order in which to redesign the kernels: first any slower than a
-    # PyTorch call, then by the time they lose above the bound in one
-    # default merged step, then in one RD step (each kernel's profiler
-    # device time in the step less the bounds of its launches there at
-    # their own shapes, phases 4c and 4d)
-    def lost(k, losses):
-        return losses.get(k["name"], 0.0)
-
-    behind = sorted(kernels, key=lambda k: (k["library_ms"] is None or k["ms"] <= k["library_ms"],
-                                            -lost(k, lost_default), -lost(k, lost_rd)))
-    log("redesign order (ms lost above the bound per default step / per RD step: device time "
-        "in the step less the launches' bounds, 4K RGB): " + ", ".join(
-            f"{k['name']} {lost(k, lost_default):.3f} / {lost(k, lost_rd):.3f}" for k in behind))
-    log("ms lost above the bound per dense step (3 levels, 4K RGB): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(lost_dense.items(), key=lambda kv: -kv[1])))
-    log("ms lost above the bound per dense step (5 levels, 4K RGB): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(lost_levels.items(), key=lambda kv: -kv[1])))
-    log(json.dumps({"kernels": kernels}))
+    kernels = HeldKernels()
+    for phase in (phase_main_path, phase_main_path_merged, phase_main_path_coalesce,
+                  phase_main_path_rd, phase_main_path_natural,
+                  lambda device: phase_ltp1(device, smi), phase_main_path_dense,
+                  phase_main_path_levels, phase_main_path_scatter):
+        with kernels.held():
+            phase(device)
+    with kernels.held(), tempfile.TemporaryDirectory() as tmp:   # the corpus's TGA files
+        phase_main_path_corpus(device, tmp)
+    log(json.dumps({"kernels": kernels.report()}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,6 @@ card.
 from __future__ import annotations
 
 import ctypes
-import functools
 import struct
 from typing import NamedTuple, Sequence
 
@@ -58,14 +57,11 @@ from ..ops.layout import unpack_plane
 from ..ops.match import match_decomps
 from ..ops.reduce import SegmentReducer
 from ..ops.segments import scan_steps, seg_mixed_all
-from .encode_fixed import _CRUSH_MODES, _pack_decoded, launches_region, region_level
+from . import launch
+from .encode_fixed import region_level
 
-# kernel launches since the last reset (read and reset by callers); the
-# segment encode's per region size ("segment_encode" its 8x8 blocks; the
-# dense levels 1-9 listed from the start, a larger P added at its first
-# launch)
-launches = {"match_neighbors": 0, "match_pairs": 0, "seg_mixed_all": 0, "segment_encode": 0,
-            **{f"segment_encode_p{p}": 0 for p in launches_region}}
+# the C entries: csrc/coalesce.cu's four kernels (the segment encode at
+# P = 64) and csrc/segment_region.cu's segment encode at every P > 64
 
 # the most ladder verifications segment_encode_kernel keeps per block
 MAX_LADDER_K = 16
@@ -126,56 +122,18 @@ def _as_decomp(rows: torch.Tensor, ch: int) -> Decomposition:
                                       for k in range(6)))
 
 
-def _device_route(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors the kernels take, False for CPU ones."""
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """``launch.on_card`` of tensors that must share one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise RuntimeError(f"no kernel for device {dev}")
-    return True
+    return launch.on_card(dev)
 
 
-@functools.cache
-def _library(name: str = "coalesce"):
-    """A built kernel library, with its C signatures declared: "coalesce"
-    (csrc/coalesce.cu, the four kernels, the segment encode at P = 64) or
-    "segment_region" (csrc/segment_region.cu, the segment encode at every
-    P = 64 * 4^l > 64)."""
-    from .build import load_library
-
-    lib = load_library(name)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "coalesce":
-        lib.limg_match_pairs.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-        lib.limg_match_neighbors.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr]
-        lib.limg_seg_scan.argtypes = [ptr, i32, ptr]
-        segment = lib.limg_segment_encode
-        fns = [lib.limg_match_pairs, lib.limg_match_neighbors, lib.limg_seg_scan, segment]
-        segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 10
-    else:
-        segment = lib.limg_segment_encode_region
-        segment.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 11
-        fns = [segment]
-    for fn in fns:
-        fn.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(name: str, fn_name: str, dev: torch.device, *args, library: str = "coalesce") -> None:
-    """Call ``fn_name`` of a library on the current stream; raise on error."""
-    lib = _library(library)
-    with torch.cuda.device(dev):
-        rc = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-    launches[name] = launches.get(name, 0) + 1
+def _launch(kernel: str, fn_name: str, dev: torch.device, *args,
+            library: str = "coalesce") -> None:
+    launch.call(launch.library(library), fn_name, kernel, dev, *args)
 
 
 def _check_rows(rows: torch.Tensor, ch: int, name: str) -> None:
@@ -199,7 +157,7 @@ def match_pairs_kernel(rows_a: torch.Tensor, rows_b: torch.Tensor, channels: int
     _check_rows(rows_a, channels, "rows_a")
     if rows_b.shape != rows_a.shape or rows_b.dtype != torch.float32:
         raise ValueError(f"rows_b must be {tuple(rows_a.shape)} float32")
-    if not _device_route(rows_a, rows_b):
+    if not _on_card(rows_a, rows_b):
         return match_pairs_reference(rows_a, rows_b, channels)
     n = rows_a.shape[1]
     out = torch.empty((n,), dtype=torch.bool, device=rows_a.device)
@@ -231,7 +189,7 @@ def match_neighbors_kernel(rows: torch.Tensor, channels: int):
     _check_rows(rows, channels, "rows")
     if rows.ndim != 3:
         raise ValueError(f"rows must be (7ch, by, bx), got {tuple(rows.shape)}")
-    if not _device_route(rows):
+    if not _on_card(rows):
         return match_neighbors_reference(rows, channels)
     _, by, bx = rows.shape
     r = rows.contiguous()
@@ -318,7 +276,7 @@ def seg_scan(problems: Sequence[ScanProblem]) -> list[torch.Tensor]:
     """
     dtypes = [_check_scan_problem(p) for p in problems]
     tensors = [t for p in problems for t in (p.seg, *p.rows) if t is not None]
-    if not tensors or not _device_route(*tensors):
+    if not tensors or not _on_card(*tensors):
         return seg_scan_reference(problems)
     dev = tensors[0].device
     outs, descs, keep = [], [], []
@@ -364,7 +322,7 @@ def seg_mixed_all_kernel(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_
                          f"{tuple(seg_c.shape)} {seg_c.dtype}")
     if not 0 <= n_sum <= x.shape[0]:
         raise ValueError(f"n_sum must be in [0, {x.shape[0]}], got {n_sum}")
-    if not _device_route(x, seg_c):
+    if not _on_card(x, seg_c):
         return seg_mixed_all_reference(x, seg_c, n_sum, init_max)
     if x.shape[0] == 0:
         return torch.empty_like(x)
@@ -375,11 +333,6 @@ def seg_mixed_all_kernel(x: torch.Tensor, seg_c: torch.Tensor, n_sum: int, init_
 # ---------------------------------------------------------------------------
 # segment_encode
 # ---------------------------------------------------------------------------
-
-def segment_kernel_name(pixels: int) -> str:
-    """The launch count's name of the segment encode at P = ``pixels``."""
-    return "segment_encode" if pixels == BLOCK_AREA else f"segment_encode_p{pixels}"
-
 
 def _check_segment_inputs(packed_c, mask_c, seg_c, blocks):
     if packed_c.ndim != 2 or packed_c.dtype != torch.int32:
@@ -418,7 +371,7 @@ def _segment_encode(packed_c, mask_c, seg_c, blocks, cfg: EncodeConfig, key: int
     return SegmentEncode(
         shifts=shifts,
         q=q[0] | (q[1] << 8) | (q[2] << 16) if emit_q else None,
-        dec=_pack_decoded(dec, ch),
+        dec=launch.pack_decoded(dec, ch),
         dist_blk=tree_sum(err, 0),
         count_blk=mask_i.sum(dim=0, dtype=torch.int32),
         count_mem=count,
@@ -459,7 +412,7 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
     launches the kernel on the current stream or raises.
     """
     _check_segment_inputs(packed_c, mask_c, seg_c, blocks)
-    if not _device_route(packed_c, mask_c, seg_c, blocks):
+    if not _on_card(packed_c, mask_c, seg_c, blocks):
         return segment_encode_reference(packed_c, mask_c, seg_c, blocks, cfg, key, emit_q)
     if cfg.crush_mode == "ladder" and not 1 <= cfg.ladder_k <= MAX_LADDER_K:
         raise ValueError(f"segment_encode_kernel takes ladder_k 1-{MAX_LADDER_K}, "
@@ -480,20 +433,17 @@ def segment_encode_kernel(packed_c: torch.Tensor, mask_c: torch.Tensor,
                         avg=empty(ch, n, dtype=torch.float32))
     if n:
         args = (packed_bm.data_ptr(), mask_bm.data_ptr(), seg_c.contiguous().data_ptr(),
-                blocks.contiguous().data_ptr(), n, p, ch,
-                _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
-                int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
-                cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error, key,
+                blocks.contiguous().data_ptr(), n, p, ch, *launch.crush_args(cfg, key),
                 f8_bm.data_ptr(), out.shifts.data_ptr(),
                 None if out.q is None else out.q.data_ptr(), out.dec.data_ptr(),
                 out.dist_blk.data_ptr(), out.count_blk.data_ptr(), out.count_mem.data_ptr(),
                 out.eps.data_ptr(), out.avg.data_ptr())
         if p == BLOCK_AREA:
-            _launch(segment_kernel_name(p), "limg_segment_encode", dev, *args)
+            _launch(f"segment_encode_p{p}", "limg_segment_encode", dev, *args)
         else:
             # from P = 1024 on: the segments with a member pixel, listed on
             # the card, and two counters
             scratch = empty(4 * n + 2)
-            _launch(segment_kernel_name(p), "limg_segment_encode_region", dev, *args,
+            _launch(f"segment_encode_p{p}", "limg_segment_encode_region", dev, *args,
                     scratch.data_ptr(), library="segment_region")
     return out._replace(q=None if out.q is None else out.q.t(), dec=out.dec.t())

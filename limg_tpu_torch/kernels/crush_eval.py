@@ -47,9 +47,7 @@ import torch
 from ..ops.crush import evaluate_batch
 from ..ops.fit import Decomposition
 from ..ops.layout import unpack_plane
-
-# kernel launches since the last reset (read and reset by callers)
-launches = {"crush_eval_rows": 0}
+from . import launch
 
 # the block sizes the kernel takes: 8x8 blocks and 16x16 regions, the JAX
 # kernel's limit (limg_tpu/ops/segments.py:402-403)
@@ -148,47 +146,23 @@ def crush_eval_rows_reference(packed, mask, f8_packed, eps, cands, channels: int
     return evaluate_batch(px, mask, f8, Decomposition(avg, *eps.unbind(0)), cands, channels)
 
 
-@functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
-    from .build import load_library
-
-    lib = load_library("crush_eval")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_crush_eval.argtypes = [ptr] * 6 + [i32] * 4 + [ptr] * 3
-    lib.limg_crush_eval.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def crush_eval_rows_kernel(packed, mask, f8_packed, eps, cands, channels: int):
     """Per-block (pixel max, error sum) of K candidate shift triples; see the
     module docstring. A CPU tensor goes to the plain version; a CUDA tensor
     launches the kernel on the current stream or raises."""
     _check(packed, mask, f8_packed, eps, cands, channels)
     dev = packed.device
-    if dev.type == "cpu":
+    if not launch.on_card(dev):
         return crush_eval_rows_reference(packed, mask, f8_packed, eps, cands, channels)
-    if dev.type != "cuda":
-        raise RuntimeError(f"no kernel for device {dev}")
     (p, n), k = packed.shape, cands.shape[0]
     pm = torch.empty((k, n), dtype=torch.int32, device=dev)
     be = torch.empty((k, n), dtype=torch.int32, device=dev)
     if k == 0 or n == 0:
         return pm, be
-    with torch.cuda.device(dev):
-        _launch(_library(), packed, mask, f8_packed, eps, cands, channels, pm, be,
-                torch.cuda.current_stream(dev).cuda_stream)
-    return pm, be
-
-
-def _launch(lib, packed, mask, f8_packed, eps, cands, channels: int, pm, be, stream) -> None:
-    """Launch the kernel of ``lib`` on ``stream`` into pm, be (K, N): one
-    launch for per-block triples, one per MAX_STEPS rows of a table."""
+    lib = launch.library("crush_eval")
     ins = [t.contiguous() for t in (packed, mask, f8_packed, eps)]
-    (p, n), k = packed.shape, cands.shape[0]
     table = table_of(cands)
+    # one launch for per-block triples, one per MAX_STEPS rows of a table
     if table is None:
         calls = [(cands.contiguous(), None, 0, k)]
     else:
@@ -197,12 +171,9 @@ def _launch(lib, packed, mask, f8_packed, eps, cands, channels: int, pm, be, str
                   min(MAX_STEPS, k - r0)) for r0 in range(0, k, MAX_STEPS)]
     for per_block, plan, r0, rows_k in calls:
         words = None if plan is None else (ctypes.c_int32 * len(plan))(*plan)
-        rc = lib.limg_crush_eval(*(t.data_ptr() for t in ins),
-                                 None if per_block is None else per_block.data_ptr(),
-                                 None if words is None else ctypes.addressof(words),
-                                 p, n, rows_k, channels, pm[r0:].data_ptr(), be[r0:].data_ptr(),
-                                 stream)
-        if rc != 0:
-            raise RuntimeError(f"crush_eval_rows kernel launch failed: "
-                               f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-        launches["crush_eval_rows"] += 1
+        launch.call(lib, "limg_crush_eval", "crush_eval_rows", dev,
+                    *(t.data_ptr() for t in ins),
+                    None if per_block is None else per_block.data_ptr(),
+                    None if words is None else ctypes.addressof(words),
+                    p, n, rows_k, channels, pm[r0:].data_ptr(), be[r0:].data_ptr())
+    return pm, be

@@ -33,9 +33,6 @@ cfg.dither_seed, l)``: at P = 64 the fixed grid's own key.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..config import BLOCK_AREA, EncodeConfig
@@ -46,21 +43,15 @@ from ..ops.error import weighted_error
 from ..ops.factors import extract_factors, quantize_factors
 from ..ops.fit import (ENDPOINT_FIELDS, drop_decomposition_axes, fit_blocks,
                        tree_sum)
-from ..ops.layout import to_int32_bits, unpack_plane
+from ..ops.layout import unpack_plane
+from . import launch
 
 # the largest region the kernels take: a 32768 x 32768 pixel square (level
 # 12), whose words fill 4 GiB; pixel indices stay within int32
 MAX_REGION_PIXELS = BLOCK_AREA << 24
 
-# kernel launches since the last reset (read and reset by callers): the
-# 8x8-block kernel, and the region kernel per region size (levels 1-9 are
-# listed from the start: a 4K image's level 9 is one 4096 x 4096 px region;
-# a larger P adds its key at its first launch)
-launches = 0
-launches_region = {BLOCK_AREA << 2 * lvl: 0 for lvl in range(1, 10)}
-
-_CRUSH_MODES = {"none": 0, "ladder": 1, "exhaustive": 2, "guess": 3}
-
+# the C entries: the 8x8-block kernel (csrc/encode_fixed.cu) and the region
+# kernel of every P > 64 (csrc/encode_region.cu, which also takes P)
 
 def region_level(pixels: int) -> int:
     """The quadtree level l of a region of pixels = 64 * 4^l; raises
@@ -81,13 +72,6 @@ def _check_inputs(packed: torch.Tensor, mask: torch.Tensor) -> None:
         raise ValueError(f"packed on {packed.device} but mask on {mask.device}")
 
 
-def _pack_decoded(dec: torch.Tensor, channels: int) -> torch.Tensor:
-    """(ch, P, NB) decoded channels -> packed words, alpha 0xFF for RGB."""
-    words = dec[0].to(torch.int64) + (dec[1].to(torch.int64) << 8) + (dec[2].to(torch.int64) << 16)
-    words = words + ((dec[3].to(torch.int64) << 24) if channels == 4 else 0xFF000000)
-    return to_int32_bits(words)
-
-
 def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
                             cfg: EncodeConfig, seed: int,
                             emit_endpoints: bool = False):
@@ -106,30 +90,10 @@ def encode_blocks_reference(packed: torch.Tensor, mask: torch.Tensor,
     err = (weighted_error(dec, px) * mask.to(torch.int32)).to(torch.float32)
     dist = tree_sum(err, 0)[None]
     q_packed = q[0] + (q[1] << 8) + (q[2] << 16)
-    outs = (shifts, q_packed, _pack_decoded(dec, ch), dist)
+    outs = (shifts, q_packed, launch.pack_decoded(dec, ch), dist)
     if emit_endpoints:
         outs += tuple(getattr(d, f) for f in ENDPOINT_FIELDS) + (d.avg,)
     return outs
-
-
-@functools.cache
-def _library(name: str):
-    """The built kernel library ``name``, with its C signatures declared."""
-    from .build import load_library
-
-    lib = load_library(name)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "encode_fixed":
-        lib.limg_encode_fixed_p64.argtypes = (
-            [ptr, ptr] + [i32] * 8 + [ctypes.c_uint32] + [ptr] * 7)
-        lib.limg_encode_fixed_p64.restype = i32
-    else:
-        lib.limg_encode_region.argtypes = (
-            [ptr, ptr] + [i32] * 9 + [ctypes.c_uint32] + [ptr] * 7)
-        lib.limg_encode_region.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
@@ -140,12 +104,9 @@ def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
     A CPU tensor goes to the plain version; a CUDA tensor launches the
     kernel of its P on the current stream or raises.
     """
-    global launches
     _check_inputs(packed, mask)
-    if packed.device.type == "cpu":
+    if not launch.on_card(packed.device):
         return encode_blocks_reference(packed, mask, cfg, seed, emit_endpoints)
-    if packed.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {packed.device}")
     dev = packed.device
     ch, (p, nb) = cfg.channels, packed.shape
     # block-major copies: a region's threads read its contiguous words
@@ -159,30 +120,18 @@ def encode_blocks_kernel(packed: torch.Tensor, mask: torch.Tensor,
     if emit_endpoints:
         eps = torch.empty((6, ch, nb), dtype=torch.int32, device=dev)
         avg = torch.empty((ch, nb), dtype=torch.float32, device=dev)
-    settings = (ch, _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
-                int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
-                cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
-                level_key(seed, cfg.dither_seed, region_level(p)))
+    settings = (ch, *launch.crush_args(cfg, level_key(seed, cfg.dither_seed, region_level(p))))
     outs_ptr = (shifts.data_ptr(), q_bm.data_ptr(), dec_bm.data_ptr(), dist.data_ptr(),
                 None if eps is None else eps.data_ptr(),
                 None if avg is None else avg.data_ptr())
-    name = "encode_fixed" if p == BLOCK_AREA else "encode_region"
-    lib = _library(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if p == BLOCK_AREA:
-            rc = lib.limg_encode_fixed_p64(packed_bm.data_ptr(), mask_bm.data_ptr(), nb,
-                                           *settings, *outs_ptr, stream)
-        else:
-            rc = lib.limg_encode_region(packed_bm.data_ptr(), mask_bm.data_ptr(), nb, p,
-                                        *settings, *outs_ptr, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed (P = {p}): "
-                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
     if p == BLOCK_AREA:
-        launches += 1
+        lib = launch.library("encode_fixed")
+        launch.call(lib, "limg_encode_fixed_p64", "encode_fixed_p64", dev,
+                    packed_bm.data_ptr(), mask_bm.data_ptr(), nb, *settings, *outs_ptr)
     else:
-        launches_region[p] = launches_region.get(p, 0) + 1
+        lib = launch.library("encode_region")
+        launch.call(lib, "limg_encode_region", f"encode_region_p{p}", dev,
+                    packed_bm.data_ptr(), mask_bm.data_ptr(), nb, p, *settings, *outs_ptr)
     outs = (shifts, q_bm.t(), dec_bm.t(), dist)
     if emit_endpoints:
         outs += tuple(eps.unbind(0)) + (avg,)

@@ -39,93 +39,16 @@ card.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import NamedTuple
-
 import torch
 
-from ..config import BLOCK_AREA, EncodeConfig, static_block_bits
+from ..config import BLOCK_AREA, EncodeConfig
 from ..ops import layout
-from ..ops.crush import find_shifts, force_dropped_axes
-from ..ops.decode import decode_blocks
-from ..ops.dither import dither_crush, dither_key
-from ..ops.error import weighted_error
-from ..ops.factors import extract_factors, quantize_factors
-from ..ops.fit import Decomposition, drop_decomposition_axes, fit_regions
-from ..ops.match import match_decomps, reason_bits
+from ..ops.dither import dither_key
 from ..ops.morton import MortonOrder, morton_mask
 from ..ops.reduce import GroupReducer, OwnerReducer, pairwise_tree
-from .encode_fixed import _CRUSH_MODES, _pack_decoded
-
-# kernel launches since the last reset (read and reset by callers)
-launches = {"fit_levels": 0, "owner_crush": 0}
-
-MIN_LEVELS, MAX_LEVELS = 2, 4
-
-
-class FitLevels(NamedTuple):
-    cnt0: torch.Tensor
-    f8_sel: torch.Tensor
-    eps_sel: torch.Tensor
-    avg_sel: torch.Tensor
-    owner: torch.Tensor
-    stats_bits: torch.Tensor
-    reasons: torch.Tensor
-
-
-class OwnerCrush(NamedTuple):
-    shifts: torch.Tensor
-    q: torch.Tensor | None
-    dec: torch.Tensor
-    dist: torch.Tensor
-    dist_blk: torch.Tensor
-    bpp: torch.Tensor
-
-
-def _check_words(words: torch.Tensor, levels: int) -> None:
-    if words.ndim != 2 or words.dtype != torch.int32:
-        raise ValueError(f"words must be (H, W) int32, got {tuple(words.shape)} {words.dtype}")
-    if not MIN_LEVELS <= levels <= MAX_LEVELS:
-        raise ValueError(f"levels must be {MIN_LEVELS}-{MAX_LEVELS}, got {levels}")
-
-
-def check_owner_regions(words: torch.Tensor, owner: torch.Tensor, levels: int) -> None:
-    """Raise unless ``owner`` (NB,), in row-major block order, is a
-    quadtree of regions as the fit writes it: levels 0 to ``levels`` - 1,
-    and every block of a level-l region (its aligned 2^l x 2^l square of
-    blocks, cut by the grid) owned at l. The crush kernels read a region's
-    owner from any one of its blocks, so on any other map they and their
-    plain versions would disagree."""
-    grid = layout.grid_for(*words.shape)
-    by, bx = grid.blocks_y, grid.blocks_x
-    if tuple(owner.shape) != (by * bx,):
-        raise ValueError(f"owner must be ({by * bx},), got {tuple(owner.shape)}")
-    if owner.numel() and not (int(owner.min()) >= 0 and int(owner.max()) < levels):
-        raise ValueError(f"owner levels must be 0-{levels - 1}")
-    plane = owner.reshape(by, bx)
-    for lvl in range(1, levels):
-        s = 1 << lvl
-        ys, xs = -(-by // s), -(-bx // s)
-        at = (plane == lvl).to(torch.int8)
-        # per square: is some block owned at lvl, and are all of them (the
-        # blocks outside the grid pad the first with 0, the second with 1)
-        some = torch.zeros((ys * s, xs * s), dtype=torch.int8, device=owner.device)
-        every = torch.ones_like(some)
-        some[:by, :bx] = at
-        every[:by, :bx] = at
-        some = some.reshape(ys, s, xs, s).amax(dim=(1, 3))
-        every = every.reshape(ys, s, xs, s).amin(dim=(1, 3))
-        if not torch.equal(some, every):
-            raise ValueError(f"owner is not uniform over its level-{lvl} regions")
-
-
-def _unpack(packed: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.stack([layout.unpack_plane(packed, c) for c in range(n)])
-
-
-def _pack_factors(f8: torch.Tensor) -> torch.Tensor:
-    return f8[0] | (f8[1] << 8) | (f8[2] << 16)
+from . import launch
+from .quadtree import (FitLevels, OwnerCrush, check_owner_regions, check_words, fit_levels_body,
+                       owner_crush_body, words_on_card)
 
 
 def _first_of_group(row: torch.Tensor, group: int) -> torch.Tensor:
@@ -140,7 +63,7 @@ class MortonBlocks:
     padded to whole top-level squares, in Morton order (ops/morton.py), so
     that a level-l region is an aligned group of 4^l lanes. The natural
     layout's counterpart is kernels/encode_natural.py ``NatBlocks``; the
-    plain bodies below take either.
+    plain bodies of kernels/quadtree.py take either.
 
     ``packed`` / ``mask`` (64, NBP) are the padded blocks' words and real
     pixels; ``embed`` / ``restore`` move per-block rows (..., NB) in and
@@ -189,96 +112,9 @@ class MortonBlocks:
     restore_pixels = restore
 
 
-def fit_levels_body(blocks, cfg: EncodeConfig, levels: int) -> FitLevels:
-    """The fit kernels' function on ``blocks`` (``MortonBlocks`` or
-    kernels/encode_natural.py ``NatBlocks``), whose reducers set the order
-    of the float sums."""
-    ch = cfg.channels
-    px = _unpack(blocks.packed, ch)
-    n, dev = px.shape[-1], px.device
-    owner = torch.zeros(n, dtype=torch.int32, device=dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    counts, reasons, sel, prev = [], [], None, None
-    for lvl in range(levels):
-        d, count = fit_regions(px, blocks.mask, ch, blocks.group_reducer(lvl))
-        f8 = _pack_factors(torch.stack(
-            [q.to(torch.int32) for q in quantize_factors(*extract_factors(px, d, ch))]))
-        d = drop_decomposition_axes(d, cfg.num_factors)
-        if lvl == 0:
-            sel = (f8, d)
-        else:
-            # each child region against its region's first child; empty
-            # children (grid padding) match
-            p_d, p_count = prev
-            c0 = Decomposition(*(blocks.first_of(f, lvl) for f in p_d))
-            m, stats = match_decomps(p_d, c0, ch)
-            is_child0 = blocks.first_children(lvl)
-            ok = is_child0 | m | (p_count <= 0) | (blocks.first_of(p_count, lvl) <= 0)
-            alive = blocks.combine(alive & ok, lvl, torch.logical_and)
-            owner = torch.where(alive, lvl, owner)
-            reasons.append(blocks.combine(torch.where(is_child0, 0, reason_bits(stats)), lvl,
-                                          torch.bitwise_or))
-            # alive only ever shrinks, so the last level alive is the owner
-            sel = (torch.where(alive, f8, sel[0]),
-                   Decomposition(*(torch.where(alive, a, b) for a, b in zip(d, sel[1]))))
-        counts.append(count)
-        prev = (d, count)
-
-    stats_bits = torch.zeros_like(owner)
-    for lvl in range(levels):
-        hit = blocks.leads(lvl) & (owner >= lvl) & (counts[lvl] > 0)
-        stats_bits = stats_bits | (hit.to(torch.int32) << lvl)
-    reason_rows = [torch.where(blocks.leads(lvl) & (counts[lvl] > 0), r, 0)
-                   for lvl, r in enumerate(reasons, start=1)]
-    f8_sel, d_sel = sel
-    return FitLevels(
-        cnt0=blocks.restore(counts[0]),
-        f8_sel=blocks.restore_pixels(f8_sel),
-        eps_sel=blocks.restore(torch.stack(list(d_sel[1:]))),
-        avg_sel=blocks.restore(d_sel.avg),
-        owner=blocks.restore(owner),
-        stats_bits=blocks.restore(stats_bits),
-        reasons=blocks.restore(torch.stack(reason_rows)),
-    )
-
-
-def owner_crush_body(blocks, owner: torch.Tensor, f8_sel: torch.Tensor, eps_sel: torch.Tensor,
-                     cfg: EncodeConfig, levels: int, seed: int, emit_q: bool) -> OwnerCrush:
-    """The crush kernels' function on ``blocks`` (see ``fit_levels_body``)."""
-    ch = cfg.channels
-    px = _unpack(blocks.packed, ch)
-    mask_i = blocks.mask.to(torch.int32)
-    red = blocks.owner_reducer(owner, levels)
-    eps = blocks.embed(eps_sel)
-    d = Decomposition(torch.zeros(eps.shape[1:], dtype=torch.float32, device=eps.device),
-                      *eps.unbind(0))
-    f8 = _unpack(blocks.embed_pixels(f8_sel), 3)
-    shifts = force_dropped_axes(find_shifts(px, blocks.mask, f8, d, cfg, red)[0],
-                                cfg.num_factors)
-    q = dither_crush(f8, shifts, seed, cfg.dither_seed,
-                     enabled=cfg.dithering and cfg.crush_bits, blocks=blocks.dither_blocks)
-    dec = decode_blocks(q, shifts, d, ch)
-    err = (weighted_error(dec, px) * mask_i).to(torch.float32)
-    dist_blk = red.block_sum(err)
-    count = red.sum(mask_i)
-    s_eff = torch.clamp(shifts, max=8)
-    fac_bits = (8 - s_eff[0]) * count + (8 - s_eff[1]) * count + (8 - s_eff[2]) * count
-    bpp = torch.clamp((static_block_bits(ch) + fac_bits + count // 2)
-                      // torch.clamp(count, min=1), max=0xFF)
-    bpp = bpp * (mask_i.sum(dim=0) > 0)
-    return OwnerCrush(
-        shifts=blocks.restore(shifts),
-        q=blocks.restore_pixels(_pack_factors(q)) if emit_q else None,
-        dec=blocks.restore_pixels(_pack_decoded(dec, ch)),
-        dist=blocks.restore(red.combine_sum(dist_blk)),
-        dist_blk=blocks.restore(dist_blk),
-        bpp=blocks.restore(bpp.to(torch.int32)),
-    )
-
-
 def fit_levels_reference(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
     """Plain PyTorch version of the fit kernel, on any device."""
-    _check_words(words, levels)
+    check_words(words, levels)
     return fit_levels_body(MortonBlocks(words, levels), cfg, levels)
 
 
@@ -286,44 +122,10 @@ def owner_crush_reference(words: torch.Tensor, owner: torch.Tensor, f8_sel: torc
                           eps_sel: torch.Tensor, cfg: EncodeConfig, levels: int,
                           seed: int, emit_q: bool = True) -> OwnerCrush:
     """Plain PyTorch version of the crush kernel, on any device."""
-    _check_words(words, levels)
+    check_words(words, levels)
     check_owner_regions(words, owner, levels)
     return owner_crush_body(MortonBlocks(words, levels), owner, f8_sel, eps_sel, cfg, levels,
                             seed, emit_q)
-
-
-@functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
-    from .build import load_library
-
-    lib = load_library("encode_merged")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_fit_levels.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
-    lib.limg_fit_levels.restype = i32
-    lib.limg_owner_crush.argtypes = ([ptr] + [i32] * 10 + [ctypes.c_uint32]
-                                     + [ptr] * 10)
-    lib.limg_owner_crush.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _cuda_route(words: torch.Tensor, levels: int) -> bool:
-    """True for a CUDA tensor the kernels take, False for a CPU one."""
-    if words.device.type == "cpu":
-        return False
-    if words.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {words.device}")
-    if not words.is_contiguous():
-        raise ValueError("words must be contiguous")
-    return True
-
-
-def _raise_on(rc: int, name: str, lib) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
 
 
 def fit_levels_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
@@ -332,10 +134,9 @@ def fit_levels_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> Fi
     A CPU tensor goes to the plain version; a CUDA tensor launches the
     kernel on the current stream or raises.
     """
-    _check_words(words, levels)
-    if not _cuda_route(words, levels):
+    check_words(words, levels)
+    if not words_on_card(words):
         return fit_levels_reference(words, cfg, levels)
-    lib = _library()
     dev = words.device
     h, w = words.shape
     ch, nb = cfg.channels, layout.grid_for(h, w).num_blocks
@@ -346,12 +147,8 @@ def fit_levels_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> Fi
     out = FitLevels(cnt0=empty(nb), f8_sel=empty(nb, BLOCK_AREA), eps_sel=empty(6, ch, nb),
                     avg_sel=empty(ch, nb, dtype=torch.float32), owner=empty(nb),
                     stats_bits=empty(nb), reasons=empty(levels - 1, nb))
-    with torch.cuda.device(dev):
-        rc = lib.limg_fit_levels(
-            words.data_ptr(), h, w, ch, levels, cfg.num_factors,
-            *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "fit_levels", lib)
-    launches["fit_levels"] += 1
+    launch.call(launch.library("encode_merged"), "limg_fit_levels", "fit_levels", dev,
+                words.data_ptr(), h, w, ch, levels, cfg.num_factors, *(t.data_ptr() for t in out))
     return out._replace(f8_sel=out.f8_sel.t())
 
 
@@ -362,7 +159,7 @@ def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.T
     docstring. A CPU tensor goes to the plain version; a CUDA tensor
     launches the kernel on the current stream or raises.
     """
-    _check_words(words, levels)
+    check_words(words, levels)
     ch = cfg.channels
     nb = layout.grid_for(*words.shape).num_blocks
     for name, t, shape, dtype in (("owner", owner, (nb,), torch.int32),
@@ -371,9 +168,8 @@ def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.T
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != words.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {words.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if not _cuda_route(words, levels):
+    if not words_on_card(words):
         return owner_crush_reference(words, owner, f8_sel, eps_sel, cfg, levels, seed, emit_q)
-    lib = _library()
     dev = words.device
     h, w = words.shape
     # block-major: a block's 8 lanes read its rows of 8 contiguous words
@@ -388,18 +184,11 @@ def owner_crush_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel: torch.T
     shifts, dec, bpp = empty(3, nb), empty(nb, BLOCK_AREA), empty(nb)
     q = empty(nb, BLOCK_AREA) if emit_q else None
     dist, dist_blk = empty(nb, dtype=torch.float32), empty(nb, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        rc = lib.limg_owner_crush(
-            words.data_ptr(), h, w, ch, levels,
-            _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
-            int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
-            cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
-            dither_key(seed, cfg.dither_seed),
-            owner.data_ptr(), f8_bm.data_ptr(), eps_sel.data_ptr(),
-            shifts.data_ptr(), None if q is None else q.data_ptr(), dec.data_ptr(),
-            dist.data_ptr(), dist_blk.data_ptr(), bpp.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "owner_crush", lib)
-    launches["owner_crush"] += 1
+    launch.call(launch.library("encode_merged"), "limg_owner_crush", "owner_crush", dev,
+                words.data_ptr(), h, w, ch, levels,
+                *launch.crush_args(cfg, dither_key(seed, cfg.dither_seed)),
+                owner.data_ptr(), f8_bm.data_ptr(), eps_sel.data_ptr(),
+                shifts.data_ptr(), None if q is None else q.data_ptr(), dec.data_ptr(),
+                dist.data_ptr(), dist_blk.data_ptr(), bpp.data_ptr())
     return OwnerCrush(shifts=shifts, q=None if q is None else q.t(), dec=dec.t(),
                       dist=dist, dist_blk=dist_blk, bpp=bpp)

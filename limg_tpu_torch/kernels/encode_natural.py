@@ -13,7 +13,7 @@ blocks as the Morton pair does (``nat_pairwise``: x pairs, then y pairs,
 at each level), so the two layouts give the same encode bit for bit.
 
 They return the ``FitLevels`` / ``OwnerCrush`` tuples of
-kernels/encode_merged.py, per-block rows in row-major block order, except
+kernels/quadtree.py, per-block rows in row-major block order, except
 that ``f8_sel``, ``q`` and ``dec`` are natural (8 * blocks_y, 8 *
 blocks_x) int32 planes: the padded image's own layout, which the decoded
 image is without a relayout. ``owner_crush_natural_kernel`` takes
@@ -34,28 +34,23 @@ the card.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..config import EncodeConfig
 from ..ops import layout
 from ..ops.dither import dither_key
 from ..ops.reduce import NatGroupReducer, NatOwnerReducer, nat_pairwise
-from .encode_fixed import _CRUSH_MODES
-from .encode_merged import (FitLevels, OwnerCrush, _check_words, _cuda_route, _raise_on,
-                            check_owner_regions, fit_levels_body, owner_crush_body)
-
-# kernel launches since the last reset (read and reset by callers)
-launches = {"fit_levels_natural": 0, "owner_crush_natural": 0}
+from . import launch
+from .quadtree import (FitLevels, OwnerCrush, check_owner_regions, check_words, fit_levels_body,
+                       owner_crush_body, words_on_card)
 
 
 class NatBlocks:
     """The plain versions' block order for the natural kernels: the block
     grid of the (h, w) image padded to whole top-level squares of
     2^(levels-1) blocks a side, in row-major block order; the members of
-    kernels/encode_merged.py ``MortonBlocks``, which the plain bodies there
-    use, with the natural reducers."""
+    kernels/encode_merged.py ``MortonBlocks``, which the plain bodies of
+    kernels/quadtree.py use, with the natural reducers."""
 
     def __init__(self, words: torch.Tensor, levels: int):
         h, w = words.shape
@@ -127,7 +122,7 @@ def _check_plane(name: str, t: torch.Tensor, grid: layout.BlockGrid, device) -> 
 def fit_levels_natural_reference(words: torch.Tensor, cfg: EncodeConfig,
                                  levels: int) -> FitLevels:
     """Plain PyTorch version of the natural fit kernel, on any device."""
-    _check_words(words, levels)
+    check_words(words, levels)
     return fit_levels_body(NatBlocks(words, levels), cfg, levels)
 
 
@@ -136,39 +131,19 @@ def owner_crush_natural_reference(words: torch.Tensor, owner: torch.Tensor,
                                   cfg: EncodeConfig, levels: int, seed: int,
                                   emit_q: bool = True) -> OwnerCrush:
     """Plain PyTorch version of the natural crush kernel, on any device."""
-    _check_words(words, levels)
+    check_words(words, levels)
     check_owner_regions(words, owner, levels)
     return owner_crush_body(NatBlocks(words, levels), owner, f8_sel, eps_sel, cfg, levels, seed,
                             emit_q)
-
-
-@functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
-    import ctypes
-
-    from .build import load_library
-
-    lib = load_library("encode_natural")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_fit_levels_natural.argtypes = [ptr] + [i32] * 5 + [ptr] * 8
-    lib.limg_fit_levels_natural.restype = i32
-    lib.limg_owner_crush_natural.argtypes = ([ptr] + [i32] * 10 + [ctypes.c_uint32]
-                                             + [ptr] * 10)
-    lib.limg_owner_crush_natural.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def fit_levels_natural_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: int) -> FitLevels:
     """All-levels fit, merge test and owner select in the natural layout;
     see the module docstring. A CPU tensor goes to the plain version; a
     CUDA tensor launches the kernel on the current stream or raises."""
-    _check_words(words, levels)
-    if not _cuda_route(words, levels):
+    check_words(words, levels)
+    if not words_on_card(words):
         return fit_levels_natural_reference(words, cfg, levels)
-    lib = _library()
     dev = words.device
     h, w = words.shape
     grid = layout.grid_for(h, w)
@@ -180,12 +155,9 @@ def fit_levels_natural_kernel(words: torch.Tensor, cfg: EncodeConfig, levels: in
     out = FitLevels(cnt0=empty(nb), f8_sel=empty(8 * grid.blocks_y, 8 * grid.blocks_x),
                     eps_sel=empty(6, ch, nb), avg_sel=empty(ch, nb, dtype=torch.float32),
                     owner=empty(nb), stats_bits=empty(nb), reasons=empty(levels - 1, nb))
-    with torch.cuda.device(dev):
-        rc = lib.limg_fit_levels_natural(
-            words.data_ptr(), h, w, ch, levels, cfg.num_factors,
-            *(t.data_ptr() for t in out), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "fit_levels_natural", lib)
-    launches["fit_levels_natural"] += 1
+    launch.call(launch.library("encode_natural"), "limg_fit_levels_natural",
+                "fit_levels_natural", dev, words.data_ptr(), h, w, ch, levels, cfg.num_factors,
+                *(t.data_ptr() for t in out))
     return out
 
 
@@ -196,7 +168,7 @@ def owner_crush_natural_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel:
     layout; see the module docstring. A CPU tensor goes to the plain
     version; a CUDA tensor launches the kernel on the current stream or
     raises."""
-    _check_words(words, levels)
+    check_words(words, levels)
     ch = cfg.channels
     grid = layout.grid_for(*words.shape)
     nb = grid.num_blocks
@@ -205,10 +177,9 @@ def owner_crush_natural_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel:
             raise ValueError(f"{name} must be {shape} int32 on {words.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     _check_plane("f8_sel", f8_sel, grid, words.device)
-    if not _cuda_route(words, levels):
+    if not words_on_card(words):
         return owner_crush_natural_reference(words, owner, f8_sel, eps_sel, cfg, levels, seed,
                                              emit_q)
-    lib = _library()
     dev = words.device
     h, w = words.shape
 
@@ -221,16 +192,10 @@ def owner_crush_natural_kernel(words: torch.Tensor, owner: torch.Tensor, f8_sel:
     shifts, dec, bpp = empty(3, nb), empty(*plane), empty(nb)
     q = empty(*plane) if emit_q else None
     dist, dist_blk = empty(nb, dtype=torch.float32), empty(nb, dtype=torch.float32)
-    with torch.cuda.device(dev):
-        rc = lib.limg_owner_crush_natural(
-            words.data_ptr(), h, w, ch, levels,
-            _CRUSH_MODES.get(cfg.crush_mode, 1) if cfg.crush_bits else 0,
-            int(cfg.dithering and cfg.crush_bits), cfg.ladder_k, cfg.num_factors,
-            cfg.max_pixel_bit_crush_error, cfg.max_block_bit_crush_error,
-            dither_key(seed, cfg.dither_seed),
-            owner.data_ptr(), f8_sel.data_ptr(), eps_sel.data_ptr(), shifts.data_ptr(),
-            None if q is None else q.data_ptr(), dec.data_ptr(), dist.data_ptr(),
-            dist_blk.data_ptr(), bpp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "owner_crush_natural", lib)
-    launches["owner_crush_natural"] += 1
+    launch.call(launch.library("encode_natural"), "limg_owner_crush_natural",
+                "owner_crush_natural", dev, words.data_ptr(), h, w, ch, levels,
+                *launch.crush_args(cfg, dither_key(seed, cfg.dither_seed)),
+                owner.data_ptr(), f8_sel.data_ptr(), eps_sel.data_ptr(), shifts.data_ptr(),
+                None if q is None else q.data_ptr(), dec.data_ptr(), dist.data_ptr(),
+                dist_blk.data_ptr(), bpp.data_ptr())
     return OwnerCrush(shifts=shifts, q=q, dec=dec, dist=dist, dist_blk=dist_blk, bpp=bpp)

@@ -21,16 +21,11 @@ bit: the kernel sets the alpha byte of RGB words to 0xFF.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..config import BLOCK_AREA, BLOCK_SIZE
 from ..ops import layout
-
-# kernel launches since the last reset (read and reset by callers)
-launches = 0
+from . import launch
 
 
 def _check(q_bm: torch.Tensor, dec_bm: torch.Tensor, channels: int, grid) -> None:
@@ -67,33 +62,16 @@ def fixed_planes_reference(q_bm: torch.Tensor, dec_bm: torch.Tensor, channels: i
     return factors, decoded, image
 
 
-@functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
-    from .build import load_library
-
-    lib = load_library("fixed_planes")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_fixed_planes.argtypes = [ptr] * 2 + [i32] * 5 + [ptr] * 4
-    lib.limg_fixed_planes.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def fixed_planes_kernel(q_bm: torch.Tensor, dec_bm: torch.Tensor, channels: int,
                         grid: layout.BlockGrid | None = None):
     """(factors, decoded, image) from the block-major words; see the module
     docstring. ``image`` is None without ``grid``. A CPU tensor goes to the
     plain version; a CUDA tensor (contiguous, 16-byte aligned) launches the
     kernel on the current stream or raises."""
-    global launches
     _check(q_bm, dec_bm, channels, grid)
     dev = q_bm.device
-    if dev.type == "cpu":
+    if not launch.on_card(dev):
         return fixed_planes_reference(q_bm, dec_bm, channels, grid)
-    if dev.type != "cuda":
-        raise RuntimeError(f"no kernel for device {dev}")
     if not (q_bm.is_contiguous() and dec_bm.is_contiguous()):
         raise ValueError("q_bm and dec_bm must be contiguous on the card")
     if q_bm.data_ptr() % 16 or dec_bm.data_ptr() % 16:
@@ -114,14 +92,7 @@ def fixed_planes_kernel(q_bm: torch.Tensor, dec_bm: torch.Tensor, channels: int,
             out_h, out_w = grid.blocks_y * BLOCK_SIZE, grid.blocks_x * BLOCK_SIZE
             out = torch.empty((out_h, out_w, 4), dtype=torch.uint8, device=dev)
             image = out[: grid.height, : grid.width]
-    with torch.cuda.device(dev):
-        lib = _library()
-        rc = lib.limg_fixed_planes(q_bm.data_ptr(), dec_bm.data_ptr(), nb, channels, blocks_x,
-                                   out_h, out_w, factors.data_ptr(), decoded.data_ptr(),
-                                   None if out is None else out.data_ptr(),
-                                   torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fixed_planes kernel launch failed: "
-                           f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-    launches += 1
+    launch.call(launch.library("fixed_planes"), "limg_fixed_planes", "fixed_planes",
+                dev, q_bm.data_ptr(), dec_bm.data_ptr(), nb, channels, blocks_x, out_h, out_w,
+                factors.data_ptr(), decoded.data_ptr(), None if out is None else out.data_ptr())
     return factors, decoded, image

@@ -21,15 +21,10 @@ raises; on a CPU tensor it runs the plain version.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..ops.segments import FoldPlan, fold_plan, seg_sum_plain
-
-# kernel launches since the last reset (read and reset by callers)
-launches = {"seg_sum_fold": 0}
+from . import launch
 
 
 def _check(x: torch.Tensor, seg_id: torch.Tensor, num_segments: int, plan) -> None:
@@ -58,20 +53,6 @@ def seg_sum_fold_reference(x: torch.Tensor, seg_id: torch.Tensor, num_segments: 
     return seg_sum_plain(x, seg_id, num_segments)
 
 
-@functools.cache
-def _library():
-    """The built kernel library, with its C signatures declared."""
-    from .build import load_library
-
-    lib = load_library("seg_fold")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.limg_seg_sum_fold.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 2
-    lib.limg_seg_sum_fold.restype = i32
-    lib.limg_cuda_error_string.argtypes = [i32]
-    lib.limg_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def seg_sum_fold_kernel(x: torch.Tensor, seg_id: torch.Tensor, num_segments: int,
                         plan: FoldPlan | None = None) -> torch.Tensor:
     """Per-segment left-fold sums (..., S) of float32 rows (..., NB); see the
@@ -80,23 +61,15 @@ def seg_sum_fold_kernel(x: torch.Tensor, seg_id: torch.Tensor, num_segments: int
     launches the kernel on the current stream or raises."""
     _check(x, seg_id, num_segments, plan)
     dev = x.device
-    if dev.type == "cpu":
+    if not launch.on_card(dev):
         return seg_sum_fold_reference(x, seg_id, num_segments)
-    if dev.type != "cuda":
-        raise RuntimeError(f"no kernel for device {dev}")
     plan = fold_plan(seg_id, num_segments) if plan is None else plan
     nb = x.shape[-1]
     rows = x.reshape(-1, nb).contiguous()
     out = torch.empty((rows.shape[0], num_segments), dtype=torch.float32, device=dev)
     if out.numel():
         order, starts = plan.order.contiguous(), plan.starts.contiguous()
-        with torch.cuda.device(dev):
-            lib = _library()
-            rc = lib.limg_seg_sum_fold(rows.data_ptr(), order.data_ptr(), starts.data_ptr(),
-                                       rows.shape[0], nb, num_segments, out.data_ptr(),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"seg_sum_fold kernel launch failed: "
-                               f"{lib.limg_cuda_error_string(rc).decode()} ({rc})")
-        launches["seg_sum_fold"] += 1
+        launch.call(launch.library("seg_fold"), "limg_seg_sum_fold", "seg_sum_fold",
+                    dev, rows.data_ptr(), order.data_ptr(), starts.data_ptr(), rows.shape[0],
+                    nb, num_segments, out.data_ptr())
     return out.reshape(*x.shape[:-1], num_segments)

@@ -72,8 +72,9 @@ from .encoder import _as_image_tensor, resolve_device
 from .kernels.coalesce import (ScanProblem, match_neighbors_kernel, match_pairs_kernel,
                                seg_scan, segment_encode_composed, segment_encode_kernel)
 from .kernels.encode_fixed import encode_blocks_kernel
-from .kernels.encode_merged import MAX_LEVELS, MIN_LEVELS, fit_levels_kernel, owner_crush_kernel
+from .kernels.encode_merged import fit_levels_kernel, owner_crush_kernel
 from .kernels.encode_natural import fit_levels_natural_kernel, owner_crush_natural_kernel
+from .kernels.quadtree import MAX_LEVELS, MIN_LEVELS
 from .ops import layout
 from .ops.dither import coalesce_key
 from .ops.error import max_possible_error

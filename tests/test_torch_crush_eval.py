@@ -29,6 +29,7 @@ from limg_tpu_torch import regions
 from limg_tpu_torch.config import EncodeConfig
 from limg_tpu_torch.kernels import coalesce as kc
 from limg_tpu_torch.kernels import crush_eval as kce
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.ops import crush as tcrush
 from limg_tpu_torch.ops.dither import coalesce_key
 from limg_tpu_torch.ops.fit import Decomposition
@@ -219,9 +220,9 @@ def test_composed_segment_encode_is_the_plain_version_on_the_cpu():
 
     buf = seeded_run_buffer(np.random.default_rng(9), 300, 3, torch.device("cpu"))
     cfg = EncodeConfig(error_factor=100, dithering=True)
-    before = dict(kce.launches)
+    before = launch.launches.copy()
     got = kc.segment_encode_composed(*buf, cfg, 0x5EED)
     want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
-    assert kce.launches == before
+    assert launch.launches == before
     for name in want._fields:
         assert torch.equal(getattr(got, name), getattr(want, name)), name

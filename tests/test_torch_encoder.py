@@ -25,6 +25,7 @@ from limg_tpu_torch.config import EncodeConfig, config_from_jax
 from limg_tpu_torch.encoder import encode_image_device, encode_perf_step
 from limg_tpu_torch.kernels import build
 from limg_tpu_torch.kernels import encode_fixed as kmod
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.ops import layout
 from limg_tpu_torch.ops.fit import ENDPOINT_FIELDS
 from tests.conftest import make_test_image
@@ -107,10 +108,10 @@ def test_wrapper_on_cpu_runs_plain_version():
     img = _image("37x61", 4)
     cfg = EncodeConfig(error_factor=100, has_alpha=True, dithering=True)
     packed, mask, _ = layout.blockify_packed(torch.from_numpy(img))
-    before = kmod.launches
+    before = launch.launches.copy()
     got = kmod.encode_blocks_kernel(packed, mask, cfg, 3, emit_endpoints=True)
     want = kmod.encode_blocks_reference(packed, mask, cfg, 3, emit_endpoints=True)
-    assert kmod.launches == before      # no kernel on the CPU
+    assert launch.launches == before      # no kernel on the CPU
     assert len(got) == 11
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -21,6 +21,7 @@ from limg_tpu_torch import EncodeConfig
 from limg_tpu_torch.encoder import (_as_image_tensor, _encode_blocks, _packed_blocks,
                                     encode_blocks, encode_image_device)
 from limg_tpu_torch.kernels import fixed_planes as kfp
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.kernels.encode_fixed import encode_blocks_reference
 from limg_tpu_torch.ops import layout
 from limg_tpu_torch.ops.error import psnr as weighted_psnr
@@ -115,9 +116,9 @@ def test_encode_image_device_on_the_cpu_is_unchanged(channels):
     _encode_blocks agree, the image only with a grid."""
     img = case_images(45, 67)["rgb" if channels == 3 else "rgba"]
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4)
-    before = kfp.launches
+    before = launch.launches.copy()
     decoded, res, grid = encode_image_device(img, cfg, 3, "cpu")
-    assert kfp.launches == before
+    assert launch.launches == before
     packed, mask, _ = _packed_blocks(_as_image_tensor(img, torch.device("cpu")))
     outs = encode_blocks_reference(packed, mask, cfg, 3)
     for got, words, n in ((res.factors, outs[1], 3), (res.decoded, outs[2], channels)):
@@ -132,7 +133,7 @@ def test_encode_image_device_on_the_cpu_is_unchanged(channels):
     for a, b in ((alone.factors, with_grid.factors), (alone.decoded, with_grid.decoded),
                  (alone.shifts, res.shifts)):
         assert torch.equal(a, b)
-    assert kfp.launches == before
+    assert launch.launches == before
 
 
 @pytest.mark.parametrize("lane", ["rgb", "rgba"])

@@ -20,6 +20,7 @@ from chip_smoke import FIXED_PLANES_SIZE, fixed_planes_words, small_image, with_
 from limg_tpu_torch import EncodeConfig
 from limg_tpu_torch.encoder import _packed_blocks, encode_blocks, encode_image_device
 from limg_tpu_torch.kernels import fixed_planes as kfp
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.kernels.encode_fixed import encode_blocks_kernel
 
 pytestmark = pytest.mark.cuda
@@ -46,19 +47,21 @@ def _assert_same(got, want, image_strides: bool = True):
 # edge blocks cut by the height, the width and both; one block; one block
 # row; blocks_x a multiple of the kernel's 64-block tile and not; NB a
 # multiple of it and not (1000 x 750: 125 x 94 blocks, 11,750 = 183 tiles
-# and 38; 8 x 520: 65 blocks); the benchmark's 8192 x 5464 grid
+# and 38; 8 x 520: 65 blocks); a ragged 750 x 997 image (94 blocks a row,
+# 125 rows, cut at both edges); the 4K test images' grid (480 blocks a row:
+# tiles cross block rows); the benchmark's 8192 x 5464 grid
 GRIDS = [(1000, 750), (750, 1000), (37, 61), (8, 8), (5, 3), (8, 520), (64, 256), (16, 512),
-         FIXED_PLANES_SIZE]
+         (997, 750), (2160, 3840), FIXED_PLANES_SIZE]
 
 
 @pytest.mark.parametrize("h,w", GRIDS)
 @pytest.mark.parametrize("channels", [3, 4])
 def test_kernel_matches_plain_version(device, h, w, channels):
     q, dec, grid = fixed_planes_words(h, w, channels, device, seed=h + w)
-    before = kfp.launches
+    before = launch.launches["fixed_planes"]
     got = kfp.fixed_planes_kernel(q, dec, channels, grid)
     torch.cuda.synchronize(device)
-    assert kfp.launches == before + 1
+    assert launch.launches["fixed_planes"] == before + 1
     # a one-block RGBA grid: the plain assembly's reshape is then a view of
     # its uint8 planes (channel stride 64), the kernel's image contiguous
     _assert_same(got, kfp.fixed_planes_reference(q, dec, channels, grid),
@@ -105,15 +108,15 @@ def test_encode_image_device_outputs_and_launches(device, h, w, channels):
     img = small_image(h, w)
     img = img if channels == 3 else with_alpha(img)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4)
-    before = kfp.launches
+    before = launch.launches["fixed_planes"]
     decoded, res, grid = encode_image_device(img, cfg, 5, device)
     torch.cuda.synchronize(device)
-    assert kfp.launches == before + 1
+    assert launch.launches["fixed_planes"] == before + 1
     packed, mask, _ = _packed_blocks(torch.from_numpy(img).to(device))
     _, q_packed, dec_packed = encode_blocks_kernel(packed, mask, cfg, 5)[:3]
     want = kfp.fixed_planes_reference(q_packed.t(), dec_packed.t(), channels, grid)
     _assert_same((res.factors, res.decoded, decoded), want)
-    before = kfp.launches
+    before = launch.launches["fixed_planes"]
     alone = encode_blocks(packed, mask, cfg, 5)
-    assert kfp.launches == before + 1
+    assert launch.launches["fixed_planes"] == before + 1
     _assert_same((alone.factors, alone.decoded, None), (*want[:2], None))

@@ -14,14 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, LARGE_REGION_LANES, LARGE_SEGMENT_SPANS,
-                        LARGE_SETTINGS, RAGGED_SIZES, ROUNDS_PIXELS, ROUNDS_SETTINGS,
-                        SEGMENT_LANES, every_lane_a_member, owner_segment_map,
-                        region_edge_buffers, region_run_buffer, seeded_rows, seeded_run_buffer,
-                        seg_fold_cases, seg_map, small_image, with_alpha)
+from chip_smoke import (EDGE_IMAGE, EDGE_SETTINGS, LARGE_IMAGE, LARGE_REGION_LANES,
+                        LARGE_SEGMENT_SPANS, LARGE_SETTINGS, RAGGED_SIZES, ROUNDS_PIXELS,
+                        ROUNDS_SETTINGS, SEGMENT_LANES, every_lane_a_member, image_run_buffer,
+                        owner_segment_map, region_edge_buffers, region_run_buffer, seeded_rows,
+                        seeded_run_buffer, seg_fold_cases, seg_map, small_image, with_alpha)
 import limg_tpu_torch
 from limg_tpu_torch import EncodeConfig, bitstream
 from limg_tpu_torch.kernels import encode_fixed as kmod
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.ops import layout
 from tools import record_torch_ltp1_reference as lrec
 from tools import record_torch_merged_reference as mrec
@@ -60,10 +61,10 @@ def test_kernel_matches_plain_version(device, channels, mode, num_factors, dithe
     packed, mask = _blocks(45, 67, channels, 11, device)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = kmod.launches
+    before = launch.launches["encode_fixed_p64"]
     got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
     torch.cuda.synchronize(device)
-    assert kmod.launches == before + 1
+    assert launch.launches["encode_fixed_p64"] == before + 1
     want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, i
@@ -85,10 +86,10 @@ def test_region_kernel_matches_plain_version(device, p, channels, mode, num_fact
     packed, mask, _ = layout.blockify_words(words, int(p ** 0.5))
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = dict(kmod.launches_region)
+    before = launch.launches.copy()
     got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
     torch.cuda.synchronize(device)
-    assert kmod.launches_region == {k: v + (k == p) for k, v in before.items()}
+    assert launch.launches - before == {f"encode_region_p{p}": 1}
     want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, i
@@ -98,15 +99,19 @@ def test_region_kernel_matches_plain_version(device, p, channels, mode, num_fact
             assert torch.equal(g, w), i
 
 
+@pytest.mark.parametrize("image", ["synthetic", "make_4k"])
 @pytest.mark.parametrize("buffer", ["grid", "all-masked row and column"])
 @pytest.mark.parametrize("channels", [3, 4])
 @pytest.mark.parametrize("p", [64, 256, 1024, 4096])
-def test_region_kernel_at_its_edges(device, p, channels, buffer):
+def test_region_kernel_at_its_edges(device, p, channels, buffer, image):
     """csrc/region_encode.cuh where a CTA is part-filled or a region is
     empty: 96 x 160 px leaves the last CTA with 16 of its 32 blocks at P =
     64, 4 of 8 regions at 256, 1 of 2 at 1024; a grid one region row and
     column larger than the image adds regions with no pixel inside."""
-    words = _words(*EDGE_IMAGE, channels, 23, device)
+    if image == "synthetic":
+        words = _words(*EDGE_IMAGE, channels, 23, device)
+    else:
+        words = _image_words(f"{EDGE_IMAGE[0]}x{EDGE_IMAGE[1]}", channels, device)
     packed, mask = region_edge_buffers(words, p)[buffer]
     if buffer != "grid":
         assert not mask.any(dim=0).all()
@@ -149,17 +154,55 @@ def _words(h, w, ch, seed, device):
     return words_of(torch.from_numpy(np.ascontiguousarray(img)).to(device))
 
 
-def _assert_same(got, want):
-    for name in want._fields:
-        g, w = getattr(got, name), getattr(want, name)
+def _assert_same(got, want, case=()):
+    """Kernel outputs (a tuple, named or not; None where not emitted) equal
+    the plain version's: integers bit for bit, floats within 1e-6 relative."""
+    names = getattr(want, "_fields", range(len(want)))
+    for name, g, w in zip(names, got, want, strict=True):
         if w is None:
-            assert g is None, name
+            assert g is None, (case, name)
             continue
-        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, name
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, (case, name)
         if g.dtype.is_floating_point:
             torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
         else:
-            assert torch.equal(g, w), name
+            assert torch.equal(g, w), (case, name)
+
+
+# crush settings held on the test images: every mode at num_factors 3, the
+# ladder at 1 and 2, dithering off and on; exhaustive at 1 and guess at 2
+SETTINGS = ([(mode, 3, dith) for mode in ("ladder", "exhaustive", "guess", "none")
+             for dith in (False, True)]
+            + [("ladder", nf, dith) for nf in (1, 2) for dith in (False, True)]
+            + [("exhaustive", 1, False), ("guess", 2, True)])
+# the segment encode's settings on seeded, edge and real run buffers, and
+# its ladder at K = 1 and 16 and at error factor 10 (K, error factor)
+SEGMENT_SETTINGS = [("ladder", 3, False), ("ladder", 3, True), ("exhaustive", 1, False),
+                    ("guess", 2, True), ("none", 3, False), ("ladder", 2, True)]
+SEGMENT_LADDER_ENDS = ((1, 100), (16, 100), (8, 10))
+
+
+def _image(name: str) -> np.ndarray:
+    """A test image by "HxW": the noisy gradient of ``small_image`` at 40 x 56
+    and 70 x 90, else a crop of tools/make_test_image's 4K photo."""
+    from tools.make_test_image import make_4k
+
+    h, w = map(int, name.split("x"))
+    return small_image(h, w) if (h, w) in ((40, 56), (70, 90)) else make_4k(h, w)
+
+
+def _image_words(name: str, channels: int, device):
+    """The (H, W) words of ``_image(name)``, RGB or RGBA (gradient alpha)."""
+    from limg_tpu_torch.encoder import _as_image_tensor
+    from limg_tpu_torch.regions import _words as words_of
+
+    rgb = _image(name)
+    return words_of(_as_image_tensor(rgb if channels == 3 else with_alpha(rgb), device))
+
+
+def _cfg(channels: int, mode: str, num_factors: int, dithering: bool) -> EncodeConfig:
+    return EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
+                        dithering=dithering, num_factors=num_factors)
 
 
 @pytest.mark.parametrize("levels", [2, 3, 4])
@@ -175,7 +218,7 @@ def test_merged_kernels_match_plain_versions(device, channels, mode, num_factors
     words = _words(75, 101, channels, 13, device)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = dict(km.launches)
+    before = launch.launches.copy()
     fit = km.fit_levels_kernel(words, cfg, levels)
     torch.cuda.synchronize(device)
     want = km.fit_levels_reference(words, cfg, levels)
@@ -184,7 +227,7 @@ def test_merged_kernels_match_plain_versions(device, channels, mode, num_factors
     torch.cuda.synchronize(device)
     _assert_same(got, km.owner_crush_reference(words, want.owner, want.f8_sel, want.eps_sel,
                                                cfg, levels, 5))
-    assert km.launches == {k: v + 1 for k, v in before.items()}
+    assert launch.launches - before == {"fit_levels": 1, "owner_crush": 1}
 
 
 
@@ -197,13 +240,14 @@ def test_match_kernels_match_plain_versions(device, channels):
     from limg_tpu_torch.kernels import coalesce as kc
 
     rng = np.random.default_rng(channels)
-    a = torch.from_numpy(seeded_rows(rng, 5000, channels)).to(device)
+    a = torch.from_numpy(seeded_rows(rng, 16132, channels)).to(device)
     b = a + (torch.rand(a.shape, device=device) < 0.3) * torch.randint(0, 6, a.shape, device=device)
-    before = dict(kc.launches)
+    before = launch.launches.copy()
     got = kc.match_pairs_kernel(a, b, channels)
     torch.cuda.synchronize(device)
     assert got.is_cuda and torch.equal(got, kc.match_pairs_reference(a, b, channels))
-    for n in (1, 31, 32, 33, 127, 128, 129):   # part-filled warps and CTAs
+    # part-filled warps and CTAs, and many CTAs
+    for n in (1, 31, 32, 33, 127, 128, 129, 3000):
         got = kc.match_pairs_kernel(a[:, :n].contiguous(), b[:, :n].contiguous(), channels)
         torch.cuda.synchronize(device)
         assert torch.equal(got, kc.match_pairs_reference(a[:, :n], b[:, :n], channels)), n
@@ -214,11 +258,11 @@ def test_match_kernels_match_plain_versions(device, channels):
         torch.cuda.synchronize(device)
         for g, w in zip(got, kc.match_neighbors_reference(plane, channels)):
             assert torch.equal(g, w), (by, bx)
-    assert kc.launches["match_pairs"] == before["match_pairs"] + 8
-    assert kc.launches["match_neighbors"] == before["match_neighbors"] + 4
+    assert launch.launches["match_pairs"] == before["match_pairs"] + 9
+    assert launch.launches["match_neighbors"] == before["match_neighbors"] + 4
 
 
-@pytest.mark.parametrize("n", [1, 1000, 5000])
+@pytest.mark.parametrize("n", [1, 1000, 5000, 129600])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("n_sum", [0, 1, 3])
 def test_seg_scan_kernel_matches_plain_version(device, n, dtype, n_sum):
@@ -230,14 +274,14 @@ def test_seg_scan_kernel_matches_plain_version(device, n, dtype, n_sum):
         x = torch.from_numpy(rng.integers(-2**20, 2**20, (3, n)).astype(np.int32)).to(device)
     else:
         x = torch.from_numpy((rng.standard_normal((3, n)) * 100).astype(np.float32)).to(device)
-    before = kc.launches["seg_mixed_all"]
+    before = launch.launches["seg_mixed_all"]
     got = kc.seg_mixed_all_kernel(x, seg, n_sum)
     torch.cuda.synchronize(device)
     assert torch.equal(got, kc.seg_mixed_all_reference(x, seg, n_sum))
-    assert kc.launches["seg_mixed_all"] == before + 1
+    assert launch.launches["seg_mixed_all"] == before + 1
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, 2])
 def test_batched_seg_scan_matches_plain_version(device, seed):
     """Problems of every size around the 2,048-lane tiles, int and float
     rows of sum, max and min, column problems: one launch a batch of up to
@@ -246,12 +290,12 @@ def test_batched_seg_scan_matches_plain_version(device, seed):
     from limg_tpu_torch.kernels import coalesce as kc
 
     for name, batch in scan_batches(np.random.default_rng(seed), device).items():
-        before = kc.launches["seg_mixed_all"]
+        before = launch.launches["seg_mixed_all"]
         got = kc.seg_scan(batch)
         torch.cuda.synchronize(device)
         for g, w in zip(got, kc.seg_scan_reference(batch), strict=True):
             assert g.is_cuda and torch.equal(g, w), name
-        assert kc.launches["seg_mixed_all"] == before + -(-len(batch) // kc.SCAN_MAX_PROBLEMS)
+        assert launch.launches["seg_mixed_all"] == before + -(-len(batch) // kc.SCAN_MAX_PROBLEMS)
 
 
 @pytest.mark.parametrize("policy", ["match", "rd"])
@@ -269,10 +313,10 @@ def test_run_building_scans_launch_once_per_stage(device, channels, policy):
     if channels == 4:
         img = np.dstack([img, np.full(img.shape[:2], 255, np.uint8)])
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, dithering=False)
-    before = kc.launches["seg_mixed_all"]
+    before = launch.launches["seg_mixed_all"]
     calls = capture_coalesce_calls(lambda: encode_image_merged(
         img, cfg, merge_policy=policy, rd_lambda=0.01, device=device))["seg_scan"]
-    assert kc.launches["seg_mixed_all"] == before + 3 == before + len(calls)
+    assert launch.launches["seg_mixed_all"] == before + 3 == before + len(calls)
     for args, kwargs in calls:
         for g, w in zip(kc.seg_scan(*args, **kwargs), kc.seg_scan_reference(*args, **kwargs),
                         strict=True):
@@ -299,10 +343,10 @@ def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num
     buf = seeded_run_buffer(rng, 700, channels, device)
     cfg = EncodeConfig(error_factor=error_factor, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors, ladder_k=ladder_k)
-    before = kc.launches["segment_encode"]
+    before = launch.launches["segment_encode_p64"]
     got = kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD)
     torch.cuda.synchronize(device)
-    assert kc.launches["segment_encode"] == before + 1
+    assert launch.launches["segment_encode_p64"] == before + 1
     _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x1234ABCD))
 
 
@@ -310,6 +354,7 @@ def test_segment_encode_kernel_matches_plain_version(device, channels, mode, num
 @pytest.mark.parametrize("mode,num_factors,dithering,ladder_k", [
     ("ladder", 3, True, 8), ("exhaustive", 1, False, 8), ("guess", 2, True, 8),
     ("none", 3, False, 8), ("ladder", 2, False, 1), ("ladder", 3, False, 16),
+    ("ladder", 3, False, 8), ("ladder", 2, True, 8),
 ])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_segment_encode_kernel_at_its_edges(device, channels, mode, num_factors, dithering,
@@ -402,7 +447,7 @@ def test_natural_kernels_match_plain_versions(device, channels, mode, num_factor
     words = _words(75, 101, channels, 13, device)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = dict(kn.launches)
+    before = launch.launches.copy()
     fit = kn.fit_levels_natural_kernel(words, cfg, levels)
     torch.cuda.synchronize(device)
     want = kn.fit_levels_natural_reference(words, cfg, levels)
@@ -411,7 +456,7 @@ def test_natural_kernels_match_plain_versions(device, channels, mode, num_factor
     got = kn.owner_crush_natural_kernel(*args)
     torch.cuda.synchronize(device)
     _assert_same(got, kn.owner_crush_natural_reference(*args))
-    assert kn.launches == {k: v + 1 for k, v in before.items()}
+    assert launch.launches - before == {"fit_levels_natural": 1, "owner_crush_natural": 1}
 
 
 @pytest.mark.parametrize("k", [1, 8, 27, 729])
@@ -426,10 +471,10 @@ def test_crush_eval_kernel_matches_plain_version(device, channels, p, k):
         packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
            for a in (packed, mask, f8p, eps, cands)]
-    before = kce.launches["crush_eval_rows"]
+    before = launch.launches["crush_eval_rows"]
     got = kce.crush_eval_rows_kernel(*ins, channels)
     torch.cuda.synchronize(device)
-    assert kce.launches["crush_eval_rows"] == before + 1
+    assert launch.launches["crush_eval_rows"] == before + 1
     for g, w in zip(got, kce.crush_eval_rows_reference(*ins, channels)):
         assert g.is_cuda and torch.equal(g, w)
 
@@ -463,10 +508,10 @@ def test_crush_eval_kernel_matches_plain_version_on_tables(device, channels, p, 
     ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
            for a in (packed, mask, f8p, eps)]
     cands = _const_cands(rows, 333, device)
-    before = kce.launches["crush_eval_rows"]
+    before = launch.launches["crush_eval_rows"]
     got = kce.crush_eval_rows_kernel(*ins, cands, channels)
     torch.cuda.synchronize(device)
-    assert kce.launches["crush_eval_rows"] == before + -(-len(rows) // kce.MAX_STEPS)
+    assert launch.launches["crush_eval_rows"] == before + -(-len(rows) // kce.MAX_STEPS)
     for g, w in zip(got, kce.crush_eval_rows_reference(*ins, cands, channels)):
         assert g.is_cuda and torch.equal(g, w)
 
@@ -479,16 +524,15 @@ def test_crush_eval_kernel_matches_plain_version_on_tables(device, channels, p, 
 def test_composed_segment_encode_matches_segment_kernel(device, channels, mode, num_factors,
                                                         dithering):
     from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels import crush_eval as kce
 
     rng = np.random.default_rng(channels * 10 + num_factors)
     buf = seeded_run_buffer(rng, 700, channels, device)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = kce.launches["crush_eval_rows"]
+    before = launch.launches["crush_eval_rows"]
     got = kc.segment_encode_composed(*buf, cfg, 0x1234ABCD)
     torch.cuda.synchronize(device)
-    assert (kce.launches["crush_eval_rows"] > before) == (mode != "none")
+    assert (launch.launches["crush_eval_rows"] > before) == (mode != "none")
     _assert_same(got, kc.segment_encode_kernel(*buf, cfg, 0x1234ABCD))
 
 
@@ -517,7 +561,7 @@ def test_ltp1_stream_of_the_card_encode_is_jaxs(device, name):
 @pytest.mark.parametrize("mode,num_factors,ladder_k,error_factor", [
     ("ladder", 3, 8, 100), ("ladder", 2, 8, 100), ("exhaustive", 1, 8, 100),
     ("guess", 3, 8, 100), ("none", 3, 8, 100), ("ladder", 3, 1, 100), ("ladder", 2, 16, 100),
-    ("ladder", 3, 16, 10),
+    ("ladder", 3, 16, 10), ("guess", 2, 8, 100), ("ladder", 3, 16, 100), ("ladder", 3, 8, 10),
 ])
 @pytest.mark.parametrize("channels", [3, 4])
 @pytest.mark.parametrize("p", [256, 1024, 4096])
@@ -533,12 +577,12 @@ def test_segment_encode_kernel_at_large_regions(device, p, channels, mode, num_f
     buf = region_run_buffer(rng, p, n, channels, device, empty_tail=n // 6, saturate=p == 4096)
     cfg = EncodeConfig(error_factor=error_factor, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors, ladder_k=ladder_k)
-    name = kc.segment_kernel_name(p)
-    before = kc.launches[name]
+    name = f"segment_encode_p{p}"
+    before = launch.launches[name]
     got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
     want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
     torch.cuda.synchronize(device)
-    assert kc.launches[name] == before + 1
+    assert launch.launches[name] == before + 1
     for f in got._fields:
         assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
 
@@ -581,12 +625,12 @@ def test_segment_encode_kernel_at_cluster_edges(device, case, channels, mode, nu
     p, buf = _cluster_edge_buffer(case, channels, device)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    name = kc.segment_kernel_name(p)
-    before = kc.launches[name]
+    name = f"segment_encode_p{p}"
+    before = launch.launches[name]
     got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
     want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
     torch.cuda.synchronize(device)
-    assert kc.launches[name] == before + 1
+    assert launch.launches[name] == before + 1
     for f in got._fields:
         assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
 
@@ -605,12 +649,12 @@ def test_segment_encode_kernel_over_rounds_of_items(device, channels, mode, num_
                             spans=[1, 2], saturate=True)
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    name = kc.segment_kernel_name(ROUNDS_PIXELS)
-    before = kc.launches[name]
+    name = f"segment_encode_p{ROUNDS_PIXELS}"
+    before = launch.launches[name]
     got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
     want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
     torch.cuda.synchronize(device)
-    assert kc.launches[name] == before + 1
+    assert launch.launches[name] == before + 1
     for f in got._fields:
         assert torch.equal(getattr(got, f).contiguous(), getattr(want, f).contiguous()), f
 
@@ -637,20 +681,24 @@ def test_large_region_kernel_matches_plain_version(device, p, channels):
     shared memory) on
     seeded buffers (all- and half-masked regions, a saturated region whose
     block-error sum wraps int32 from P = 65,536 on) and on a ragged image's
-    grid with an all-masked row and column, in every crush mode."""
+    grid with an all-masked row and column (a seeded image and a make_4k
+    crop), and at P = 65,536 on one region alone, in every crush mode."""
     rng = np.random.default_rng(p + channels)
-    words = _words(300, 700, channels, 29, device)
-    bufs = {"seeded": region_run_buffer(rng, p, LARGE_REGION_LANES[p], channels, device,
-                                        saturate=True)[:2],
-            **region_edge_buffers(words, p)}
+    words = _words(*LARGE_IMAGE, channels, 29, device)
+    seeded = region_run_buffer(rng, p, LARGE_REGION_LANES[p], channels, device, saturate=True)
+    image = _image_words(f"{LARGE_IMAGE[0]}x{LARGE_IMAGE[1]}", channels, device)
+    bufs = {"seeded": seeded[:2], **region_edge_buffers(words, p),
+            **{f"make_4k {k}": b for k, b in region_edge_buffers(image, p).items()}}
+    if p == 65536:   # the saturated region alone: one cluster
+        bufs["one region"] = tuple(t[:, :1].contiguous() for t in seeded[:2])
     for name, (packed, mask) in bufs.items():
         for mode, num_factors, dithering in LARGE_SETTINGS:
             cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                                dithering=dithering, num_factors=num_factors)
-            before = kmod.launches_region[p]
+            before = launch.launches[f"encode_region_p{p}"]
             got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
             torch.cuda.synchronize(device)
-            assert kmod.launches_region[p] == before + 1
+            assert launch.launches[f"encode_region_p{p}"] == before + 1
             want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
             for i, (g, w) in enumerate(zip(got, want)):
                 assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, (name, mode, i)
@@ -671,10 +719,10 @@ def test_region_kernel_at_level_9(device, channels, mode, num_factors, dithering
                                      channels, device, saturate=True)[:2]
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                        dithering=dithering, num_factors=num_factors)
-    before = kmod.launches_region[ROUNDS_PIXELS]
+    before = launch.launches[f"encode_region_p{ROUNDS_PIXELS}"]
     got = kmod.encode_blocks_kernel(packed, mask, cfg, 5, emit_endpoints=True)
     torch.cuda.synchronize(device)
-    assert kmod.launches_region[ROUNDS_PIXELS] == before + 1
+    assert launch.launches[f"encode_region_p{ROUNDS_PIXELS}"] == before + 1
     want = kmod.encode_blocks_reference(packed, mask, cfg, 5, emit_endpoints=True)
     for i, (g, w) in enumerate(zip(got, want)):
         if g.dtype.is_floating_point:
@@ -683,28 +731,30 @@ def test_region_kernel_at_level_9(device, channels, mode, num_factors, dithering
             assert torch.equal(g, w), i
 
 
-@pytest.mark.parametrize("p", [16384, 65536])
+@pytest.mark.parametrize("p", [16384, 65536, 262144])
 @pytest.mark.parametrize("channels", [3, 4])
 def test_large_segment_kernel_matches_plain_version(device, p, channels):
-    """The segment encode at P = 16,384 and 65,536 (a cluster of 16 CTAs a
-    segment) on segments of one and of several regions, a tail of lanes
-    with no member and a saturated region, and with no member at all."""
+    """The segment encode at P = 16,384, 65,536 and 262,144 (a cluster of
+    16 CTAs a segment) on segments of one and of several regions, a tail of
+    lanes with no member and a saturated region, with no member at all,
+    and on single regions whose every pixel is a member."""
     from limg_tpu_torch.kernels import coalesce as kc
 
     rng = np.random.default_rng(p + channels)
     spans = LARGE_SEGMENT_SPANS[p]
     buf = region_run_buffer(rng, p, sum(spans), channels, device, spans=spans,
                             empty_tail=spans[-1], saturate=True)
-    name = kc.segment_kernel_name(p)
-    for b in (buf, (buf[0], torch.zeros_like(buf[1]), *buf[2:])):
+    name = f"segment_encode_p{p}"
+    for b in (buf, (buf[0], torch.zeros_like(buf[1]), *buf[2:]),
+              every_lane_a_member(rng, p, len(spans), channels, device)):
         for mode, num_factors, dithering in LARGE_SETTINGS:
             cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, crush_mode=mode,
                                dithering=dithering, num_factors=num_factors)
-            before = kc.launches[name]
+            before = launch.launches[name]
             got = kc.segment_encode_kernel(*b, cfg, 0x5EED)
             want = kc.segment_encode_reference(*b, cfg, 0x5EED)
             torch.cuda.synchronize(device)
-            assert kc.launches[name] == before + 1
+            assert launch.launches[name] == before + 1
             for f in got._fields:
                 assert torch.equal(getattr(got, f).contiguous(),
                                    getattr(want, f).contiguous()), (mode, f)
@@ -756,9 +806,9 @@ def test_sharded_corpus_and_blocks_on_card_equal_cpu(device, channels, dithering
     images = np.stack([small_image(37, 61, seed=int(s)) for s in rng.integers(1000, size=8)])
     images = images if channels == 3 else np.stack([with_alpha(im) for im in images])
     cfg = EncodeConfig(error_factor=100, has_alpha=channels == 4, dithering=dithering)
-    before = kmod.launches
+    before = launch.launches["encode_fixed_p64"]
     card = mesh.encode_corpus_sharded(images, cfg, n_devices=1, seed=4, device="cuda")
-    assert kmod.launches == before + 1
+    assert launch.launches["encode_fixed_p64"] == before + 1
     cpu = mesh.encode_corpus_sharded(images, cfg, n_devices=1, seed=4, device="cpu")
     for key in ("psnr", "bpp", "mean_psnr"):
         np.testing.assert_array_equal(card[key], cpu[key], err_msg=key)
@@ -860,6 +910,225 @@ def test_staged_pinned_memory_stays_within_its_bound():
 
 
 # ---------------------------------------------------------------------------
+# The kernels on the test images, on real run buffers and at more buffer
+# shapes and block counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", [64, 256, 1024, 4096])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("image", ["40x56", "256x384", "301x437"])
+def test_region_kernel_on_test_images(device, image, channels, p):
+    """encode_fixed_p64 and encode_region on the blocks and regions of the
+    test images (aligned and edge-padded), every setting of SETTINGS."""
+    packed, mask, _ = layout.blockify_words(_image_words(image, channels, device), int(p ** 0.5))
+    for setting in SETTINGS:
+        cfg = _cfg(channels, *setting)
+        got = kmod.encode_blocks_kernel(packed, mask, cfg, 7, emit_endpoints=True)
+        want = kmod.encode_blocks_reference(packed, mask, cfg, 7, emit_endpoints=True)
+        torch.cuda.synchronize(device)
+        _assert_same(got, want, setting)
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("natural,image", [(False, "256x384"), (False, "70x90"),
+                                           (False, "301x437"), (False, "37x200"),
+                                           (True, "70x90"), (True, "301x437")])
+def test_quadtree_kernels_on_test_images(device, natural, image, channels, levels):
+    """The fit and owner-crush kernels of both layouts on the test images
+    (4-level squares cut by the edges, a 37-px strip), every setting of
+    SETTINGS; the natural crush with q emitted and not."""
+    from limg_tpu_torch.kernels import encode_merged as km
+    from limg_tpu_torch.kernels import encode_natural as kn
+
+    fit_kernel, fit_plain, crush_kernel, crush_plain = (
+        (kn.fit_levels_natural_kernel, kn.fit_levels_natural_reference,
+         kn.owner_crush_natural_kernel, kn.owner_crush_natural_reference) if natural
+        else (km.fit_levels_kernel, km.fit_levels_reference, km.owner_crush_kernel,
+              km.owner_crush_reference))
+    words = _image_words(image, channels, device)
+    for i, setting in enumerate(SETTINGS):
+        cfg = _cfg(channels, *setting)
+        emit_q = not natural or (i // 2) % 2 == 0
+        fit = fit_plain(words, cfg, levels)
+        got_fit = fit_kernel(words, cfg, levels)
+        args = (words, fit.owner, fit.f8_sel, fit.eps_sel, cfg, levels, 7, emit_q)
+        got = crush_kernel(*args)
+        torch.cuda.synchronize(device)
+        _assert_same(got_fit, fit, (*setting, "fit"))
+        _assert_same(got, crush_plain(*args), (*setting, emit_q))
+
+
+@pytest.mark.parametrize("policy", ["match", "rd"])
+@pytest.mark.parametrize("lane", ["rgb", "rgba"])
+def test_seg_scan_on_the_4k_encodes_calls(device, lane, policy):
+    """Every scan call of a 4K default and RD encode, bit-equal to the plain
+    chain."""
+    from chip_smoke import capture_coalesce_calls
+    from limg_tpu_torch import encode_image_merged
+    from limg_tpu_torch.kernels import coalesce as kc
+    from tools.record_torch_reference import case_images
+
+    img = case_images(2160, 3840)[lane]
+    cfg = EncodeConfig(error_factor=100, has_alpha=lane == "rgba", dithering=False)
+    calls = capture_coalesce_calls(lambda: encode_image_merged(
+        img, cfg, merge_policy=policy, rd_lambda=0.01, fetch_planes=False,
+        device=device))["seg_scan"]
+    assert calls
+    for args, kwargs in calls:
+        for g, w in zip(kc.seg_scan(*args, **kwargs), kc.seg_scan_reference(*args, **kwargs),
+                        strict=True):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [100, 1500])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_segment_encode_kernel_below_and_above_a_cta(device, channels, n):
+    """Seeded run buffers of fewer lanes than one CTA takes and of several
+    CTAs, SEGMENT_SETTINGS and the ladder's ends."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    buf = seeded_run_buffer(np.random.default_rng(n + channels), n, channels, device)
+    cfgs = [_cfg(channels, *setting) for setting in SEGMENT_SETTINGS]
+    cfgs += [EncodeConfig(error_factor=ef, has_alpha=channels == 4, ladder_k=k)
+             for k, ef in SEGMENT_LADDER_ENDS]
+    for cfg in cfgs:
+        got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+        torch.cuda.synchronize(device)
+        _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x5EED))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("image", ["256x384", "301x437"])
+def test_coalesce_kernels_on_image_run_buffers(device, image, channels):
+    """The four run-coalescing kernels on what a 3-level default encode of a
+    test image builds: match_neighbors and match_pairs on the fitted row
+    planes of levels 0-2, seg_mixed_all on the run buffer's rows and the
+    segment encode on the run buffer, every setting of SETTINGS."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rgb = _image(image)
+    buf, plane = image_run_buffer(rgb if channels == 3 else with_alpha(rgb),
+                                  EncodeConfig(error_factor=100, has_alpha=channels == 4,
+                                               dithering=False), device)
+    for lvl in range(3):
+        p = plane[:, ::1 << lvl, ::1 << lvl].contiguous()
+        _assert_same(kc.match_neighbors_kernel(p, channels),
+                        kc.match_neighbors_reference(p, channels), ("neighbors", lvl))
+        a, b = p[:, :, 1:].reshape(7 * channels, -1), p[:, :, :-1].reshape(7 * channels, -1)
+        assert torch.equal(kc.match_pairs_kernel(a, b, channels),
+                           kc.match_pairs_reference(a, b, channels)), lvl
+    rows = torch.stack([buf[1].sum(dim=0, dtype=torch.int32), buf[3]])
+    assert torch.equal(kc.seg_mixed_all_kernel(rows, buf[2], 2),
+                       kc.seg_mixed_all_reference(rows, buf[2], 2))
+    for setting in SETTINGS:
+        cfg = _cfg(channels, *setting)
+        got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+        torch.cuda.synchronize(device)
+        _assert_same(got, kc.segment_encode_reference(*buf, cfg, 0x5EED))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_composed_segment_encode_on_an_image_run_buffer(device, channels):
+    """The composed re-encode (the scan and crush_eval_rows kernels) equals
+    the segment kernel on a test image's run buffer, SEGMENT_SETTINGS."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rgb = _image("256x384")
+    buf, _ = image_run_buffer(rgb if channels == 3 else with_alpha(rgb),
+                              EncodeConfig(error_factor=100, has_alpha=channels == 4,
+                                           dithering=False), device)
+    for setting in SEGMENT_SETTINGS:
+        cfg = _cfg(channels, *setting)
+        got = kc.segment_encode_composed(*buf, cfg, 0x5EED)
+        torch.cuda.synchronize(device)
+        _assert_same(got, kc.segment_encode_kernel(*buf, cfg, 0x5EED))
+
+
+def crush_eval_tables(n: int) -> dict:
+    """The shift tables crush_eval_rows is held to at N blocks: the
+    search's (the ladder's 27 axis sweeps, an exhaustive chunk of 81, the
+    guess mode's 4 triples, the reduced-factor floors' (0, 0, 0)), a seeded
+    table of 19 rows with duplicates and shifts above 8, and one of 200 rows
+    (two launches; below the full 4K buffer)."""
+    from limg_tpu_torch.ops.crush import GUESS_TRIPLES
+
+    rng = np.random.default_rng(n)
+    every = [(a, b, c) for a in range(9) for b in range(9) for c in range(9)]
+    few = [tuple(int(v) for v in rng.integers(0, 12, 3)) for _ in range(6)]
+    tables = {
+        "sweep table K=27": [tuple(s if ax == a else 0 for ax in range(3))
+                             for a in range(3) for s in range(9)],
+        f"exhaustive chunk {n % 9} K=81": every[81 * (n % 9):81 * (n % 9 + 1)],
+        "guess table K=4": list(GUESS_TRIPLES),
+        "floors table K=1": [(0, 0, 0)],
+        "table with duplicates K=19": [few[i] for i in rng.integers(0, 6, 19)],
+    }
+    if n < 129600:
+        tables["table K=200"] = [tuple(int(v) for v in rng.integers(0, 9, 3))
+                                 for _ in range(200)]
+    return tables
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (37, 8), (1000, 27), (3001, 729), (129600, 27)])
+@pytest.mark.parametrize("p", [64, 256])
+@pytest.mark.parametrize("channels", [3, 4])
+def test_crush_eval_kernel_at_block_counts(device, channels, p, n, k):
+    """crush_eval_rows on per-block triples and on the tables of
+    crush_eval_tables from one block to the 4K run buffer's 129,600, one
+    block all-masked."""
+    from limg_tpu_torch.kernels import crush_eval as kce
+    from limg_tpu_torch.ops.crush import _const_cands
+    from tools.record_torch_natural_reference import crush_eval_inputs
+
+    packed, mask, f8p, eps, cands = crush_eval_inputs(channels, n=n, k=k, seed=p + n)
+    if p == 256:
+        packed, mask, f8p = (np.concatenate([a] * 4) for a in (packed, mask, f8p))
+    mask = mask.copy()
+    mask[:, n // 2] = 0
+    ins = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+           for a in (packed, mask, f8p, eps)]
+    tables = {f"per-block K={k}": torch.from_numpy(cands).to(device),
+              **{name: _const_cands(rows, n, device)
+                 for name, rows in crush_eval_tables(n).items()}}
+    for name, table in tables.items():
+        got = kce.crush_eval_rows_kernel(*ins, table, channels)
+        torch.cuda.synchronize(device)
+        for g, w in zip(got, kce.crush_eval_rows_reference(*ins, table, channels)):
+            assert g.is_cuda and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("buffer", ["edges", "no member", "every lane a member"])
+@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("p", [256, 1024, 4096])
+def test_segment_encode_kernel_at_region_edges(device, p, channels, buffer):
+    """The segment encode at the dense levels' region sizes on segments of
+    1, 3, 31, 33 and SEG_CAP regions with a tail of lanes with no member
+    (at P = 4096 lane 0 a saturated region), the same with no member at
+    all, and every lane a member and a segment (the most segments listed),
+    SEGMENT_SETTINGS."""
+    from limg_tpu_torch.kernels import coalesce as kc
+
+    rng = np.random.default_rng(p + channels)
+    if buffer == "every lane a member":
+        buf = every_lane_a_member(rng, p, SEGMENT_LANES[p], channels, device)
+    else:
+        spans = [1, 256, 1, 3, 31, 33, 1, 9]
+        buf = region_run_buffer(rng, p, sum(spans), channels, device, spans=spans,
+                                empty_tail=9, saturate=p == 4096)
+        if buffer == "no member":
+            buf = (buf[0], torch.zeros_like(buf[1]), *buf[2:])
+    for setting in SEGMENT_SETTINGS:
+        cfg = _cfg(channels, *setting)
+        got = kc.segment_encode_kernel(*buf, cfg, 0x5EED)
+        want = kc.segment_encode_reference(*buf, cfg, 0x5EED)
+        torch.cuda.synchronize(device)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f).contiguous(),
+                               getattr(want, f).contiguous()), (setting, f)
+
+
+# ---------------------------------------------------------------------------
 # The scatter-form segment sum, refit and crush (kernels/seg_fold.py,
 # ops/segments.py with contiguous=False)
 # ---------------------------------------------------------------------------
@@ -884,12 +1153,12 @@ def test_seg_sum_fold_kernel_matches_plain_version(device, case):
     name, (x, seg, s) = list(seg_fold_cases(_scatter_maps(40, 60, 5), 2400).items())[case]
     xt, st = torch.from_numpy(x), torch.from_numpy(seg)
     want = seg_fold.seg_sum_fold_reference(xt, st, s)
-    before = seg_fold.launches["seg_sum_fold"]
+    before = launch.launches["seg_sum_fold"]
     xd, sd = xt.to(device), st.to(device)
     got = [seg_fold.seg_sum_fold_kernel(xd, sd, s),
            seg_fold.seg_sum_fold_kernel(xd, sd, s, fold_plan(sd, s))]
     torch.cuda.synchronize(device)
-    assert seg_fold.launches["seg_sum_fold"] == before + 2, name
+    assert launch.launches["seg_sum_fold"] == before + 2, name
     for g in got:
         assert g.is_cuda and torch.equal(g.cpu(), want), name
 
@@ -902,7 +1171,6 @@ def test_scatter_fit_and_crush_on_card_equal_cpu(device, channels, kind, mode, n
     """fit_segments -> factors -> find_shifts_segments(contiguous=False) on
     the card (seg_sum_fold in the fit, crush_eval_rows in the search) equal
     the same calls on the CPU bit for bit, and a second card run."""
-    from limg_tpu_torch.kernels import crush_eval, seg_fold
     from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
     from limg_tpu_torch.ops.fit import drop_decomposition_axes
     from limg_tpu_torch.ops.segments import find_shifts_segments, fit_segments, gather_decomp
@@ -920,11 +1188,11 @@ def test_scatter_fit_and_crush_on_card_equal_cpu(device, channels, kind, mode, n
         d_nf = drop_decomposition_axes(d, num_factors)
         return [*d, *find_shifts_segments(p, m, f8, d_nf, sg, s, cfg)]
 
-    before = (seg_fold.launches["seg_sum_fold"], crush_eval.launches["crush_eval_rows"])
+    before = (launch.launches["seg_sum_fold"], launch.launches["crush_eval_rows"])
     card = run(device)
     torch.cuda.synchronize(device)
-    assert seg_fold.launches["seg_sum_fold"] > before[0]
-    assert (crush_eval.launches["crush_eval_rows"] > before[1]) == cfg.crush_bits
+    assert launch.launches["seg_sum_fold"] > before[0]
+    assert (launch.launches["crush_eval_rows"] > before[1]) == cfg.crush_bits
     for g, a, w in zip(card, run(device), run("cpu")):
         assert g.is_cuda and torch.equal(g, a) and torch.equal(g.cpu(), w)
     empty = torch.from_numpy(np.bincount(seg, minlength=s) == 0).to(device)
@@ -937,7 +1205,6 @@ def test_scatter_fit_and_crush_on_card_equal_cpu(device, channels, kind, mode, n
 def test_contiguous_segment_fit_and_crush_on_card_equal_cpu(device, mode):
     """contiguous=True on the card (the scan kernel, crush_eval_rows) equals
     the CPU, per member."""
-    from limg_tpu_torch.kernels import coalesce as kc
     from limg_tpu_torch.ops.factors import extract_factors, quantize_factors
     from limg_tpu_torch.ops.segments import find_shifts_segments, fit_segments
 
@@ -953,10 +1220,10 @@ def test_contiguous_segment_fit_and_crush_on_card_equal_cpu(device, mode):
         f8 = torch.stack(quantize_factors(*extract_factors(p, d, 3)))
         return [*d, *find_shifts_segments(p, m, f8, d, sg, nb, cfg, contiguous=True)]
 
-    before = kc.launches["seg_mixed_all"]
+    before = launch.launches["seg_mixed_all"]
     card = run(device)
     torch.cuda.synchronize(device)
-    assert kc.launches["seg_mixed_all"] > before
+    assert launch.launches["seg_mixed_all"] > before
     for g, w in zip(card, run("cpu")):
         assert torch.equal(g.cpu(), w)
 

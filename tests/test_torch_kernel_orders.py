@@ -55,6 +55,7 @@ import torch
 from limg_tpu_torch.config import EncodeConfig
 from limg_tpu_torch.kernels import coalesce as kc
 from limg_tpu_torch.kernels import encode_merged as km
+from limg_tpu_torch.kernels import quadtree
 from limg_tpu_torch.ops import crush
 from limg_tpu_torch.ops.decode import decode_blocks
 from limg_tpu_torch.ops.error import weighted_error
@@ -415,10 +416,10 @@ def _morton_inputs(h, w, ch, levels, nf):
     cfg = EncodeConfig(error_factor=100, has_alpha=ch == 4, num_factors=nf)
     fit = km.fit_levels_reference(words, cfg, levels)
     blocks = km.MortonBlocks(words, levels)
-    px = km._unpack(blocks.packed, ch)
+    px = quadtree._unpack(blocks.packed, ch)
     eps = blocks.embed(fit.eps_sel)
     d = Decomposition(torch.zeros(eps.shape[1:], dtype=torch.float32), *eps.unbind(0))
-    f8 = km._unpack(blocks.embed_pixels(fit.f8_sel), 3)
+    f8 = quadtree._unpack(blocks.embed_pixels(fit.f8_sel), 3)
     return blocks, px, f8, d, blocks.embed(fit.owner)
 
 

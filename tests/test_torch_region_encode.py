@@ -24,6 +24,7 @@ from limg_tpu.ops import layout as jlayout
 
 from limg_tpu_torch.config import config_from_jax
 from limg_tpu_torch.kernels import encode_fixed as kmod
+from limg_tpu_torch.kernels import launch
 from limg_tpu_torch.ops import crush as tcrush
 from limg_tpu_torch.ops import dither as tdither
 from limg_tpu_torch.ops import layout
@@ -107,12 +108,12 @@ def test_wrapper_sizes_and_keys():
     level 0 the fixed grid's."""
     img = _image(1024, 4)
     cfg = config_from_jax(JConfig(error_factor=100, has_alpha=True, dithering=True))
-    before = (kmod.launches, dict(kmod.launches_region))
+    before = launch.launches.copy()
     for p in (64, 256, 1024, 4096, 16384):
         packed, mask, grid = layout.blockify_packed(torch.from_numpy(img), int(p ** 0.5))
         shifts, q, dec, dist = kmod.encode_blocks_kernel(packed, mask, cfg, 3)
         assert q.shape == dec.shape == (p, grid.num_blocks) and dist.shape == (1, grid.num_blocks)
-    assert (kmod.launches, kmod.launches_region) == before
+    assert launch.launches == before
     assert [kmod.region_level(64 << 2 * lvl) for lvl in range(13)] == list(range(13))
     with pytest.raises(ValueError, match="P must be"):
         kmod.region_level(kmod.MAX_REGION_PIXELS * 4)

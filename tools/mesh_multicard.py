@@ -49,7 +49,7 @@ def main(argv=None) -> int:
 
     import chip_smoke
     from limg_tpu_torch import EncodeConfig
-    from limg_tpu_torch.kernels import encode_fixed as kmod
+    from limg_tpu_torch.kernels import launch
     from limg_tpu_torch.parallel import mesh
     from tools.record_torch_reference import case_images
 
@@ -65,10 +65,11 @@ def main(argv=None) -> int:
     img4k = case_images(2160, 3840)["rgb"]
 
     one = mesh.encode_corpus_sharded(images, nodither, n_devices=1)
-    kmod.launches = 0
+    launch.reset_launches()
     many = mesh.encode_corpus_sharded(images, nodither, n_devices=n)
-    if kmod.launches != n:
-        raise AssertionError(f"{n}-card corpus: {kmod.launches} launches, not {n}")
+    if launch.launches["encode_fixed_p64"] != n:
+        raise AssertionError(f"{n}-card corpus: {launch.launches['encode_fixed_p64']} launches, "
+                             f"not {n}")
     for key in ("psnr", "bpp"):
         if not np.array_equal(one[key], many[key]):
             raise AssertionError(f"fixed-grid corpus: {key} on {n} cards differs from 1")

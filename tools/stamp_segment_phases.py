@@ -135,7 +135,7 @@ def stamp_run(so: Path, p: int, lane: str, device, smi: str) -> None:
     import torch
     from chip_smoke import compare_outputs
     from limg_tpu_torch.kernels import coalesce as kc
-    from limg_tpu_torch.kernels.encode_fixed import _CRUSH_MODES
+    from limg_tpu_torch.kernels import launch
 
     _, fn_name, n_ptr, tile = INSTANCES[p]
     lib = ctypes.CDLL(str(so))
@@ -164,9 +164,7 @@ def stamp_run(so: Path, p: int, lane: str, device, smi: str) -> None:
     # scratch, which P = 256 ignores) before the stream
     extra = (None,) * (n_ptr - 10)
     rc = fn(packed_bm.data_ptr(), mask_bm.data_ptr(), seg_c.data_ptr(), blocks.data_ptr(), n, p,
-            ch, _CRUSH_MODES.get(cfg_c.crush_mode, 1) if cfg_c.crush_bits else 0,
-            int(cfg_c.dithering and cfg_c.crush_bits), cfg_c.ladder_k, cfg_c.num_factors,
-            cfg_c.max_pixel_bit_crush_error, cfg_c.max_block_bit_crush_error, key, f8.data_ptr(),
+            ch, *launch.crush_args(cfg_c, key), f8.data_ptr(),
             *(t.data_ptr() for t in got), *extra, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise SystemExit(f"stamped launch failed ({rc})")
